@@ -8,28 +8,39 @@ Phases (any failure raises and ends the run with a nonzero exit):
 
   1. the card: torch.cuda.get_device_name and nvidia-smi's name and
      power limit;
-  2. build the four CUDA kernels from csrc/ (nvcc, sm_90a);
+  2. build the seven CUDA kernels from csrc/ (nvcc, sm_90a);
   3. a synthetic genome of 4 chromosomes (--mbp, default 100, about the
      C. elegans genome) with N runs and a repeat family, indexed at
-     gmap_build's large-genome setting k=15 / interval 3, and planted
-     100 bp reads (0-3 substitutions, half reverse-complemented, some
-     with N, some with 1-3 nt indels);
+     gmap_build's large-genome setting k=15 / interval 3; planted 100 bp
+     DNA reads for the -N 0 path (0-3 substitutions, half
+     reverse-complemented, some with N, some with 1-3 nt indels) and
+     RNA reads for the -N 1 path (50% unspliced, 30% one junction, 10% a
+     short middle exon, 5% distant halves, 5% N or indel, then 1% of them
+     replaced by reads in repeat copies; every junction GT-AG or CT-AC
+     with maxent >= 0.90 at both sites);
   4. each kernel against its plain torch version on the same CUDA
      tensors at the main path's shapes (2048 reads x 2 strands, L=100,
-     W=384 and 4096, NC=32 and 128, P=16): outputs must be equal;
-  5. the main path: GsnapRunner.run (single-end, -N 0, --gmap-mode none)
-     over all reads into a SAM buffer, with every kernel's launch count
-     reset before and read after; >= 99% of reads with <= 2
-     substitutions must map uniquely at their planted position and
-     strand;
-  6. the same reads' SAM from the plain torch path on the CPU must be
+     W=384 / 512 and 4096, NC=32 and 128, P=16, T=8): outputs must be
+     equal, float32 ones bit for bit;
+  5. the two main paths, each through GsnapRunner.run over all its reads
+     into a SAM buffer, with every kernel's launch count reset before and
+     read after:
+     -N 0: K1-K4 must launch and K5-K7 must not; >= 99% of reads with
+           <= 2 substitutions must map uniquely at their planted
+           position and strand;
+     -N 1: K1-K7 must all launch; >= 90% of the easy single-junction
+           reads (both flanks >= 30 nt, <= 1 substitution) must map
+           uniquely with their planted intron;
+  6. each path's SAM from the plain torch path on the CPU must be
      byte-equal to the CUDA run's (first 512 reads);
-  7. each kernel's device time (torch.profiler) and per-call time
-     beside its plain version's, measured last so that the profiler
-     cannot perturb step 5's timing.
+  7. each kernel's device time (torch.profiler) and per-call time beside
+     its plain version's, and a profile of the -N 1 run (device busy
+     share, top device ops), measured last so that the profiler cannot
+     perturb step 5's timing.
 
-Prints one JSON line with every kernel's launches, error and device
-time (ms, plain_ms at W=384, NC=32), then the nvidia-smi line, then
+Prints one JSON line with every kernel's launches (on the -N 1 path,
+which runs all seven; per path under launches_by_path), error and device
+time (ms, plain_ms at NC=32), then the nvidia-smi line, then
 {"ok": true, "device": {...}} last.
 """
 
@@ -44,6 +55,11 @@ import time
 from functools import partial
 
 import numpy as np
+
+N0_KERNELS = ("gsnap_seed_diagonals", "gsnap_top_diagonals",
+              "gsnap_prefix_mismatches", "gsnap_solve_indels")
+SPLICE_KERNELS = ("gsnap_solve_splices", "gsnap_select_triples",
+                  "gsnap_solve_doublesplices")
 
 
 def _call_ms(fn, reps: int = 5) -> float:
@@ -64,26 +80,41 @@ def _call_ms(fn, reps: int = 5) -> float:
 
 def _device_ms(fn, reps: int = 5) -> float:
     """Mean device time per call of fn: the summed time of the CUDA
-    kernels and copies it ran, from torch.profiler."""
+    kernels and copies it ran, from torch.profiler.  A profile that
+    recorded no device time is taken again; if the second one records
+    none either, the time between CUDA events stands in and is said so."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    if us <= 0:
-        raise SystemExit("torch.profiler recorded no device time")
-    return us / 1e3 / reps
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / reps
+    print("  (torch.profiler recorded no device time twice: CUDA event "
+          "time instead)", flush=True)
+    return _call_ms(fn, reps)
+
+
+def _fields(fn, args, keys) -> tuple:
+    """fn(*args)'s dict values at keys, from ONE call of fn (a timed call
+    must launch the kernel once)."""
+    out = fn(*args)
+    return tuple(out[k] for k in keys)
 
 
 def _max_abs_err(a, b) -> float:
-    """Largest |a - b| over paired outputs; raises on a shape change."""
+    """Largest |a - b| over paired outputs, and 1 where two tensors are
+    not identical (float32 ones compared bit for bit); raises on a shape
+    or type change."""
     import torch
 
     err = 0.0
@@ -93,9 +124,20 @@ def _max_abs_err(a, b) -> float:
                              f"{y.shape} {y.dtype}")
         if x.numel():
             err = max(err, (x.double() - y.double()).abs().max().item())
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
         if not torch.equal(x, y):
             err = max(err, 1.0)
     return err
+
+
+def _sam_lines(sam_text: str) -> dict:
+    lines = {}
+    for line in sam_text.splitlines():
+        if not line.startswith("@"):
+            f = line.split("\t")
+            lines.setdefault(f[0], []).append(f)
+    return lines
 
 
 def _planted_ok(sam_text: str, truth, genome) -> tuple[int, int]:
@@ -103,12 +145,7 @@ def _planted_ok(sam_text: str, truth, genome) -> tuple[int, int]:
     position and strand, #such reads)."""
     starts = dict(zip(genome.names,
                       np.concatenate([[0], genome.chr_ends[:-1]]).tolist()))
-    lines = {}
-    for line in sam_text.splitlines():
-        if line.startswith("@"):
-            continue
-        f = line.split("\t")
-        lines.setdefault(f[0], []).append(f)
+    lines = _sam_lines(sam_text)
     good = total = 0
     for i, t in enumerate(truth):
         if t.kind != "sub" or t.nsub > 2:
@@ -124,6 +161,106 @@ def _planted_ok(sam_text: str, truth, genome) -> tuple[int, int]:
         plusp = not int(f[1]) & 16
         good += left == t.left and plusp == t.plusp
     return good, total
+
+
+def _introns(f, starts) -> list:
+    """[(start, end)) introns (universal coordinates) of a SAM record's
+    N operations."""
+    import re
+
+    pos = starts[f[2]] + int(f[3]) - 1
+    out = []
+    for n, op in re.findall(r"(\d+)([MIDNSHP=X])", f[5]):
+        n = int(n)
+        if op == "N":
+            out.append((pos, pos + n))
+        if op in "MDN=X":
+            pos += n
+    return out
+
+
+def _junctions_ok(sam_text: str, truth, genome) -> tuple[int, int]:
+    """(#easy single-junction reads — both flanks >= 30 nt, <= 1
+    substitution — placed uniquely with exactly their planted intron,
+    #such reads)."""
+    starts = dict(zip(genome.names,
+                      np.concatenate([[0], genome.chr_ends[:-1]]).tolist()))
+    lines = _sam_lines(sam_text)
+    good = total = 0
+    for i, t in enumerate(truth):
+        if t.kind != "junction" or min(t.flanks) < 30 or t.nsub > 1:
+            continue
+        total += 1
+        recs = lines.get(f"s{i}", [])
+        if len(recs) == 1 and recs[0][2] != "*":
+            good += _introns(recs[0], starts) == list(t.junctions)
+    return good, total
+
+
+def _drive(torch, kbuild, runner, records, batch: int, label: str) -> dict:
+    """One main path: a warm-up run, the device cascade alone, then the
+    timed run with every kernel's launch count set to 0 just before it
+    and read just after."""
+    t0 = time.time()
+    runner.run(records[:batch], io.StringIO(), batch_size=batch)
+    print(f"{label} warm-up run: {time.time() - t0:.2f} s", flush=True)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for i in range(0, len(records), batch):
+        runner.dispatch_records(records[i : i + batch])
+    torch.cuda.synchronize()
+    cascade_s = time.time() - t0
+    torch.cuda.reset_peak_memory_stats()
+    runner.category_counts.clear()
+    kbuild.LAUNCHES.clear()
+    out = io.StringIO()
+    t0 = time.time()
+    n = runner.run(records, out, batch_size=batch)
+    torch.cuda.synchronize()
+    e2e_s = time.time() - t0
+    launches = dict(kbuild.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if n != len(records):
+        raise SystemExit(f"{label}: run returned {n} of {len(records)} reads")
+    print(f"{label} main path: {n} reads; device cascade "
+          f"{n / cascade_s:.1f} reads/s ({cascade_s:.3f} s); end to end "
+          f"{n / e2e_s:.1f} reads/s ({e2e_s:.3f} s); max_memory_allocated "
+          f"{peak} B ({peak / 2**30:.2f} GiB); categories "
+          f"{dict(runner.category_counts)}; launches {launches}", flush=True)
+    return dict(sam=out.getvalue(), launches=launches)
+
+
+def _profile_run(torch, runner, records, batch: int, label: str) -> None:
+    """torch.profiler over one GsnapRunner.run: device busy share of the
+    wall and the top device ops."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        runner.run(records, io.StringIO(), batch_size=batch)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in ev) / 1e6
+    if busy <= 0:
+        print(f"{label} profile: torch.profiler recorded no device time "
+              f"(busy share not measured)", flush=True)
+        return
+    print(f"{label} profile: wall {wall:.3f} s, device busy {busy:.4f} s "
+          f"({100 * busy / wall:.1f}% busy, {100 - 100 * busy / wall:.1f}% "
+          f"idle)", flush=True)
+    hand = [e for e in ev if any(f"{n[len('gsnap_'):]}_kernel(" in e.key
+                                 for n in N0_KERNELS + SPLICE_KERNELS)]
+    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:12]
+    for e in top + [e for e in hand if e not in top]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  "
+              f"{e.key[:90]}")
+    print(f"{label} profile: hand kernels "
+          f"{sum(e.self_device_time_total for e in hand) / 1e3:.3f} ms of "
+          f"{busy * 1e3:.3f} ms device time", flush=True)
 
 
 def main(argv=None) -> int:
@@ -178,26 +315,40 @@ def main(argv=None) -> int:
         rng, genome, args.reads,
         weights=dict(sub=0.88, n=0.04, mid_indel=0.04, end_indel=0.01,
                      terminal=0.01, repeat=0.01, junk=0.01))
+    rna, rna_truth = synth.plant_spliced_reads(rng, genome, args.reads)
+    # 1% of them from repeat copies, which overflow the candidate budget,
+    # so the -N 1 path runs its wide lane too
+    nrep = args.reads // 100
+    rna = rna[: args.reads - nrep] + synth.plant_reads(
+        rng, genome, nrep, weights=dict(repeat=1), prefix="p")[0]
+    rna_truth = rna_truth[: args.reads - nrep]
     print(f"setup: {total / 1e6:.1f} Mbp, 4 chromosomes, k=15/3 index "
-          f"({len(db.positions)} positions), {len(records)} reads in "
-          f"{time.time() - t0:.1f} s", flush=True)
+          f"({len(db.positions)} positions), {len(records)} DNA + {len(rna)} "
+          f"RNA reads in {time.time() - t0:.1f} s", flush=True)
     params = se.GsnapParams(
         gmap_mode="",
         size_threshold=se.dynamic_size_threshold(int(db.offsets[-1]), db.k,
                                                  "standard"))
+    # both runners share the database's device genome and index
     runner = runner_mod.GsnapRunner(db, params, lmax=100, device=dev)
+    runner_n1 = runner_mod.GsnapRunner(db, params, lmax=100,
+                                       novelsplicing=True, device=dev)
+    index, genome_dev = runner.index, runner.genome
+    assert runner_n1.index is index and runner_n1.genome is genome_dev
 
     # 4. each kernel against its plain version, at the main path's shapes
-    b = min(args.batch, len(records))
-    codes, nflags, lengths = runner_mod.encode_batch(records[:b], 100)
-    c = torch.from_numpy(codes).to(dev)
-    f = torch.from_numpy(nflags).to(dev)
-    ln = torch.from_numpy(lengths).to(dev)
-    crc, frc = se._revcomp_batch(c, f, ln)
-    c2, f2, l2 = torch.cat([c, crc]), torch.cat([f, frc]), torch.cat([ln, ln])
+    def strands(recs):
+        b = min(args.batch, len(recs))
+        codes, nflags, lengths = runner_mod.encode_batch(recs[:b], 100)
+        c = torch.from_numpy(codes).to(dev)
+        f = torch.from_numpy(nflags).to(dev)
+        ln = torch.from_numpy(lengths).to(dev)
+        crc, frc = se._revcomp_batch(c, f, ln)
+        return torch.cat([c, crc]), torch.cat([f, frc]), torch.cat([ln, ln])
+
+    c2, f2, l2 = strands(records)
     q2 = se._pack_device(c2, f2, l2, 100)
     budget = se.auto_budget(l2, db.k, db.interval, -1)
-    index, genome_dev = runner.index, runner.genome
     checks = []   # (name, W, NC, kernel call, plain call), checked now, timed last
     for st, nc in ((384, 32), (4096, 128)):
         p = se.GsnapParams(seed_total=st, ncand=nc,
@@ -212,7 +363,6 @@ def main(argv=None) -> int:
         qp5, qp3 = se._qpos_ranges(diag, qgrid, top_d)
         kargs = (top_d, mm, pref, ii, jj, pv, l2, budget, 100, qp5, qp3, 9,
                  30, 4)
-        indels = lambda fn, a=kargs: tuple(fn(*a)[k] for k in gg._INDEL_KEYS)
         checks += [
             ("seed_diagonals", st, nc,
              partial(se._seed_diagonals_cuda, index, c2, f2, l2, p, True),
@@ -226,8 +376,8 @@ def main(argv=None) -> int:
              partial(mmo._prefix_mismatches_plain, genome_dev, q2, top_d, l2,
                      None, None)),
             ("solve_indels", st, nc,
-             partial(indels, gg._solve_indels_cuda),
-             partial(indels, gg._solve_indels_plain)),
+             partial(_fields, gg._solve_indels_cuda, kargs, gg._INDEL_KEYS),
+             partial(_fields, gg._solve_indels_plain, kargs, gg._INDEL_KEYS)),
         ]
         # the conversion and SNP (alt genome) variants of K3
         alt = (genome_dev.ref16.flip(0).contiguous(), genome_dev.flag16)
@@ -237,6 +387,44 @@ def main(argv=None) -> int:
                                    q2, top_d, l2, conv, a),
                            partial(mmo._prefix_mismatches_plain, genome_dev,
                                    q2, top_d, l2, conv, a)))
+    # the splice kernels on the RNA reads (the -N 1 runner's seed budget)
+    r2, rf2, rl2 = strands(rna)
+    rq2 = se._pack_device(r2, rf2, rl2, 100)
+    rbudget = se.auto_budget(rl2, db.k, db.interval, -1)
+    sdist = params.shortsplicedist
+    for st, nc in ((runner_n1.params.seed_total, 32), (4096, 128)):
+        p = se.GsnapParams(seed_total=st, ncand=nc,
+                           size_threshold=params.size_threshold)
+        diag = se._seed_diagonals_plain(index, r2, rf2, rl2, p, True)[0]
+        top_d, votes, _ = se._top_diagonals_plain(diag, nc)
+        _, pref = mmo._prefix_mismatches_plain(genome_dev, rq2, top_d, rl2,
+                                               None, None)
+        si, sj, sv = gg._select_pairs(top_d, votes,
+                                      gg._splice_pairs_eligible(sdist), 16)
+        tr = gg._select_triples_plain(top_d, votes, sdist, 8)
+        sargs = (genome_dev, top_d, pref, si, sj, sv, rl2, rbudget, 100)
+        dargs = (genome_dev, top_d, pref, *tr, rl2, rbudget, 100)
+        checks += [
+            ("solve_splices", st, nc,
+             partial(_fields, gg._solve_splices_cuda, sargs, gg._SPLICE_KEYS),
+             partial(_fields, gg._solve_splices_plain, sargs,
+                     gg._SPLICE_KEYS)),
+            ("select_triples", st, nc,
+             partial(gg._select_triples_cuda, top_d, votes, sdist, 8),
+             partial(gg._select_triples_plain, top_d, votes, sdist, 8)),
+            ("solve_doublesplices", st, nc,
+             partial(_fields, gg._solve_doublesplices_cuda, dargs,
+                     gg._SHORTEXON_KEYS),
+             partial(_fields, gg._solve_doublesplices_plain, dargs,
+                     gg._SHORTEXON_KEYS)),
+        ]
+        if nc == 32:
+            sp = gg._solve_splices_plain(*sargs)
+            sx = gg._solve_doublesplices_plain(*dargs)
+            print(f"splice inputs W={st} NC={nc}: {int(sp['valid'].sum())} "
+                  f"valid splice pairs ({int((sp['valid'] & ~sp['sense']).sum())}"
+                  f" antisense), {int(sx['valid'].sum())} valid short exons",
+                  flush=True)
     errs = {}
     for name, st, nc, fk, fp in checks:
         err = _max_abs_err(fk(), fp())
@@ -248,59 +436,47 @@ def main(argv=None) -> int:
         errs.setdefault(name, err)
     torch.cuda.synchronize()
 
-    # 5. the main path (a first, untimed run builds the host-side C
-    # helpers and fills the allocator; then the device cascade alone;
-    # then the counted and timed run)
-    t0 = time.time()
-    runner.run(records[: args.batch], io.StringIO(), batch_size=args.batch)
-    print(f"warm-up run: {time.time() - t0:.2f} s", flush=True)
-    torch.cuda.synchronize()
-    t0 = time.time()
-    for i in range(0, len(records), args.batch):
-        runner.dispatch_records(records[i : i + args.batch])
-    torch.cuda.synchronize()
-    cascade_s = time.time() - t0
-    torch.cuda.reset_peak_memory_stats()
-    runner.category_counts.clear()
-    kbuild.LAUNCHES.clear()
-    out = io.StringIO()
-    t0 = time.time()
-    n = runner.run(records, out, batch_size=args.batch)
-    torch.cuda.synchronize()
-    e2e_s = time.time() - t0
-    launches = dict(kbuild.LAUNCHES)
-    sam_text = out.getvalue()
-    peak = torch.cuda.max_memory_allocated()
-    good, tot = _planted_ok(sam_text, truth, genome)
-    print(f"main path: {n} reads; device cascade {n / cascade_s:.1f} reads/s "
-          f"({cascade_s:.3f} s); end to end {n / e2e_s:.1f} reads/s "
-          f"({e2e_s:.3f} s); max_memory_allocated {peak} B "
-          f"({peak / 2**30:.2f} GiB); planted <=2-sub reads placed "
-          f"{good}/{tot}; categories {dict(runner.category_counts)}; "
-          f"launches {launches}", flush=True)
-    if n != len(records):
-        raise SystemExit(f"run returned {n} of {len(records)} reads")
+    # 5. the two main paths
+    n0 = _drive(torch, kbuild, runner, records, args.batch, "-N 0")
+    good, tot = _planted_ok(n0["sam"], truth, genome)
+    print(f"-N 0: planted <=2-sub reads placed {good}/{tot}", flush=True)
     if tot == 0 or good < 0.99 * tot:
         raise SystemExit(f"only {good}/{tot} planted reads placed")
-    missing = [k for k in kbuild._SIGNATURES if launches.get(k, 0) == 0]
+    missing = [k for k in N0_KERNELS if n0["launches"].get(k, 0) == 0]
+    extra = [k for k in SPLICE_KERNELS if n0["launches"].get(k, 0)]
+    if missing or extra:
+        raise SystemExit(f"-N 0 path: kernels not launched {missing}, "
+                         f"splice kernels launched {extra}")
+    n1 = _drive(torch, kbuild, runner_n1, rna, args.batch, "-N 1")
+    good, tot = _junctions_ok(n1["sam"], rna_truth, genome)
+    print(f"-N 1: easy planted junctions recovered {good}/{tot} "
+          f"({100 * good / max(tot, 1):.1f}%)", flush=True)
+    if tot == 0 or good < 0.90 * tot:
+        raise SystemExit(f"only {good}/{tot} easy junctions recovered")
+    missing = [k for k in N0_KERNELS + SPLICE_KERNELS
+               if n1["launches"].get(k, 0) == 0]
     if missing:
-        raise SystemExit(f"kernels not launched by the main path: {missing}")
+        raise SystemExit(f"-N 1 path: kernels not launched: {missing}")
 
     # 6. the plain torch path on the CPU gives the same SAM
     nsub = min(512, len(records))
-    cpu_runner = runner_mod.GsnapRunner(db, params, lmax=100, device="cpu")
-    ref_out, cuda_out = io.StringIO(), io.StringIO()
-    cpu_runner.run(records[:nsub], ref_out, batch_size=256)
-    runner.run(records[:nsub], cuda_out, batch_size=256)
-    if ref_out.getvalue() != cuda_out.getvalue():
-        raise SystemExit("CUDA and CPU plain-path SAM differ")
-    print(f"cpu plain path: SAM of {nsub} reads byte-equal to the CUDA run",
-          flush=True)
+    for label, recs, novel, run_cuda in (
+            ("-N 0", records, False, runner),
+            ("-N 1", rna, True, runner_n1)):
+        cpu_runner = runner_mod.GsnapRunner(db, params, lmax=100,
+                                            novelsplicing=novel, device="cpu")
+        ref_out, cuda_out = io.StringIO(), io.StringIO()
+        cpu_runner.run(recs[:nsub], ref_out, batch_size=256)
+        run_cuda.run(recs[:nsub], cuda_out, batch_size=256)
+        if ref_out.getvalue() != cuda_out.getvalue():
+            raise SystemExit(f"{label}: CUDA and CPU plain-path SAM differ")
+        print(f"{label} cpu plain path: SAM of {nsub} reads byte-equal to "
+              f"the CUDA run", flush=True)
     if "jax" in sys.modules:
         raise SystemExit("jax was imported")
 
-    # 7. kernel and plain-version times, last, so that the profiler
-    # cannot perturb the main path's timing
+    # 7. kernel and plain-version times, and the -N 1 profile, last, so
+    # that the profiler cannot perturb the main paths' timing
     times = {}
     for name, st, nc, fk, fp in checks:
         ms, plain_ms = _device_ms(fk), _device_ms(fp)
@@ -309,24 +485,34 @@ def main(argv=None) -> int:
               f"{ms:.4f} ms, plain torch {plain_ms:.4f} ms; per call "
               f"(events) {call:.4f} / {plain_call:.4f} ms", flush=True)
         times.setdefault(name, (ms, plain_ms))
+    _profile_run(torch, runner_n1, rna, args.batch, "-N 1")
 
+    src = "gmap_gsnap_tpu/align/gsnap_gapped.py"
     sources = {
         "seed_diagonals": ("gsnap_seed_diagonals", "seed_diagonals.cu",
                            "gmap_gsnap_tpu/align/gsnap_se.py:289"),
         "top_diagonals": ("gsnap_top_diagonals", "top_diagonals.cu",
                           "gmap_gsnap_tpu/align/gsnap_se.py:354"),
         "prefix_mismatches": ("gsnap_prefix_mismatches",
-                              "prefix_mismatches.cu",
-                              "gmap_gsnap_tpu/align/gsnap_gapped.py:89"),
-        "solve_indels": ("gsnap_solve_indels", "solve_indels.cu",
-                         "gmap_gsnap_tpu/align/gsnap_gapped.py:383"),
+                              "prefix_mismatches.cu", f"{src}:89"),
+        "solve_indels": ("gsnap_solve_indels", "solve_indels.cu", f"{src}:383"),
+        "solve_splices": ("gsnap_solve_splices", "solve_splices.cu",
+                          f"{src}:515"),
+        "select_triples": ("gsnap_select_triples", "select_triples.cu",
+                           f"{src}:668"),
+        "solve_doublesplices": ("gsnap_solve_doublesplices",
+                                "solve_doublesplices.cu", f"{src}:706"),
     }
     kernels = []
-    for name, (entry, src, replaces) in sources.items():
+    for name, (entry, cu, replaces) in sources.items():
         ms, plain_ms = times[name]
         kernels.append({"name": name, "route": "cuda",
-                        "source": f"gmap_gsnap_tpu_torch/csrc/{src}",
-                        "replaces": replaces, "launches": launches[entry],
+                        "source": f"gmap_gsnap_tpu_torch/csrc/{cu}",
+                        "replaces": replaces,
+                        "launches": n1["launches"][entry],
+                        "launches_by_path": {
+                            "-N 0": n0["launches"].get(entry, 0),
+                            "-N 1": n1["launches"][entry]},
                         "max_abs_err": errs[name], "ms": ms,
                         "plain_ms": plain_ms})
     print(f"total {time.time() - t_start:.1f} s")

@@ -1,15 +1,16 @@
 """GSNAP gapped single-end pipeline (counterpart of
-gmap_gsnap_tpu/align/gsnap_gapped.py): substitutions + middle indels,
-end trims, the lane-noop gate and ranking, with local splicing off
-(``-N 0``, GSNAP's default).
+gmap_gsnap_tpu/align/gsnap_gapped.py): substitutions, middle indels and,
+with ``novelsplicing`` (``-N 1``), novel local splices and short-exon
+doublesplices; end trims, the lane-noop gate and ranking.
 
-Holds kernel K4, :func:`solve_indels` (the JAX package's
-_solve_indels), with its plain torch version beside it; the stages
-around it (pair choice, trims, lane features and gate, assembly,
-ranking, the overflow gate) are plain torch on the device.  Novel and
-known splicing (_solve_splices, _select_triples,
-_solve_doublesplices, ops/maxent) are not ported yet: asking for them
-raises NotImplementedError (ROADMAP queue B).
+Holds four kernels, each with its plain torch version beside it:
+K4 :func:`solve_indels` (the JAX package's _solve_indels), K5
+:func:`solve_splices` (_solve_splices), K6 :func:`select_triples`
+(_select_triples) and K7 :func:`solve_doublesplices`
+(_solve_doublesplices).  The stages around them (pair choice, trims,
+lane features and gate, assembly, ranking, the overflow gate) are plain
+torch on the device.  Known splice sites (``known``, gsnap ``-s``) are
+not ported yet and raise NotImplementedError (ROADMAP item 4).
 """
 
 from __future__ import annotations
@@ -19,7 +20,10 @@ from dataclasses import dataclass
 import torch
 
 from ..kernels import build as kbuild
+from ..ops import genome as genome_ops
+from ..ops import maxent
 from ..ops import mismatch as mm_ops
+from ..ops.genome import MASK32
 from .gsnap_se import (
     BIG_NMM,
     INVALID_DIAG,
@@ -43,9 +47,9 @@ KIND_SHORTEXON = 4
 
 BIG_SCORE = 10**6
 
-_NOT_PORTED = ("local splicing (-N 1 / known sites) is not ported yet; "
-               "see ROADMAP.md queue B (_solve_splices, "
-               "_solve_doublesplices, ops/maxent)")
+_NOT_PORTED = ("known splice sites (-s) are not ported yet; see ROADMAP.md "
+               "item 4 (db/splicesites.device_bitmasks, "
+               "ops/genome.fetch_span_bits)")
 
 
 @dataclass(frozen=True)
@@ -269,6 +273,14 @@ def _indel_pairs_eligible(max_del: int, max_ins: int):
     return fn
 
 
+def _splice_pairs_eligible(maxdist: int):
+    """Splice pairs: dj - di in [1, maxdist] as uint32 (wraps below 0)."""
+    def fn(di, dj):
+        d = (dj - di) & MASK32
+        return (d >= 1) & (d <= maxdist)
+    return fn
+
+
 # ----------------------------------------------------------------- indel solve
 
 _INDEL_KEYS = ("valid", "is_del", "nindels", "split", "nmm1", "nmm2",
@@ -388,6 +400,387 @@ def solve_indels(top_d, mm, pref, ii, jj, pvalid, lengths, budget, lmax: int,
     raise ValueError(f"unsupported device {mm.device}")
 
 
+# ---------------------------------------------------------------- splice solve
+
+def _suff_local(support, nmm, prob):
+    """sufficient_splice_prob_local (stage1hr.c:6093); thresholds are
+    float32, as in the JAX package."""
+    s = support - 3 * nmm
+    thr = torch.where(s < 14, 0.95, torch.where(
+        s < 20, 0.90, torch.where(s < 26, 0.85, 0.70))).float()
+    return prob > thr
+
+
+def _fetch_span(genome, d, lmax: int):
+    """Codes at genome positions d + (-20 .. lmax + 20) -> uint8[..., L+41].
+    The start d - 20 wraps in uint32 as in the JAX package (pairs with a
+    diagonal below 64 are masked by the solvers)."""
+    return genome_ops.fetch_span_codes(genome.ref16, (d - 20) & MASK32,
+                                       lmax + 41)
+
+
+SPLICE_CANDS = 16    # splice positions scored per pair per sense class
+SHORTEXON_CANDS = 8  # junction positions kept per junction per sense
+
+
+def _sites(span, kind: str, npos: int):
+    """Splice dinucleotides at scan positions s = 0..npos-1 of a span
+    (origin 20): donor GT and antiacceptor CT at [s, s+1], acceptor AG
+    and antidonor AC at [s-2, s-1]."""
+    at = lambda rel: span[..., 20 + rel : 20 + rel + npos]
+    if kind == "donor":
+        return (at(0) == 2) & (at(1) == 3)
+    if kind == "acceptor":
+        return (at(-2) == 0) & (at(-1) == 2)
+    if kind == "antiacceptor":
+        return (at(0) == 1) & (at(1) == 3)
+    return (at(-2) == 0) & (at(-1) == 1)                  # antidonor
+
+
+def _first_cands(cand, k: int):
+    """The k smallest candidate positions, ascending (JAX: top_k of the
+    negated key, whose non-candidates all carry npos + 7).  Returns
+    (sel clipped to [0, npos - 1], ok)."""
+    npos = cand.shape[-1]
+    s = torch.arange(npos, device=cand.device)
+    key = torch.where(cand, s, npos + 7)
+    sel = torch.topk(key, k, dim=-1, largest=False, sorted=True).values
+    return sel.clamp(0, npos - 1), sel < npos
+
+
+def _prob_at(span, kind: str, sel):
+    """float32 maxent probability at scan positions sel [..., K] of a
+    span: the table factors at the selected indices, multiplied in
+    _MODELS order (ops/maxent)."""
+    tables = maxent.device_tables(span.device)
+    odds = None
+    for name, idx in maxent.splice_idx_span(span, kind, span.shape[-1] - 40):
+        factor = tables[name][torch.gather(idx, -1, sel)]
+        odds = factor if odds is None else odds * factor
+    return odds / (1.0 + odds)
+
+
+_SPLICE_KEYS = ("valid", "split", "sense", "prob_d", "prob_a", "nmm1",
+                "nmm2", "left", "right")
+
+
+def _solve_splices_plain(genome, top_d, pref, ii, jj, pvalid, lengths,
+                         budget, lmax):
+    b, p = ii.shape
+    dev = pref.device
+    di = _gather_rows(top_d, ii)
+    dj = _gather_rows(top_d, jj)
+    pref_i = _gather_rows(pref, ii)                       # [B, P, L+1]
+    pref_j = _gather_rows(pref, jj)
+    L = lengths.long()[:, None]                           # [B, 1]
+    tot_j = _at(pref_j, L.expand(b, p))[:, :, None]
+    span_i = _fetch_span(genome, di, lmax)
+    span_j = _fetch_span(genome, dj, lmax)
+    npos = lmax + 1
+    s = torch.arange(npos, device=dev)[None, None, :]
+
+    inb = ((s >= 2) & (s <= L[:, :, None] - 2)
+           & (di[:, :, None] >= 64) & (dj[:, :, None] >= 64))
+    nmm_i = pref_i[:, :, :npos]
+    nmm_j = tot_j - pref_j[:, :, :npos]
+    under = (nmm_i + nmm_j) <= budget[:, None, None]
+
+    def solve_class(cand, kind_i, kind_j):
+        sel, sel_ok = _first_cands(cand, SPLICE_CANDS)
+        p_i = _prob_at(span_i, kind_i, sel)
+        p_j = _prob_at(span_j, kind_j, sel)
+        mi = torch.gather(nmm_i, 2, sel)
+        mj = torch.gather(nmm_j, 2, sel)
+        ok = (sel_ok & _suff_local(sel, mi, p_i)
+              & _suff_local(L[:, :, None] - sel, mj, p_j))
+        prob = torch.where(ok, p_i + p_j, -1.0)
+        bi = torch.argmax(prob, 2, keepdim=True)          # first maximum
+        take = lambda x: torch.gather(x, 2, bi)[:, :, 0]
+        return take(prob), take(sel), take(p_i), take(p_j)
+
+    prob_s, split_s, pd_s, pa_s = solve_class(
+        _sites(span_i, "donor", npos) & _sites(span_j, "acceptor", npos)
+        & inb & under, "donor", "acceptor")
+    prob_a_, split_a, pa_i, pd_j = solve_class(
+        _sites(span_i, "antiacceptor", npos) & _sites(span_j, "antidonor", npos)
+        & inb & under, "antiacceptor", "antidonor")
+
+    use_anti = prob_a_ > prob_s           # antisense must strictly beat sense
+    split = torch.where(use_anti, split_a, split_s)
+    prob = torch.where(use_anti, prob_a_, prob_s)
+    valid = pvalid & (prob > 0.0)
+    sp = split[:, :, None]
+    nmm1 = torch.gather(nmm_i, 2, sp)[:, :, 0]
+    nmm2 = torch.gather(nmm_j, 2, sp)[:, :, 0]
+    prob_d = torch.where(use_anti, pd_j, pd_s)
+    prob_a = torch.where(use_anti, pa_i, pa_s)
+    return {
+        "valid": valid,
+        "split": torch.where(valid, split, 0).int(),
+        "sense": ~use_anti,
+        "prob_d": torch.where(valid, prob_d, 0.0),
+        "prob_a": torch.where(valid, prob_a, 0.0),
+        "nmm1": torch.where(valid, nmm1, 0).int(),
+        "nmm2": torch.where(valid, nmm2, 0).int(),
+        "left": di,
+        "right": dj,
+    }
+
+
+def _splice_dtype(key: str) -> torch.dtype:
+    """dtype of a splice / short-exon solver output."""
+    if key in ("valid", "sense"):
+        return torch.bool
+    if key in ("left", "mid", "right"):
+        return torch.int64
+    return torch.float32 if key.startswith("prob") else torch.int32
+
+
+def _splice_outputs(keys, shape, dev):
+    """Empty output tensors of a splice kernel, by key."""
+    return {k: torch.empty(shape, dtype=_splice_dtype(k), device=dev)
+            for k in keys}
+
+
+def _solve_splices_cuda(genome, top_d, pref, ii, jj, pvalid, lengths,
+                        budget, lmax):
+    b, p = ii.shape
+    dev = pref.device
+    out = _splice_outputs(_SPLICE_KEYS, (b, p), dev)
+    kbuild.launch(
+        "gsnap_solve_splices", dev,
+        genome.ref16, maxent.flat_tables(dev), top_d.contiguous(),
+        pref.contiguous(), ii.contiguous(), jj.contiguous(),
+        pvalid.contiguous(), lengths.int().contiguous(),
+        budget.int().contiguous(), *(out[k] for k in _SPLICE_KEYS),
+        genome.ref16.shape[0], b, p, top_d.shape[1], lmax)
+    return out
+
+
+def solve_splices(genome, top_d, pref, ii, jj, pvalid, lengths, budget,
+                  lmax: int):
+    """Novel local splices between diagonal pairs (kernel K5;
+    solve_singlesplice, stage1hr.c:6195, over the pairs of
+    find_singlesplices_plus, stage1hr.c:7235).
+
+    For pair (i -> left piece, j -> right piece) the scan positions s in
+    [2, len - 2] whose mismatch sum fits the budget are candidates where
+    segment i carries a donor GT at s and segment j an acceptor AG at
+    s - 2 (sense), or an antiacceptor CT and an antidonor AC
+    (antisense).  The first SPLICE_CANDS candidates of each class are
+    scored with float32 maxent and the sufficiency gate; the class's best
+    is its first maximum of prob_i + prob_j, and antisense wins only if
+    strictly better.  Pairs with a diagonal below 64 have no candidates.
+
+    Returns a dict of [B, P] tensors: valid, split, sense (``~(anti >
+    sense)`` also where invalid), prob_d, prob_a (float32), nmm1, nmm2,
+    left (di), right (dj)."""
+    args = (genome, top_d, pref, ii, jj, pvalid, lengths, budget, lmax)
+    if pref.device.type == "cpu":
+        return _solve_splices_plain(*args)
+    if pref.device.type == "cuda":
+        return _solve_splices_cuda(*args)
+    raise ValueError(f"unsupported device {pref.device}")
+
+
+def _top2_stable(x):
+    """The two largest entries along the last axis, ties to the lower
+    index (lax.top_k's rule): (values, indices)."""
+    o = torch.argsort(-x, dim=-1, stable=True)[..., :2]
+    return torch.gather(x, -1, o), o
+
+
+def _select_triples_plain(top_d, votes, maxdist, ntriples):
+    b, nc = top_d.shape
+    okd = top_d != INVALID_DIAG
+    step = (top_d[:, None, :] - top_d[:, :, None]) & MASK32   # [b, i, j]
+    elig = ((step >= 1) & (step <= maxdist)
+            & okd[:, :, None] & okd[:, None, :])             # edge i -> j
+    v = votes.long()
+    vi = torch.where(elig, v[:, :, None], -1)
+    v2i, i2 = _top2_stable(vi.transpose(1, 2))    # per middle m: best i
+    vj = torch.where(elig, v[:, None, :], -1)
+    v2j, j2 = _top2_stable(vj)                    # per middle m: best j
+    vsum = (v[:, :, None, None] + v2i[:, :, :, None]
+            + v2j[:, :, None, :])                 # [b, m, 2, 2]
+    okc = ((v2i[:, :, :, None] >= 0) & (v2j[:, :, None, :] >= 0)
+           & okd[:, :, None, None])
+    vsum = torch.where(okc, vsum, -1).reshape(b, nc * 4)
+    order = torch.argsort(-vsum, dim=1, stable=True)[:, :ntriples]
+    valid = torch.gather(vsum, 1, order) >= 0
+    m_sel = order // 4
+    ti = torch.gather(i2.reshape(b, nc * 2), 1, m_sel * 2 + (order // 2) % 2)
+    tj = torch.gather(j2.reshape(b, nc * 2), 1, m_sel * 2 + order % 2)
+    return ti, m_sel, tj, valid
+
+
+def _select_triples_cuda(top_d, votes, maxdist, ntriples):
+    b, nc = top_d.shape
+    dev = top_d.device
+    ti, tm, tj = (torch.empty((b, ntriples), dtype=torch.int64, device=dev)
+                  for _ in range(3))
+    valid = torch.empty((b, ntriples), dtype=torch.bool, device=dev)
+    kbuild.launch("gsnap_select_triples", dev, top_d.contiguous(),
+                  votes.int().contiguous(), ti, tm, tj, valid, b, nc,
+                  ntriples, maxdist)
+    return ti, tm, tj, valid
+
+
+def select_triples(top_d, votes, maxdist: int, ntriples: int):
+    """Up to ``ntriples`` diagonal triples i -> m -> j per read, each step
+    in [1, maxdist] (uint32 differences), ranked by vote sum (kernel K6;
+    the candidate set of find_doublesplices, stage1hr.c:7698-7742).
+
+    Per middle m the two best predecessors and successors by (votes
+    desc, index asc; ineligible = -1, as lax.top_k ranks them) give 4
+    combinations; the NC * 4 sums (-1 unless both exist) are ranked by a
+    stable descending sort and the first ``ntriples`` kept.  Returns (ti,
+    tm, tj int64[B, T], valid bool[B, T])."""
+    ntriples = min(ntriples, 4 * top_d.shape[1])
+    if top_d.device.type == "cpu":
+        return _select_triples_plain(top_d, votes, maxdist, ntriples)
+    if top_d.device.type == "cuda":
+        return _select_triples_cuda(top_d, votes, maxdist, ntriples)
+    raise ValueError(f"unsupported device {top_d.device}")
+
+
+_SHORTEXON_KEYS = ("valid", "split", "split2", "sense", "prob_d", "prob_a",
+                   "prob_d2", "prob_a2", "nmm1", "nmm2", "nmm3", "left",
+                   "mid", "right")
+
+
+def _solve_doublesplices_plain(genome, top_d, pref, ti, tm, tj, tvalid,
+                               lengths, budget, lmax):
+    b, t = ti.shape
+    dev = pref.device
+    di = _gather_rows(top_d, ti)
+    dm = _gather_rows(top_d, tm)
+    dj = _gather_rows(top_d, tj)
+    pref_i = _gather_rows(pref, ti)
+    pref_m = _gather_rows(pref, tm)
+    pref_j = _gather_rows(pref, tj)
+    L = lengths.long()[:, None]
+    tot_j = _at(pref_j, L.expand(b, t))[:, :, None]
+    span_i = _fetch_span(genome, di, lmax)
+    span_m = _fetch_span(genome, dm, lmax)
+    span_j = _fetch_span(genome, dj, lmax)
+    npos = lmax + 1
+    s = torch.arange(npos, device=dev)[None, None, :]
+    inb = ((s >= 2) & (s <= L[:, :, None] - 2) & (di[:, :, None] >= 64)
+           & (dm[:, :, None] >= 64) & (dj[:, :, None] >= 64))
+    nmm_i = pref_i[:, :, :npos]                  # nmm[0:s) on i
+    cum_m = pref_m[:, :, :npos]
+    nmm_j_suf = tot_j - pref_j[:, :, :npos]      # nmm[s:L) on j
+    K = SHORTEXON_CANDS
+    pick = lambda x, sel: torch.gather(x, 2, sel)
+
+    def solve_sense(kind_i, kind_m, kind2_m, kind_j):
+        sel1, ok1 = _first_cands(_sites(span_i, kind_i, npos)
+                                 & _sites(span_m, kind_m, npos) & inb, K)
+        sel2, ok2 = _first_cands(_sites(span_m, kind2_m, npos)
+                                 & _sites(span_j, kind_j, npos) & inb, K)
+        p1i = _prob_at(span_i, kind_i, sel1)
+        p1m = _prob_at(span_m, kind_m, sel1)
+        p2m = _prob_at(span_m, kind2_m, sel2)
+        p2j = _prob_at(span_j, kind_j, sel2)
+        mi1, cm1 = pick(nmm_i, sel1), pick(cum_m, sel1)
+        cm2, mj2 = pick(cum_m, sel2), pick(nmm_j_suf, sel2)
+        # joint [B, T, K1, K2]
+        sp1 = sel1[:, :, :, None]
+        sp2 = sel2[:, :, None, :]
+        nmm1 = mi1[:, :, :, None]
+        nmm2 = cm2[:, :, None, :] - cm1[:, :, :, None]
+        nmm3 = mj2[:, :, None, :]
+        total = nmm1 + nmm2 + nmm3
+        okp = (ok1[:, :, :, None] & ok2[:, :, None, :] & (sp2 > sp1)
+               & (total <= budget[:, None, None, None]) & (nmm2 >= 0))
+        okp = (okp & _suff_local(sp1, nmm1, p1i[:, :, :, None])
+               & _suff_local(sp2 - sp1, nmm2, p1m[:, :, :, None])
+               & _suff_local(sp2 - sp1, nmm2, p2m[:, :, None, :])
+               & _suff_local(L[:, :, None, None] - sp2, nmm3,
+                             p2j[:, :, None, :]))
+        prob = (p1i[:, :, :, None] + p1m[:, :, :, None]
+                + p2m[:, :, None, :] + p2j[:, :, None, :])
+        key = torch.where(okp, -total.float() * 8.0 + prob, -1e9)
+        kf = key.reshape(b, t, K * K)
+        best = torch.argmax(kf, 2, keepdim=True)          # first maximum
+        b1, b2 = best // K, best % K
+        take1 = lambda x: torch.gather(x, 2, b1)[:, :, 0]
+        take2 = lambda x: torch.gather(x, 2, b2)[:, :, 0]
+        return dict(score=torch.gather(kf, 2, best)[:, :, 0],
+                    sp1=take1(sel1), sp2=take2(sel2),
+                    p1i=take1(p1i), p1m=take1(p1m),
+                    p2m=take2(p2m), p2j=take2(p2j),
+                    nmm1=take1(mi1), nmm2=take2(cm2) - take1(cm1),
+                    nmm3=take2(mj2))
+
+    sense = solve_sense("donor", "acceptor", "donor", "acceptor")
+    anti = solve_sense("antiacceptor", "antidonor", "antiacceptor",
+                       "antidonor")
+    use_anti = anti["score"] > sense["score"]
+    pickd = lambda k: torch.where(use_anti, anti[k], sense[k])
+    valid = tvalid & (pickd("score") > -1e8)
+    z = lambda x: torch.where(valid, x, 0)
+    zf = lambda a, s_: torch.where(valid, torch.where(use_anti, a, s_), 0.0)
+    return {
+        "valid": valid,
+        "split": z(pickd("sp1")).int(),
+        "split2": z(pickd("sp2")).int(),
+        "sense": ~use_anti,
+        # junction probs in donor/acceptor display order per junction
+        "prob_d": zf(anti["p2j"], sense["p1i"]),
+        "prob_a": zf(anti["p2m"], sense["p1m"]),
+        "prob_d2": zf(anti["p1m"], sense["p2m"]),
+        "prob_a2": zf(anti["p1i"], sense["p2j"]),
+        "nmm1": z(pickd("nmm1")).int(),
+        "nmm2": z(pickd("nmm2")).int(),
+        "nmm3": z(pickd("nmm3")).int(),
+        "left": di,
+        "mid": dm,
+        "right": dj,
+    }
+
+
+def _solve_doublesplices_cuda(genome, top_d, pref, ti, tm, tj, tvalid,
+                              lengths, budget, lmax):
+    b, t = ti.shape
+    dev = pref.device
+    out = _splice_outputs(_SHORTEXON_KEYS, (b, t), dev)
+    kbuild.launch(
+        "gsnap_solve_doublesplices", dev,
+        genome.ref16, maxent.flat_tables(dev), top_d.contiguous(),
+        pref.contiguous(), ti.contiguous(), tm.contiguous(), tj.contiguous(),
+        tvalid.contiguous(), lengths.int().contiguous(),
+        budget.int().contiguous(), *(out[k] for k in _SHORTEXON_KEYS),
+        genome.ref16.shape[0], b, t, top_d.shape[1], lmax)
+    return out
+
+
+def solve_doublesplices(genome, top_d, pref, ti, tm, tj, tvalid, lengths,
+                        budget, lmax: int):
+    """Short middle exons between two local introns (kernel K7;
+    solve_doublesplice, stage1hr.c:6612).
+
+    For triple (i, m, j): junction 1 at s1 needs a donor on i and an
+    acceptor on m, junction 2 at s2 > s1 a donor on m and an acceptor on
+    j (sense; antisense uses antiacceptor/antidonor).  The first
+    SHORTEXON_CANDS positions of each junction are joined in an 8 x 8
+    grid keyed by -total_mismatches * 8 + (((p1i + p1m) + p2m) + p2j) in
+    float32, each of the four probabilities gated by the sufficiency
+    test; the first maximum in s1-major order wins, and antisense only
+    if strictly better.
+
+    Returns a dict of [B, T] tensors: valid, split, split2, sense,
+    prob_d, prob_a, prob_d2, prob_a2 (float32), nmm1, nmm2, nmm3, left,
+    mid, right (the triple's diagonals)."""
+    args = (genome, top_d, pref, ti, tm, tj, tvalid, lengths, budget, lmax)
+    if pref.device.type == "cpu":
+        return _solve_doublesplices_plain(*args)
+    if pref.device.type == "cuda":
+        return _solve_doublesplices_cuda(*args)
+    raise ValueError(f"unsupported device {pref.device}")
+
+
 # -------------------------------------------------------------- full pipeline
 
 def _bitpack_mask(mm: torch.Tensor) -> torch.Tensor:
@@ -428,18 +821,34 @@ def _strand_hits(genome, index, queries, codes, nflags, lengths, conv, alt,
                        max_del=base.max_middle_deletions,
                        min_end=base.min_indel_end_matches)
 
-    # splicing is off: empty splice / shortexon blocks keep the JAX
-    # package's candidate layout (and so its ranking ties)
     nc = top_d.shape[1]
     nsp, ntr = params.splice_pairs, params.shortexon_triples
     z = lambda n, dt=torch.int32: torch.zeros((b, n), dtype=dt, device=dev)
-    full = lambda n, v: torch.full((b, n), v, dtype=torch.int32, device=dev)
+    if params.novelsplicing:
+        si, sj, sv = _select_pairs(
+            top_d, votes, _splice_pairs_eligible(base.shortsplicedist), nsp)
+        spl = solve_splices(genome, top_d, pref, si, sj, sv, lengths, budget,
+                            queries.lmax)
+        ti, tm, tj, tv = select_triples(top_d, votes, base.shortsplicedist,
+                                        ntr)
+        shx = solve_doublesplices(genome, top_d, pref, ti, tm, tj, tv,
+                                  lengths, budget, queries.lmax)
+        ntr = ti.shape[1]
+    else:
+        # splicing off: empty splice / shortexon blocks keep the JAX
+        # package's candidate layout (and so its ranking ties)
+        spl = {k: z(nsp, _splice_dtype(k)) for k in _SPLICE_KEYS}
+        shx = {k: z(ntr, _splice_dtype(k)) for k in _SHORTEXON_KEYS}
 
     def cat(*xs):
         return torch.cat(xs, 1)
 
-    zl = lambda n: z(n, torch.int64)
+    full = lambda n, v: torch.full((b, n), v, dtype=torch.int32, device=dev)
     ind_nmm = ind["nmm1"] + ind["nmm2"]
+    spl_nmm = spl["nmm1"] + spl["nmm2"]
+    shx_nmm = shx["nmm1"] + shx["nmm2"] + shx["nmm3"]
+    lsp = base.localsplicing_penalty
+    npi = ii.shape[1]
     hits = {
         "kind": cat(full(nc, KIND_SUB),
                     torch.where(ind["is_del"], KIND_DEL, KIND_INS).int(),
@@ -448,19 +857,24 @@ def _strand_hits(genome, index, queries, codes, nflags, lengths, conv, alt,
                      torch.where(ind["valid"],
                                  ind_nmm + base.indel_penalty_middle,
                                  BIG_NMM).int(),
-                     full(nsp, BIG_NMM), full(ntr, BIG_NMM)),
+                     torch.where(spl["valid"], spl_nmm + lsp, BIG_NMM).int(),
+                     torch.where(shx["valid"], shx_nmm + 2 * lsp,
+                                 BIG_NMM).int()),
         "nmm": cat(torch.where(nmm_sub < BIG_NMM, nmm_sub, 0), ind_nmm,
-                   z(nsp), z(ntr)),
-        "left": cat(top_d, ind["left"], zl(nsp), zl(ntr)),
-        "right": cat(top_d, ind["right"], zl(nsp), zl(ntr)),
-        "split": cat(z(nc), ind["split"], z(nsp), z(ntr)),
-        "split2": z(nc + ii.shape[1] + nsp + ntr),
-        "mid": cat(top_d, ind["left"], zl(nsp), zl(ntr)),
-        "nindels": cat(z(nc), ind["nindels"], z(nsp), z(ntr)),
-        "sense": z(nc + ii.shape[1] + nsp + ntr, torch.bool),
+                   spl_nmm, shx_nmm),
+        "left": cat(top_d, ind["left"], spl["left"], shx["left"]),
+        "right": cat(top_d, ind["right"], spl["right"], shx["right"]),
+        "split": cat(z(nc), ind["split"], spl["split"], shx["split"]),
+        "split2": cat(z(nc + npi + nsp), shx["split2"]),
+        "mid": cat(top_d, ind["left"], spl["left"], shx["mid"]),
+        "nindels": cat(z(nc), ind["nindels"], z(nsp + ntr)),
+        "sense": cat(z(nc + npi, torch.bool), spl["sense"], shx["sense"]),
     }
-    for key in ("prob_d", "prob_a", "prob_d2", "prob_a2"):
-        hits[key] = z(nc + ii.shape[1] + nsp + ntr, torch.float32)
+    zf = z(nc + npi, torch.float32)
+    hits["prob_d"] = cat(zf, spl["prob_d"], shx["prob_d"])
+    hits["prob_a"] = cat(zf, spl["prob_a"], shx["prob_a"])
+    hits["prob_d2"] = cat(zf, z(nsp, torch.float32), shx["prob_d2"])
+    hits["prob_a2"] = cat(zf, z(nsp, torch.float32), shx["prob_a2"])
 
     cdiv = -(-index.k // index.interval)
 
@@ -586,13 +1000,14 @@ def align_batch_gapped(genome, index: IndexArrays, codes, nflags, lengths,
                        params: GappedParams = GappedParams(),
                        index_minus: IndexArrays | None = None, alt=None,
                        known=None):
-    """Single-end pipeline: substitutions + middle indels (splicing
-    off).  Returns the same keys as the JAX function: ranked [B,
-    maxpaths] hit fields (kind, score, nmm, left, right, split, split2,
-    mid, nindels, sense, prob_*, plusp), npaths, the unranked cand_*
-    arrays, overflow / overflow_trunc and the lane-noop gate
-    (lane_noop, lane_ind, lane_term)."""
-    if params.novelsplicing or known is not None:
+    """Single-end pipeline: substitutions + middle indels, plus novel
+    local splices and short-exon doublesplices when
+    ``params.novelsplicing``.  Returns the same keys as the JAX function:
+    ranked [B, maxpaths] hit fields (kind, score, nmm, left, right,
+    split, split2, mid, nindels, sense, prob_*, plusp), npaths, the
+    unranked cand_* arrays, overflow / overflow_trunc and the lane-noop
+    gate (lane_noop, lane_ind, lane_term)."""
+    if known is not None:
         raise NotImplementedError(_NOT_PORTED)
     base = params.base
     out, cands = gather_candidates(genome, index, index_minus, codes, nflags,
@@ -609,6 +1024,10 @@ def align_batch_gapped(genome, index: IndexArrays, codes, nflags, lengths,
                                              final["score"][:, 0], BIG_NMM))
     lane_gate = min(base.indel_penalty_middle, base.indel_penalty_end,
                     base.terminal_threshold)
+    if params.novelsplicing:
+        # the splice solvers admit dropped diagonals at
+        # localsplicing_penalty: only the floor-bound branch clears
+        lane_gate = min(lane_gate, base.localsplicing_penalty)
     so = base.subopt_levels
     safe = (((done + so < lane_gate)
              | ((final["npaths"] > 0) & (final["hbound"] > done + so)))

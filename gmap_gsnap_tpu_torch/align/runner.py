@@ -1,17 +1,18 @@
 """Host-side GSNAP runner for the port: FASTQ records -> device -> SAM.
 
-Single-end, standard mode, ``-N 0``, no GMAP lanes (``--gmap-mode
-none``).  The device half is one call per batch of
-``gsnap_gapped.align_batch_gapped`` (the seed/vote/verify/indel kernels
-and the plain-torch ranking around them); the full result tree comes
-to the host in one copy.  The host half — end trimming, MD/NM, the end
-indel and terminal rescue lanes, MAPQ and SAM emission — is the numpy
-code of gmap_gsnap_tpu/align/runner.py, copied (not rewritten) because
-that module imports JAX.  What this module leaves out of it: paired
-ends, native output, GMAP rescue, SNP/cmet/atoi modes, known and novel
-splicing, the distant and short-end lanes, gene/tally/runlength
-multimapping resolution and the TPU transfer slimming (compact views,
-row-subset fetches, pad buckets); see ROADMAP.md.
+Single-end, standard mode, ``-N 0`` or ``-N 1`` (novel splicing), no
+GMAP lanes (``--gmap-mode none``).  The device half is one call per
+batch of ``gsnap_gapped.align_batch_gapped`` (the seed/vote/verify/
+indel/splice kernels and the plain-torch ranking around them); the full
+result tree comes to the host in one copy.  The host half — end
+trimming, MD/NM, the end indel, terminal and (with ``-N 1``) distant
+splice rescue lanes, MAPQ and SAM emission — is the numpy code of
+gmap_gsnap_tpu/align/runner.py, copied (not rewritten) because that
+module imports JAX.  What this module leaves out of it: paired ends,
+native output, GMAP rescue, SNP/cmet/atoi modes, known splice sites and
+the short-end lane they drive, gene/tally/runlength multimapping
+resolution and the TPU transfer slimming (compact views, row-subset
+fetches, pad buckets); see ROADMAP.md.
 
 The JAX-free host modules (io.sam, io.fasta, utils.dna, native,
 align.rescue) are imported from the JAX package.  rescue.trim_term
@@ -40,8 +41,10 @@ from gmap_gsnap_tpu.utils import dna
 
 from ..db import datadir
 from ..utils.device import resolve_device
+from . import distant as distant_mod
 from . import gsnap_gapped, gsnap_se
-from .gsnap_gapped import KIND_DEL, KIND_INS, KIND_SUB
+from .gsnap_gapped import (KIND_DEL, KIND_INS, KIND_SHORTEXON, KIND_SPLICE,
+                           KIND_SUB)
 
 MAX_QUALITY_SCORE = 40
 MAPQ_MAXIMUM_SCORE = 40
@@ -221,6 +224,9 @@ class PostHit:
     mmpos: tuple = ()  # selection-mismatch query positions (untrimmed)
     nmatches_whole: int = 0  # reference nmatches (whole region incl trims)
     term_ends: tuple | None = None  # terminal endtypes (aligned order)
+    distant: dict | None = None  # distant-splice info (sense, type,
+    # dist, sites, probs, per-part MD/NM, penalty, dinucl) for the
+    # translocation SAM records (XT tag)
 
 
 def encode_batch(records: list[Record], lmax: int):
@@ -249,7 +255,9 @@ class GsnapRunner:
 
     ``params`` defaults to GsnapParams() with the dynamic size threshold,
     like the JAX runner — whose default --gmap-mode lanes this port does
-    not have, so pass ``GsnapParams(gmap_mode="")``."""
+    not have, so pass ``GsnapParams(gmap_mode="")``.  ``novelsplicing``
+    is gsnap -N 1: local splices and short exons on the device, the
+    distant lane on the host."""
 
     def __init__(self, db: GenomeDB, params: gsnap_se.GsnapParams | None = None,
                  lmax: int = 100, novelsplicing: bool = False,
@@ -261,8 +269,11 @@ class GsnapRunner:
                     params,
                     size_threshold=gsnap_se.dynamic_size_threshold(
                         int(db.offsets[-1]), db.k, params.mode))
-        if novelsplicing:
-            raise NotImplementedError(f"novel splicing (-N 1) is {_NOT_PORTED}")
+        if novelsplicing and params.seed_total:
+            # RNA workloads sit on junction/repeat windows more often; a
+            # larger shared seed budget keeps the fullwide rescue lane rare
+            params = dataclasses.replace(
+                params, seed_total=max(params.seed_total, 512))
         if params.mode != "standard":
             raise NotImplementedError(f"--mode {params.mode} is {_NOT_PORTED}")
         gmap_modes = {m.strip() for m in params.gmap_mode.split(",") if m.strip()}
@@ -273,7 +284,12 @@ class GsnapRunner:
         self.db = db
         self.lmax = lmax
         self.params = params
-        self.gapped_params = gsnap_gapped.GappedParams(base=params)
+        self.gapped_params = gsnap_gapped.GappedParams(
+            base=params, novelsplicing=novelsplicing)
+        self.splicing_on = novelsplicing
+        self.merge_samechr = False  # gsnap --merge-distant-samechr
+        # standard mode: no cmet/atoi conversion on either strand
+        self._conv_plus = self._conv_minus = None
         self.device = resolve_device(device)
         self.genome = datadir.device_genome(db, self.device)
         self.index = datadir.device_index(db, self.device)
@@ -354,9 +370,12 @@ class GsnapRunner:
         _ACGT_SET[_c] = True
     del _c
 
-    def _mismatch_masks(self, q: str, g0: int) -> tuple[np.ndarray, np.ndarray]:
+    def _mismatch_masks(self, q: str, g0: int,
+                        conv=None) -> tuple[np.ndarray, np.ndarray]:
         """(selection mask, ref-relative mask) for query part ``q``
-        aligned at genome position g0 (standard mode: the two agree)."""
+        aligned at genome position g0.  ``conv`` is the strand's cmet/atoi
+        conversion: None in standard mode, the only mode the port runs,
+        where the two masks agree."""
         n = len(q)
         qb = np.frombuffer(q.encode("latin-1"), np.uint8)
         gb = self._genome_bytes[g0 : g0 + n]
@@ -496,33 +515,39 @@ class GsnapRunner:
             self._prime_lane_masks(jobs_zero, shifts=(0,))
 
     def _hit_details(self, rec: Record, kind: int, left: int, right: int,
-                     split: int, nind: int, plusp: bool) -> PostHit:
-        """Printable details of a SUB / INS / DEL hit (the splice and
-        shortexon kinds need -N 1, which the port does not have)."""
+                     split: int, nind: int, sense: bool, plusp: bool,
+                     mid: int = 0, split2: int = 0) -> PostHit:
+        """Printable details of a SUB / INS / DEL / SPLICE / SHORTEXON
+        hit."""
         L = len(rec.seq)
         q = rec.seq.upper() if plusp else dna.revcomp_str(rec.seq.upper())
+        conv = self._conv_plus if plusp else self._conv_minus
         # aligned parts in printed-SEQ order: (qstart, qend, genome start)
         if kind == KIND_SUB:
             parts = [(0, L, left)]
-        elif kind == KIND_DEL:
+        elif kind == KIND_SHORTEXON:
+            # two introns around a short middle exon (Stage3end_new_
+            # shortexon, stage3hr.c:2577): query [0,split) on the left
+            # diagonal, [split,split2) on the middle, [split2,L) right
+            parts = [(0, split, left), (split, split2, mid + split),
+                     (split2, L, right + split2)]
+        elif kind in (KIND_DEL, KIND_SPLICE):
             parts = [(0, split, left), (split, L, right + split)]
-        elif kind == KIND_INS:  # nind query bases at [split, split+nind) unaligned
+        else:  # insertion: nind query bases at [split, split+nind) unaligned
             parts = [(0, split, left), (split + nind, L, right + split + nind)]
-        else:
-            raise NotImplementedError(f"hit kind {kind} is {_NOT_PORTED}")
 
         masks, masks_ref, refs = [], [], []
         for qs, qe, g0 in parts:
             if qs == 0 and qe == L:
                 mm_sel, mm_ref = self._lane_mask(rec, g0, plusp)
             else:
-                mm_sel, mm_ref = self._mismatch_masks(q[qs:qe], g0)
+                mm_sel, mm_ref = self._mismatch_masks(q[qs:qe], g0, conv)
             masks.append(mm_sel)
             masks_ref.append(mm_ref)
             refs.append(self._genome_str[g0 : g0 + (qe - qs)])
 
         # end trimming: outer ends only (substring.c trim_left_p /
-        # trim_right_p are false at indel inner ends)
+        # trim_right_p are false at indel/splice inner ends)
         if kind == KIND_SUB:
             cached = self._lane_trims.get((id(rec), left, plusp))
             if cached is not None:
@@ -552,9 +577,12 @@ class GsnapRunner:
             nm += nind
         elif kind == KIND_SUB:
             md, nm = sam.md_gapped(md_parts, [])
+        elif kind == KIND_SHORTEXON:
+            md, nm = sam.md_gapped(md_parts, [None, None])
         else:
             md, nm = sam.md_gapped(md_parts, [None])
-            nm += nind
+            if kind == KIND_INS:
+                nm += nind
 
         qv = self._quality_values(rec, plusp)
         loglik = 0.0
@@ -581,6 +609,26 @@ class GsnapRunner:
             if kind == KIND_DEL:
                 cigar_core = f"{a}M{nind}D{b}M"
                 ref_consumed = a + nind + b
+            elif kind == KIND_SPLICE:
+                gap = right - left
+                cigar_core = f"{a}M{gap}N{b}M"
+                ref_consumed = a + gap + b
+                xs = "+" if sense else "-"
+                return PostHit(left, plusp, trim5, trim3, nm, nmatches,
+                               loglik, md, cigar_core, ref_consumed, xs, gap,
+                               0, tuple(parts), tuple(mmpos_all),
+                               aligned_len - nmm_whole)
+            elif kind == KIND_SHORTEXON:
+                gap1 = mid - left
+                gap2 = right - mid
+                mexon = split2 - split
+                cigar_core = f"{a}M{gap1}N{mexon}M{gap2}N{b}M"
+                ref_consumed = a + gap1 + mexon + gap2 + b
+                xs = "+" if sense else "-"
+                return PostHit(left, plusp, trim5, trim3, nm, nmatches,
+                               loglik, md, cigar_core, ref_consumed, xs,
+                               gap1 + gap2, 0, tuple(parts),
+                               tuple(mmpos_all), aligned_len - nmm_whole)
             else:
                 cigar_core = f"{a}M{nind}I{b}M"
                 ref_consumed = a + b
@@ -687,13 +735,13 @@ class GsnapRunner:
                     if indels > 0:
                         d = self._hit_details(
                             rec, KIND_INS, left + indels, left, pos,
-                            indels, plusp)
+                            indels, False, plusp)
                         h = rescue.HostHit(d, "ins", d.nmatches_whole,
                                            np.array(d.mmpos, int), d.loglik)
                     else:
                         d = self._hit_details(
                             rec, KIND_DEL, left + indels, left, pos,
-                            -indels, plusp)
+                            -indels, False, plusp)
                         h = rescue.HostHit(d, "del", d.nmatches_whole,
                                            np.array(d.mmpos, int), d.loglik)
                     out.append((h, score, (left, plusp)))
@@ -719,16 +767,167 @@ class GsnapRunner:
                     if indels > 0:
                         d = self._hit_details(
                             rec, KIND_INS, left, left - indels, pos,
-                            indels, plusp)
+                            indels, False, plusp)
                         h = rescue.HostHit(d, "ins", d.nmatches_whole,
                                            np.array(d.mmpos, int), d.loglik)
                     else:
                         d = self._hit_details(
                             rec, KIND_DEL, left, left - indels, pos,
-                            -indels, plusp)
+                            -indels, False, plusp)
                         h = rescue.HostHit(d, "del", d.nmatches_whole,
                                            np.array(d.mmpos, int), d.loglik)
                     out.append((h, score, (left, plusp)))
+        return out
+
+    def _distant_hits(self, rec: Record, hits, row: int, done: int):
+        """Step 9 distant/translocation splicing (stage1hr.c:12218):
+        runs only when the cascade found nothing and splicing is on."""
+        L = len(rec.seq)
+        diags = []
+        seen = set()
+        for left, plusp, nmm in zip(hits["cand_left"][row],
+                                    hits["cand_plusp"][row],
+                                    hits["cand_nmm"][row]):
+            if int(nmm) >= 10**6:
+                continue
+            key = (int(left), bool(plusp))
+            if key not in seen:
+                seen.add(key)
+                diags.append(key)
+
+        mm_sel = self._cand_mm_fn(rec, hits, row, L)
+
+        max_mm = done - self.params.distantsplicing_penalty
+        ends = distant_mod.find_spliceends(
+            diags, mm_sel, L, self._genome_str,
+            self.db.codes, max_mm, self.db.k)
+        pairs = distant_mod.find_pairs(
+            ends, L, max_mm, self.params.shortsplicedist,
+            chrnum_of=lambda left: int(np.searchsorted(
+                self.db.chr_ends, left, side="right")),
+            distant_penalty=self.params.distantsplicing_penalty,
+            local_penalty=self.params.localsplicing_penalty,
+            min_end_matches=self.params.min_distant_end_matches)
+
+        qual = rec.quality if rec.quality else None
+        g = self._genome_str
+        out = []
+
+        def dn_text(kind, site):
+            # splice dinucleotide in SENSE display form per scan kind
+            if kind == "donor":
+                return g[site : site + 2]
+            if kind == "acceptor":
+                return g[site - 2 : site]
+            if kind == "antidonor":
+                return dna.revcomp_str(g[site - 2 : site])
+            return dna.revcomp_str(g[site : site + 2])  # antiacceptor
+
+        def mm_fn(left, plusp):
+            q = (rec.seq.upper() if plusp
+                 else dna.revcomp_str(rec.seq.upper()))
+            conv = self._conv_plus if plusp else self._conv_minus
+            return self._mismatch_masks(q, left, conv)
+
+        for p in pairs:
+            el, er = p.left_end, p.right_end
+            s = p.split
+            dsite, asite = p.donor.site, p.acceptor.site
+            dinucl = f"{dn_text(p.donor_kind, dsite)}-" \
+                     f"{dn_text(p.acceptor_kind, asite)}".upper()
+
+            if p.inversion:
+                # mixed strands; p.split and both pieces in READ coords
+                def half(e, a, b):
+                    sel, ref = mm_fn(e.left, e.plusp)
+                    if e.plusp:
+                        sl = slice(a, b)
+                        span = (e.left + a, e.left + b)
+                        rp = np.flatnonzero(sel[sl]) + a
+                    else:
+                        sl = slice(L - b, L - a)
+                        span = (e.left + L - b, e.left + L - a)
+                        rp = (L - 1) - (np.flatnonzero(sel[sl]) + (L - b))
+                    md, nm = sam.md_gapped(
+                        [(ref[sl], g[span[0] : span[1]])], [])
+                    return span, np.sort(rp), md, nm
+
+                spanL, mmL, md1, nm1 = half(el, 0, s)
+                spanR, mmR, md2, nm2 = half(er, s, L)
+                mmpos = np.concatenate([mmL, mmR]).astype(int)
+                if qual is None:
+                    qv = np.full(L, MAX_QUALITY_SCORE, int)
+                else:
+                    qv = np.clip(
+                        np.frombuffer(qual.encode(), np.uint8).astype(int)
+                        - QUALITY_ADJ, 0, MAX_QUALITY_SCORE)
+                loglik = (float(MISMATCH_LOGPROB[qv[mmpos]].sum())
+                          if len(mmpos) else 0.0)
+                xs1 = "+" if p.sensep == el.plusp else "-"
+                xs2 = "+" if p.sensep == er.plusp else "-"
+                info = dict(sense=p.sensep, type=p.splice_type,
+                            dist=p.distance, dsite=dsite, asite=asite,
+                            dprob=p.donor.prob, aprob=p.acceptor.prob,
+                            penalty=p.penalty, shortp=False, dinucl=dinucl,
+                            md1=md1, nm1=nm1, md2=md2, nm2=nm2,
+                            md_merged=md1, nm_merged=nm1 + nm2,
+                            plusps=(el.plusp, er.plusp), xs1=xs1, xs2=xs2,
+                            donor_left=p.donor_left)
+                total = p.nmm_total
+                d = PostHit(spanL[0], el.plusp, 0, 0, total, L - total,
+                            loglik, md1, "", s, xs1, p.distance, 0,
+                            ((0, s, spanL[0]), (s, L, spanR[0])),
+                            tuple(int(x) for x in mmpos), L - total,
+                            distant=info)
+                out.append(rescue.HostHit(d, "distant", L - total, mmpos,
+                                          loglik))
+                continue
+
+            selL, refL = mm_fn(el.left, p.plusp)
+            selR, refR = mm_fn(er.left, p.plusp)
+            posL = np.flatnonzero(selL)
+            posR = np.flatnonzero(selR)
+            mmpos = np.concatenate([posL[posL < s], posR[posR >= s]])
+            if qual is None:
+                qv = np.full(L, MAX_QUALITY_SCORE, int)
+            else:
+                qq = qual if p.plusp else qual[::-1]
+                qv = np.clip(np.frombuffer(qq.encode(), np.uint8).astype(int)
+                             - QUALITY_ADJ, 0, MAX_QUALITY_SCORE)
+            loglik = float(MISMATCH_LOGPROB[qv[mmpos]].sum()) if len(mmpos) else 0.0
+            parts_md = [(refL[:s], g[el.left : el.left + s]),
+                        (refR[s:], g[er.left + s : er.left + L])]
+            md1, nm1 = sam.md_gapped(parts_md[:1], [])
+            md2, nm2 = sam.md_gapped(parts_md[1:], [])
+            mdm, nmm_md = sam.md_gapped(parts_md, [None])
+            xs = "+" if p.sensep == p.plusp else "-"
+            info = dict(sense=p.sensep, type=p.splice_type, dist=p.distance,
+                        dsite=dsite, asite=asite, dprob=p.donor.prob,
+                        aprob=p.acceptor.prob, penalty=p.penalty,
+                        shortp=p.shortdistancep, dinucl=dinucl,
+                        md1=md1, nm1=nm1, md2=md2, nm2=nm2,
+                        md_merged=mdm, nm_merged=nmm_md)
+            total = p.nmm_total
+            mergeable = (p.splice_type == "consistent"
+                         and self.merge_samechr)
+            if p.shortdistancep or mergeable:
+                # consistent pair within shortsplicedist — or any
+                # same-chromosome consistent pair under
+                # --merge-distant-samechr (SAMECHR_SPLICE printed as one
+                # record, samprint.c:2777) — an ordinary SPLICE hit
+                # (one N-cigar record)
+                gap = p.distance
+                cigar = f"{s}M{gap}N{L - s}M"
+                ref_cons = L + gap
+            else:
+                cigar = ""
+                ref_cons = s
+            d = PostHit(el.left, p.plusp, 0, 0, total, L - total, loglik,
+                        mdm, cigar, ref_cons, xs, p.distance, 0,
+                        ((0, s, el.left), (s, L, er.left + s)),
+                        tuple(int(x) for x in mmpos), L - total,
+                        distant=info)
+            out.append(rescue.HostHit(d, "distant", L - total, mmpos, loglik))
         return out
 
     def _cand_mm_fn(self, rec: Record, hits, row: int, L: int):
@@ -757,12 +956,13 @@ class GsnapRunner:
 
     def _rescued_hits(self, rec: Record, hits, row: int, npaths: int,
                       maxpaths: int):
-        """Device hits + end-indel and terminal lanes -> final ordered
-        HostHit list (align_end tail, stage1hr.c:12400-12530).  The
-        short-end, distant and GMAP stages of the JAX runner need known
-        sites, -N 1 or GMAP lanes, none of which the port has."""
+        """Device hits + end-indel, distant and terminal lanes -> final
+        ordered HostHit list (align_end tail, stage1hr.c:12400-12530).
+        The short-end and GMAP stages of the JAX runner need known sites
+        or GMAP lanes, which the port does not have."""
         L = len(rec.seq)
-        kindname = {KIND_SUB: "sub", KIND_INS: "ins", KIND_DEL: "del"}
+        kindname = {KIND_SUB: "sub", KIND_INS: "ins", KIND_DEL: "del",
+                    KIND_SPLICE: "splice", KIND_SHORTEXON: "shortexon"}
         hhits = []
         n = min(int(npaths), maxpaths)
         for i in range(n):
@@ -784,13 +984,26 @@ class GsnapRunner:
 
         # 6. end indels (host lane; the device covers middle indels)
         end_used = set()
+        end_found = False
         if done >= self.params.indel_penalty_end and not lane_clear:
             for h, score, anchor in self._end_indel_hits(rec, hits, row, done):
                 if score > done:
                     continue
                 hhits.append(h)
                 end_used.add(anchor)
+                end_found = True
                 done = min(done, score + self.params.subopt_levels)
+
+        # 9. distant splicing: only when the cascade found nothing
+        # (stage1hr.c:12207 gating) and distant can beat alternatives
+        if (n == 0 and not end_found and self.splicing_on
+                and done > self.params.distantsplicing_penalty):
+            dh = self._distant_hits(rec, hits, row, done)
+            if dh:
+                hhits.extend(dh)
+                found = min(h.d.nmm_trimmed + h.d.distant["penalty"]
+                            for h in dh)
+                done = min(done, found)  # opt_level update, gates stage 10+
 
         if done >= self.params.terminal_threshold and not lane_clear:
             mm_fn = self._cand_mm_fn(rec, hits, row, L)
@@ -846,6 +1059,8 @@ class GsnapRunner:
         """Resulttype classification (resulthr.h:7-12 SINGLEEND_*)."""
         if not final:
             return "nomapping"
+        if final[0].hittype == "distant":
+            return "unpaired_transloc"
         return "unpaired_uniq" if len(final) == 1 else "unpaired_mult"
 
     @staticmethod
@@ -891,6 +1106,10 @@ class GsnapRunner:
         mapqs, absmqs, second_absmq = self._end_mapqs(details, qual)
         out = []
         for hi, d in enumerate(details):
+            if d.distant is not None:
+                out.append(self._sam_distant(
+                    rec, d, qual, mapqs[hi], absmqs[hi], second_absmq, n, hi))
+                continue
             chrnum = int(np.searchsorted(self.db.chr_ends, d.left, side="right"))
             chrpos = d.left - int(self.db.chr_starts[chrnum]) + 1
             pos = chrpos + d.trim5
@@ -924,6 +1143,108 @@ class GsnapRunner:
             )
         return "".join(out)
 
+    def _sam_distant(self, rec: Record, d: PostHit, qual, mapq: int,
+                     absmq: int, second_absmq: int, nh: int, hi: int) -> str:
+        """Distant-splice SAM: one hard-clipped record per half with the
+        XT junction tag (samprint.c splice halves)."""
+        L = len(rec.seq)
+        (q1, q2, g1), (q3, q4, g2) = d.parts
+        info = d.distant
+        if info["shortp"] or (self.merge_samechr
+                              and info["type"] == "consistent"):
+            # consistent within shortsplicedist: single N-cigar record.
+            # Merged DISTANT records keep the reference's POS quirk:
+            # for non-short distances substring_low is redefined to the
+            # substring holding the ORIGINAL query end (stage3hr.c:2378-
+            # 2435), so POS comes from the query-LAST part even though
+            # the CIGAR starts at the query-first part.
+            if info["shortp"]:
+                ref_left = d.left
+            else:
+                ref_left = g2 if d.plusp else g1
+            chrnum = int(np.searchsorted(self.db.chr_ends, ref_left,
+                                         side="right"))
+            pos = ref_left - int(self.db.chr_starts[chrnum]) + 1
+            hit = sam.SEHit(
+                chrname=self.db.chr_names[chrnum], chrpos=pos,
+                plusp=d.plusp, cigar=d.cigar_core, md=info["md_merged"],
+                nm=info["nm_merged"], mapq=mapq, absmq=absmq,
+                second_absmq=second_absmq, xs=d.xs,
+            )
+            return sam.se_record(rec.label, rec.seq.upper(), qual, hit,
+                                 nh=nh, hi=hi + 1, secondary=hi > 0)
+        xt = (f"XT:Z:{info['dinucl']},{info['dprob']:.2f},"
+              f"{info['aprob']:.2f}")
+        out = []
+        if info.get("plusps") is not None:
+            # inversion: the two halves align to OPPOSITE strands; each
+            # prints genome-forward with its own flag/XS, hard-clipping
+            # the other half (samprint.c halfdonor/halfacceptor)
+            for (qs, qe, g0), md, nm, hplus, hxs in (
+                ((q1, q2, g1), info["md1"], info["nm1"],
+                 info["plusps"][0], info["xs1"]),
+                ((q3, q4, g2), info["md2"], info["nm2"],
+                 info["plusps"][1], info["xs2"]),
+            ):
+                chrnum = int(np.searchsorted(self.db.chr_ends, g0,
+                                             side="right"))
+                pos = g0 - int(self.db.chr_starts[chrnum]) + 1
+                seg = qe - qs
+                if hplus:
+                    cigar = (f"{qs}H" if qs else "") + f"{seg}M" + (
+                        f"{L - qe}H" if qe < L else "")
+                    sseq = rec.seq.upper()[qs:qe]
+                    squal = qual[qs:qe] if qual else None
+                else:
+                    cigar = (f"{L - qe}H" if qe < L else "") + f"{seg}M" + (
+                        f"{qs}H" if qs else "")
+                    sseq = dna.revcomp_str(rec.seq.upper()[qs:qe])
+                    squal = qual[qs:qe][::-1] if qual else None
+                hit = sam.SEHit(
+                    chrname=self.db.chr_names[chrnum], chrpos=pos,
+                    plusp=True, cigar=cigar, md=md, nm=nm, mapq=mapq,
+                    absmq=absmq, second_absmq=second_absmq, xs=hxs,
+                )
+                rec_out = sam.se_record(
+                    rec.label, sseq, squal, hit, nh=nh, hi=hi + 1,
+                    secondary=hi > 0, extra=[xt])
+                if not hplus:
+                    # strand flag comes from the half, not the SEHit
+                    fields = rec_out.split("\t")
+                    fields[1] = str(int(fields[1]) | sam.FLAG_REVCOMP)
+                    rec_out = "\t".join(fields)
+                out.append(rec_out)
+            return "".join(out)
+        halves = [
+            (q1, q2, g1, info["md1"], info["nm1"], True),
+            (q3, q4, g2, info["md2"], info["nm2"], False),
+        ]
+        if not d.plusp:
+            halves.reverse()  # records print in READ order
+        for (qs, qe, g0, md, nm, first) in halves:
+            chrnum = int(np.searchsorted(self.db.chr_ends, g0, side="right"))
+            pos = g0 - int(self.db.chr_starts[chrnum]) + 1
+            seg = qe - qs
+            cigar = (f"{qs}H" if qs else "") + f"{seg}M" + (
+                f"{L - qe}H" if qe < L else "")
+            # SEQ carries only the aligned half (hard clips); pass the
+            # READ-orientation slice so minus-strand revcomp applies
+            if d.plusp:
+                sseq = rec.seq.upper()[qs:qe]
+                squal = qual[qs:qe] if qual else None
+            else:
+                sseq = rec.seq.upper()[L - qe : L - qs]
+                squal = qual[L - qe : L - qs] if qual else None
+            hit = sam.SEHit(
+                chrname=self.db.chr_names[chrnum], chrpos=pos,
+                plusp=d.plusp, cigar=cigar, md=md, nm=nm, mapq=mapq,
+                absmq=absmq, second_absmq=second_absmq, xs=d.xs,
+            )
+            out.append(sam.se_record(
+                rec.label, sseq, squal, hit, nh=nh, hi=hi + 1,
+                secondary=hi > 0, extra=[xt]))
+        return "".join(out)
+
     def _end_hit(self, rec: Record, hits, row: int, col: int) -> PostHit:
         return self._hit_details(
             rec,
@@ -932,7 +1253,10 @@ class GsnapRunner:
             int(hits["right"][row, col]),
             int(hits["split"][row, col]),
             int(hits["nindels"][row, col]),
+            bool(hits["sense"][row, col]),
             bool(hits["plusp"][row, col]),
+            mid=int(hits["mid"][row, col]),
+            split2=int(hits["split2"][row, col]),
         )
 
     def _sub_batch(self, seqs, lefts, plusps, want_md: bool = True):

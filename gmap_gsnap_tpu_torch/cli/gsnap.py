@@ -1,15 +1,14 @@
-"""gsnap-compatible CLI of the port: single-end, standard mode, -N 0,
---gmap-mode none, SAM output, on one CUDA device.
+"""gsnap-compatible CLI of the port: single-end, standard mode, -N 0 or
+-N 1 (novel splicing), --gmap-mode none, SAM output, on one CUDA device.
 
 Usage:  python -m gmap_gsnap_tpu_torch.cli.gsnap -D <dir> -d <db> \\
-            --gmap-mode none [options] <fastq>
+            --gmap-mode none [-N 1] [options] <fastq>
 
 The flags keep the names and defaults of gmap_gsnap_tpu/cli/gsnap.py
 (whose parser cannot be imported: it sets up JAX).  Flags of paths the
-port does not have yet — the GMAP lanes (the default --gmap-mode),
--N 1, -s, -v, --mode other than standard, paired-end input, -A gsnap —
-exit with an error naming the ROADMAP.md item instead of running a
-reduced path.
+port does not have yet — the GMAP lanes (the default --gmap-mode), -s,
+-v, --mode other than standard, paired-end input, -A gsnap — exit with
+an error naming the ROADMAP.md item instead of running a reduced path.
 """
 
 from __future__ import annotations
@@ -48,6 +47,15 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("-z", "--max-middle-deletions", type=int, default=30)
     p.add_argument("-Y", "--max-end-insertions", type=int, default=3)
     p.add_argument("-Z", "--max-end-deletions", type=int, default=6)
+    p.add_argument("-w", "--localsplicedist", type=int, default=200_000,
+                   help="max length for local splice (gsnap.c:194)")
+    p.add_argument("-e", "--local-splice-penalty", type=int, default=0)
+    p.add_argument("-E", "--distant-splice-penalty", type=int, default=1)
+    p.add_argument("-K", "--distant-splice-endlength", type=int, default=16)
+    p.add_argument("--merge-distant-samechr", action="store_true",
+                   help="print same-chromosome distant splices as one "
+                        "record instead of translocation halves "
+                        "(samprint.c merge_samechr_p)")
     p.add_argument("--terminal-threshold", type=int, default=2)
     p.add_argument("--trim-mismatch-score", type=int, default=-3)
     p.add_argument("--trim-indel-score", type=int, default=-4)
@@ -81,7 +89,6 @@ def main(argv=None) -> int:
         (not _gmap_mode_none(args.gmap_mode),
          f"--gmap-mode {args.gmap_mode}: GMAP rescue lanes are {_ROADMAP} "
          "(item 3); pass --gmap-mode none"),
-        (args.novelsplicing == 1, f"-N 1: novel splicing is {_ROADMAP} (item 1)"),
         (args.use_splicing is not None, f"-s: known splice sites are {_ROADMAP} (item 4)"),
         (args.use_snps is not None, f"-v: SNP-tolerant alignment is {_ROADMAP} (item 4)"),
         (args.mode != "standard", f"--mode {args.mode} is {_ROADMAP} (item 4)"),
@@ -131,6 +138,10 @@ def main(argv=None) -> int:
         max_middle_deletions=args.max_middle_deletions,
         max_end_insertions=args.max_end_insertions,
         max_end_deletions=args.max_end_deletions,
+        localsplicing_penalty=args.local_splice_penalty,
+        distantsplicing_penalty=args.distant_splice_penalty,
+        min_distant_end_matches=args.distant_splice_endlength,
+        shortsplicedist=args.localsplicedist,
         terminal_threshold=args.terminal_threshold,
         trim_mismatch_score=args.trim_mismatch_score,
         gmap_mode="",
@@ -138,8 +149,11 @@ def main(argv=None) -> int:
     # set before any alignment (read by the mismatch kernel's callers)
     mismatch_mod.QUERY_UNK_MISMATCH = bool(args.query_unk_mismatch)
     mismatch_mod.GENOME_UNK_MISMATCH = bool(args.genome_unk_mismatch)
-    r = runner_mod.GsnapRunner(db, params, lmax=lmax, device=args.device)
+    r = runner_mod.GsnapRunner(db, params, lmax=lmax,
+                               novelsplicing=bool(args.novelsplicing),
+                               device=args.device)
     r.quiet_if_excessive = args.quiet_if_excessive
+    r.merge_samechr = args.merge_distant_samechr
 
     t0 = time.time()
     n = r.run(records, sys.stdout, batch_size=args.batch_size,

@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 
 from .align.gsnap_se import IndexArrays
+from .ops import maxent
 from .ops.genome import GenomeArrays
 
 
@@ -34,6 +35,14 @@ def genome_from_host(codes: np.ndarray, flags: np.ndarray, chr_ends,
     db.build.load_genome_fasta result's host arrays)."""
     return GenomeArrays.from_codes(np.asarray(codes), np.asarray(flags),
                                    chr_ends, device)
+
+
+def maxent_tables_from_arrays(tables: dict, device) -> dict:
+    """The port's maxent tables (float32 tensors on ``device``) from the
+    JAX package's float64 arrays (``maxent._tables_np()``), cast as its
+    ``_tables_jnp`` casts them."""
+    return maxent.tables_f32({k: np.asarray(v) for k, v in tables.items()},
+                             device)
 
 
 def index_from_arrays(offsets, positions, k: int, interval: int,

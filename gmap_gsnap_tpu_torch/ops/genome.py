@@ -114,3 +114,23 @@ def fetch_span_words(ref16: torch.Tensor, flag16: torch.Tensor,
     c = ((raw_c[:, :-1] >> (2 * sh)) | (raw_c[:, 1:] << (32 - 2 * sh))) & MASK32
     f = ((raw_f[:, :-1] >> sh) | (raw_f[:, 1:] << (16 - sh))) & 0xFFFF
     return c, f
+
+
+def fetch_codes(ref16: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """2-bit codes at genome positions (int64, any shape, values >= 0)
+    -> uint8.  A position past the padded word array reads its last
+    word, the guard of fill (0xFFFFFFFF), so it decodes as T (code 3),
+    as the JAX package's clamped row gathers read it."""
+    w = (positions >> 4).clamp(max=ref16.shape[0] - 1)
+    return ((u32(ref16[w]) >> (2 * (positions & 15))) & 3).to(torch.uint8)
+
+
+def fetch_span_codes(ref16: torch.Tensor, start: torch.Tensor,
+                     n: int) -> torch.Tensor:
+    """Codes of genome[start : start + n] for start positions (int64[...]
+    holding uint32 values) -> uint8[..., n]: direct indexing in place of
+    the JAX package's 8-word row gathers, with their results past the
+    genome end (T).  A start that wrapped below 0 in uint32 lies far past
+    the end and reads T throughout, as in JAX."""
+    pos = (start & MASK32)[..., None] + torch.arange(n, device=start.device)
+    return fetch_codes(ref16, pos)

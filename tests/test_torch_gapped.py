@@ -173,9 +173,7 @@ def test_gapped_params_copy():
             assert a == b, n
 
 
-def test_splicing_not_ported(world):
+def test_known_sites_not_ported(world):
     _, ta = _args(world)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgg.align_batch_gapped(*ta, tgg.GappedParams(novelsplicing=True))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tgg.align_batch_gapped(*ta, known=(None,) * 4)

@@ -48,10 +48,86 @@ def batch(cuda):
 
 
 def _equal(a, b):
+    """Equal tensors; float32 ones bit for bit."""
     assert len(a) == len(b)
     for x, y in zip(a, b):
         assert x.shape == y.shape and x.dtype == y.dtype
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
         assert torch.equal(x, y)
+
+
+@pytest.fixture(scope="module")
+def spliced(cuda):
+    """Spliced reads (junctions, short exons, distant halves) over a
+    synthetic genome, both strands, on the card."""
+    rng = np.random.default_rng(23)
+    g = synth.make_genome(rng, [400_000, 250_000, 100_000])
+    db = synth.genome_db(g, 12, 3)
+    recs, _ = synth.plant_spliced_reads(rng, g, 512)
+    c, f, l = trun.encode_batch(recs, 100)
+    tg = convert.genome_from_host(db.codes, db.flags, db.chr_ends, cuda)
+    ti = convert.index_from_arrays(db.offsets, db.positions, 12, 3, cuda)
+    ct, ft, lt = (torch.from_numpy(x).to(cuda) for x in (c, f, l))
+    crc, frc = se._revcomp_batch(ct, ft, lt)
+    return (tg, ti, torch.cat([ct, crc]), torch.cat([ft, frc]),
+            torch.cat([lt, lt]), (ct, ft, lt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed_total,ncand", [(512, 32), (4096, 128)])
+def test_splice_kernels_match_plain(spliced, seed_total, ncand):
+    """K5, K6 and K7 against their plain versions at the main (NC = 32)
+    and wide (NC = 128) shapes, on the selectors' pairs and triples and
+    on random ones (invalid diagonals, diagonals below 64 whose span
+    start wraps in uint32)."""
+    tg, ti, c, f, l, _ = spliced
+    p = se.GsnapParams(seed_total=seed_total, ncand=ncand)
+    seed = se._seed_diagonals_plain(ti, c, f, l, p, True)
+    top_d, votes, _ = se._top_diagonals_plain(seed[0], ncand)
+    top_d[:, 3] = 0xFFFFFFFF
+    top_d[:, 4] = 2
+    q = se._pack_device(c, f, l, 100)
+    _, pref = mmo._prefix_mismatches_plain(tg, q, top_d, l, None, None)
+    budget = se.auto_budget(l, 12, 3, -1)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    rnd = lambda n: torch.randint(0, ncand, (len(l), n), generator=g).to(l.device)
+
+    ii, jj, pv = gg._select_pairs(top_d, votes,
+                                  gg._splice_pairs_eligible(200_000), 16)
+    ii[:, 12:], jj[:, 12:] = rnd(4), rnd(4)
+    args = (tg, top_d, pref, ii, jj, pv, l, budget, 100)
+    want = gg._solve_splices_plain(*args)
+    got = gg._solve_splices_cuda(*args)
+    _equal([got[k] for k in gg._SPLICE_KEYS], [want[k] for k in gg._SPLICE_KEYS])
+    assert want["valid"].any() and (~want["sense"][want["valid"]]).any()
+
+    for v in (votes, torch.ones_like(votes)):           # and all votes equal
+        _equal(gg._select_triples_cuda(top_d, v, 200_000, 8),
+               gg._select_triples_plain(top_d, v, 200_000, 8))
+    t3 = list(gg._select_triples_plain(top_d, votes, 200_000, 8))
+    t3[0][:, 6:], t3[2][:, 6:] = rnd(2), rnd(2)
+    args = (tg, top_d, pref, *t3, l, budget, 100)
+    want = gg._solve_doublesplices_plain(*args)
+    got = gg._solve_doublesplices_cuda(*args)
+    _equal([got[k] for k in gg._SHORTEXON_KEYS],
+           [want[k] for k in gg._SHORTEXON_KEYS])
+    assert want["valid"].any()
+
+
+@pytest.mark.cuda
+def test_align_batch_gapped_splicing_cuda_equals_cpu(spliced):
+    tg, ti, _, _, _, (c, f, l) = spliced
+    gp = gg.GappedParams(base=se.GsnapParams(seed_total=512),
+                         novelsplicing=True)
+    got = gg.align_batch_gapped(tg, ti, c, f, l, gp)
+    cpu = lambda x: x.cpu()
+    tg_c = GenomeArrays(cpu(tg.ref16), cpu(tg.flag16), tg.length,
+                        cpu(tg.chr_offsets))
+    ti_c = se.IndexArrays(cpu(ti.offsets), cpu(ti.positions), ti.k, ti.interval)
+    want = gg.align_batch_gapped(tg_c, ti_c, cpu(c), cpu(f), cpu(l), gp)
+    assert set(got) == set(want)
+    _equal([got[k].cpu() for k in sorted(want)], [want[k] for k in sorted(want)])
 
 
 @pytest.mark.cuda
@@ -122,6 +198,8 @@ def test_wrappers_reject_other_devices():
                           se.GsnapParams())
     with pytest.raises(ValueError, match="unsupported device"):
         se.top_diagonals(meta.long(), 2)
+    with pytest.raises(ValueError, match="unsupported device"):
+        gg.select_triples(meta.long(), meta.int(), 200_000, 8)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -106,7 +106,7 @@ def test_cli_byte_equal(disk_db, capsys):
 
 
 @pytest.mark.parametrize("extra", [
-    [], ["--gmap-mode", "terminal"], ["-N", "1"], ["-s", "sites"],
+    [], ["--gmap-mode", "terminal"], ["-s", "sites"],
     ["-v", "snps"], ["--mode", "cmet-stranded"], ["-A", "gsnap"],
     ["SECOND_FILE"]])
 def test_cli_rejects_unported(disk_db, capsys, extra):
@@ -125,9 +125,6 @@ def test_runner_rejects_unported(world, monkeypatch):
     _, db, _ = world
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trun.GsnapRunner(db, device="cpu")      # default GMAP lanes
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trun.GsnapRunner(db, tse.GsnapParams(gmap_mode=""),
-                         novelsplicing=True, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trun.GsnapRunner(db, tse.GsnapParams(gmap_mode="", mode="cmet-stranded"),
                          device="cpu")
@@ -164,6 +161,12 @@ _NO_JAX = textwrap.dedent("""
     p = gsnap_se.GsnapParams(gmap_mode="", trim_mismatch_score=-2)
     runner.GsnapRunner(db, p, device="cpu").run(recs, out, batch_size=64)
     open({sam!r}, "w").write(out.getvalue())
+    srecs, _ = synth.plant_spliced_reads(np.random.default_rng(5), g, 48)
+    out = io.StringIO()
+    runner.GsnapRunner(db, gsnap_se.GsnapParams(gmap_mode=""),
+                       novelsplicing=True, device="cpu").run(srecs, out,
+                                                             batch_size=48)
+    open({sam_n1!r}, "w").write(out.getvalue())
     assert cli.main(["-D", {dbdir!r}, "-d", "syn", "--gmap-mode", "none",
                      "--device", "cpu", {fastq!r}]) == 0
     leaked = [m for m in sys.modules if m == "jaxlib" or m.startswith(("jax.", "jaxlib."))]
@@ -175,13 +178,15 @@ _NO_JAX = textwrap.dedent("""
 def test_runs_without_jax(world, disk_db, tmp_path):
     """The port imports no JAX, even transitively; the terminal lane
     (whose JAX-package trim fallback imports JAX) runs, here with a
-    non-default trim score so the lane's trims come from the fallback."""
-    _, db, recs = world
+    non-default trim score so the lane's trims come from the fallback;
+    and an -N 1 batch of spliced reads runs too."""
+    g, db, recs = world
     sub = recs[:100]
     (tmp_path / "reads.tsv").write_text("".join(
         f"{r.label}\t{r.header}\t{r.seq}\t{r.quality}\n" for r in sub))
     script = _NO_JAX.format(repo=REPO, reads=str(tmp_path / "reads.tsv"),
                             sam=str(tmp_path / "port.sam"),
+                            sam_n1=str(tmp_path / "port_n1.sam"),
                             dbdir=str(disk_db), fastq=str(disk_db / "reads.fq"))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
@@ -195,3 +200,11 @@ def test_runs_without_jax(world, disk_db, tmp_path):
     jrun.GsnapRunner(db, params=jse.GsnapParams(
         gmap_mode="", trim_mismatch_score=-2)).run(sub, jout, batch_size=64)
     assert (tmp_path / "port.sam").read_text() == jout.getvalue()
+
+    srecs, _ = synth.plant_spliced_reads(np.random.default_rng(5), g, 48)
+    jout = io.StringIO()
+    jrun.GsnapRunner(db, params=jse.GsnapParams(gmap_mode=""),
+                     novelsplicing=True).run(srecs, jout, batch_size=48)
+    n1 = (tmp_path / "port_n1.sam").read_text()
+    cigars = [l.split("\t")[5] for l in n1.splitlines() if l[0] != "@"]
+    assert n1 == jout.getvalue() and any("N" in c for c in cigars)
