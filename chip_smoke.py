@@ -1,47 +1,62 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch + CUDA port (gmap_gsnap_tpu_torch).
 
-    python3 chip_smoke.py [--mbp 100] [--reads 8192] [--batch 2048]
+    python3 chip_smoke.py [--mbp 100] [--reads 8192] [--pairs 8192]
+                          [--batch 2048]
 
 Needs one CUDA device; exits nonzero, printing no result, without one.
 Phases (any failure raises and ends the run with a nonzero exit):
 
   1. the card: torch.cuda.get_device_name and nvidia-smi's name and
      power limit;
-  2. build the seven CUDA kernels from csrc/ (nvcc, sm_90a);
+  2. build the eight CUDA kernels from csrc/ (nvcc, sm_90a);
   3. a synthetic genome of 4 chromosomes (--mbp, default 100, about the
      C. elegans genome) with N runs and a repeat family, indexed at
      gmap_build's large-genome setting k=15 / interval 3; planted 100 bp
-     DNA reads for the -N 0 path (0-3 substitutions, half
-     reverse-complemented, some with N, some with 1-3 nt indels) and
-     RNA reads for the -N 1 path (50% unspliced, 30% one junction, 10% a
+     DNA reads for the SE -N 0 path (0-3 substitutions, half
+     reverse-complemented, some with N, some with 1-3 nt indels), RNA
+     reads for the SE -N 1 path (50% unspliced, 30% one junction, 10% a
      short middle exon, 5% distant halves, 5% N or indel, then 1% of them
      replaced by reads in repeat copies; every junction GT-AG or CT-AC
-     with maxent >= 0.90 at both sites);
+     with maxent >= 0.90 at both sites), and 100 bp read pairs for the
+     two PE paths (synth.plant_pairs: DNA 80% concordant with 200-600 nt
+     fragments, indels, halfmapping, random, toolong, inversion,
+     scramble, translocated and repeat pairs; RNA adds 30% pairs with a
+     read across a junction, 10% with the reads on two sides of an
+     intron, 5% with a short middle exon; 30% written mate first);
   4. each kernel against its plain torch version on the same CUDA
-     tensors at the main path's shapes (2048 reads x 2 strands, L=100,
-     W=384 / 512 and 4096, NC=32 and 128, P=16, T=8): outputs must be
-     equal, float32 ones bit for bit;
-  5. the two main paths, each through GsnapRunner.run over all its reads
-     into a SAM buffer, with every kernel's launch count reset before and
-     read after:
-     -N 0: K1-K4 must launch and K5-K7 must not; >= 99% of reads with
-           <= 2 substitutions must map uniquely at their planted
-           position and strand;
-     -N 1: K1-K7 must all launch; >= 90% of the easy single-junction
-           reads (both flanks >= 30 nt, <= 1 substitution) must map
-           uniquely with their planted intron;
+     tensors at the main paths' shapes (2048 reads x 2 strands, L=100,
+     W=384 / 512 and 4096, NC=32 and 128, P=16, T=8; K8 on the PE -N 1
+     runner's own ranked end hits of 2048 pairs and on 2048 hand-built
+     pairs with lefts above 2^24 and near 2^31): outputs must be equal,
+     float32 ones bit for bit;
+  5. the four main paths, each through GsnapRunner.run or run_pe over all
+     its reads into a SAM buffer, with every kernel's launch count reset
+     before and read after:
+     SE -N 0 (--reads): K1-K4 must launch and K5-K8 must not; >= 99% of
+           reads with <= 2 substitutions must map uniquely at their
+           planted position and strand;
+     SE -N 1 (--reads): K1-K7 must launch, K8 must not; >= 90% of the
+           easy single-junction reads (both flanks >= 30 nt, <= 1
+           substitution) must map uniquely with their planted intron;
+     PE -N 0 (--pairs / 2): K1-K4 and K8 must launch, K5-K7 must not;
+     PE -N 1 (--pairs): K1-K8 must all launch;
+     on both PE paths >= 99% of the concordant pairs with <= 2
+     substitutions per read must be reported as one proper pair (0x2)
+     at both planted positions with |TLEN| the fragment length; with
+     -N 1 >= 90% of the easy junction pairs (flanks >= 30 nt, <= 1
+     substitution in the spliced read) must carry the planted intron;
   6. each path's SAM from the plain torch path on the CPU must be
-     byte-equal to the CUDA run's (first 512 reads);
+     byte-equal to the CUDA run's (first 512 reads, first 256 pairs);
   7. each kernel's device time (torch.profiler) and per-call time beside
-     its plain version's, and a profile of the -N 1 run (device busy
-     share, top device ops), measured last so that the profiler cannot
-     perturb step 5's timing.
+     its plain version's, and profiles of the SE -N 1 and PE -N 1 runs
+     (device busy share, top device ops), measured last so that the
+     profiler cannot perturb step 5's timing.
 
-Prints one JSON line with every kernel's launches (on the -N 1 path,
-which runs all seven; per path under launches_by_path), error and device
-time (ms, plain_ms at NC=32), then the nvidia-smi line, then
-{"ok": true, "device": {...}} last.
+Prints one JSON line with every kernel's launches (on the PE -N 1 path,
+which runs all eight; per path under launches_by_path), error and device
+time (ms, plain_ms at NC=32 and 2048 pairs), then the nvidia-smi line,
+then {"ok": true, "device": {...}} last.
 """
 
 from __future__ import annotations
@@ -60,6 +75,8 @@ N0_KERNELS = ("gsnap_seed_diagonals", "gsnap_top_diagonals",
               "gsnap_prefix_mismatches", "gsnap_solve_indels")
 SPLICE_KERNELS = ("gsnap_solve_splices", "gsnap_select_triples",
                   "gsnap_solve_doublesplices")
+PAIR_KERNELS = ("gsnap_pair_grid",)
+ALL_KERNELS = N0_KERNELS + SPLICE_KERNELS + PAIR_KERNELS
 
 
 def _call_ms(fn, reps: int = 5) -> float:
@@ -197,17 +214,87 @@ def _junctions_ok(sam_text: str, truth, genome) -> tuple[int, int]:
     return good, total
 
 
-def _drive(torch, kbuild, runner, records, batch: int, label: str) -> dict:
+def _mates(recs):
+    """The two records of a pair placed once, as (read 1, read 2), or
+    None."""
+    if len(recs) != 2:
+        return None
+    m = {int(f[1]) & 0xC0: f for f in recs}
+    if set(m) != {0x40, 0x80} or any(f[2] == "*" for f in recs):
+        return None
+    return m[0x40], m[0x80]
+
+
+def _pairs_ok(sam_text: str, truth, genome) -> tuple[int, int]:
+    """(#concordant pairs with <= 2 substitutions per read reported as
+    one proper pair at both planted positions with |TLEN| the fragment
+    length, #such pairs)."""
+    starts = dict(zip(genome.names,
+                      np.concatenate([[0], genome.chr_ends[:-1]]).tolist()))
+    lines = _sam_lines(sam_text)
+    good = total = 0
+    for i, t in enumerate(truth):
+        if t.kind != "concordant" or max(t.nsub) > 2:
+            continue
+        total += 1
+        mates = _mates(lines.get(f"q{i}", []))
+        if mates is None:
+            continue
+        ok = True
+        for f, left in zip(mates, t.lefts):
+            cigar = f[5]
+            lead = int(cigar[: cigar.index("S")]) if "S" in cigar.split("M")[0] else 0
+            ok &= (int(f[1]) & 0x2 != 0
+                   and starts[f[2]] + int(f[3]) - 1 - lead == left
+                   and abs(int(f[8])) == t.insert)
+        good += ok
+    return good, total
+
+
+def _junction_pairs_ok(sam_text: str, truth, genome) -> tuple[int, int]:
+    """(#easy junction pairs — the spliced read's flanks >= 30 nt, <= 1
+    substitution in it — placed once with the spliced read carrying
+    exactly its planted intron, #such pairs)."""
+    starts = dict(zip(genome.names,
+                      np.concatenate([[0], genome.chr_ends[:-1]]).tolist()))
+    lines = _sam_lines(sam_text)
+    good = total = 0
+    for i, t in enumerate(truth):
+        if t.kind != "junction":
+            continue
+        m = 0 if t.introns[0] else 1
+        if min(t.flanks[m]) < 30 or t.nsub[m] > 1:
+            continue
+        total += 1
+        mates = _mates(lines.get(f"q{i}", []))
+        if mates is not None:
+            good += _introns(mates[m], starts) == list(t.introns[m])
+    return good, total
+
+
+def _drive(torch, kbuild, runner, records, batch: int, label: str,
+           pairs=None) -> dict:
     """One main path: a warm-up run, the device cascade alone, then the
     timed run with every kernel's launch count set to 0 just before it
-    and read just after."""
+    and read just after.  ``pairs`` (the read-2 records) makes it a PE
+    path through run_pe / dispatch_pairs."""
+    if pairs is None:
+        run = lambda recs, out, **kw: runner.run(recs, out, **kw)
+        dispatch = lambda i: runner.dispatch_records(records[i : i + batch])
+        unit = "reads"
+    else:
+        run = lambda recs, out, **kw: runner.run_pe(
+            recs, pairs[: len(recs)], out, **kw)
+        dispatch = lambda i: runner.dispatch_pairs(
+            records[i : i + batch], pairs[i : i + batch])
+        unit = "pairs"
     t0 = time.time()
-    runner.run(records[:batch], io.StringIO(), batch_size=batch)
+    run(records[:batch], io.StringIO(), batch_size=batch)
     print(f"{label} warm-up run: {time.time() - t0:.2f} s", flush=True)
     torch.cuda.synchronize()
     t0 = time.time()
     for i in range(0, len(records), batch):
-        runner.dispatch_records(records[i : i + batch])
+        dispatch(i)
     torch.cuda.synchronize()
     cascade_s = time.time() - t0
     torch.cuda.reset_peak_memory_stats()
@@ -215,24 +302,24 @@ def _drive(torch, kbuild, runner, records, batch: int, label: str) -> dict:
     kbuild.LAUNCHES.clear()
     out = io.StringIO()
     t0 = time.time()
-    n = runner.run(records, out, batch_size=batch)
+    n = run(records, out, batch_size=batch)
     torch.cuda.synchronize()
     e2e_s = time.time() - t0
     launches = dict(kbuild.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     if n != len(records):
-        raise SystemExit(f"{label}: run returned {n} of {len(records)} reads")
-    print(f"{label} main path: {n} reads; device cascade "
-          f"{n / cascade_s:.1f} reads/s ({cascade_s:.3f} s); end to end "
-          f"{n / e2e_s:.1f} reads/s ({e2e_s:.3f} s); max_memory_allocated "
+        raise SystemExit(f"{label}: run returned {n} of {len(records)} {unit}")
+    print(f"{label} main path: {n} {unit}; device cascade "
+          f"{n / cascade_s:.1f} {unit}/s ({cascade_s:.3f} s); end to end "
+          f"{n / e2e_s:.1f} {unit}/s ({e2e_s:.3f} s); max_memory_allocated "
           f"{peak} B ({peak / 2**30:.2f} GiB); categories "
           f"{dict(runner.category_counts)}; launches {launches}", flush=True)
     return dict(sam=out.getvalue(), launches=launches)
 
 
-def _profile_run(torch, runner, records, batch: int, label: str) -> None:
-    """torch.profiler over one GsnapRunner.run: device busy share of the
-    wall and the top device ops."""
+def _profile_run(torch, run, label: str) -> None:
+    """torch.profiler over one call of run() (a GsnapRunner.run or
+    run_pe): device busy share of the wall and the top device ops."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -240,7 +327,7 @@ def _profile_run(torch, runner, records, batch: int, label: str) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        runner.run(records, io.StringIO(), batch_size=batch)
+        run()
         torch.cuda.synchronize()
         wall = time.time() - t0
     ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -253,7 +340,7 @@ def _profile_run(torch, runner, records, batch: int, label: str) -> None:
           f"({100 * busy / wall:.1f}% busy, {100 - 100 * busy / wall:.1f}% "
           f"idle)", flush=True)
     hand = [e for e in ev if any(f"{n[len('gsnap_'):]}_kernel(" in e.key
-                                 for n in N0_KERNELS + SPLICE_KERNELS)]
+                                 for n in ALL_KERNELS)]
     top = sorted(ev, key=lambda e: -e.self_device_time_total)[:12]
     for e in top + [e for e in hand if e not in top]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  "
@@ -268,6 +355,7 @@ def main(argv=None) -> int:
     ap.add_argument("--mbp", type=float, default=100.0,
                     help="genome size in Mbp (>= 32)")
     ap.add_argument("--reads", type=int, default=8192)
+    ap.add_argument("--pairs", type=int, default=8192)
     ap.add_argument("--batch", type=int, default=2048)
     ap.add_argument("--seed", type=int, default=7)
     args = ap.parse_args(argv)
@@ -278,6 +366,7 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     from gmap_gsnap_tpu_torch.align import gsnap_gapped as gg
+    from gmap_gsnap_tpu_torch.align import gsnap_pe as pe
     from gmap_gsnap_tpu_torch.align import gsnap_se as se
     from gmap_gsnap_tpu_torch.align import runner as runner_mod
     from gmap_gsnap_tpu_torch.kernels import build as kbuild
@@ -297,7 +386,8 @@ def main(argv=None) -> int:
 
     # 2. build the kernels
     kbuild.library()
-    print(f"build: {kbuild.build_seconds:.1f} s (nvcc {kbuild.NVCC_FLAGS[1]})",
+    print(f"build: {kbuild.build_seconds:.1f} s (nvcc {kbuild.NVCC_FLAGS[1]}, "
+          f"{len(kbuild._SIGNATURES)} kernels)",
           flush=True)
     for line in kbuild.build_log.splitlines():
         if "Used" in line:
@@ -322,9 +412,12 @@ def main(argv=None) -> int:
     rna = rna[: args.reads - nrep] + synth.plant_reads(
         rng, genome, nrep, weights=dict(repeat=1), prefix="p")[0]
     rna_truth = rna_truth[: args.reads - nrep]
+    p1, p2, p_truth = synth.plant_pairs(rng, genome, args.pairs // 2)
+    rp1, rp2, rp_truth = synth.plant_pairs(rng, genome, args.pairs, rna=True)
     print(f"setup: {total / 1e6:.1f} Mbp, 4 chromosomes, k=15/3 index "
           f"({len(db.positions)} positions), {len(records)} DNA + {len(rna)} "
-          f"RNA reads in {time.time() - t0:.1f} s", flush=True)
+          f"RNA reads, {len(p1)} DNA + {len(rp1)} RNA pairs in "
+          f"{time.time() - t0:.1f} s", flush=True)
     params = se.GsnapParams(
         gmap_mode="",
         size_threshold=se.dynamic_size_threshold(int(db.offsets[-1]), db.k,
@@ -349,7 +442,7 @@ def main(argv=None) -> int:
     c2, f2, l2 = strands(records)
     q2 = se._pack_device(c2, f2, l2, 100)
     budget = se.auto_budget(l2, db.k, db.interval, -1)
-    checks = []   # (name, W, NC, kernel call, plain call), checked now, timed last
+    checks = []   # (name, shape, kernel call, plain call), checked now, timed last
     for st, nc in ((384, 32), (4096, 128)):
         p = se.GsnapParams(seed_total=st, ncand=nc,
                            size_threshold=params.size_threshold)
@@ -363,26 +456,27 @@ def main(argv=None) -> int:
         qp5, qp3 = se._qpos_ranges(diag, qgrid, top_d)
         kargs = (top_d, mm, pref, ii, jj, pv, l2, budget, 100, qp5, qp3, 9,
                  30, 4)
+        shape = f"W={st} NC={nc}"
         checks += [
-            ("seed_diagonals", st, nc,
+            ("seed_diagonals", shape,
              partial(se._seed_diagonals_cuda, index, c2, f2, l2, p, True),
              partial(se._seed_diagonals_plain, index, c2, f2, l2, p, True)),
-            ("top_diagonals", st, nc,
+            ("top_diagonals", shape,
              partial(se._top_diagonals_cuda, diag, nc),
              partial(se._top_diagonals_plain, diag, nc)),
-            ("prefix_mismatches", st, nc,
+            ("prefix_mismatches", shape,
              partial(mmo._prefix_mismatches_cuda, genome_dev, q2, top_d, l2,
                      None, None),
              partial(mmo._prefix_mismatches_plain, genome_dev, q2, top_d, l2,
                      None, None)),
-            ("solve_indels", st, nc,
+            ("solve_indels", shape,
              partial(_fields, gg._solve_indels_cuda, kargs, gg._INDEL_KEYS),
              partial(_fields, gg._solve_indels_plain, kargs, gg._INDEL_KEYS)),
         ]
         # the conversion and SNP (alt genome) variants of K3
         alt = (genome_dev.ref16.flip(0).contiguous(), genome_dev.flag16)
         for conv, a in (("ct", None), ("ga", alt)):
-            checks.append((f"prefix_mismatches/{conv}", st, nc,
+            checks.append((f"prefix_mismatches/{conv}", shape,
                            partial(mmo._prefix_mismatches_cuda, genome_dev,
                                    q2, top_d, l2, conv, a),
                            partial(mmo._prefix_mismatches_plain, genome_dev,
@@ -404,15 +498,16 @@ def main(argv=None) -> int:
         tr = gg._select_triples_plain(top_d, votes, sdist, 8)
         sargs = (genome_dev, top_d, pref, si, sj, sv, rl2, rbudget, 100)
         dargs = (genome_dev, top_d, pref, *tr, rl2, rbudget, 100)
+        shape = f"W={st} NC={nc}"
         checks += [
-            ("solve_splices", st, nc,
+            ("solve_splices", shape,
              partial(_fields, gg._solve_splices_cuda, sargs, gg._SPLICE_KEYS),
              partial(_fields, gg._solve_splices_plain, sargs,
                      gg._SPLICE_KEYS)),
-            ("select_triples", st, nc,
+            ("select_triples", shape,
              partial(gg._select_triples_cuda, top_d, votes, sdist, 8),
              partial(gg._select_triples_plain, top_d, votes, sdist, 8)),
-            ("solve_doublesplices", st, nc,
+            ("solve_doublesplices", shape,
              partial(_fields, gg._solve_doublesplices_cuda, dargs,
                      gg._SHORTEXON_KEYS),
              partial(_fields, gg._solve_doublesplices_plain, dargs,
@@ -425,67 +520,118 @@ def main(argv=None) -> int:
                   f"valid splice pairs ({int((sp['valid'] & ~sp['sense']).sum())}"
                   f" antisense), {int(sx['valid'].sum())} valid short exons",
                   flush=True)
+    # K8 on the PE -N 1 runner's own ranked end hits of one batch of
+    # pairs, and on hand-built hits (lefts above 2^24 and near 2^31)
+    b = min(args.batch, len(rp1))
+    inv2 = runner_mod.invert_records(rp2[:b])
+    res, _ = runner_n1.dispatch_pairs(rp1[:b], inv2)
+    plens = [torch.from_numpy(runner_mod.encode_batch(r, 100)[2]).to(dev)
+             for r in (rp1[:b], inv2)]
+    hand, *hlens = synth.pair_hit_cases(rng, args.batch, db.chr_ends)
+    hand = {k: torch.from_numpy(v.astype(np.int64) if v.dtype == np.uint32
+                                else v).to(dev) for k, v in hand.items()}
+    h5, h3 = ({k: v[sl] for k, v in hand.items()}
+              for sl in (slice(0, args.batch), slice(args.batch, None)))
+    hlens = [torch.from_numpy(x).to(dev) for x in hlens]
+    for what, e5, e3, (ln5, ln3) in (
+            ("runner", res["end5_pairing"], res["end3_pairing"], plens),
+            ("hand-built",
+             gg.rank_hits(h5, params, apply_optimal=False, maxout=16),
+             gg.rank_hits(h3, params, apply_optimal=False, maxout=16), hlens)):
+        gargs = (e5, e3, ln5, ln3, genome_dev.chr_offsets,
+                 runner_n1._pairmax(), params.subopt_levels, 100)
+        checks.append((
+            "pair_grid", f"{len(ln5)} {what} pairs",
+            partial(_fields, pe._pair_grid_cuda, gargs, pe.PAIR_GRID_KEYS),
+            partial(_fields, pe._pair_grid_plain, gargs, pe.PAIR_GRID_KEYS)))
     errs = {}
-    for name, st, nc, fk, fp in checks:
+    for name, shape, fk, fp in checks:
         err = _max_abs_err(fk(), fp())
-        print(f"kernel {name:20s} W={st:5d} NC={nc:3d}: max_abs_err={err}",
-              flush=True)
+        print(f"kernel {name:20s} {shape:22s}: max_abs_err={err}", flush=True)
         if err != 0:
             raise SystemExit(f"kernel {name} disagrees with its plain "
                              f"version (max_abs_err={err})")
         errs.setdefault(name, err)
     torch.cuda.synchronize()
 
-    # 5. the two main paths
-    n0 = _drive(torch, kbuild, runner, records, args.batch, "-N 0")
-    good, tot = _planted_ok(n0["sam"], truth, genome)
-    print(f"-N 0: planted <=2-sub reads placed {good}/{tot}", flush=True)
-    if tot == 0 or good < 0.99 * tot:
-        raise SystemExit(f"only {good}/{tot} planted reads placed")
-    missing = [k for k in N0_KERNELS if n0["launches"].get(k, 0) == 0]
-    extra = [k for k in SPLICE_KERNELS if n0["launches"].get(k, 0)]
-    if missing or extra:
-        raise SystemExit(f"-N 0 path: kernels not launched {missing}, "
-                         f"splice kernels launched {extra}")
-    n1 = _drive(torch, kbuild, runner_n1, rna, args.batch, "-N 1")
-    good, tot = _junctions_ok(n1["sam"], rna_truth, genome)
-    print(f"-N 1: easy planted junctions recovered {good}/{tot} "
-          f"({100 * good / max(tot, 1):.1f}%)", flush=True)
-    if tot == 0 or good < 0.90 * tot:
-        raise SystemExit(f"only {good}/{tot} easy junctions recovered")
-    missing = [k for k in N0_KERNELS + SPLICE_KERNELS
-               if n1["launches"].get(k, 0) == 0]
-    if missing:
-        raise SystemExit(f"-N 1 path: kernels not launched: {missing}")
+    # 5. the four main paths
+    paths = {}
+
+    def path(label, want, recs, run_with, mates=None):
+        """Drive one main path and check which kernels it launched."""
+        out = _drive(torch, kbuild, run_with, recs, args.batch, label, mates)
+        missing = [k for k in want if out["launches"].get(k, 0) == 0]
+        extra = [k for k in ALL_KERNELS
+                 if k not in want and out["launches"].get(k, 0)]
+        if missing or extra:
+            raise SystemExit(f"{label} path: kernels not launched {missing}, "
+                             f"launched but not on the path {extra}")
+        paths[label] = out["launches"]
+        return out["sam"]
+
+    def bar(label, what, good, tot, share):
+        print(f"{label}: {what} {good}/{tot} ({100 * good / max(tot, 1):.1f}%)",
+              flush=True)
+        if tot == 0 or good < share * tot:
+            raise SystemExit(f"{label}: only {good}/{tot} {what}")
+
+    sam = path("SE -N 0", N0_KERNELS, records, runner)
+    bar("SE -N 0", "planted <=2-sub reads placed",
+        *_planted_ok(sam, truth, genome), 0.99)
+    sam = path("SE -N 1", N0_KERNELS + SPLICE_KERNELS, rna, runner_n1)
+    bar("SE -N 1", "easy planted junctions recovered",
+        *_junctions_ok(sam, rna_truth, genome), 0.90)
+    sam = path("PE -N 0", N0_KERNELS + PAIR_KERNELS, p1, runner, p2)
+    bar("PE -N 0", "planted <=2-sub concordant pairs proper at both "
+        "positions and |TLEN|", *_pairs_ok(sam, p_truth, genome), 0.99)
+    sam = path("PE -N 1", ALL_KERNELS, rp1, runner_n1, rp2)
+    bar("PE -N 1", "planted <=2-sub concordant pairs proper at both "
+        "positions and |TLEN|", *_pairs_ok(sam, rp_truth, genome), 0.99)
+    bar("PE -N 1", "easy junction pairs with their planted intron",
+        *_junction_pairs_ok(sam, rp_truth, genome), 0.90)
 
     # 6. the plain torch path on the CPU gives the same SAM
-    nsub = min(512, len(records))
-    for label, recs, novel, run_cuda in (
-            ("-N 0", records, False, runner),
-            ("-N 1", rna, True, runner_n1)):
+    nsub, npairs = min(512, len(records)), min(256, len(p1))
+    for label, novel, run_cuda, run in (
+            ("SE -N 0", False, runner,
+             lambda r, out: r.run(records[:nsub], out, batch_size=256)),
+            ("SE -N 1", True, runner_n1,
+             lambda r, out: r.run(rna[:nsub], out, batch_size=256)),
+            ("PE -N 0", False, runner,
+             lambda r, out: r.run_pe(p1[:npairs], p2[:npairs], out,
+                                     batch_size=128)),
+            ("PE -N 1", True, runner_n1,
+             lambda r, out: r.run_pe(rp1[:npairs], rp2[:npairs], out,
+                                     batch_size=128))):
         cpu_runner = runner_mod.GsnapRunner(db, params, lmax=100,
                                             novelsplicing=novel, device="cpu")
         ref_out, cuda_out = io.StringIO(), io.StringIO()
-        cpu_runner.run(recs[:nsub], ref_out, batch_size=256)
-        run_cuda.run(recs[:nsub], cuda_out, batch_size=256)
+        run(cpu_runner, ref_out)
+        run(run_cuda, cuda_out)
         if ref_out.getvalue() != cuda_out.getvalue():
             raise SystemExit(f"{label}: CUDA and CPU plain-path SAM differ")
-        print(f"{label} cpu plain path: SAM of {nsub} reads byte-equal to "
-              f"the CUDA run", flush=True)
+        unit = f"{npairs} pairs" if label[0] == "P" else f"{nsub} reads"
+        print(f"{label} cpu plain path: SAM of {unit} byte-equal to the CUDA "
+              f"run", flush=True)
     if "jax" in sys.modules:
         raise SystemExit("jax was imported")
 
-    # 7. kernel and plain-version times, and the -N 1 profile, last, so
+    # 7. kernel and plain-version times, and the -N 1 profiles, last, so
     # that the profiler cannot perturb the main paths' timing
     times = {}
-    for name, st, nc, fk, fp in checks:
+    for name, shape, fk, fp in checks:
         ms, plain_ms = _device_ms(fk), _device_ms(fp)
         call, plain_call = _call_ms(fk), _call_ms(fp)
-        print(f"kernel {name:20s} W={st:5d} NC={nc:3d}: device time cuda "
-              f"{ms:.4f} ms, plain torch {plain_ms:.4f} ms; per call "
-              f"(events) {call:.4f} / {plain_call:.4f} ms", flush=True)
+        print(f"kernel {name:20s} {shape:22s}: device time cuda {ms:.4f} ms, "
+              f"plain torch {plain_ms:.4f} ms; per call (events) "
+              f"{call:.4f} / {plain_call:.4f} ms", flush=True)
         times.setdefault(name, (ms, plain_ms))
-    _profile_run(torch, runner_n1, rna, args.batch, "-N 1")
+    _profile_run(torch, lambda: runner_n1.run(rna, io.StringIO(),
+                                              batch_size=args.batch),
+                 "SE -N 1")
+    _profile_run(torch, lambda: runner_n1.run_pe(rp1, rp2, io.StringIO(),
+                                                 batch_size=args.batch),
+                 "PE -N 1")
 
     src = "gmap_gsnap_tpu/align/gsnap_gapped.py"
     sources = {
@@ -502,6 +648,8 @@ def main(argv=None) -> int:
                            f"{src}:668"),
         "solve_doublesplices": ("gsnap_solve_doublesplices",
                                 "solve_doublesplices.cu", f"{src}:706"),
+        "pair_grid": ("gsnap_pair_grid", "pair_grid.cu",
+                      "gmap_gsnap_tpu/align/gsnap_pe.py:119"),
     }
     kernels = []
     for name, (entry, cu, replaces) in sources.items():
@@ -509,10 +657,10 @@ def main(argv=None) -> int:
         kernels.append({"name": name, "route": "cuda",
                         "source": f"gmap_gsnap_tpu_torch/csrc/{cu}",
                         "replaces": replaces,
-                        "launches": n1["launches"][entry],
+                        "launches": paths["PE -N 1"][entry],
                         "launches_by_path": {
-                            "-N 0": n0["launches"].get(entry, 0),
-                            "-N 1": n1["launches"][entry]},
+                            label: launches.get(entry, 0)
+                            for label, launches in paths.items()},
                         "max_abs_err": errs[name], "ms": ms,
                         "plain_ms": plain_ms})
     print(f"total {time.time() - t_start:.1f} s")

@@ -1,23 +1,26 @@
 """Host-side GSNAP runner for the port: FASTQ records -> device -> SAM.
 
-Single-end, standard mode, ``-N 0`` or ``-N 1`` (novel splicing), no
-GMAP lanes (``--gmap-mode none``).  The device half is one call per
-batch of ``gsnap_gapped.align_batch_gapped`` (the seed/vote/verify/
-indel/splice kernels and the plain-torch ranking around them); the full
-result tree comes to the host in one copy.  The host half — end
-trimming, MD/NM, the end indel, terminal and (with ``-N 1``) distant
-splice rescue lanes, MAPQ and SAM emission — is the numpy code of
+Single-end (``run``) and paired-end (``run_pe``), standard mode, ``-N 0``
+or ``-N 1`` (novel splicing), no GMAP lanes (``--gmap-mode none``).  The
+device half is one call per batch of ``gsnap_gapped.align_batch_gapped``
+(SE) or ``gsnap_pe.align_batch_pe`` (PE: both ends through the
+seed/vote/verify/indel/splice kernels, then the pairing grid kernel) and
+the plain-torch ranking around them; the full result tree comes to the
+host in one copy.  The host half — end trimming, MD/NM, the end indel,
+terminal and (with ``-N 1``) distant splice rescue lanes, pair rescue,
+MAPQ and SAM emission — is the numpy code of
 gmap_gsnap_tpu/align/runner.py, copied (not rewritten) because that
-module imports JAX.  What this module leaves out of it: paired ends,
-native output, GMAP rescue, SNP/cmet/atoi modes, known splice sites and
-the short-end lane they drive, gene/tally/runlength multimapping
-resolution and the TPU transfer slimming (compact views, row-subset
-fetches, pad buckets); see ROADMAP.md.
+module imports JAX.  What this module leaves out of it: native output,
+GMAP rescue (and with it PE pairsearch), SNP/cmet/atoi modes, known
+splice sites and the short-end lane they drive, gene/tally/runlength
+multimapping resolution (the identity without those databases), output
+routing (--split-output) and the TPU transfer slimming (compact views,
+row-subset fetches, pad buckets); see ROADMAP.md.
 
-The JAX-free host modules (io.sam, io.fasta, utils.dna, native,
-align.rescue) are imported from the JAX package.  rescue.trim_term
-imports the JAX runner, so terminal trims are supplied here
-(``trims_of``) and make_terminals never reaches it.
+The JAX-free host modules (io.sam, io.fasta, io.gsnap_native's pair
+score, utils.dna, native, align.rescue) are imported from the JAX
+package.  rescue.trim_term imports the JAX runner, so terminal trims are
+supplied here (``trims_of``) and make_terminals never reaches it.
 """
 
 from __future__ import annotations
@@ -37,12 +40,13 @@ from gmap_gsnap_tpu.align import rescue
 from gmap_gsnap_tpu.db.datadir import GenomeDB
 from gmap_gsnap_tpu.io import sam
 from gmap_gsnap_tpu.io.fasta import Record
+from gmap_gsnap_tpu.io.gsnap_native import _align_score
 from gmap_gsnap_tpu.utils import dna
 
 from ..db import datadir
 from ..utils.device import resolve_device
 from . import distant as distant_mod
-from . import gsnap_gapped, gsnap_se
+from . import gsnap_gapped, gsnap_pe, gsnap_se
 from .gsnap_gapped import (KIND_DEL, KIND_INS, KIND_SHORTEXON, KIND_SPLICE,
                            KIND_SUB)
 
@@ -75,6 +79,35 @@ def _offending_read(*recs) -> None:
         print(f"Problem sequence: {r.label} ({len(r.seq)} bp)",
               file=_sys.stderr)
         print(r.seq, file=_sys.stderr)
+
+
+def chop_primers(seq1: str, seq2_inv: str) -> int:
+    """Shortread_chop_primers (shortread.c:1402-1460): detect paired-end
+    adapter readthrough by sliding read 1 against the INVERTED read 2;
+    the best full-overlap offset with <= 1 mismatch is the chop length
+    (applied to read 1's tail and inverted read 2's head).  Positions
+    past the end of read 2 count as mismatches (the reference compares
+    against the NUL terminator)."""
+    s1 = seq1.upper()
+    s2 = seq2_inv.upper()
+    L1, L2 = len(s1), len(s2)
+    MINLEN, ALLOWED = 20, 1
+    best_score, chop = 0, 0
+    for jstart in range(0, min(L2 - MINLEN, L1 - MINLEN)):
+        nmm = 0
+        i, j = 0, jstart
+        while nmm <= ALLOWED and i < L1 - jstart:
+            if j >= L2 or s1[i] != s2[j]:
+                nmm += 1
+            i += 1
+            j += 1
+        if nmm <= ALLOWED:
+            nmatches = j - nmm
+            score = nmatches * 3 - nmm
+            if score > best_score:
+                best_score = score
+                chop = jstart
+    return chop
 
 
 def trim_ends(mm: np.ndarray, trim_mismatch_score: int = -3) -> tuple[int, int]:
@@ -205,6 +238,92 @@ for _a, _b in zip(b"ACGTNacgtn", b"TGCANtgcan"):
 del _a, _b
 
 
+def _substring_bounds(d: "PostHit", L: int):
+    """Per-substring (proj_start, proj_end) whole-read projections in
+    query direction (Substring genomicstart/genomicend), in the
+    reference's substring order (query order of the ORIGINAL read =
+    reversed aligned order for minus hits)."""
+    out = []
+    for qs, qe, g0 in d.parts:
+        diag = g0 - qs
+        if d.plusp:
+            out.append((diag, diag + L))
+        else:
+            out.append((diag + L, diag))
+    return out[::-1] if not d.plusp else out
+
+
+def substring_spans(d: "PostHit", L: int):
+    """Trimmed aligned genomic intervals per substring, in the
+    reference's substring order (Substring alignstart/alignend).  Falls
+    back to the whole trimmed span for hits without parts."""
+    if not d.parts:
+        span = d.trim5 + d.ref_consumed + d.trim3
+        if d.plusp:
+            return [(d.left + d.trim5, d.left + span - d.trim3)]
+        return [(d.left + d.trim3, d.left + span - d.trim5)]
+    out = []
+    n = len(d.parts)
+    for k, (qs, qe, g0) in enumerate(d.parts):
+        lo = d.trim5 if k == 0 else 0
+        hi = d.trim3 if k == n - 1 else 0
+        out.append((g0 + lo, g0 + (qe - qs) - hi))
+    return out[::-1] if not d.plusp else out
+
+
+def reference_pairlength(d5: "PostHit", d3: "PostHit", L5: int, L3: int) -> int:
+    """Exact Stage3pair insertlength (stage3hr.c:7469-7560 +
+    pair_insert_length :6108) for non-GMAP hits on one chromosome."""
+    qadj5 = L5 + d5.ndel
+    qadj3 = L3 + d3.ndel
+    span5 = d5.trim5 + d5.ref_consumed + d5.trim3
+    span3 = d3.trim5 + d3.ref_consumed + d3.trim3
+    gs5, ge5 = (d5.left, d5.left + span5) if d5.plusp else (d5.left + span5, d5.left)
+    gs3, ge3 = (d3.left, d3.left + span3) if d3.plusp else (d3.left + span3, d3.left)
+
+    if d5.plusp and not d3.plusp:
+        if ge5 < ge3:
+            return (ge3 - ge5) + qadj5 + qadj3
+        if gs3 < gs5:
+            return (gs5 - gs3) + qadj5 + qadj3
+        return 0
+    if not d5.plusp and d3.plusp:
+        if gs5 < gs3:
+            return (gs3 - gs5) + qadj5 + qadj3
+        if ge3 < ge5:
+            return (ge5 - ge3) + qadj5 + qadj3
+        return 0
+
+    # same strand
+    if d5.plusp:
+        if ge5 < gs3:
+            return (gs3 - ge5) + qadj5 + qadj3
+    else:
+        if gs3 < ge5:
+            return (ge5 - gs3) + qadj5 + qadj3
+
+    # pair_insert_length: first substring pair that overlaps genomically
+    sp5 = substring_spans(d5, L5)
+    sp3 = substring_spans(d3, L3)
+    pr5 = _substring_bounds(d5, L5)
+    pr3 = _substring_bounds(d3, L3)
+    for j in range(len(sp3)):
+        for i in range(len(sp5)):
+            lo5, hi5 = sp5[i]
+            lo3, hi3 = sp3[j]
+            if not (hi3 < lo5 or lo3 > hi5):
+                return abs(pr5[i][0] - pr3[j][1])
+    # no overlap between any substrings
+    if d5.plusp:
+        if ge5 > gs3 + qadj5 + qadj3:
+            return 0
+        return (gs3 - ge5) + qadj5 + qadj3
+    else:
+        if gs3 > ge5 + qadj5 + qadj3:
+            return 0
+        return (ge5 - gs3) + qadj5 + qadj3
+
+
 @dataclass
 class PostHit:
     left: int          # untrimmed alignment start (part 1 diagonal)
@@ -229,6 +348,16 @@ class PostHit:
     # translocation SAM records (XT tag)
 
 
+def invert_records(recs: list[Record]) -> list[Record]:
+    """Records reverse-complemented, qualities reversed: how run_pe hands
+    read 2 (or, with -o RF, read 1) to dispatch_pairs."""
+    return [
+        Record(r.label, r.header, dna.revcomp_str(r.seq.upper()),
+               r.quality[::-1] if r.quality else r.quality)
+        for r in recs
+    ]
+
+
 def encode_batch(records: list[Record], lmax: int):
     """Batch 2-bit encode: ONE table lookup over the concatenated
     reads instead of a per-record loop."""
@@ -249,8 +378,40 @@ def encode_batch(records: list[Record], lmax: int):
     return codes, nflags, lengths
 
 
+def _tree_host(tree: dict, b: int) -> dict:
+    """Rows [:b] of a nested dict of [B, ...] tensors, as numpy arrays,
+    in ONE device -> host transfer: the leaves' bytes are packed into one
+    buffer on the device (widest types first, so every leaf stays
+    aligned), copied, and cut back into arrays."""
+    leaves = []
+
+    def walk(d, path):
+        for k, v in d.items():
+            if isinstance(v, dict):
+                walk(v, path + (k,))
+            else:
+                leaves.append((path + (k,), v[:b].contiguous()))
+
+    walk(tree, ())
+    leaves.sort(key=lambda kv: -kv[1].element_size())
+    buf = torch.cat([v.reshape(-1).view(torch.uint8) for _, v in leaves])
+    buf = buf.cpu().numpy()
+    out: dict = {}
+    off = 0
+    for path, v in leaves:
+        n = v.numel() * v.element_size()
+        dt = torch.empty(0, dtype=v.dtype).numpy().dtype
+        arr = buf[off : off + n].view(dt).reshape(tuple(v.shape))
+        off += n
+        d = out
+        for k in path[:-1]:
+            d = d.setdefault(k, {})
+        d[path[-1]] = arr
+    return out
+
+
 class GsnapRunner:
-    """SE GSNAP runner on one device (``device`` is required to be
+    """SE and PE GSNAP runner on one device (``device`` is required to be
     explicit; "cuda" raises where there is no CUDA device).
 
     ``params`` defaults to GsnapParams() with the dynamic size threshold,
@@ -300,16 +461,23 @@ class GsnapRunner:
         self._lane_masks: dict = {}   # (id(rec), left, plusp) -> (sel, ref)
         self._lane_trims: dict = {}   # same key -> (t5, t3) at params score
         self.quiet_if_excessive = False  # gsnap -Q (quiet_if_excessive_p)
+        self.pe_fast = True  # vectorized PE SAM fast path (tests may disable)
+        self.clip_overlap = False  # gsnap --clip-overlap (clip_overlap_p)
+        self.chop_primers = False  # gsnap -a (chop_primers_p)
+        # gsnap -o/--orientation (FR default: invert read 2 at input)
+        self.invert_first = False
+        self.invert_second = True
         self.category_counts = Counter()  # resulttype histogram
         self._categories: dict = {}
         self._catkey = None
         self.batch_times: list = []
 
     # ---------------------------------------------------------------- device
-    def _gp_uniform(self, gp, lengths):
+    def _gp_uniform(self, gp, *length_arrays):
         """Set the uniform_len hint (flip revcomp) when every read in
-        the batch is exactly lmax long."""
-        uni = len(lengths) > 0 and int(lengths.min()) == self.lmax
+        the batch (both ends of a PE batch) is exactly lmax long."""
+        uni = all(len(a) > 0 and int(a.min()) == self.lmax
+                  for a in length_arrays)
         if gp.base.uniform_len == uni:
             return gp
         return dataclasses.replace(
@@ -363,6 +531,55 @@ class GsnapRunner:
         gp = dataclasses.replace(self.gapped_params,
                                  base=self._wide_base(widen_seeds, exact))
         return self._dispatch(records, gp)
+
+    # ------------------------------------------------------- paired-end device
+    def _dispatch_pe(self, recs5: list[Record], recs3_inv: list[Record], gp):
+        c5, f5, l5 = encode_batch(recs5, self.lmax)
+        c3, f3, l3 = encode_batch(recs3_inv, self.lmax)
+        dev = self.device
+        t = lambda x: torch.from_numpy(x).to(dev)
+        # RNA pairmax when any splicing is enabled (gsnap.c pairmax_rna)
+        params = gsnap_pe.PEParams(gapped=self._gp_uniform(gp, l5, l3),
+                                   pairmax=self._pairmax())
+        res = gsnap_pe.align_batch_pe(self.genome, self.index, t(c5), t(f5),
+                                      t(l5), t(c3), t(f3), t(l3), params)
+        return res, len(recs5)
+
+    def dispatch_pairs(self, recs5: list[Record], recs3_inv: list[Record]):
+        """Queue the device PE pipeline for a chunk (CUDA runs it
+        asynchronously; fetch_pairs waits for it)."""
+        return self._dispatch_pe(recs5, recs3_inv, self.gapped_params)
+
+    @staticmethod
+    def fetch_pairs(dispatched):
+        """Device -> host copy of the whole PE result tree (one
+        transfer).  Each end's candidate arrays (cand_*, overflow) join
+        its ranked hits under "end5" / "end3", where the rescue lanes
+        read them."""
+        res, b = dispatched
+        host = _tree_host(res, b)
+        for ek, ck in (("end5", "cands5"), ("end3", "cands3")):
+            host[ek].update(host.pop(ck))
+        return host
+
+    def align_pairs(self, recs5: list[Record], recs3_inv: list[Record]):
+        """recs3_inv: read-2 records already reverse-complemented
+        (invert_second_p, gsnap.c)."""
+        return self.fetch_pairs(self.dispatch_pairs(recs5, recs3_inv))
+
+    def _dispatch_wide_pe(self, recs5, recs3_inv, widen_seeds: bool = True,
+                          exact: bool = False):
+        """Queue the PE overflow rescue for a subset of a chunk (fetch
+        with fetch_pairs)."""
+        gp = dataclasses.replace(self.gapped_params,
+                                 base=self._wide_base(widen_seeds, exact))
+        return self._dispatch_pe(recs5, recs3_inv, gp)
+
+    def _pairmax(self) -> int:
+        """pairmax_rna when splicing is on, else pairmax_dna
+        (gsnap.c:2105-2110)."""
+        return (self.params.pairmax_rna if self.splicing_on
+                else self.params.pairmax_dna)
 
     # ------------------------------------------------------------------ host
     _ACGT_SET = np.zeros(256, bool)
@@ -1259,14 +1476,24 @@ class GsnapRunner:
             split2=int(hits["split2"][row, col]),
         )
 
-    def _sub_batch(self, seqs, lefts, plusps, want_md: bool = True):
+    def _sub_batch(self, seqs, lefts, plusps, want_md: bool = True,
+                   splits=None, rights=None):
         """Vectorized KIND_SUB hit details for a group of same-length
         oriented reads: mismatch masks, trims, NM, MD (the scalar
         _mismatch_masks -> trim_ends -> sam.md_gapped chain of
         _hit_details for one full-length part).  md is returned only
         when want_md — the native emitter consumes the raw
         mdpos/mdoff/mdch runs instead; qb is the aligned-orientation
-        byte matrix, which is the SAM print orientation."""
+        byte matrix, which is the SAM print orientation.
+
+        splits/rights (optional int64 arrays) extend the batch to
+        KIND_SPLICE rows: query [0, split) aligns at ``left``,
+        [split, L) at ``right + split`` (the two-part composite of
+        _hit_details); rows with split == L are plain subs.  Trims
+        then follow the scalar splice policy: outer-end Kadane per
+        PART, capped inside the part (SAM MD runs straight across the
+        N gap, so the composite machinery below needs no other
+        change)."""
         n = len(seqs)
         L = len(seqs[0])
         qb = np.frombuffer("".join(s.upper() for s in seqs)
@@ -1276,10 +1503,31 @@ class GsnapRunner:
             qb = qb.copy()
             qb[minus] = _COMP_LUT[qb[minus, ::-1]]
         ar = np.arange(L)[None, :]
-        gb = self._genome_bytes[lefts[:, None] + ar]
+        if splits is None:
+            gidx = lefts[:, None] + ar
+        else:
+            gidx = np.where(ar < splits[:, None],
+                            lefts[:, None] + ar, rights[:, None] + ar)
+        gb = self._genome_bytes[gidx]
         qn = qb == ord("N")
         mm_sel = mm_ref = ~qn & (~self._ACGT_SET[gb] | (qb != gb))
-        trim5, trim3 = trim_ends_batch(mm_sel, self.params.trim_mismatch_score)
+        if splits is None:
+            trim5, trim3 = trim_ends_batch(
+                mm_sel, self.params.trim_mismatch_score)
+        else:
+            # per-part outer trims (substring.c: no trimming at splice
+            # inner ends).  Appending/prepending matches outside the
+            # part leaves the Kadane argmax unchanged, so the part
+            # restriction is just a mask.
+            t5f, t3f = trim_ends_batch(
+                mm_sel, self.params.trim_mismatch_score)
+            t5l = trim_ends_batch(mm_sel & (ar < splits[:, None]),
+                                  self.params.trim_mismatch_score)[0]
+            t3r = trim_ends_batch(mm_sel & (ar >= splits[:, None]),
+                                  self.params.trim_mismatch_score)[1]
+            spl = splits < L
+            trim5 = np.where(spl, np.minimum(t5l, splits - 1), t5f)
+            trim3 = np.where(spl, np.minimum(t3r, L - splits - 1), t3f)
         span = (ar >= trim5[:, None]) & (ar < (L - trim3)[:, None])
         mm_span = mm_ref & span
         nm = mm_span.sum(1).astype(np.int64)
@@ -1462,6 +1710,578 @@ class GsnapRunner:
                 slot_line[s] = text[offs[t]:offs[t + 1]]
         return {int(rows[i]): slot_line[k] for k, i in enumerate(idx)}
 
+    # ------------------------------------------------------- paired-end host
+    def _cat_row(self, j: int) -> None:
+        """Record the GLOBAL chunk row about to emit — resulttype
+        categories key on it, not on the res-local row (which differs
+        inside the wide/overflow lane)."""
+        self._catkey = j
+
+    def _cat_key(self, row: int) -> int:
+        k = getattr(self, "_catkey", None)
+        return row if k is None else k
+
+    def _chrpos(self, d: PostHit) -> tuple[str, int]:
+        chrnum = int(np.searchsorted(self.db.chr_ends, d.left, side="right"))
+        return self.db.chr_names[chrnum], d.left - int(self.db.chr_starts[chrnum]) + 1 + d.trim5
+
+    def _pair_flag(self, plusp, mate_plusp, firstp, inverted, mate_inverted,
+                   proper, mate_mapped=True, mapped=True):
+        flag = sam.FLAG_PAIRED | (sam.FLAG_FIRST if firstp else sam.FLAG_SECOND)
+        if not mapped:
+            flag |= sam.FLAG_UNMAPPED
+        elif plusp == inverted:
+            flag |= sam.FLAG_REVCOMP
+        if not mate_mapped:
+            flag |= sam.FLAG_MATE_UNMAPPED
+        elif mate_plusp == mate_inverted:
+            flag |= sam.FLAG_MATE_REVCOMP
+        if proper and mapped and mate_mapped:
+            flag |= sam.FLAG_PROPER
+        return flag
+
+    def _host_pairtype(self, d5: PostHit, d3: PostHit, pairmax: int) -> int:
+        """Stage3_determine_pairtype (stage3hr.c:5074) on host hits;
+        mirrors the device grid rules in gsnap_pe.pair_grid."""
+        chr5 = int(np.searchsorted(self.db.chr_ends, d5.left, side="right"))
+        chr3 = int(np.searchsorted(self.db.chr_ends, d3.left, side="right"))
+        if chr5 != chr3:
+            return gsnap_pe.PT_UNPAIRED
+        if d5.plusp != d3.plusp:
+            return gsnap_pe.PT_INVERSION
+        l5 = d5.left
+        e5 = d5.left + d5.trim5 + d5.ref_consumed + d5.trim3
+        l3 = d3.left
+        e3 = d3.left + d3.trim5 + d3.ref_consumed + d3.trim3
+        if d5.plusp:
+            if e3 < l5:
+                return gsnap_pe.PT_SCRAMBLE
+            if l3 > e5 + pairmax:
+                return gsnap_pe.PT_TOOLONG
+        else:
+            if l3 > e5:
+                return gsnap_pe.PT_SCRAMBLE
+            if e3 + pairmax < l5:
+                return gsnap_pe.PT_TOOLONG
+        return gsnap_pe.PT_CONCORDANT
+
+    def _pe_rescue(self, rec5: Record, rec3_inv: Record, res, row: int):
+        """Terminal lane feeding the pairing stage when the device grid
+        found no concordant pair (stage1hr.c:15138 terminal +
+        Stage3pair_new).  The JAX runner's GMAP pairsearch branch needs
+        the GMAP lanes, and its inside-pair ambiguous-splice resolution
+        (``_resolve_inside_ambi``) needs the known-site short-end lane;
+        the port has neither yet.
+
+        Returns (pairs, concordant_p, final5, final3) where pairs is a
+        ranked list of (hit5, hit3, pairtype, pair_score, insertlen)."""
+        maxp = self.params.maxpaths
+        e5, e3 = res["end5"], res["end3"]
+        f5 = self._rescued_hits(rec5, e5, row, int(e5["npaths"][row]), maxp)
+        f3 = self._rescued_hits(rec3_inv, e3, row, int(e3["npaths"][row]),
+                                maxp)
+        pairmax = self._pairmax()
+
+        def hkey(h):
+            return (h.hittype, h.d.left, h.d.plusp, h.d.trim5, h.d.trim3,
+                    h.d.cigar_core)
+
+        seen = set()
+        pairs = []
+
+        def addpair(h5, h3):
+            k = (hkey(h5), hkey(h3))
+            if k in seen:
+                return
+            pt = self._host_pairtype(h5.d, h3.d, pairmax)
+            if pt == gsnap_pe.PT_UNPAIRED:
+                return
+            seen.add(k)
+            ps = _align_score(h5) + _align_score(h3)
+            ins = reference_pairlength(
+                h5.d, h3.d, len(rec5.seq), len(rec3_inv.seq))
+            if pt == gsnap_pe.PT_CONCORDANT and ins <= 0:
+                # Stage3pair_new rejects concordant pairs whose
+                # insertlength computes to 0 (stage3hr.c:7557)
+                return
+            term = h5.hittype == "terminal" or h3.hittype == "terminal"
+            pairs.append((h5, h3, pt, ps, ins, term))
+
+        for h5 in f5:
+            for h3 in f3:
+                addpair(h5, h3)
+
+        # Stage3pair_remove_overlaps: pairs at the same genomic
+        # positions collapse to the better one (nmatches, then the
+        # Hittype enum order as in hit_goodness_cmp)
+        def prank(p):
+            # posttrim nmatches (hit_goodness_cmp), then Hittype order
+            return (p[0].d.nmatches + p[1].d.nmatches,
+                    -(rescue.HITTYPE_ORDER.get(p[0].hittype, 99)
+                      + rescue.HITTYPE_ORDER.get(p[1].hittype, 99)))
+
+        bypos = {}
+        for p in pairs:
+            k = (p[0].d.left, p[0].d.plusp, p[1].d.left, p[1].d.plusp)
+            cur = bypos.get(k)
+            if cur is None or prank(p) > prank(cur):
+                bypos[k] = p
+        pairs = list(bypos.values())
+
+        conc = [p for p in pairs if p[2] == gsnap_pe.PT_CONCORDANT]
+        if conc:
+            # choose_among_paired ladder (stage1hr.c:15223): concordant
+            # non-terminal pairs dominate pairs involving a terminal
+            nonterm = [p for p in conc if not p[5]]
+            chosen = nonterm or conc
+        else:
+            chosen = pairs
+        chosen = [p[:5] for p in chosen]
+        if chosen:
+            best = min(p[3] for p in chosen)
+            chosen = [p for p in chosen if p[3] <= best + self.params.subopt_levels]
+            chosen.sort(key=lambda p: (p[3], p[0].d.left, p[1].d.left))
+        # Stage3pair_resolve_multimapping (stage1hr.c:15459) is the
+        # identity without genes / tally / runlength maps (not ported)
+        return chosen, bool(conc), f5, f3
+
+    @staticmethod
+    def _pairlength_sub_batch(l5, p5, L5, t55, t35, l3, p3, L3, t53, t33):
+        """Vectorized reference_pairlength for SUB/SUB pairs (single
+        full-length part, ndel=0, span == read length)."""
+        q = L5 + L3
+        gs5 = np.where(p5, l5, l5 + L5)
+        ge5 = np.where(p5, l5 + L5, l5)
+        gs3 = np.where(p3, l3, l3 + L3)
+        ge3 = np.where(p3, l3 + L3, l3)
+        # trimmed aligned spans (strand-independent intervals)
+        lo5, hi5 = l5 + t55, l5 + L5 - t35
+        lo3, hi3 = l3 + t53, l3 + L3 - t33
+        overlap = ~((hi3 < lo5) | (lo3 > hi5))
+        # pair_insert_length projection distance on overlap
+        pr50 = np.where(p5, l5, l5 + L5)
+        pr31 = np.where(p3, l3 + L3, l3)
+        ov = np.abs(pr50 - pr31)
+
+        opp1 = p5 & ~p3
+        t_opp1 = np.where(ge5 < ge3, ge3 - ge5 + q,
+                          np.where(gs3 < gs5, gs5 - gs3 + q, 0))
+        opp2 = ~p5 & p3
+        t_opp2 = np.where(gs5 < gs3, gs3 - gs5 + q,
+                          np.where(ge3 < ge5, ge5 - ge3 + q, 0))
+        # same strand: gapped -> span distance; overlapping -> projection;
+        # else the no-overlap fallback
+        t_pp = np.where(ge5 < gs3, gs3 - ge5 + q,
+                        np.where(overlap, ov,
+                                 np.where(ge5 > gs3 + q, 0, gs3 - ge5 + q)))
+        t_mm_ = np.where(gs3 < ge5, ge5 - gs3 + q,
+                         np.where(overlap, ov,
+                                  np.where(gs3 > ge5 + q, 0, ge5 - gs3 + q)))
+        return np.where(opp1, t_opp1,
+                        np.where(opp2, t_opp2,
+                                 np.where(p5, t_pp, t_mm_)))
+
+    def _pe_sam_fast(self, recs5, recs3_inv, res, rows) -> dict:
+        """Batched SAM emission for the dominant PE success shape:
+        concordant, npairs == 1, both ends KIND_SUB or a single local
+        SPLICE.  recs5[i] / recs3_inv[i] correspond to res row rows[i].
+        Returns {row: sam_text}; rows it declines (other hit kinds,
+        genome-edge overruns) are omitted and must go through
+        sam_pe_records, whose output it equals byte for byte."""
+        if not len(rows):
+            return {}
+        h5, h3 = res["end5_pairing"], res["end3_pairing"]
+        rows_a = np.asarray(rows, np.int64)
+        i5 = np.asarray(res["i5"])[rows_a, 0].astype(np.int64)
+        i3 = np.asarray(res["i3"])[rows_a, 0].astype(np.int64)
+        f5 = {k: np.asarray(h5[k])[rows_a, i5]
+              for k in gsnap_pe.PAIR_EMIT_FIELDS}
+        f3 = {k: np.asarray(h3[k])[rows_a, i3]
+              for k in gsnap_pe.PAIR_EMIT_FIELDS}
+        l5 = f5["left"].astype(np.int64)
+        l3 = f3["left"].astype(np.int64)
+        p5 = f5["plusp"].astype(bool)
+        p3 = f3["plusp"].astype(bool)
+        L5 = np.array([len(r.seq) for r in recs5], np.int64)
+        L3 = np.array([len(r.seq) for r in recs3_inv], np.int64)
+        G = len(self._genome_bytes)
+        r5a = f5["right"].astype(np.int64)
+        r3a = f3["right"].astype(np.int64)
+        sp5a = f5["split"].astype(np.int64)
+        sp3a = f3["split"].astype(np.int64)
+
+        def end_ok(kind, l, L_, r, sp):
+            sub = (kind == KIND_SUB) & (l >= 0) & (l + L_ <= G)
+            spl = ((kind == KIND_SPLICE) & (l >= 0) & (r > l)
+                   & (sp >= 1) & (sp <= L_ - 1) & (r + L_ <= G))
+            return sub | spl
+
+        elig = (end_ok(f5["kind"], l5, L5, r5a, sp5a)
+                & end_ok(f3["kind"], l3, L3, r3a, sp3a))
+        splice_pair = elig & ((f5["kind"] == KIND_SPLICE)
+                              | (f3["kind"] == KIND_SPLICE))
+        out_spl = {}
+        if splice_pair.any():
+            out_spl = self._pe_sam_fast_spliced(
+                recs5, recs3_inv, rows, np.flatnonzero(splice_pair),
+                f5, f3, L5, L3)
+        idx = np.flatnonzero(elig & ~splice_pair)
+        if not len(idx):
+            return out_spl
+
+        # per-end detail jobs, grouped by read length
+        njobs = 2 * len(idx)
+        native_ok = (not sam.INSERT_0M
+                     and native_mod.get_lib() is not None)
+        t5a = np.zeros(njobs, np.int64)
+        t3a = np.zeros(njobs, np.int64)
+        nma = np.zeros(njobs, np.int64)
+        mda = [None] * njobs
+        groups = []
+        jobs = {}
+        for k, i in enumerate(idx):
+            jobs.setdefault(int(L5[i]), []).append(
+                (2 * k, recs5[i], l5[i], p5[i]))
+            jobs.setdefault(int(L3[i]), []).append(
+                (2 * k + 1, recs3_inv[i], l3[i], p3[i]))
+        for L, grp in jobs.items():
+            slots = [g[0] for g in grp]
+            d = self._sub_batch([g[1].seq for g in grp],
+                                np.array([g[2] for g in grp], np.int64),
+                                np.array([g[3] for g in grp], bool),
+                                want_md=not native_ok)
+            t5a[slots] = d["trim5"]
+            t3a[slots] = d["trim3"]
+            nma[slots] = d["nm"]
+            if native_ok:
+                groups.append((L, slots, grp, d))
+            else:
+                for s, m in zip(slots, d["md"]):
+                    mda[s] = m
+
+        ev = np.arange(len(idx)) * 2
+        t55, t35, nm5 = t5a[ev], t3a[ev], nma[ev]
+        t53, t33, nm3 = t5a[ev + 1], t3a[ev + 1], nma[ev + 1]
+        le5, le3 = l5[idx], l3[idx]
+        pl5, pl3 = p5[idx], p3[idx]
+        rl5, rl3 = L5[idx], L3[idx]
+
+        chr5 = np.searchsorted(self.db.chr_ends, le5, side="right")
+        chr3 = np.searchsorted(self.db.chr_ends, le3, side="right")
+        pos5 = le5 - self.db.chr_starts[chr5] + 1 + t55
+        pos3 = le3 - self.db.chr_starts[chr3] + 1 + t53
+        tlen = self._pairlength_sub_batch(le5, pl5, rl5, t55, t35,
+                                          le3, pl3, rl3, t53, t33)
+        # TLEN sign by POS; ties -> first read + (samprint.c:754-762)
+        t5sgn = np.where(pos5 > pos3, -tlen, tlen)
+        t3sgn = np.where(pos5 > pos3, tlen, -tlen)
+        # _pair_flag: REVCOMP when plusp == inverted (0x10 semantics
+        # for inverted reads); inversion flags follow -o/--orientation
+        inv1, inv2 = self.invert_first, self.invert_second
+        flag5 = (0x43 | sam.FLAG_PROPER
+                 | np.where(pl5 == inv1, sam.FLAG_REVCOMP, 0)
+                 | np.where(pl3 == inv2, sam.FLAG_MATE_REVCOMP, 0))
+        flag3 = (0x83 | sam.FLAG_PROPER
+                 | np.where(pl3 == inv2, sam.FLAG_REVCOMP, 0)
+                 | np.where(pl5 == inv1, sam.FLAG_MATE_REVCOMP, 0))
+
+        if native_ok:
+            out = self._emit_pe_native(
+                recs5, recs3_inv, rows, idx, groups, chr5, chr3, pos5, pos3,
+                flag5, flag3, t5sgn, t3sgn)
+            if out is not None:
+                out.update(out_spl)
+                return out
+            # native emit declined (buffer sizing): fall back to the
+            # Python path — rebuild the MD strings it skipped
+            for L, slots, grp, d in groups:
+                starts = d["mdoff"]
+                chars = d["mdch"].decode("latin-1")
+                relpos = d["mdpos"]
+                for t, s in enumerate(slots):
+                    lo, hi = int(starts[t]), int(starts[t + 1])
+                    mda[s] = _md_from_positions(
+                        relpos[lo:hi].tolist(), chars[lo:hi],
+                        int(L - d["trim5"][t] - d["trim3"][t]))
+
+        names = self.db.chr_names
+        out = {}
+        for k, i in enumerate(idx):
+            rec5, rec3 = recs5[i], recs3_inv[i]
+            qual5 = rec5.quality or None
+            qual3i = rec3.quality or None
+            if qual5 or qual3i:
+                both = (qual5 or "") + (qual3i or "")
+                mq = max(1, min(MAX_QUALITY_SCORE,
+                                ord(max(both)) - QUALITY_ADJ))
+            else:
+                mq = MAX_QUALITY_SCORE
+            cn5, cn3 = names[chr5[k]], names[chr3[k]]
+            same = cn5 == cn3
+            c5 = ((f"{t55[k]}S" if t55[k] else "")
+                  + f"{rl5[k] - t55[k] - t35[k]}M"
+                  + (f"{t35[k]}S" if t35[k] else ""))
+            c3 = ((f"{t53[k]}S" if t53[k] else "")
+                  + f"{rl3[k] - t53[k] - t33[k]}M"
+                  + (f"{t33[k]}S" if t33[k] else ""))
+            hit5 = sam.SEHit(chrname=cn5, chrpos=int(pos5[k]),
+                             plusp=bool(pl5[k]), cigar=c5, md=mda[2 * k],
+                             nm=int(nm5[k]), mapq=mq,
+                             absmq=MAPQ_MAXIMUM_SCORE, second_absmq=0)
+            hit3 = sam.SEHit(chrname=cn3, chrpos=int(pos3[k]),
+                             plusp=bool(pl3[k]), cigar=c3,
+                             md=mda[2 * k + 1], nm=int(nm3[k]), mapq=mq,
+                             absmq=MAPQ_MAXIMUM_SCORE, second_absmq=0)
+            out[int(rows[i])] = (
+                sam.pe_record(rec5.label, rec5.seq.upper(), qual5,
+                              int(flag5[k]), hit5,
+                              rnext="=" if same else cn3,
+                              pnext=int(pos3[k]), tlen=int(t5sgn[k]),
+                              nh=1, hi=1)
+                + sam.pe_record(rec3.label, rec3.seq.upper(), qual3i,
+                                int(flag3[k]), hit3,
+                                rnext="=" if same else cn5,
+                                pnext=int(pos5[k]), tlen=int(t3sgn[k]),
+                                nh=1, hi=1))
+        out.update(out_spl)
+        return out
+
+    def _pe_sam_fast_spliced(self, recs5, recs3_inv, rows, idx, f5, f3,
+                             L5, L3) -> dict:
+        """Vectorized SAM emission for unique concordant pairs where at
+        least one end is a single local SPLICE (the dominant RNA-seq
+        shape under -N 1).  Uses the composite-span _sub_batch for
+        masks/trims/MD; CIGAR gains the N segment, the XS strand tag
+        follows the device sense bit, and the insert length falls back
+        to the scalar reference_pairlength over lightweight stubs.
+        Byte-identical to sam_pe_records."""
+        from types import SimpleNamespace
+
+        n_i = len(idx)
+        jobs = {}
+        for k, i in enumerate(idx):
+            for s, (recs, f, Ls) in enumerate(
+                    ((recs5, f5, L5), (recs3_inv, f3, L3))):
+                L = int(Ls[i])
+                kind = int(f["kind"][i])
+                left = int(f["left"][i])
+                if kind == KIND_SPLICE:
+                    split = int(f["split"][i])
+                    right = int(f["right"][i])
+                else:
+                    split, right = L, left
+                jobs.setdefault(L, []).append(
+                    (2 * k + s, recs[i], left, bool(f["plusp"][i]),
+                     split, right))
+        njobs = 2 * n_i
+        t5a = np.zeros(njobs, np.int64)
+        t3a = np.zeros(njobs, np.int64)
+        nma = np.zeros(njobs, np.int64)
+        mda = [None] * njobs
+        for L, grp in jobs.items():
+            slots = [g[0] for g in grp]
+            d = self._sub_batch(
+                [g[1].seq for g in grp],
+                np.array([g[2] for g in grp], np.int64),
+                np.array([g[3] for g in grp], bool),
+                want_md=True,
+                splits=np.array([g[4] for g in grp], np.int64),
+                rights=np.array([g[5] for g in grp], np.int64))
+            t5a[slots] = d["trim5"]
+            t3a[slots] = d["trim3"]
+            nma[slots] = d["nm"]
+            for s, m in zip(slots, d["md"]):
+                mda[s] = m
+
+        names = self.db.chr_names
+        out = {}
+        for k, i in enumerate(idx):
+            rec5, rec3 = recs5[i], recs3_inv[i]
+            qual5 = rec5.quality or None
+            qual3i = rec3.quality or None
+            if qual5 or qual3i:
+                both = (qual5 or "") + (qual3i or "")
+                mq = max(1, min(MAX_QUALITY_SCORE,
+                                ord(max(both)) - QUALITY_ADJ))
+            else:
+                mq = MAX_QUALITY_SCORE
+
+            def mk(s, rec, f, Ls):
+                L = int(Ls[i])
+                kind = int(f["kind"][i])
+                left = int(f["left"][i])
+                plusp = bool(f["plusp"][i])
+                t5, t3 = int(t5a[2 * k + s]), int(t3a[2 * k + s])
+                if kind == KIND_SPLICE:
+                    split = int(f["split"][i])
+                    right = int(f["right"][i])
+                    gap = right - left
+                    a = split - t5
+                    b = L - split - t3
+                    cig = ((f"{t5}S" if t5 else "") + f"{a}M{gap}N{b}M"
+                           + (f"{t3}S" if t3 else ""))
+                    xs = "+" if bool(f["sense"][i]) else "-"
+                    rc = a + gap + b
+                    parts = ((0, split, left), (split, L, right + split))
+                else:
+                    cig = ((f"{t5}S" if t5 else "")
+                           + f"{L - t5 - t3}M" + (f"{t3}S" if t3 else ""))
+                    xs = None
+                    rc = L - t5 - t3
+                    parts = ((0, L, left),)
+                chrn = int(np.searchsorted(self.db.chr_ends, left,
+                                           side="right"))
+                pos = left - int(self.db.chr_starts[chrn]) + 1 + t5
+                stub = SimpleNamespace(
+                    left=left, plusp=plusp, trim5=t5, trim3=t3,
+                    ref_consumed=rc, ndel=0, parts=parts)
+                return (names[chrn], pos, plusp, cig, xs,
+                        int(nma[2 * k + s]), stub, L)
+
+            cn5, pos5, pl5, c5, xs5, nm5, st5, l5len = mk(0, rec5, f5, L5)
+            cn3, pos3, pl3, c3, xs3, nm3, st3, l3len = mk(1, rec3, f3, L3)
+            same = cn5 == cn3
+            tlen = reference_pairlength(st5, st3, l5len, l3len)
+            t5sgn = -tlen if pos5 > pos3 else tlen
+            t3sgn = tlen if pos5 > pos3 else -tlen
+            inv1, inv2 = self.invert_first, self.invert_second
+            flag5 = (0x43 | sam.FLAG_PROPER
+                     | (sam.FLAG_REVCOMP if pl5 == inv1 else 0)
+                     | (sam.FLAG_MATE_REVCOMP if pl3 == inv2 else 0))
+            flag3 = (0x83 | sam.FLAG_PROPER
+                     | (sam.FLAG_REVCOMP if pl3 == inv2 else 0)
+                     | (sam.FLAG_MATE_REVCOMP if pl5 == inv1 else 0))
+            hit5 = sam.SEHit(chrname=cn5, chrpos=pos5, plusp=pl5,
+                             cigar=c5, md=mda[2 * k], nm=nm5, mapq=mq,
+                             absmq=MAPQ_MAXIMUM_SCORE, second_absmq=0,
+                             xs=xs5)
+            hit3 = sam.SEHit(chrname=cn3, chrpos=pos3, plusp=pl3,
+                             cigar=c3, md=mda[2 * k + 1], nm=nm3, mapq=mq,
+                             absmq=MAPQ_MAXIMUM_SCORE, second_absmq=0,
+                             xs=xs3)
+            out[int(rows[i])] = (
+                sam.pe_record(rec5.label, rec5.seq.upper(), qual5,
+                              int(flag5), hit5,
+                              rnext="=" if same else cn3,
+                              pnext=pos3, tlen=int(t5sgn), nh=1, hi=1)
+                + sam.pe_record(rec3.label, rec3.seq.upper(), qual3i,
+                                int(flag3), hit3,
+                                rnext="=" if same else cn5,
+                                pnext=pos5, tlen=int(t3sgn), nh=1, hi=1))
+        return out
+
+    def _emit_pe_native(self, recs5, recs3_inv, rows, idx, groups,
+                        chr5, chr3, pos5, pos3, flag5, flag3,
+                        t5sgn, t3sgn):
+        """Native (C) SAM assembly for the PE SUB/SUB fast path: one
+        sam_sub_lines call per read-length group builds every line;
+        Python only slices the result per pair.  Returns {row: text}
+        or None when the emitter declines (caller falls back)."""
+        nidx = len(idx)
+        njobs = 2 * nidx
+        maxq = np.full(njobs, -1, np.int64)
+        gq = []
+        for L, slots, grp, d in groups:
+            quals = [(g[1].quality or "") for g in grp]
+            has = np.array([len(q) == L for q in quals], bool)
+            qs = "".join(q if len(q) == L else "!" * L for q in quals)
+            qm = np.frombuffer(qs.encode("latin-1"),
+                               np.uint8).reshape(len(grp), L)
+            maxq[slots] = np.where(has, qm.max(1), -1)
+            minus = ~np.array([bool(g[3]) for g in grp], bool)
+            qp = qm.copy()
+            qp[minus] = qp[minus, ::-1]
+            gq.append((qp, has))
+        ev = np.arange(nidx) * 2
+        mq_pair = np.maximum(maxq[ev], maxq[ev + 1])
+        mq_pair = np.where(
+            mq_pair < 0, MAX_QUALITY_SCORE,
+            np.clip(mq_pair - QUALITY_ADJ, 1, MAX_QUALITY_SCORE))
+
+        chrs = np.empty(njobs, np.int64)
+        poss = np.empty(njobs, np.int64)
+        flags = np.empty(njobs, np.int64)
+        tlens = np.empty(njobs, np.int64)
+        pnexts = np.empty(njobs, np.int64)
+        rnexts = np.empty(njobs, np.int64)
+        chrs[ev], chrs[ev + 1] = chr5, chr3
+        poss[ev], poss[ev + 1] = pos5, pos3
+        flags[ev], flags[ev + 1] = flag5, flag3
+        tlens[ev], tlens[ev + 1] = t5sgn, t3sgn
+        pnexts[ev], pnexts[ev + 1] = pos3, pos5
+        same = chr5 == chr3
+        rnexts[ev] = np.where(same, -1, chr3)
+        rnexts[ev + 1] = np.where(same, -1, chr5)
+        labs = [recs5[i].label for i in idx]
+        lablens = np.array([len(l) for l in labs], np.int64)
+        laboff = np.zeros(nidx + 1, np.int64)
+        laboff[1:] = np.cumsum(lablens)
+        labblob = "".join(labs).encode("latin-1")
+        lab_start = np.repeat(laboff[:-1], 2)
+        lab_len = np.repeat(lablens, 2)
+        mqs = np.repeat(mq_pair, 2)
+        blob, choff = self._chr_blob()
+
+        slot_line = [None] * njobs
+        for (L, slots, grp, d), (qp, has) in zip(groups, gq):
+            sl = np.asarray(slots, np.int64)
+            ns = len(sl)
+            res = native_mod.sam_sub_lines(
+                labblob, lab_start[sl], lab_len[sl],
+                d["qb"], qp, np.full(ns, L, np.int32),
+                has.astype(np.uint8),
+                blob, choff, chrs[sl], poss[sl], flags[sl], mqs[sl],
+                rnexts[sl], pnexts[sl], tlens[sl],
+                d["trim5"], d["trim3"], d["nm"],
+                np.ones(ns, np.int32), np.ones(ns, np.int32),
+                np.full(ns, MAPQ_MAXIMUM_SCORE, np.int32),
+                np.zeros(ns, np.int32),
+                d["mdpos"], d["mdoff"], d["mdch"])
+            if res is None:
+                return None
+            text, offs = res
+            for t, s in enumerate(slots):
+                slot_line[s] = text[offs[t]:offs[t + 1]]
+        out = {}
+        for k, i in enumerate(idx):
+            out[int(rows[i])] = slot_line[2 * k] + slot_line[2 * k + 1]
+        return out
+
+    def _clip_sub(self, rec: Record, d: PostHit, h_low: int, h_high: int):
+        """Hard-clip a single-M-span hit at query coords [0, h_low) and
+        [L - h_high, L) — the --clip-overlap application (samprint.c:
+        2949 Stage3pair_overlap + print_cigar/print_md_string hardclip
+        handling).  Returns (cigar, chrpos, md, nm, seq, qual) or None
+        when the clip consumes the aligned span."""
+        L = len(rec.seq)
+        cl_l = h_low if d.plusp else h_high   # aligned-left clip
+        cl_r = h_high if d.plusp else h_low
+        t5n = max(d.trim5, cl_l)
+        t3n = max(d.trim3, cl_r)
+        m = L - t5n - t3n
+        if m <= 0:
+            return None
+        q = rec.seq.upper() if d.plusp else dna.revcomp_str(rec.seq.upper())
+        _, mm_ref = self._mismatch_masks(q, d.left)
+        span = mm_ref[t5n : L - t3n]
+        refs = self._genome_str[d.left + t5n : d.left + L - t3n]
+        md, nm = sam.md_gapped([(span, refs)], [])
+        cigar = ((f"{cl_l}H" if cl_l else "")
+                 + (f"{t5n - cl_l}S" if t5n > cl_l else "")
+                 + f"{m}M"
+                 + (f"{t3n - cl_r}S" if t3n > cl_r else "")
+                 + (f"{cl_r}H" if cl_r else ""))
+        chrnum = int(np.searchsorted(self.db.chr_ends, d.left, side="right"))
+        pos = d.left - int(self.db.chr_starts[chrnum]) + 1 + t5n
+        seq = rec.seq.upper()[h_low : L - h_high]
+        qual = rec.quality[h_low : L - h_high] if rec.quality else None
+        return cigar, pos, md, nm, seq, qual
+
+    @staticmethod
+    def _single_m(d: PostHit) -> bool:
+        c = d.cigar_core
+        return c.endswith("M") and c[:-1].isdigit()
+
     # ------------------------------------------------------------------ main
     def _emit(self, rec: Record, res, row: int, j: int) -> str:
         self._catkey = j
@@ -1580,4 +2400,450 @@ class GsnapRunner:
                 out.write(t)
             total += len(chunk)
             self.batch_times.append((_time.time() - t_batch, len(chunk)))
+        return total
+
+    def sam_pe_records(self, rec5: Record, rec3_inv: Record, rec3_orig: Record,
+                       res, row: int) -> str:
+        """SAM lines for one read pair (both ends)."""
+        npairs = int(res["npairs"][row])
+        qual5 = rec5.quality or None
+        qual3i = rec3_inv.quality or None
+        out = []
+        if self.quiet_if_excessive and npairs > self.params.maxpaths:
+            self._categories[self._cat_key(row)] = "nomapping"
+            q3o = rec3_orig.quality or None
+            flag5 = self._pair_flag(True, True, True, self.invert_first,
+                                    self.invert_second,
+                                    proper=False, mate_mapped=False,
+                                    mapped=False)
+            flag3 = self._pair_flag(True, True, False, self.invert_second,
+                                    self.invert_first,
+                                    proper=False, mate_mapped=False,
+                                    mapped=False)
+            return (sam.pe_record(rec5.label, rec5.seq.upper(), qual5,
+                                  flag5, None)
+                    + sam.pe_record(rec3_orig.label, rec3_orig.seq.upper(),
+                                    q3o, flag3, None))
+
+        conc_dev = bool(res["pair_concordant"][row])
+        rpairs = rconc = f5 = f3 = None
+        if npairs == 0 or not conc_dev:
+            rpairs, rconc, f5, f3 = self._pe_rescue(rec5, rec3_inv, res, row)
+        use_rescue = bool(rpairs) and (rconc or npairs == 0)
+
+        if use_rescue or npairs > 0:
+            if use_rescue:
+                n = min(len(rpairs), self.params.maxpaths)
+                pairs = [(p[0].d, p[1].d) for p in rpairs[:n]]
+                proper = True
+            else:
+                n = min(npairs, self.params.maxpaths)
+                h5p, h3p = res["end5_pairing"], res["end3_pairing"]
+                pairs = []
+                for k in range(n):
+                    i5 = int(res["i5"][row, k])
+                    i3 = int(res["i3"][row, k])
+                    d5 = self._end_hit(rec5, h5p, row, i5)
+                    d3 = self._end_hit(rec3_inv, h3p, row, i3)
+                    pairs.append((d5, d3))
+                proper = conc_dev or int(res["pairtype"][row, 0]) in (1, 2, 3)
+            # rank pairs by summed nmatches desc then loglik desc
+            order = sorted(
+                range(n),
+                key=lambda k: (
+                    -(pairs[k][0].nmatches + pairs[k][1].nmatches),
+                    -(pairs[k][0].loglik + pairs[k][1].loglik),
+                ),
+            )
+            pairs = [pairs[k] for k in order]
+
+            # resulttype (resulthr.h:7-12)
+            if conc_dev or (use_rescue and rconc):
+                cat = "concordant_uniq" if n == 1 else "concordant_mult"
+            elif n > 1:
+                cat = "paired_mult"
+            else:
+                pt = int(res["pairtype"][row, 0])
+                cat = {1: "paired_uniq_inv", 2: "paired_uniq_scr",
+                       3: "paired_uniq_long"}.get(pt, "concordant_uniq")
+            self._categories[self._cat_key(row)] = cat
+
+            # pair MAPQ (stage3hr.c Stage3pair_eval_and_sort)
+            if n == 1:
+                mq = MAX_QUALITY_SCORE
+                if qual5 or qual3i:
+                    both = (qual5 or "") + (qual3i or "")
+                    mq = int(np.frombuffer(both.encode(), np.uint8).max()) - QUALITY_ADJ
+                    mq = max(1, min(MAX_QUALITY_SCORE, mq))
+                mapqs = [mq]
+                absmqs = [MAPQ_MAXIMUM_SCORE]
+                second_absmq = 0
+            else:
+                logliks = np.array([d5.loglik + d3.loglik for d5, d3 in pairs])
+                for i in range(n - 1, 0, -1):
+                    if logliks[i - 1] < logliks[i]:
+                        logliks[i - 1] = logliks[i]
+                logliks = logliks - logliks.max()
+                absmqs = [int(round(max(0.0, ll + MAPQ_MAXIMUM_SCORE))) for ll in logliks]
+                second_absmq = absmqs[1]
+                probs = np.exp(logliks)
+                probs = probs / probs.sum()
+                mapqs = [
+                    96 if 1.0 - p < 2.5e-10 else int(round(-10.0 * math.log10(1.0 - p)))
+                    for p in probs
+                ]
+
+            for k, (d5, d3) in enumerate(pairs):
+                chr5, pos5 = self._chrpos(d5)
+                chr3, pos3 = self._chrpos(d3)
+                tlen = reference_pairlength(
+                    d5, d3, len(rec5.seq), len(rec3_inv.seq)
+                )
+                # --clip-overlap: hard-clip the inside halves of an
+                # overlapping proper pair (Stage3pair_overlap,
+                # stage3hr.c:1177: overlap = L5 + L3 - insertlength)
+                clip5 = clip3 = None
+                if (self.clip_overlap and proper
+                        and self._single_m(d5) and self._single_m(d3)):
+                    L5c, L3c = len(rec5.seq), len(rec3_inv.seq)
+                    if (tlen > L5c and tlen > L3c and tlen < L5c + L3c):
+                        ov = L5c + L3c - tlen
+                        h5c = ov // 2
+                        h3c = ov - h5c
+                        clip5 = self._clip_sub(rec5, d5, 0, h5c)
+                        clip3 = self._clip_sub(rec3_inv, d3, h3c, 0)
+                        if clip5 is None or clip3 is None:
+                            clip5 = clip3 = None
+                if clip5 is not None:
+                    pos5c, pos3c = clip5[1], clip3[1]
+                else:
+                    pos5c, pos3c = pos5, pos3
+                # sign: by POS; ties -> first read +, second - (samprint.c:754-762)
+                if pos5c < pos3c:
+                    t5, t3 = tlen, -tlen
+                elif pos5c > pos3c:
+                    t5, t3 = -tlen, tlen
+                else:
+                    t5, t3 = tlen, -tlen
+                mapq = mapqs[k] if k < len(mapqs) else 0
+                absmq = absmqs[k] if k < len(absmqs) else 0
+                for (rec, qual, d, dm, first, inv, minv, chrn, pos, mchr,
+                     mpos, tl, clip) in (
+                    (rec5, qual5, d5, d3, True, self.invert_first,
+                     self.invert_second, chr5, pos5c,
+                     chr3, pos3c, t5, clip5),
+                    (rec3_inv, qual3i, d3, d5, False, self.invert_second,
+                     self.invert_first, chr3,
+                     pos3c, chr5, pos5c, t3, clip3),
+                ):
+                    flag = self._pair_flag(d.plusp, dm.plusp, first, inv, minv, proper)
+                    if k > 0 and not sam.MULTIPLE_PRIMARIES:
+                        # non-primary pairs print 0x100 on both ends
+                        # (samprint.c SAM_print first_absmq gating)
+                        flag |= sam.FLAG_SECONDARY
+                    if clip is not None:
+                        cigar, pos, md, nm, seqout, qualout = clip
+                    else:
+                        cigar = (
+                            (f"{d.trim5}S" if d.trim5 else "")
+                            + d.cigar_core
+                            + (f"{d.trim3}S" if d.trim3 else "")
+                        )
+                        md, nm = d.md, d.nmm_trimmed
+                        seqout, qualout = rec.seq.upper(), qual
+                    hit = sam.SEHit(
+                        chrname=chrn, chrpos=pos, plusp=d.plusp, cigar=cigar,
+                        md=md, nm=nm, mapq=mapq, absmq=absmq,
+                        second_absmq=second_absmq, xs=d.xs,
+                    )
+                    out.append(sam.pe_record(
+                        rec.label, seqout, qualout, flag, hit,
+                        rnext="=" if mchr == chrn else mchr, pnext=mpos,
+                        tlen=tl, nh=n, hi=k + 1,
+                    ))
+            return "".join(out)
+
+        # no pairs: halfmapping / unpaired / nomapping (rescued lanes)
+        n5 = len(f5) if f5 else 0
+        n3 = len(f3) if f3 else 0
+        if n5 == 0 and n3 == 0:
+            self._categories[self._cat_key(row)] = "nomapping"
+        elif n5 > 0 and n3 > 0:
+            if f5[0].hittype == "distant" or f3[0].hittype == "distant":
+                self._categories[self._cat_key(row)] = "unpaired_transloc"
+            elif n5 == 1 and n3 == 1:
+                self._categories[self._cat_key(row)] = "unpaired_uniq"
+            else:
+                self._categories[self._cat_key(row)] = "unpaired_mult"
+        else:
+            mapped = f5 if n5 > 0 else f3
+            if mapped[0].hittype == "distant":
+                self._categories[self._cat_key(row)] = "halfmapping_transloc"
+            elif len(mapped) == 1:
+                self._categories[self._cat_key(row)] = "halfmapping_uniq"
+            else:
+                self._categories[self._cat_key(row)] = "halfmapping_mult"
+        for (rec, qual, fh, other_f, first, inv, minv, rec_orig) in (
+            (rec5, qual5, f5, f3, True, self.invert_first,
+             self.invert_second,
+             Record(rec5.label, rec5.header,
+                    dna.revcomp_str(rec5.seq.upper()),
+                    rec5.quality[::-1] if rec5.quality else rec5.quality)
+             if self.invert_first else rec5),
+            (rec3_inv, qual3i, f3, f5, False, self.invert_second,
+             self.invert_first, rec3_orig),
+        ):
+            npaths = len(fh)
+            if npaths > 0:
+                n = min(npaths, self.params.maxpaths)
+                details = [h.d for h in fh[:n]]
+                mapqs, absmqs, second_absmq = self._end_mapqs(details, qual)
+                mate_mapped = len(other_f) > 0
+                if mate_mapped:
+                    dm = other_f[0].d
+                    mchr, mpos = self._chrpos(dm)
+                    mplus = dm.plusp
+                else:
+                    mchr, mpos, mplus = "*", 0, True
+                for hi_, d in enumerate(details):
+                    chrn, pos = self._chrpos(d)
+                    flag = self._pair_flag(
+                        d.plusp, mplus, first, inv, minv, proper=False,
+                        mate_mapped=mate_mapped,
+                    ) | (sam.FLAG_SECONDARY if hi_ > 0
+                        and not sam.MULTIPLE_PRIMARIES else 0)
+                    cigar = (
+                        (f"{d.trim5}S" if d.trim5 else "")
+                        + d.cigar_core
+                        + (f"{d.trim3}S" if d.trim3 else "")
+                    )
+                    hit = sam.SEHit(
+                        chrname=chrn, chrpos=pos, plusp=d.plusp, cigar=cigar,
+                        md=d.md, nm=d.nmm_trimmed,
+                        mapq=mapqs[hi_] if hi_ < len(mapqs) else 0,
+                        absmq=absmqs[hi_] if hi_ < len(absmqs) else 0,
+                        second_absmq=second_absmq, xs=d.xs,
+                    )
+                    # mate unmapped -> RNEXT "*", PNEXT 0 (observed
+                    # reference behavior for halfmapping)
+                    rn = ("=" if mchr == chrn else mchr) if mate_mapped else "*"
+                    out.append(sam.pe_record(
+                        rec.label, rec.seq.upper(), qual, flag, hit,
+                        rnext=rn, pnext=mpos if mate_mapped else 0,
+                        tlen=0, nh=n, hi=hi_ + 1,
+                    ))
+            else:
+                # unmapped end: print the ORIGINAL read, point at the mate
+                mate_mapped = len(other_f) > 0
+                if mate_mapped:
+                    dm = other_f[0].d
+                    mchr, mpos = self._chrpos(dm)
+                    mplus = dm.plusp
+                else:
+                    mchr, mpos, mplus = "*", 0, True
+                flag = self._pair_flag(
+                    True, mplus, first, inv, minv, proper=False,
+                    mate_mapped=mate_mapped, mapped=False,
+                )
+                q_orig = rec_orig.quality or None
+                out.append(sam.pe_record(
+                    rec_orig.label, rec_orig.seq.upper(), q_orig, flag, None,
+                    rnext=mchr, pnext=mpos,
+                ))
+        return "".join(out)
+
+    def _emit_pe(self, recs, res, row: int, j: int) -> str:
+        """sam_pe_records for chunk row j (recs: rec5, rec3_inv,
+        rec3_orig) at ``row`` of ``res``, under the crash guard."""
+        self._cat_row(j)
+        try:
+            return self.sam_pe_records(*recs, res, row)
+        except Exception:
+            _offending_read(recs[0], recs[2])
+            raise
+
+    def run_pe(self, records5: list[Record], records3: list[Record], out,
+               batch_size: int = 256, emit_header: bool = True) -> int:
+        """Paired-end alignment: read 2 is reverse-complemented at input
+        (invert_second_p) so concordant mates share a strand.  Chunk
+        i+1's device work is queued before chunk i's host emission."""
+        if emit_header:
+            out.write(sam.header(
+                self.db.chr_names,
+                (self.db.chr_ends - self.db.chr_starts).tolist()))
+        total = 0
+
+        def mk_inv(chunk3):
+            return (invert_records(chunk3) if self.invert_second
+                    else list(chunk3))
+
+        def mk_first(chunk5):
+            # -o RF inverts read 1 at input instead (gsnap.c:1472-1477)
+            return (invert_records(chunk5) if self.invert_first
+                    else list(chunk5))
+
+        pairs_in = [
+            (records5[i : i + batch_size], records3[i : i + batch_size])
+            for i in range(0, len(records5), batch_size)
+        ]
+        invs = [None] * len(pairs_in)
+        procs5 = [None] * len(pairs_in)
+        disp = None
+        if pairs_in:
+            invs[0] = mk_inv(pairs_in[0][1])
+            procs5[0] = mk_first(pairs_in[0][0])
+            disp = self.dispatch_pairs(procs5[0], invs[0])
+        fast_ok = (self.params.maxpaths >= 1 and self.pe_fast
+                   and not self.clip_overlap)
+        for ci, (_, chunk3) in enumerate(pairs_in):
+            chunk3_inv = invs[ci]
+            chunk5 = procs5[ci]
+            if ci + 1 < len(pairs_in):
+                invs[ci + 1] = mk_inv(pairs_in[ci + 1][1])
+                procs5[ci + 1] = mk_first(pairs_in[ci + 1][0])
+                nxt = self.dispatch_pairs(procs5[ci + 1], invs[ci + 1])
+            else:
+                nxt = None
+            res = self.fetch_pairs(disp)
+            disp = nxt
+            recs_of = lambda j: (chunk5[j], chunk3_inv[j], chunk3[j])
+            # PE overflow rescue lane: pairs where EITHER end truncated
+            # its seed lists / candidate set re-run at wide caps; the
+            # wide batch is dispatched first and fetched only after the
+            # other rows emit, so its device work overlaps host emission
+            o5 = np.asarray(res["end5"]["overflow"], bool)
+            o3 = np.asarray(res["end3"]["overflow"], bool)
+            ovf = np.flatnonzero(o5 | o3)
+            trunc_any = (np.asarray(res["end5"]["overflow_trunc"], bool)
+                         | np.asarray(res["end3"]["overflow_trunc"], bool))
+            wide_lanes, wide_row = [], set()
+            # candidate-budget rows ride the widecand config, truncated
+            # rows the widened seed grid
+            tr_rows = [int(j) for j in ovf if trunc_any[j]]
+            wc_rows = [int(j) for j in ovf if not trunc_any[j]]
+            for rows_sel, widen in ((wc_rows, False), (tr_rows, True)):
+                if rows_sel:
+                    wide_lanes.append(
+                        (self._dispatch_wide_pe(
+                            [chunk5[j] for j in rows_sel],
+                            [chunk3_inv[j] for j in rows_sel],
+                            widen_seeds=widen),
+                         {j: wi for wi, j in enumerate(rows_sel)},
+                         not widen))
+                    wide_row.update(rows_sel)
+            t_batch = _time.time()
+            self._categories = {}
+            self._catkey = None
+            texts = [None] * len(chunk5)
+            # rows whose emission may need the rescue lanes: prime their
+            # candidate masks in one batch
+            npair_a = np.asarray(res["npairs"])
+            conc_a = np.asarray(res["pair_concordant"], bool)
+            need_full = (npair_a == 0) | ~conc_a | (npair_a > PAIR_KTOP)
+            self._lane_masks.clear()
+            self._lane_trims.clear()
+            self._prime_rows(
+                (r, res[end], j) for j in np.flatnonzero(need_full)
+                if int(j) not in wide_row
+                for r, end in ((chunk5[j], "end5"), (chunk3_inv[j], "end3")))
+
+            # vectorized emission for the dominant success shape
+            if fast_ok:
+                fast_cand = [j for j in range(len(chunk5))
+                             if npair_a[j] == 1 and conc_a[j]
+                             and not need_full[j] and j not in wide_row]
+                for j, t in self._pe_sam_fast(
+                        [chunk5[j] for j in fast_cand],
+                        [chunk3_inv[j] for j in fast_cand],
+                        res, fast_cand).items():
+                    texts[j] = t
+                    self._categories[j] = "concordant_uniq"
+
+            for j in range(len(chunk5)):
+                if j not in wide_row and texts[j] is None:
+                    texts[j] = self._emit_pe(recs_of(j), res, j, j)
+            for wdisp, lane_rows, is_final in wide_lanes:
+                wide_res = self.fetch_pairs(wdisp)
+                if not is_final and lane_rows:
+                    # rows whose widened seed grid still truncated re-run
+                    # once more at the exact grid
+                    still = [j for j, wi in lane_rows.items()
+                             if any(wide_res[e]["overflow"][wi]
+                                    and wide_res[e]["overflow_trunc"][wi]
+                                    for e in ("end5", "end3"))]
+                    if still:
+                        wide_lanes.append(
+                            (self._dispatch_wide_pe(
+                                [chunk5[j] for j in still],
+                                [chunk3_inv[j] for j in still],
+                                widen_seeds=True, exact=True),
+                             {j: wi for wi, j in enumerate(still)}, True))
+                        for j in still:
+                            del lane_rows[j]
+                wn = np.asarray(wide_res["npairs"])
+                wc = np.asarray(wide_res["pair_concordant"], bool)
+                wneed = (wn == 0) | ~wc | (wn > PAIR_KTOP)
+                self._prime_rows(
+                    (r, wide_res[end], wi)
+                    for j, wi in lane_rows.items() if wneed[wi]
+                    for r, end in ((chunk5[j], "end5"),
+                                   (chunk3_inv[j], "end3")))
+                if fast_ok:
+                    w_fast = [(j, wi) for j, wi in lane_rows.items()
+                              if wn[wi] == 1 and wc[wi] and not wneed[wi]]
+                    if w_fast:
+                        ft = self._pe_sam_fast(
+                            [chunk5[j] for j, _ in w_fast],
+                            [chunk3_inv[j] for j, _ in w_fast],
+                            wide_res, [wi for _, wi in w_fast])
+                        for j, wi in w_fast:
+                            if wi in ft:
+                                texts[j] = ft[wi]
+                                self._categories[j] = "concordant_uniq"
+                for j, wi in lane_rows.items():
+                    if texts[j] is None:
+                        texts[j] = self._emit_pe(recs_of(j), wide_res, wi, j)
+            # -a/--adapter-strip: pairs with no concordant/paired
+            # result retry with detected primer readthrough chopped
+            # (gsnap.c:621-665 + Shortread_chop_primers); both the
+            # retried alignment AND the printed SEQ use the chopped
+            # reads, whether or not the retry pairs
+            if self.chop_primers:
+                failset = ("unpaired_uniq", "unpaired_mult", "nomapping",
+                           "halfmapping_uniq", "halfmapping_mult",
+                           "unpaired_transloc", "halfmapping_transloc")
+                retries = []
+                for j in range(len(chunk5)):
+                    if self._categories.get(j) not in failset:
+                        continue
+                    ch = chop_primers(chunk5[j].seq, chunk3_inv[j].seq)
+                    if ch > 0:
+                        retries.append((j, ch))
+                if retries:
+                    c5c, c3ic, c3c = [], [], []
+                    for j, ch in retries:
+                        r5, r3i, r3 = chunk5[j], chunk3_inv[j], chunk3[j]
+                        c5c.append(Record(
+                            r5.label, r5.header, r5.seq[: len(r5.seq) - ch],
+                            r5.quality[: len(r5.seq) - ch]
+                            if r5.quality else r5.quality))
+                        c3ic.append(Record(
+                            r3i.label, r3i.header, r3i.seq[ch:],
+                            r3i.quality[ch:] if r3i.quality
+                            else r3i.quality))
+                        c3c.append(Record(
+                            r3.label, r3.header, r3.seq[: len(r3.seq) - ch],
+                            r3.quality[: len(r3.seq) - ch]
+                            if r3.quality else r3.quality))
+                    rres = self.align_pairs(c5c, c3ic)
+                    for t, (j, ch) in enumerate(retries):
+                        texts[j] = self._emit_pe((c5c[t], c3ic[t], c3c[t]),
+                                                 rres, t, j)
+            for j in range(len(chunk5)):
+                self.category_counts[
+                    self._categories.get(j, "concordant_uniq")] += 1
+            for t in texts:
+                out.write(t)
+            total += len(chunk5)
+            self.batch_times.append((_time.time() - t_batch, len(chunk5)))
         return total

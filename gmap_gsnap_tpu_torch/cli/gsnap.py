@@ -1,14 +1,17 @@
-"""gsnap-compatible CLI of the port: single-end, standard mode, -N 0 or
--N 1 (novel splicing), --gmap-mode none, SAM output, on one CUDA device.
+"""gsnap-compatible CLI of the port: single-end or paired-end, standard
+mode, -N 0 or -N 1 (novel splicing), --gmap-mode none, SAM output, on one
+CUDA device.
 
 Usage:  python -m gmap_gsnap_tpu_torch.cli.gsnap -D <dir> -d <db> \\
-            --gmap-mode none [-N 1] [options] <fastq>
+            --gmap-mode none [-N 1] [options] <fastq> [<fastq of read 2>]
 
-The flags keep the names and defaults of gmap_gsnap_tpu/cli/gsnap.py
-(whose parser cannot be imported: it sets up JAX).  Flags of paths the
-port does not have yet — the GMAP lanes (the default --gmap-mode), -s,
--v, --mode other than standard, paired-end input, -A gsnap — exit with
-an error naming the ROADMAP.md item instead of running a reduced path.
+Paired-end input is two files (read 1, read 2) or one FASTA whose
+records carry two sequence lines.  The flags keep the names and
+defaults of gmap_gsnap_tpu/cli/gsnap.py (whose parser cannot be
+imported: it sets up JAX).  Flags of paths the port does not have yet —
+the GMAP lanes (the default --gmap-mode), -s, -v, --mode other than
+standard, -A gsnap, three or more input files — exit with an error
+naming the ROADMAP.md item instead of running a reduced path.
 """
 
 from __future__ import annotations
@@ -56,6 +59,26 @@ def _parser() -> argparse.ArgumentParser:
                    help="print same-chromosome distant splices as one "
                         "record instead of translocation halves "
                         "(samprint.c merge_samechr_p)")
+    p.add_argument("--pairmax-dna", type=int, default=1_000,
+                   help="max concordant insert, DNA mode (gsnap.c:162)")
+    p.add_argument("--pairmax-rna", type=int, default=200_000,
+                   help="max concordant insert, RNA mode (gsnap.c:163)")
+    p.add_argument("--pairexpect", type=int, default=200,
+                   help="expected paired-end length (gsnap.c:165)")
+    p.add_argument("--pairdev", type=int, default=25,
+                   help="allowable deviation from expected paired-end "
+                        "length (gsnap.c:166)")
+    p.add_argument("-o", "--orientation", default="FR",
+                   choices=["FR", "RF", "FF"],
+                   help="paired-end orientation (gsnap.c:1469-1482)")
+    p.add_argument("--clip-overlap", action="store_true",
+                   help="hard-clip the overlapping halves of proper "
+                        "pairs (samprint.c clip_overlap_p)")
+    p.add_argument("-a", "--adapter-strip", default=None,
+                   choices=["paired", "off"],
+                   help="strip paired-end adapter readthrough and retry "
+                        "(the reference enables stripping for 'off' too, "
+                        "gsnap.c:1485-1491)")
     p.add_argument("--terminal-threshold", type=int, default=2)
     p.add_argument("--trim-mismatch-score", type=int, default=-3)
     p.add_argument("--trim-indel-score", type=int, default=-4)
@@ -78,7 +101,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu (plain torch "
                         "versions of the kernels)")
-    p.add_argument("input", nargs="+", help="FASTQ/FASTA file")
+    p.add_argument("input", nargs="+",
+                   help="FASTQ/FASTA file (two for paired-end reads)")
     return p
 
 
@@ -93,7 +117,9 @@ def main(argv=None) -> int:
         (args.use_snps is not None, f"-v: SNP-tolerant alignment is {_ROADMAP} (item 4)"),
         (args.mode != "standard", f"--mode {args.mode} is {_ROADMAP} (item 4)"),
         (args.format != "sam", f"-A {args.format} is {_ROADMAP} (item 3)"),
-        (len(args.input) > 1, f"paired-end input is {_ROADMAP} (item 2)"),
+        (len(args.input) > 2,
+         "three or more input files (read as one single-end stream) are "
+         f"{_ROADMAP} (item 7)"),
     ]
     for bad, msg in unsupported:
         if bad:
@@ -105,14 +131,25 @@ def main(argv=None) -> int:
     from ..align import gsnap_se, runner as runner_mod
     from ..ops import mismatch as mismatch_mod
 
-    with fasta._open(args.input[0]) as f:
-        first = f.read(1)
-    if first == b">":
-        _, mates = fasta.read_fasta_paired(args.input[0])
-        if mates and all(r is not None for r in mates):
-            p.error(f"paired-end input is {_ROADMAP} (item 2)")
-    records = list(fasta.read_seqfile(args.input[0]))
-    lmax = max((len(r.seq) for r in records), default=100)
+    paired = len(args.input) == 2
+    if paired:
+        records = list(fasta.read_seqfile(args.input[0]))
+        records3 = list(fasta.read_seqfile(args.input[1]))
+        if len(records) != len(records3):
+            print("gsnap: paired files differ in read count", file=sys.stderr)
+            return 2
+    else:
+        # a single FASTA whose records carry TWO sequence lines is
+        # GSNAP's paired input format (shortread.c extended FASTA)
+        with fasta._open(args.input[0]) as f:
+            first = f.read(1)
+        if first == b">":
+            records, records3 = fasta.read_fasta_paired(args.input[0])
+            paired = bool(records3) and all(r is not None for r in records3)
+        if not paired:
+            records = list(fasta.read_seqfile(args.input[0]))
+    lmax = max((len(r.seq) for r in records + (records3 if paired else [])),
+               default=100)
 
     db = GenomeDB.open(
         args.dir if args.dir.endswith(args.db) else f"{args.dir}/{args.db}",
@@ -142,9 +179,13 @@ def main(argv=None) -> int:
         distantsplicing_penalty=args.distant_splice_penalty,
         min_distant_end_matches=args.distant_splice_endlength,
         shortsplicedist=args.localsplicedist,
+        pairmax_dna=args.pairmax_dna,
+        pairmax_rna=args.pairmax_rna,
         terminal_threshold=args.terminal_threshold,
         trim_mismatch_score=args.trim_mismatch_score,
         gmap_mode="",
+        expected_pairlength=args.pairexpect,
+        pairlength_deviation=args.pairdev,
     )
     # set before any alignment (read by the mismatch kernel's callers)
     mismatch_mod.QUERY_UNK_MISMATCH = bool(args.query_unk_mismatch)
@@ -154,10 +195,20 @@ def main(argv=None) -> int:
                                device=args.device)
     r.quiet_if_excessive = args.quiet_if_excessive
     r.merge_samechr = args.merge_distant_samechr
+    r.clip_overlap = args.clip_overlap
+    r.invert_first = args.orientation == "RF"
+    r.invert_second = args.orientation == "FR"
+    # the reference enables chopping for BOTH 'paired' and 'off'
+    r.chop_primers = args.adapter_strip is not None
 
     t0 = time.time()
-    n = r.run(records, sys.stdout, batch_size=args.batch_size,
-              emit_header=not args.no_sam_headers)
+    if paired:
+        n = r.run_pe(records, records3, sys.stdout,
+                     batch_size=args.batch_size,
+                     emit_header=not args.no_sam_headers)
+    else:
+        n = r.run(records, sys.stdout, batch_size=args.batch_size,
+                  emit_header=not args.no_sam_headers)
     dt = time.time() - t0
     print(f"Processed {n} queries in {dt:.2f} seconds "
           f"({n / max(dt, 1e-9):.2f} queries/sec)", file=sys.stderr)

@@ -47,6 +47,7 @@ _SIGNATURES = {
     "gsnap_solve_splices": "p" * 18 + "l" + "i" * 4,
     "gsnap_select_triples": "p" * 6 + "i" * 3 + "l",
     "gsnap_solve_doublesplices": "p" * 24 + "l" + "i" * 4,
+    "gsnap_pair_grid": "p" * 28 + "i" * 6,
 }
 
 _lib = None

@@ -331,3 +331,293 @@ def write_fastq(path: str, records) -> None:
     with open(path, "w") as f:
         for r in records:
             f.write(f"@{r.header}\n{r.seq}\n+\n{r.quality}\n")
+
+
+@dataclass
+class PairTruth:
+    kind: str          # one of PAIR_KINDS
+    lefts: tuple       # per read (read 1, read 2): universal start of its
+    #                    aligned placement (plus strand), -1 if random
+    insert: int        # fragment length for concordant kinds, else 0
+    nsub: tuple        # substitutions planted per read
+    introns: tuple     # per read: introns [donor, acceptor) it spans
+    flanks: tuple      # per read: aligned piece lengths in genome order
+
+
+SPLICED_PAIR_KINDS = ("junction", "across", "shortexon")
+PAIR_KINDS = ("concordant", "indel", "halfmapping", "random", "toolong",
+              "inversion", "scramble", "transloc", "repeat",
+              *SPLICED_PAIR_KINDS)
+DNA_PAIR_MIX = dict(concordant=0.80, indel=0.04, halfmapping=0.03,
+                    random=0.02, toolong=0.03, inversion=0.02, scramble=0.02,
+                    transloc=0.02, repeat=0.02)
+RNA_PAIR_MIX = dict(junction=0.30, across=0.10, shortexon=0.05,
+                    **{k: 0.55 * v for k, v in DNA_PAIR_MIX.items()})
+
+
+def plant_pairs(rng: np.random.Generator, genome: Genome, n: int,
+                L: int = 100, weights=None, rna: bool = False,
+                prefix: str = "q"):
+    """``n`` read pairs (records of read 1, records of read 2, truth
+    PairTruth per pair), both reads length L, read 2 written as the
+    reverse complement of the fragment's end (gsnap's default FR
+    orientation).  ``weights`` gives the share of each kind in
+    PAIR_KINDS; the default is DNA_PAIR_MIX, or RNA_PAIR_MIX with
+    ``rna``:
+
+    concordant: a 200-600 nt fragment, 0-3 substitutions per read;
+    indel: the same with a 1-3 nt insertion or deletion 30-70 nt into
+    one read; halfmapping: one read random; random: both; toolong: read
+    2 2-50 kb downstream; inversion: read 2 on the fragment's strand;
+    scramble: read 2 50-500 nt upstream of read 1; transloc: read 2 on
+    another chromosome; repeat: the fragment inside one repeat copy (its
+    reads overflow the candidate budget); junction: one read across a
+    GT-AG or CT-AC intron (80-20,000 nt, maxent >= 0.90 at both sites),
+    the other on one exon; across: the two reads on the two sides of
+    such an intron; shortexon: one read across a 20-45 nt middle exon.
+    Spliced reads carry 0-2 substitutions.  30% of the pairs are written
+    mate first (read 1 from the fragment's other end), so both strands
+    occur.  Placements avoid N runs and chromosome ends."""
+    if weights is None:
+        weights = RNA_PAIR_MIX if rna else DNA_PAIR_MIX
+    w = np.asarray([weights.get(k, 0.0) for k in PAIR_KINDS], float)
+    kinds = rng.choice(len(PAIR_KINDS), size=n, p=w / w.sum())
+    g = genome.ascii
+    codes = genome.codes_flags[0]
+    starts = np.concatenate([[0], genome.chr_ends[:-1]])
+    clen = genome.chr_ends - starts
+    ncum = np.concatenate([[0], np.cumsum(g == ord("N"))])
+
+    def chrom_of(p):
+        return int(np.searchsorted(genome.chr_ends, p, side="right"))
+
+    def clean(a, b):      # [a, b) free of N and inside one chromosome
+        return (0 <= a < b <= len(g) and ncum[b] - ncum[a] == 0
+                and chrom_of(a) == chrom_of(b - 1))
+
+    def rand_chrom():
+        return int(rng.choice(len(starts), p=clen / clen.sum()))
+
+    def rand_pos(span, c=None):
+        c = rand_chrom() if c is None else c
+        return int(rng.integers(starts[c] + 100, genome.chr_ends[c] - span - 100))
+
+    def rand_site(kind):
+        while True:
+            p = rand_pos(2400)
+            sites = _good_sites(genome, codes, p, p + 2000, kind)
+            if len(sites):
+                return int(rng.choice(sites))
+
+    def pick(sites):
+        return int(rng.choice(sites)) if len(sites) else None
+
+    def tx_slice(exons, t0, t1):
+        """Genomic pieces of transcript positions [t0, t1)."""
+        out, t = [], 0
+        for x, y in exons:
+            a, b = max(t0, t), min(t1, t + (y - x))
+            if a < b:
+                out.append((x + a - t, x + b - t))
+            t += y - x
+        return out
+
+    def spliced(kind):
+        """(pieces of read 1, pieces of read 2, fragment length, introns)
+        of one RNA kind; None to retry."""
+        ks, ke = (("donor", "acceptor") if rng.random() < 0.5
+                  else ("antiacceptor", "antidonor"))
+        ins = int(rng.integers(200, 601))
+        if kind == "shortexon":
+            e1 = rand_site(ke)
+            s2 = pick(_good_sites(genome, codes, e1 + 20, e1 + 46, ks))
+            if s2 is None:
+                return None
+            s1 = pick(_good_sites(genome, codes, e1 - 20_000, e1 - 79, ks))
+            e2 = pick(_good_sites(genome, codes, s2 + 80, s2 + 20_001, ke))
+            if s1 is None or e2 is None or L - (s2 - e1) < 24:
+                return None
+            exons = [(s1 - 700, s1), (e1, s2), (e2, e2 + 700)]
+            a = int(rng.integers(12, L - (s2 - e1) - 11))
+            t0 = 700 - a
+            introns = ((s1, e1), (s2, e2))
+        else:
+            s = rand_site(ks)
+            e = pick(_good_sites(genome, codes, s + 80, s + 20_001, ke))
+            if e is None:
+                return None
+            exons = [(s - 700, s), (e, e + 700)]
+            introns = ((s, e),)
+            if kind == "across":
+                t0 = int(rng.integers(700 - ins + L, 700 - L + 1))
+            elif rng.random() < 0.5:           # read 1 across the junction
+                t0 = 700 - int(rng.integers(12, L - 11))
+            else:                              # read 2 across it
+                t0 = 700 - int(rng.integers(12, L - 11)) + L - ins
+        if not all(clean(x, y) for x, y in exons):
+            return None
+        p1 = tx_slice(exons, t0, t0 + L)
+        p2 = tx_slice(exons, t0 + ins - L, t0 + ins)
+        inside = lambda p: tuple(iv for iv in introns
+                                 if p[0][0] < iv[0] and iv[1] < p[-1][1])
+        return p1, p2, ins, (inside(p1), inside(p2))
+
+    def dna(kind):
+        """(pieces of read 1, pieces of read 2 or None for random, read 2
+        on the fragment's strand, fragment length) of one DNA kind."""
+        ins = int(rng.integers(200, 601))
+        if kind == "repeat":
+            ins = min(ins, genome.repeat_unit)
+            p = int(rng.choice(genome.repeats)) + int(
+                rng.integers(0, genome.repeat_unit - ins + 1))
+        else:
+            p = rand_pos(ins)
+        p1, p2 = [(p, p + L)], [(p + ins - L, p + ins)]
+        if kind == "toolong":
+            d = int(rng.integers(2_000, 50_001))
+            p2 = [(p + L + d, p + 2 * L + d)]
+        elif kind == "scramble":
+            d = int(rng.integers(50, 501))
+            p2 = [(p - d - L, p - d)]
+        elif kind == "transloc":
+            others = [c for c in range(len(starts)) if c != chrom_of(p)]
+            q = rand_pos(L, int(rng.choice(others)))
+            p2 = [(q, q + L)]
+        if not all(clean(x, y) for x, y in p1 + p2):
+            return None
+        concordant = kind in ("concordant", "indel", "halfmapping", "repeat")
+        return p1, p2, kind == "inversion", ins if concordant else 0
+
+    def mutate(seq, nsub):
+        for q in rng.choice(len(seq), nsub, replace=False):
+            seq[q] = _ACGT[(np.flatnonzero(_ACGT == seq[q])[0]
+                            + rng.integers(1, 4)) % 4]
+
+    r1s, r2s, truth = [], [], []
+    for i in range(n):
+        kind = PAIR_KINDS[int(kinds[i])]
+        while True:
+            made = spliced(kind) if kind in SPLICED_PAIR_KINDS else dna(kind)
+            if made is not None:
+                break
+        if kind in SPLICED_PAIR_KINDS:
+            p1, p2, ins, introns = made
+            same_strand = False
+        else:
+            p1, p2, same_strand, ins = made
+            introns = ((), ())
+        seqs = [np.concatenate([g[x:y] for x, y in p]) for p in (p1, p2)]
+        lefts = [p1[0][0], p2[0][0]]
+        nmax = 2 if kind in SPLICED_PAIR_KINDS else 3
+        nsub = [int(rng.integers(0, nmax + 1)) for _ in range(2)]
+        if kind == "indel":
+            m = int(rng.integers(0, 2))
+            size, at = int(rng.integers(1, 4)), int(rng.integers(30, 71))
+            x, y = (p1, p2)[m][0]
+            w_ = g[x : y + 3] if m == 0 else g[x - 3 : y][::-1]
+            if rng.random() < 0.5:             # deletion from the read
+                w_ = np.concatenate([w_[:at], w_[at + size :]])
+                span = L + size
+            else:                              # insertion into the read
+                w_ = np.concatenate([w_[:at], _ACGT[rng.integers(0, 4, size)],
+                                     w_[at:]])
+                span = L - size
+            seqs[m] = w_[:L] if m == 0 else w_[:L][::-1]
+            lefts[m] = x if m == 0 else y - span
+        for s, k in zip(seqs, nsub):
+            mutate(s, k)
+        if not same_strand:
+            seqs[1] = _COMP[seqs[1][::-1]]
+        for m in range(2):
+            if (kind == "halfmapping" and m == 1) or kind == "random":
+                seqs[m] = _ACGT[rng.integers(0, 4, L)]
+                lefts[m], nsub[m] = -1, 0
+        flanks = tuple(tuple(y - x for x, y in p) for p in (p1, p2))
+        order = (1, 0) if rng.random() < 0.3 else (0, 1)   # mate first
+        name = f"{prefix}{i}"
+        quals = [(rng.integers(20, 41, L) + 33).astype(np.uint8)
+                 for _ in range(2)]
+        recs = [Record(name, name, seqs[m].tobytes().decode(),
+                       quals[m].tobytes().decode()) for m in order]
+        r1s.append(recs[0])
+        r2s.append(recs[1])
+        truth.append(PairTruth(kind, tuple(lefts[m] for m in order), ins,
+                               tuple(nsub[m] for m in order),
+                               tuple(introns[m] for m in order),
+                               tuple(flanks[m] for m in order)))
+    return r1s, r2s, truth
+
+
+PAIR_HIT_BASES = (16_777_216 - 2_000, 100_000_000, 2**31 - 2_000,
+                  2**32 - 8_000)
+
+
+def pair_hit_cases(rng: np.random.Generator, b: int, chr_ends, nc: int = 24,
+                   L: int = 100):
+    """Hand-built candidate hits of ``b`` read pairs for the pairing grid,
+    in ``gather_candidates``' layout: a dict of numpy [2b, nc] fields
+    (rows :b read 1, b: read 2; left / right / mid uint32, kind, score,
+    nmm, split, split2, nindels int32, sense, plusp bool, prob_* float32)
+    and the read lengths int32 [b] of read 1 (all ``L``) and of read 2
+    (``L`` on rows 0-2, ``L - 40 .. L`` on the others, so that the mates'
+    own lengths enter refspans and the insert-0 rule).
+
+    Each row clusters its hits near one base: a chromosome boundary
+    (``chr_ends[0]``), just below 2^24, 10^8 (float32 spacing 8), just
+    below 2^31 (int32 ends and pairmax sums wrap) or near 2^32.  Read-1
+    lefts differ by 0-63, so above 2^24 many round to one float32; read-2
+    lefts sit -3000..+3000 away (every pair type); kinds are mixed (sub,
+    insertion, deletion, splice with an 80-5000 nt intron, short exon);
+    scores 0-2 with ties, 10% invalid.  Row 0 holds a concordant cell
+    whose insert length computes to 0 (read 2 inside read 1's intron),
+    rows 1 and 2 have all 16 x 16 cells concordant at one score near
+    10^8 and 2^31 (more than 100 chosen cells)."""
+    n2 = 2 * b
+    bases = np.asarray((int(chr_ends[0]) - 300,) + PAIR_HIT_BASES, np.int64)
+    base = bases[rng.integers(0, len(bases), b)]
+    off = np.where(rng.random((b, nc)) < 0.7,
+                   rng.integers(100, 700, (b, nc)),
+                   rng.integers(-3000, 3001, (b, nc)))
+    left = np.concatenate([base[:, None] + rng.integers(0, 64, (b, nc)),
+                           base[:, None] + off])
+    kind = rng.choice(5, (n2, nc), p=[0.6, 0.1, 0.1, 0.1, 0.1])
+    split = rng.integers(10, 60, (n2, nc))
+    split2 = split + rng.integers(20, 40, (n2, nc))
+    nind = np.where((kind == 1) | (kind == 2), rng.integers(1, 4, (n2, nc)), 0)
+    intron = rng.integers(80, 5001, (n2, nc))
+    right = np.select([kind == 1, kind == 2, kind >= 3],
+                      [left - nind, left + nind, left + intron], left)
+    mid = np.where(kind == 4, left + intron // 2, left)
+    score = np.where(rng.random((n2, nc)) < 0.1, 10**6,
+                     rng.integers(0, 3, (n2, nc)))
+    plusp = rng.random((n2, nc)) < np.where(rng.random((n2, 1)) < 0.5,
+                                            0.9, 0.1)
+    for r, row_base in ((1, 100_000_000), (2, 2**31 - 150)):
+        if r < b:                      # 16 x 16 concordant cells
+            for rr, start in ((r, row_base), (b + r, row_base + 300)):
+                left[rr] = start + 3 * np.arange(nc)
+                kind[rr], nind[rr], score[rr] = 0, 0, 1
+                right[rr] = mid[rr] = left[rr]
+                plusp[rr] = True
+    if b > 0:                          # insert-0 rejection: read 2 in an intron
+        x = int(chr_ends[0]) // 2
+        for rr, lft, k in ((0, x, 3), (b, x + 1_000, 0)):
+            left[rr], kind[rr], score[rr], plusp[rr] = lft, k, 0, True
+            nind[rr] = 0
+            right[rr] = lft + (5_000 if k == 3 else 0)
+            mid[rr] = lft
+            split[rr] = 50
+            score[rr, 1:] = 10**6
+    u32 = lambda a: (a % 2**32).astype(np.uint32)
+    z = np.zeros((n2, nc), np.float32)
+    out = dict(kind=kind.astype(np.int32), score=score.astype(np.int32),
+               nmm=np.where(score < 10**6, score, 0).astype(np.int32),
+               left=u32(left), right=u32(right), mid=u32(mid),
+               split=np.where(kind == 0, 0, split).astype(np.int32),
+               split2=np.where(kind == 4, split2, 0).astype(np.int32),
+               nindels=nind.astype(np.int32), sense=kind >= 3, plusp=plusp,
+               prob_d=z, prob_a=z, prob_d2=z, prob_a2=z)
+    lengths5 = np.full(b, L, np.int32)
+    lengths3 = (L - rng.integers(0, 41, b)).astype(np.int32)
+    lengths3[:3] = L
+    return out, lengths5, lengths3

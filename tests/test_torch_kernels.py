@@ -12,6 +12,7 @@ import torch
 
 from gmap_gsnap_tpu_torch import convert
 from gmap_gsnap_tpu_torch.align import gsnap_gapped as gg
+from gmap_gsnap_tpu_torch.align import gsnap_pe as pe
 from gmap_gsnap_tpu_torch.align import gsnap_se as se
 from gmap_gsnap_tpu_torch.align import runner as trun
 from gmap_gsnap_tpu_torch.kernels import build as kbuild
@@ -189,6 +190,56 @@ def test_align_batch_gapped_cuda_equals_cpu(batch):
         assert torch.equal(got[k].cpu(), want[k]), k
 
 
+def _ranked_ends(out, b, base, np_):
+    """Both ends' ranked pairing hits (rank_hits, no optimal filter) of a
+    gather_candidates-layout dict with read 1 in rows :b."""
+    return [gg.rank_hits({k: v[s] for k, v in out.items()}, base,
+                         apply_optimal=False, maxout=np_)
+            for s in (slice(0, b), slice(b, None))]
+
+
+@pytest.mark.cuda
+def test_pair_grid_matches_plain(cuda):
+    """K8 against its plain version: on the ranked end hits of planted
+    RNA pairs (through K1-K7) and on hand-built hits (lefts above 2^24
+    and near 2^31, every pair type, 256 chosen cells), at NP = 16 and 8,
+    DNA and RNA pairmax, subopt 0 and 2."""
+    rng = np.random.default_rng(41)
+    g = synth.make_genome(rng, [400_000, 250_000, 100_000])
+    db = synth.genome_db(g, 12, 3)
+    tg = convert.genome_from_host(db.codes, db.flags, db.chr_ends, cuda)
+    ti = convert.index_from_arrays(db.offsets, db.positions, 12, 3, cuda)
+    base = se.GsnapParams(seed_total=512)
+    r1, r2, _ = synth.plant_pairs(rng, g, 512, rna=True)
+    r2 = [trun.Record(r.label, r.header, trun.dna.revcomp_str(r.seq),
+                      r.quality[::-1]) for r in r2]
+    enc = [torch.from_numpy(np.concatenate([a, b])).to(cuda) for a, b in
+           zip(trun.encode_batch(r1, 100), trun.encode_batch(r2, 100))]
+    out, _ = gg.gather_candidates(tg, ti, None, *enc,
+                                  gg.GappedParams(base=base,
+                                                  novelsplicing=True))
+    planted = (out, enc[2][:512], enc[2][512:], 512)
+    hand, len5, len3 = synth.pair_hit_cases(rng, 256, db.chr_ends)
+    hand = {k: torch.from_numpy(v.astype(np.int64) if v.dtype == np.uint32
+                                else v).to(cuda) for k, v in hand.items()}
+    cases = 0
+    for out, lens5, lens3, b in (
+            planted, (hand, torch.from_numpy(len5).to(cuda),
+                      torch.from_numpy(len3).to(cuda), 256)):
+        for np_, pairmax, subopt in ((16, 1000, 0), (16, 200_000, 2),
+                                     (8, 1000, 0)):
+            h5, h3 = _ranked_ends(out, b, base, np_)
+            args = (h5, h3, lens5, lens3, tg.chr_offsets, pairmax, subopt,
+                    100)
+            want = pe._pair_grid_plain(*args)
+            got = pe._pair_grid_cuda(*args)
+            _equal([got[k] for k in pe.PAIR_GRID_KEYS],
+                   [want[k] for k in pe.PAIR_GRID_KEYS])
+            assert want["npairs"].sum() > 0
+            cases += 1
+    assert cases == 6
+
+
 def test_wrappers_reject_other_devices():
     meta = torch.empty((2, 100), dtype=torch.uint8, device="meta")
     idx = se.IndexArrays(torch.empty(5, dtype=torch.int32, device="meta"),
@@ -200,6 +251,10 @@ def test_wrappers_reject_other_devices():
         se.top_diagonals(meta.long(), 2)
     with pytest.raises(ValueError, match="unsupported device"):
         gg.select_triples(meta.long(), meta.int(), 200_000, 8)
+    hits = {"left": meta.long()}
+    with pytest.raises(ValueError, match="unsupported device"):
+        pe.pair_grid(hits, hits, meta[:, 0].int(), meta[:, 0].int(),
+                     meta[0].long(), 1000, 0, 100)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

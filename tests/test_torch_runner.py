@@ -1,7 +1,8 @@
 """Port parity for the slice as a whole: GsnapRunner.run and the gsnap
 CLI (single-end, -N 0, --gmap-mode none) against the JAX package on
 synthetic reads — SAM byte-equal — plus the port's refusals of paths it
-does not have, and a run in a process where JAX cannot be imported."""
+does not have, and a run in a process where JAX cannot be imported (SE
+-N 0, SE -N 1 and PE -N 1)."""
 
 import dataclasses
 import io
@@ -108,15 +109,15 @@ def test_cli_byte_equal(disk_db, capsys):
 @pytest.mark.parametrize("extra", [
     [], ["--gmap-mode", "terminal"], ["-s", "sites"],
     ["-v", "snps"], ["--mode", "cmet-stranded"], ["-A", "gsnap"],
-    ["SECOND_FILE"]])
+    ["-A", "gsnap", "SECOND_FILE"], ["SECOND_FILE", "SECOND_FILE"]])
 def test_cli_rejects_unported(disk_db, capsys, extra):
     fq = str(disk_db / "reads.fq")
-    args = ["-D", str(disk_db), "-d", "syn", "--device", "cpu", fq]
+    args = ["-D", str(disk_db), "-d", "syn", "--device", "cpu"]
     if extra != []:
         args = ["--gmap-mode", "none"] + args
-    extra = [fq if e == "SECOND_FILE" else e for e in extra]
+    files = [fq] + [fq for e in extra if e == "SECOND_FILE"]
     with pytest.raises(SystemExit) as e:
-        tcli.main(args + extra)
+        tcli.main(args + [e for e in extra if e != "SECOND_FILE"] + files)
     assert e.value.code == 2
     assert "ROADMAP" in capsys.readouterr().err
 
@@ -167,6 +168,12 @@ _NO_JAX = textwrap.dedent("""
                        novelsplicing=True, device="cpu").run(srecs, out,
                                                              batch_size=48)
     open({sam_n1!r}, "w").write(out.getvalue())
+    p1, p2, _ = synth.plant_pairs(np.random.default_rng(9), g, 40, rna=True)
+    out = io.StringIO()
+    runner.GsnapRunner(db, gsnap_se.GsnapParams(gmap_mode=""),
+                       novelsplicing=True, device="cpu").run_pe(
+        p1, p2, out, batch_size=40)
+    open({sam_pe!r}, "w").write(out.getvalue())
     assert cli.main(["-D", {dbdir!r}, "-d", "syn", "--gmap-mode", "none",
                      "--device", "cpu", {fastq!r}]) == 0
     leaked = [m for m in sys.modules if m == "jaxlib" or m.startswith(("jax.", "jaxlib."))]
@@ -179,7 +186,8 @@ def test_runs_without_jax(world, disk_db, tmp_path):
     """The port imports no JAX, even transitively; the terminal lane
     (whose JAX-package trim fallback imports JAX) runs, here with a
     non-default trim score so the lane's trims come from the fallback;
-    and an -N 1 batch of spliced reads runs too."""
+    and an -N 1 batch of spliced reads and a PE -N 1 batch of read pairs
+    run too."""
     g, db, recs = world
     sub = recs[:100]
     (tmp_path / "reads.tsv").write_text("".join(
@@ -187,6 +195,7 @@ def test_runs_without_jax(world, disk_db, tmp_path):
     script = _NO_JAX.format(repo=REPO, reads=str(tmp_path / "reads.tsv"),
                             sam=str(tmp_path / "port.sam"),
                             sam_n1=str(tmp_path / "port_n1.sam"),
+                            sam_pe=str(tmp_path / "port_pe.sam"),
                             dbdir=str(disk_db), fastq=str(disk_db / "reads.fq"))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
@@ -208,3 +217,11 @@ def test_runs_without_jax(world, disk_db, tmp_path):
     n1 = (tmp_path / "port_n1.sam").read_text()
     cigars = [l.split("\t")[5] for l in n1.splitlines() if l[0] != "@"]
     assert n1 == jout.getvalue() and any("N" in c for c in cigars)
+
+    p1, p2, _ = synth.plant_pairs(np.random.default_rng(9), g, 40, rna=True)
+    jout = io.StringIO()
+    jrun.GsnapRunner(db, params=jse.GsnapParams(gmap_mode=""),
+                     novelsplicing=True).run_pe(p1, p2, jout, batch_size=40)
+    pe = (tmp_path / "port_pe.sam").read_text()
+    flags = [int(l.split("\t")[1]) for l in pe.splitlines() if l[0] != "@"]
+    assert pe == jout.getvalue() and any(f & 0x2 for f in flags)
