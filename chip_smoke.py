@@ -5,16 +5,19 @@
                           [--batch 2048]
 
 Needs one CUDA device; exits nonzero, printing no result, without one.
-Phases (any failure raises and ends the run with a nonzero exit):
+Every path runs gsnap's default --gmap-mode (pairsearch,
+indel_knownsplice, terminal, improvement).  Phases (any failure raises
+and ends the run with a nonzero exit):
 
   1. the card: torch.cuda.get_device_name and nvidia-smi's name and
      power limit;
-  2. build the eight CUDA kernels from csrc/ (nvcc, sm_90a);
+  2. build the twelve CUDA kernels from csrc/ (nvcc, sm_90a);
   3. a synthetic genome of 4 chromosomes (--mbp, default 100, about the
      C. elegans genome) with N runs and a repeat family, indexed at
      gmap_build's large-genome setting k=15 / interval 3; planted 100 bp
      DNA reads for the SE -N 0 path (0-3 substitutions, half
-     reverse-complemented, some with N, some with 1-3 nt indels), RNA
+     reverse-complemented, some with N, some with 1-3 nt indels, in a
+     random order with the messy junctions below), RNA
      reads for the SE -N 1 path (50% unspliced, 30% one junction, 10% a
      short middle exon, 5% distant halves, 5% N or indel, then 1% of them
      replaced by reads in repeat copies; every junction GT-AG or CT-AC
@@ -23,40 +26,61 @@ Phases (any failure raises and ends the run with a nonzero exit):
      fragments, indels, halfmapping, random, toolong, inversion,
      scramble, translocated and repeat pairs; RNA adds 30% pairs with a
      read across a junction, 10% with the reads on two sides of an
-     intron, 5% with a short middle exon; 30% written mate first);
+     intron, 5% with a short middle exon; 30% written mate first); every
+     set also carries 1-3% messy junctions (a junction read with a 1-3
+     nt indel or 2-3 substitutions within 11 nt of the junction), reads
+     the GSNAP cascade leaves to the GMAP lanes;
   4. each kernel against its plain torch version on the same CUDA
      tensors at the main paths' shapes (2048 reads x 2 strands, L=100,
      W=384 / 512 and 4096, NC=32 and 128, P=16, T=8; K8 on the PE -N 1
      runner's own ranked end hits of 2048 pairs and on 2048 hand-built
-     pairs with lefts above 2^24 and near 2^31): outputs must be equal,
-     float32 ones bit for bit;
+     pairs with lefts above 2^24 and near 2^31; K9-K12 on the inputs the
+     SE -N 1 and SE -N 0 runners' GMAP lanes give them on one batch
+     (max_intronlen 200,000 and 30), K9 also at a
+     forced hit/segment overflow and at the retry's sizes, K11/K12 also
+     on 32 and 128 random junction windows with both gap tiers and every
+     cdna_direction): outputs must be equal, float32 ones bit for bit;
   5. the four main paths, each through GsnapRunner.run or run_pe over all
      its reads into a SAM buffer, with every kernel's launch count reset
      before and read after:
-     SE -N 0 (--reads): K1-K4 must launch and K5-K8 must not; >= 99% of
-           reads with <= 2 substitutions must map uniquely at their
+     SE -N 0 (--reads): K1-K4, K9, K10 must launch and K5-K8 must not
+           (K11/K12 may: GMAP bridges gaps up to 30 nt at -N 0); >= 99%
+           of reads with <= 2 substitutions must map uniquely at their
            planted position and strand;
-     SE -N 1 (--reads): K1-K7 must launch, K8 must not; >= 90% of the
-           easy single-junction reads (both flanks >= 30 nt, <= 1
-           substitution) must map uniquely with their planted intron;
-     PE -N 0 (--pairs / 2): K1-K4 and K8 must launch, K5-K7 must not;
-     PE -N 1 (--pairs): K1-K8 must all launch;
+     SE -N 1 (--reads): K1-K7 and K9-K12 must launch, K8 must not; >=
+           90% of the easy single-junction reads (both flanks >= 30 nt,
+           <= 1 substitution) must map uniquely with their planted intron;
+     PE -N 0 (--pairs / 2): K1-K4, K8, K9, K10 must launch, K5-K7 must
+           not;
+     PE -N 1 (--pairs): K1-K12 must all launch;
      on both PE paths >= 99% of the concordant pairs with <= 2
      substitutions per read must be reported as one proper pair (0x2)
      at both planted positions with |TLEN| the fragment length; with
      -N 1 >= 90% of the easy junction pairs (flanks >= 30 nt, <= 1
      substitution in the spliced read) must carry the planted intron;
+     each path prints its GMAP hits in the SAM (single end) or in the
+     ends' final hit lists and in rescued pairs (paired end), the GMAP
+     candidate hits they came from, and the host seconds of its
+     prefetch_gmap passes;
   6. each path's SAM from the plain torch path on the CPU must be
-     byte-equal to the CUDA run's (first 512 reads, first 256 pairs);
+     byte-equal to the CUDA run's (first 512 reads, first 256 pairs),
+     and the CUDA run of that subset must launch K9/K10 and convert at
+     least one GMAP candidate hit;
   7. each kernel's device time (torch.profiler) and per-call time beside
      its plain version's, and profiles of the SE -N 1 and PE -N 1 runs
      (device busy share, top device ops), measured last so that the
      profiler cannot perturb step 5's timing.
 
 Prints one JSON line with every kernel's launches (on the PE -N 1 path,
-which runs all eight; per path under launches_by_path), error and device
-time (ms, plain_ms at NC=32 and 2048 pairs), then the nvidia-smi line,
-then {"ok": true, "device": {...}} last.
+which runs all twelve; per path under launches_by_path), error, device
+time (ms, plain_ms at the first shape checked), its bound (bound_ms: the
+larger of the bytes it must move over 3.35 TB/s and its operations over
+67 T/s, the H100's float32 rate outside the tensor cores: its int32 rate
+is lower (64 int32 lanes per SM against 128 float32), so the operations
+term is an underestimate; bound_by says which) and the time of one PyTorch
+call computing the same function where there is one (library_ms, else
+null), then the nvidia-smi line, then {"ok": true, "device": {...}}
+last.
 """
 
 from __future__ import annotations
@@ -64,6 +88,7 @@ from __future__ import annotations
 import argparse
 import io
 import json
+import math
 import subprocess
 import sys
 import time
@@ -76,7 +101,38 @@ N0_KERNELS = ("gsnap_seed_diagonals", "gsnap_top_diagonals",
 SPLICE_KERNELS = ("gsnap_solve_splices", "gsnap_select_triples",
                   "gsnap_solve_doublesplices")
 PAIR_KERNELS = ("gsnap_pair_grid",)
-ALL_KERNELS = N0_KERNELS + SPLICE_KERNELS + PAIR_KERNELS
+GMAP_KERNELS = ("gmap_seed_segments", "gmap_chain")
+DYNPROG_KERNELS = ("gmap_banded_gotoh", "gmap_bridge_traceback")
+ALL_KERNELS = (N0_KERNELS + SPLICE_KERNELS + PAIR_KERNELS + GMAP_KERNELS
+               + DYNPROG_KERNELS)
+GMAP_CHECKS = ("seed_segments", "chain", "banded_gotoh", "bridge_traceback")
+MEM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
+# the float32 rate outside the tensor cores, the nearest published rate
+# to the kernels' int32 work; the card's int32 rate is lower (64 int32
+# lanes per SM against 128 float32), so the operations term, and with it
+# the bound, is an underestimate where it decides
+OPS_PER_S = 67e12
+
+
+def _nbytes(*xs) -> int:
+    """Bytes of the tensors in xs (nested tuples, lists and dicts)."""
+    total = 0
+    for x in xs:
+        if isinstance(x, dict):
+            total += _nbytes(*x.values())
+        elif isinstance(x, (tuple, list)):
+            total += _nbytes(*x)
+        elif hasattr(x, "element_size"):
+            total += x.numel() * x.element_size()
+    return total
+
+
+def _bound(nbytes: float, ops: float) -> tuple:
+    """(bound_ms, bound_by): the least time for the bytes or the
+    operations, whichever is larger."""
+    tb = nbytes / MEM_BYTES_PER_S * 1e3
+    to = ops / OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
 
 
 def _call_ms(fn, reps: int = 5) -> float:
@@ -272,6 +328,184 @@ def _junction_pairs_ok(sam_text: str, truth, genome) -> tuple[int, int]:
     return good, total
 
 
+def _junction_windows(torch, dp, rng, nb: int, dev):
+    """2 nb random junction windows at the GMAP path's shapes (M = 64,
+    W = 23, 72 genome columns): nb left sides (jump early), then nb
+    reversed right sides (jump late), queries copying the genome with
+    noise and code-5 padding past their length."""
+    M, NL = 64, 72
+    q = rng.integers(0, 5, (2 * nb, M)).astype(np.int32)
+    g = rng.integers(0, 5, (2 * nb, NL)).astype(np.int32)
+    g[:, :M] = np.where(rng.random((2 * nb, M)) < 0.8, q, g[:, :M])
+    len1 = np.tile(rng.integers(2, M + 1, nb), 2).astype(np.int32)
+    q[np.arange(M)[None, :] >= len1[:, None]] = 5
+    len2 = len1 + 8
+    lb, rb = dp.compute_bands(len1, len2, 7)
+    loff = rng.integers(0, 1000, nb)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return dict(q=t(q), g=t(g), len1=t(len1), len2=t(len2), lb=t(lb),
+                rb=t(rb), late=t(np.arange(2 * nb) >= nb), loff=t(loff),
+                roff=t(loff + rng.integers(0, 200, nb)),
+                known=t((rng.integers(0, 2, (nb, NL + 1)) * 20)
+                        .astype(np.int32)))
+
+
+def _lane_inputs(eng, dp, runner, recs, batch: int, label: str) -> dict:
+    """The inputs the GMAP lane of ``runner`` gives K9-K12 over one batch
+    of ``recs`` (the largest call of each kernel), by name."""
+    captured = {}
+    hooks = [(eng, "seed_segments", lambda a: a[2].shape[0]),
+             (eng, "chain", lambda a: a[0].shape[0]),
+             (dp, "banded_matrices", lambda a: a[0].shape[0]),
+             (dp, "bridge_traceback", lambda a: a[0][0].shape[0])]
+    saved = []
+    for mod, name, size in hooks:
+        fn = getattr(mod, name)
+        saved.append(fn)
+
+        def spy(*a, fn=fn, name=name, size=size):
+            if name not in captured or size(a) > size(captured[name]):
+                captured[name] = a
+            return fn(*a)
+
+        setattr(mod, name, spy)
+    try:
+        runner.run(recs[:batch], io.StringIO(), batch_size=batch)
+    finally:
+        for (mod, name, _), fn in zip(hooks, saved):
+            setattr(mod, name, fn)
+    if "seed_segments" not in captured or "chain" not in captured:
+        raise SystemExit(f"{label}: the GMAP lane did not run on one batch")
+    print(f"GMAP lane inputs of one {label} batch: oligos "
+          f"{tuple(captured['seed_segments'][2].shape)}, max_intronlen "
+          f"{captured['chain'][5]}, junction dynprog "
+          f"{'ran' if 'banded_matrices' in captured else 'did not run'}",
+          flush=True)
+    return captured
+
+
+def _gmap_checks(torch, eng, dp, lanes, rng, dev, costs):
+    """K9-K12 checks (name, shape, kernel call, plain call): on the
+    inputs each runner's GMAP lane gave each kernel (``lanes``: (label,
+    _lane_inputs) pairs, the first sets the costs), K9 also at a forced
+    hit/segment overflow and at the retry's sizes, K11/K12 also on 32 and
+    128 random junction windows, both gap tiers, every cdna_direction
+    table.  Fills ``costs`` with each kernel's (bytes, operations)."""
+    checks = []
+
+    def dynprog(label, margs, bargs):
+        checks.append(("banded_gotoh", label,
+                       partial(dp._banded_matrices_cuda, *margs),
+                       partial(dp._banded_matrices_plain, *margs)))
+        checks.append(("bridge_traceback", label,
+                       partial(dp._bridge_traceback_cuda, *bargs),
+                       partial(dp._bridge_traceback_plain, *bargs)))
+
+    for label, captured in lanes:
+        offs, pos, oligos, valid, k, H, S, thr = captured["seed_segments"]
+        for h, s_ in ((H, S), (H // 8, max(S // 8, 1)), (4 * H, 4 * S)):
+            a = (offs, pos, oligos, valid, k, h, s_, thr)
+            checks.append(("seed_segments",
+                           f"{label} {oligos.shape[0]} rows H={h} S={s_}",
+                           partial(_fields, eng._seed_segments_cuda, a,
+                                   eng.SEG_KEYS),
+                           partial(_fields, eng._seed_segments_plain, a,
+                                   eng.SEG_KEYS)))
+        ch = captured["chain"]
+        checks.append(("chain", f"{label} {ch[0].shape[0]} rows "
+                                f"S={ch[0].shape[1]} il={ch[5]}",
+                       partial(_fields, eng._chain_cuda, ch, eng.CHAIN_KEYS),
+                       partial(_fields, eng._chain_plain, ch, eng.CHAIN_KEYS)))
+        if "banded_matrices" in captured:
+            margs = captured["banded_matrices"]
+            dynprog(f"{label} {margs[0].shape[0] // 2} junctions", margs,
+                    captured["bridge_traceback"])
+    offs, pos, oligos, valid, k, H, S, thr = lanes[0][1]["seed_segments"]
+    nvalid = int(valid.sum())
+
+    def seed_cost(out, H=H):
+        nv = out[4].clamp(max=H).double()
+        return (_nbytes(oligos, valid, out) + nvalid * 8 + float(nv.sum()) * 4,
+                float((nv * torch.log2(nv.clamp(min=1))).sum()))
+
+    costs["seed_segments"] = seed_cost
+    ch = lanes[0][1]["chain"]
+
+    def chain_cost(out):
+        S_ = ch[3].shape[1]
+        idx = torch.arange(S_, device=dev)
+        lv = torch.where(ch[3], idx, -1).max(1).values.clamp(min=0).double()
+        # ~12 integer operations per transition scored
+        return _nbytes(ch[:4], out), 12 * float((lv * (lv + 1) / 2).sum())
+
+    costs["chain"] = chain_cost
+    for nb in (32, 128):
+        w = _junction_windows(torch, dp, rng, nb, dev)
+        for open_, ext in ((dp.PAIRED_OPEN, dp.PAIRED_EXTEND),
+                           (dp.SINGLE_OPEN, dp.SINGLE_EXTEND)):
+            margs = (w["q"], w["g"], w["len1"], w["len2"], w["lb"], w["rb"],
+                     dp.pair_matrix(dp.MISMATCH_HIGHQ), w["late"], 64, 23,
+                     open_, ext)
+            mats = dp._banded_matrices_plain(*margs)
+            for cd, halfp, nospl, kn in ((1, False, False, w["known"] * 0),
+                                         (-1, True, False, w["known"]),
+                                         (0, False, True, w["known"] * 0)):
+                bargs = (mats, w["len1"][:nb], w["len2"][:nb],
+                         w["len2"][nb:], w["lb"][:nb], w["lb"][nb:],
+                         w["g"][:nb], w["g"][nb:], kn, kn, w["loff"],
+                         w["roff"], 64, 23, 138, open_, ext, 30, cd, True,
+                         halfp, nospl)
+                dynprog(f"nb={nb} open={open_} cdna={cd}", margs, bargs)
+    first = next(c for c in checks if c[0] == "banded_gotoh")
+    ma = first[2].args
+    # ~20 integer operations per band cell, ~15 per junction candidate
+    costs["banded_gotoh"] = lambda out: (
+        _nbytes(ma[:6], ma[7], out), 20 * out[0].numel())
+    fb = next(c for c in checks if c[0] == "bridge_traceback")[2].args
+    costs["bridge_traceback"] = lambda out: (
+        _nbytes(fb[0][0], fb[0][3], fb[1:12], out),
+        15 * fb[0][0].shape[0] // 2 * 64 * 2 * 23)
+    return checks
+
+
+def _count_gmap_hits(runner) -> dict:
+    """Count, on ``runner`` until _uncount_gmap_hits: the GMAP candidate
+    hits that prefetch_gmap converts from paths, the GMAP hits that the
+    terminal and improvement gates put into a read's final hit list (for
+    single-end reads, its SAM records), and the GMAP hits in the pairs
+    that pair rescue chooses (pairsearch's among them)."""
+    counts = dict(candidates=0, final=0, pairs=0)
+    path_to_hit, rescued, pe_rescue = (runner._gmap_path_to_hit,
+                                       runner._rescued_hits,
+                                       runner._pe_rescue)
+
+    def count_candidates(rec, path):
+        hit = path_to_hit(rec, path)
+        counts["candidates"] += hit is not None
+        return hit
+
+    def count_final(*a):
+        final = rescued(*a)
+        counts["final"] += sum(h.hittype == "gmap" for h in final)
+        return final
+
+    def count_pairs(*a):
+        out = pe_rescue(*a)
+        counts["pairs"] += sum(h.hittype == "gmap" for p in out[0]
+                               for h in p[:2])
+        return out
+
+    runner._gmap_path_to_hit = count_candidates
+    runner._rescued_hits = count_final
+    runner._pe_rescue = count_pairs
+    return counts
+
+
+def _uncount_gmap_hits(runner) -> None:
+    for name in ("_gmap_path_to_hit", "_rescued_hits", "_pe_rescue"):
+        delattr(runner, name)
+
+
 def _drive(torch, kbuild, runner, records, batch: int, label: str,
            pairs=None) -> dict:
     """One main path: a warm-up run, the device cascade alone, then the
@@ -299,6 +533,8 @@ def _drive(torch, kbuild, runner, records, batch: int, label: str,
     cascade_s = time.time() - t0
     torch.cuda.reset_peak_memory_stats()
     runner.category_counts.clear()
+    runner.gmap_seconds = 0.0
+    counts = _count_gmap_hits(runner)
     kbuild.LAUNCHES.clear()
     out = io.StringIO()
     t0 = time.time()
@@ -306,6 +542,7 @@ def _drive(torch, kbuild, runner, records, batch: int, label: str,
     torch.cuda.synchronize()
     e2e_s = time.time() - t0
     launches = dict(kbuild.LAUNCHES)
+    _uncount_gmap_hits(runner)
     peak = torch.cuda.max_memory_allocated()
     if n != len(records):
         raise SystemExit(f"{label}: run returned {n} of {len(records)} {unit}")
@@ -314,6 +551,14 @@ def _drive(torch, kbuild, runner, records, batch: int, label: str,
           f"{n / e2e_s:.1f} {unit}/s ({e2e_s:.3f} s); max_memory_allocated "
           f"{peak} B ({peak / 2**30:.2f} GiB); categories "
           f"{dict(runner.category_counts)}; launches {launches}", flush=True)
+    final = ("GMAP hits in the SAM" if pairs is None else
+             "GMAP hits in the ends' final hit lists")
+    print(f"{label} GMAP lanes: {counts['final']} {final}"
+          + (f", {counts['pairs']} GMAP hits in rescued pairs"
+             if pairs is not None else "")
+          + f" (of {counts['candidates']} GMAP candidate hits that "
+          f"prefetch_gmap converted); prefetch_gmap "
+          f"{runner.gmap_seconds:.3f} s of host wall", flush=True)
     return dict(sam=out.getvalue(), launches=launches)
 
 
@@ -365,11 +610,13 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
+    from gmap_gsnap_tpu_torch.align import gmap_engine as eng
     from gmap_gsnap_tpu_torch.align import gsnap_gapped as gg
     from gmap_gsnap_tpu_torch.align import gsnap_pe as pe
     from gmap_gsnap_tpu_torch.align import gsnap_se as se
     from gmap_gsnap_tpu_torch.align import runner as runner_mod
     from gmap_gsnap_tpu_torch.kernels import build as kbuild
+    from gmap_gsnap_tpu_torch.ops import dynprog as dp
     from gmap_gsnap_tpu_torch.ops import mismatch as mmo
     from gmap_gsnap_tpu_torch.utils import synth
 
@@ -401,25 +648,37 @@ def main(argv=None) -> int:
     chr_lengths.append(total - sum(chr_lengths))
     genome = synth.make_genome(rng, chr_lengths, n_runs=20)
     db = synth.genome_db(genome, k=15, interval=3)
+    # 1% of the DNA reads are messy junctions, for the GMAP lanes
+    nmessy = args.reads // 100
     records, truth = synth.plant_reads(
-        rng, genome, args.reads,
+        rng, genome, args.reads - nmessy,
         weights=dict(sub=0.88, n=0.04, mid_indel=0.04, end_indel=0.01,
                      terminal=0.01, repeat=0.01, junk=0.01))
-    rna, rna_truth = synth.plant_spliced_reads(rng, genome, args.reads)
+    records += synth.plant_spliced_reads(
+        rng, genome, nmessy, weights=dict(messy_junction=1), prefix="m")[0]
+    # interleaved, so every batch and the CPU subset of step 6 hold some
+    records = [records[i] for i in rng.permutation(len(records))]
+    rna, rna_truth = synth.plant_spliced_reads(
+        rng, genome, args.reads, weights=dict(
+            unspliced=0.5, junction=0.3, shortexon=0.1, distant=0.05,
+            n_indel=0.05, messy_junction=0.03))
     # 1% of them from repeat copies, which overflow the candidate budget,
     # so the -N 1 path runs its wide lane too
     nrep = args.reads // 100
     rna = rna[: args.reads - nrep] + synth.plant_reads(
         rng, genome, nrep, weights=dict(repeat=1), prefix="p")[0]
     rna_truth = rna_truth[: args.reads - nrep]
-    p1, p2, p_truth = synth.plant_pairs(rng, genome, args.pairs // 2)
-    rp1, rp2, rp_truth = synth.plant_pairs(rng, genome, args.pairs, rna=True)
+    p1, p2, p_truth = synth.plant_pairs(
+        rng, genome, args.pairs // 2,
+        weights={**synth.DNA_PAIR_MIX, "messy_junction": 0.02})
+    rp1, rp2, rp_truth = synth.plant_pairs(
+        rng, genome, args.pairs,
+        weights={**synth.RNA_PAIR_MIX, "messy_junction": 0.03})
     print(f"setup: {total / 1e6:.1f} Mbp, 4 chromosomes, k=15/3 index "
           f"({len(db.positions)} positions), {len(records)} DNA + {len(rna)} "
           f"RNA reads, {len(p1)} DNA + {len(rp1)} RNA pairs in "
           f"{time.time() - t0:.1f} s", flush=True)
-    params = se.GsnapParams(
-        gmap_mode="",
+    params = se.GsnapParams(   # the default --gmap-mode: every GMAP lane
         size_threshold=se.dynamic_size_threshold(int(db.offsets[-1]), db.k,
                                                  "standard"))
     # both runners share the database's device genome and index
@@ -443,6 +702,10 @@ def main(argv=None) -> int:
     q2 = se._pack_device(c2, f2, l2, 100)
     budget = se.auto_budget(l2, db.k, db.interval, -1)
     checks = []   # (name, shape, kernel call, plain call), checked now, timed last
+    # per kernel, at its first shape: (bytes, operations) of the work from
+    # its plain output, and one PyTorch call computing the same function
+    costs, library = {}, {}
+    gwords = lambda nt: (nt // 16 + 2) * 8     # ref + flag words of a span
     for st, nc in ((384, 32), (4096, 128)):
         p = se.GsnapParams(seed_total=st, ncand=nc,
                            size_threshold=params.size_threshold)
@@ -473,6 +736,20 @@ def main(argv=None) -> int:
              partial(_fields, gg._solve_indels_cuda, kargs, gg._INDEL_KEYS),
              partial(_fields, gg._solve_indels_plain, kargs, gg._INDEL_KEYS)),
         ]
+        # reads, index lookups (two offsets per k-mer, a position per
+        # filled slot), genome words of each candidate span, outputs
+        kmers = c2.shape[0] * (100 - db.k + 1)
+        costs.setdefault("seed_diagonals", lambda out: (
+            _nbytes(c2, f2, l2, out) + kmers * 8
+            + int((out[0] != se.INVALID_DIAG).sum()) * 4, 0))
+        costs.setdefault("top_diagonals", lambda out, d=diag: (
+            _nbytes(d, out), d.numel() * math.log2(d.shape[1])))
+        library.setdefault("top_diagonals", partial(
+            torch.sort, diag, dim=1, stable=True))
+        costs.setdefault("prefix_mismatches", lambda out, t=top_d: (
+            _nbytes(q2, t, l2, out) + t.numel() * gwords(100), 0))
+        costs.setdefault("solve_indels", lambda out, a=kargs: (
+            _nbytes(a, out), 0))
         # the conversion and SNP (alt genome) variants of K3
         alt = (genome_dev.ref16.flip(0).contiguous(), genome_dev.flag16)
         for conv, a in (("ct", None), ("ga", alt)):
@@ -513,6 +790,12 @@ def main(argv=None) -> int:
              partial(_fields, gg._solve_doublesplices_plain, dargs,
                      gg._SHORTEXON_KEYS)),
         ]
+        costs.setdefault("solve_splices", lambda out, a=sargs: (
+            _nbytes(a[1:], out) + a[3].numel() * 2 * gwords(164), 0))
+        costs.setdefault("select_triples", lambda out, t=top_d, v=votes: (
+            _nbytes(t, v, out), 0))
+        costs.setdefault("solve_doublesplices", lambda out, a=dargs: (
+            _nbytes(a[1:], out) + a[3].numel() * 3 * gwords(164), 0))
         if nc == 32:
             sp = gg._solve_splices_plain(*sargs)
             sx = gg._solve_doublesplices_plain(*dargs)
@@ -544,25 +827,36 @@ def main(argv=None) -> int:
             "pair_grid", f"{len(ln5)} {what} pairs",
             partial(_fields, pe._pair_grid_cuda, gargs, pe.PAIR_GRID_KEYS),
             partial(_fields, pe._pair_grid_plain, gargs, pe.PAIR_GRID_KEYS)))
-    errs = {}
+        costs.setdefault("pair_grid", lambda out, a=gargs: (
+            _nbytes(a, out), 0))
+    lanes = [("SE -N 1", _lane_inputs(eng, dp, runner_n1, rna, args.batch,
+                                      "SE -N 1")),
+             ("SE -N 0", _lane_inputs(eng, dp, runner, records, args.batch,
+                                      "SE -N 0"))]
+    checks += _gmap_checks(torch, eng, dp, lanes, rng, dev, costs)
+    errs, bounds = {}, {}
+    print(f"kernel checks at {time.time() - t_start:.1f} s", flush=True)
     for name, shape, fk, fp in checks:
-        err = _max_abs_err(fk(), fp())
+        want = fp()
+        err = _max_abs_err(fk(), want)
         print(f"kernel {name:20s} {shape:22s}: max_abs_err={err}", flush=True)
         if err != 0:
             raise SystemExit(f"kernel {name} disagrees with its plain "
                              f"version (max_abs_err={err})")
-        errs.setdefault(name, err)
+        if name not in errs:
+            errs[name] = err
+            bounds[name] = _bound(*costs[name.split("/")[0]](want))
     torch.cuda.synchronize()
 
     # 5. the four main paths
     paths = {}
 
-    def path(label, want, recs, run_with, mates=None):
+    def path(label, want, recs, run_with, mates=None, optional=()):
         """Drive one main path and check which kernels it launched."""
         out = _drive(torch, kbuild, run_with, recs, args.batch, label, mates)
         missing = [k for k in want if out["launches"].get(k, 0) == 0]
-        extra = [k for k in ALL_KERNELS
-                 if k not in want and out["launches"].get(k, 0)]
+        extra = [k for k in ALL_KERNELS if k not in want + optional
+                 and out["launches"].get(k, 0)]
         if missing or extra:
             raise SystemExit(f"{label} path: kernels not launched {missing}, "
                              f"launched but not on the path {extra}")
@@ -575,13 +869,16 @@ def main(argv=None) -> int:
         if tot == 0 or good < share * tot:
             raise SystemExit(f"{label}: only {good}/{tot} {what}")
 
-    sam = path("SE -N 0", N0_KERNELS, records, runner)
+    sam = path("SE -N 0", N0_KERNELS + GMAP_KERNELS, records, runner,
+               optional=DYNPROG_KERNELS)
     bar("SE -N 0", "planted <=2-sub reads placed",
         *_planted_ok(sam, truth, genome), 0.99)
-    sam = path("SE -N 1", N0_KERNELS + SPLICE_KERNELS, rna, runner_n1)
+    sam = path("SE -N 1", N0_KERNELS + SPLICE_KERNELS + GMAP_KERNELS
+               + DYNPROG_KERNELS, rna, runner_n1)
     bar("SE -N 1", "easy planted junctions recovered",
         *_junctions_ok(sam, rna_truth, genome), 0.90)
-    sam = path("PE -N 0", N0_KERNELS + PAIR_KERNELS, p1, runner, p2)
+    sam = path("PE -N 0", N0_KERNELS + PAIR_KERNELS + GMAP_KERNELS, p1,
+               runner, p2, optional=DYNPROG_KERNELS)
     bar("PE -N 0", "planted <=2-sub concordant pairs proper at both "
         "positions and |TLEN|", *_pairs_ok(sam, p_truth, genome), 0.99)
     sam = path("PE -N 1", ALL_KERNELS, rp1, runner_n1, rp2)
@@ -591,6 +888,7 @@ def main(argv=None) -> int:
         *_junction_pairs_ok(sam, rp_truth, genome), 0.90)
 
     # 6. the plain torch path on the CPU gives the same SAM
+    print(f"CPU plain paths at {time.time() - t_start:.1f} s", flush=True)
     nsub, npairs = min(512, len(records)), min(256, len(p1))
     for label, novel, run_cuda, run in (
             ("SE -N 0", False, runner,
@@ -607,25 +905,43 @@ def main(argv=None) -> int:
                                             novelsplicing=novel, device="cpu")
         ref_out, cuda_out = io.StringIO(), io.StringIO()
         run(cpu_runner, ref_out)
+        counts = _count_gmap_hits(run_cuda)
+        kbuild.LAUNCHES.clear()
         run(run_cuda, cuda_out)
+        _uncount_gmap_hits(run_cuda)
         if ref_out.getvalue() != cuda_out.getvalue():
             raise SystemExit(f"{label}: CUDA and CPU plain-path SAM differ")
         unit = f"{npairs} pairs" if label[0] == "P" else f"{nsub} reads"
+        gmap = {k: kbuild.LAUNCHES.get(k, 0) for k in GMAP_KERNELS}
+        if counts["candidates"] == 0 or 0 in gmap.values():
+            raise SystemExit(f"{label}: the GMAP lanes did not fire in the "
+                             f"compared subset ({counts}, launches {gmap})")
         print(f"{label} cpu plain path: SAM of {unit} byte-equal to the CUDA "
-              f"run", flush=True)
-    if "jax" in sys.modules:
-        raise SystemExit("jax was imported")
+              f"run, whose GMAP lanes converted {counts['candidates']} "
+              f"candidate hits ({counts['final']} in final hit lists, "
+              f"{counts['pairs']} in rescued pairs; launches {gmap})",
+              flush=True)
+    if "jax" in sys.modules or "gmap_gsnap_tpu" in sys.modules:
+        raise SystemExit("jax or the JAX package was imported")
 
     # 7. kernel and plain-version times, and the -N 1 profiles, last, so
     # that the profiler cannot perturb the main paths' timing
     times = {}
+    print(f"timing phase at {time.time() - t_start:.1f} s", flush=True)
     for name, shape, fk, fp in checks:
+        # K9-K12 are timed at their first shape only: their plain
+        # versions run thousands of small torch ops per call
+        if name in times and name in GMAP_CHECKS:
+            continue
         ms, plain_ms = _device_ms(fk), _device_ms(fp)
         call, plain_call = _call_ms(fk), _call_ms(fp)
         print(f"kernel {name:20s} {shape:22s}: device time cuda {ms:.4f} ms, "
               f"plain torch {plain_ms:.4f} ms; per call (events) "
               f"{call:.4f} / {plain_call:.4f} ms", flush=True)
         times.setdefault(name, (ms, plain_ms))
+    library_ms = {name: _device_ms(fn) for name, fn in library.items()}
+    for name, ms in library_ms.items():
+        print(f"library call for {name}: {ms:.4f} ms", flush=True)
     _profile_run(torch, lambda: runner_n1.run(rna, io.StringIO(),
                                               batch_size=args.batch),
                  "SE -N 1")
@@ -650,6 +966,14 @@ def main(argv=None) -> int:
                                 "solve_doublesplices.cu", f"{src}:706"),
         "pair_grid": ("gsnap_pair_grid", "pair_grid.cu",
                       "gmap_gsnap_tpu/align/gsnap_pe.py:119"),
+        "seed_segments": ("gmap_seed_segments", "gmap_seed_segments.cu",
+                          "gmap_gsnap_tpu/align/gmap_engine.py:48"),
+        "chain": ("gmap_chain", "gmap_chain.cu",
+                  "gmap_gsnap_tpu/align/gmap_engine.py:184"),
+        "banded_gotoh": ("gmap_banded_gotoh", "banded_gotoh.cu",
+                         "gmap_gsnap_tpu/ops/dynprog.py:107"),
+        "bridge_traceback": ("gmap_bridge_traceback", "bridge_traceback.cu",
+                             "gmap_gsnap_tpu/ops/dynprog.py:328"),
     }
     kernels = []
     for name, (entry, cu, replaces) in sources.items():
@@ -662,7 +986,9 @@ def main(argv=None) -> int:
                             label: launches.get(entry, 0)
                             for label, launches in paths.items()},
                         "max_abs_err": errs[name], "ms": ms,
-                        "plain_ms": plain_ms})
+                        "plain_ms": plain_ms, "bound_ms": bounds[name][0],
+                        "bound_by": bounds[name][1],
+                        "library_ms": library_ms.get(name)})
     print(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

@@ -1,26 +1,26 @@
 """Host-side GSNAP runner for the port: FASTQ records -> device -> SAM.
 
 Single-end (``run``) and paired-end (``run_pe``), standard mode, ``-N 0``
-or ``-N 1`` (novel splicing), no GMAP lanes (``--gmap-mode none``).  The
-device half is one call per batch of ``gsnap_gapped.align_batch_gapped``
-(SE) or ``gsnap_pe.align_batch_pe`` (PE: both ends through the
-seed/vote/verify/indel/splice kernels, then the pairing grid kernel) and
-the plain-torch ranking around them; the full result tree comes to the
-host in one copy.  The host half — end trimming, MD/NM, the end indel,
-terminal and (with ``-N 1``) distant splice rescue lanes, pair rescue,
-MAPQ and SAM emission — is the numpy code of
+or ``-N 1`` (novel splicing), with the GMAP rescue lanes of
+``--gmap-mode`` (terminal, improvement, PE pairsearch; the default runs
+them all).  The device half is one call per batch of
+``gsnap_gapped.align_batch_gapped`` (SE) or ``gsnap_pe.align_batch_pe``
+(PE: both ends through the seed/vote/verify/indel/splice kernels, then
+the pairing grid kernel) and the plain-torch ranking around them; the
+full result tree comes to the host in one copy.  The reads the GMAP
+lanes take are aligned once per batch by ``gmap.align_cdna_batch``
+(kernels K9-K12).  The host half — end trimming, MD/NM, the end indel,
+terminal, GMAP and (with ``-N 1``) distant splice rescue lanes, pair
+rescue, MAPQ and SAM emission — is the numpy code of
 gmap_gsnap_tpu/align/runner.py, copied (not rewritten) because that
 module imports JAX.  What this module leaves out of it: native output,
-GMAP rescue (and with it PE pairsearch), SNP/cmet/atoi modes, known
-splice sites and the short-end lane they drive, gene/tally/runlength
-multimapping resolution (the identity without those databases), output
-routing (--split-output) and the TPU transfer slimming (compact views,
-row-subset fetches, pad buckets); see ROADMAP.md.
-
-The JAX-free host modules (io.sam, io.fasta, io.gsnap_native's pair
-score, utils.dna, native, align.rescue) are imported from the JAX
-package.  rescue.trim_term imports the JAX runner, so terminal trims are
-supplied here (``trims_of``) and make_terminals never reaches it.
+SNP/cmet/atoi modes, known splice sites and the short-end lane and
+inside-pair ambiguous-splice resolution they drive (so
+``indel_knownsplice`` does nothing), gene/tally/runlength multimapping
+resolution (the identity without those databases), output routing
+(--split-output), ``warmup`` (XLA compiles) and the TPU transfer
+slimming (compact views, row-subset fetches, pad buckets); see
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -35,18 +35,16 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from gmap_gsnap_tpu import native as native_mod
-from gmap_gsnap_tpu.align import rescue
-from gmap_gsnap_tpu.db.datadir import GenomeDB
-from gmap_gsnap_tpu.io import sam
-from gmap_gsnap_tpu.io.fasta import Record
-from gmap_gsnap_tpu.io.gsnap_native import _align_score
-from gmap_gsnap_tpu.utils import dna
-
+from .. import native as native_mod
 from ..db import datadir
+from ..db.datadir import GenomeDB
+from ..io import sam
+from ..io.fasta import Record
+from ..io.gsnap_native import _align_score
+from ..utils import dna
 from ..utils.device import resolve_device
 from . import distant as distant_mod
-from . import gsnap_gapped, gsnap_pe, gsnap_se
+from . import gsnap_gapped, gsnap_pe, gsnap_se, rescue
 from .gsnap_gapped import (KIND_DEL, KIND_INS, KIND_SHORTEXON, KIND_SPLICE,
                            KIND_SUB)
 
@@ -415,10 +413,9 @@ class GsnapRunner:
     explicit; "cuda" raises where there is no CUDA device).
 
     ``params`` defaults to GsnapParams() with the dynamic size threshold,
-    like the JAX runner — whose default --gmap-mode lanes this port does
-    not have, so pass ``GsnapParams(gmap_mode="")``.  ``novelsplicing``
-    is gsnap -N 1: local splices and short exons on the device, the
-    distant lane on the host."""
+    like the JAX runner (so the default GMAP lanes run).
+    ``novelsplicing`` is gsnap -N 1: local splices and short exons on the
+    device, the distant lane on the host."""
 
     def __init__(self, db: GenomeDB, params: gsnap_se.GsnapParams | None = None,
                  lmax: int = 100, novelsplicing: bool = False,
@@ -437,16 +434,14 @@ class GsnapRunner:
                 params, seed_total=max(params.seed_total, 512))
         if params.mode != "standard":
             raise NotImplementedError(f"--mode {params.mode} is {_NOT_PORTED}")
-        gmap_modes = {m.strip() for m in params.gmap_mode.split(",") if m.strip()}
-        if gmap_modes:
-            raise NotImplementedError(
-                f"GMAP rescue lanes ({','.join(sorted(gmap_modes))}) are "
-                f"{_NOT_PORTED}; use gmap_mode='' (--gmap-mode none)")
         self.db = db
         self.lmax = lmax
         self.params = params
         self.gapped_params = gsnap_gapped.GappedParams(
             base=params, novelsplicing=novelsplicing)
+        # --gmap-mode lane list (gsnap.c:1188-1214 add_gmap_mode)
+        self.gmap_modes = {m.strip() for m in
+                           self.params.gmap_mode.split(",") if m.strip()}
         self.splicing_on = novelsplicing
         self.merge_samechr = False  # gsnap --merge-distant-samechr
         # standard mode: no cmet/atoi conversion on either strand
@@ -458,8 +453,13 @@ class GsnapRunner:
         # compares use the shared ASCII array (no whole-genome str)
         self._genome_str = db.genome_str
         self._genome_bytes = self._genome_str.ascii
+        self._gmap_cache: dict = {}
         self._lane_masks: dict = {}   # (id(rec), left, plusp) -> (sel, ref)
         self._lane_trims: dict = {}   # same key -> (t5, t3) at params score
+        self._gmap_collect = None
+        self._gmap_rows: set = set()
+        self._gmap_row = -1
+        self.gmap_seconds = 0.0       # host wall spent in prefetch_gmap
         self.quiet_if_excessive = False  # gsnap -Q (quiet_if_excessive_p)
         self.pe_fast = True  # vectorized PE SAM fast path (tests may disable)
         self.clip_overlap = False  # gsnap --clip-overlap (clip_overlap_p)
@@ -1171,12 +1171,162 @@ class GsnapRunner:
 
         return mm_fn
 
+    def _gmap_hosthit(self, rec: Record):
+        """GMAP rescue: align the read with the GMAP stack; returns a
+        HostHit or None (align_single_hit_with_gmap, stage1hr.c:11009).
+
+        Results are cached by sequence; when ``self._gmap_collect`` is a
+        list (batch prefetch pass 1), the request is recorded and None
+        returned — the caller re-runs after prefetch_gmap() fills the
+        cache with ONE batched device call for the whole chunk."""
+        from . import gmap as gmap_mod
+
+        key = rec.seq
+        if key in self._gmap_cache:
+            return self._gmap_cache[key]
+        if self._gmap_collect is not None:
+            self._gmap_collect.append(rec)
+            self._gmap_rows.add(self._gmap_row)
+            return None
+        max_il = self.params.shortsplicedist if self.splicing_on else 30
+        path = gmap_mod.align_cdna(self.db, rec.seq, max_intronlen=max_il,
+                                   extend_ends=True, device=self.device)
+        hit = self._gmap_path_to_hit(rec, path)
+        self._gmap_cache[key] = hit
+        return hit
+
+    def prefetch_gmap(self, recs: list[Record]) -> None:
+        """Batch-resolve GMAP rescue for many reads in one device pass
+        (its host wall time adds up in ``gmap_seconds``)."""
+        from . import gmap as gmap_mod
+
+        t0 = _time.time()
+        todo = []
+        seen = set()
+        for r in recs:
+            if r.seq not in self._gmap_cache and r.seq not in seen:
+                seen.add(r.seq)
+                todo.append(r)
+        if todo:
+            max_il = self.params.shortsplicedist if self.splicing_on else 30
+            paths = gmap_mod.align_cdna_batch(
+                self.db, [r.seq for r in todo], max_intronlen=max_il,
+                extend_ends=True, device=self.device)
+            for r, path in zip(todo, paths):
+                self._gmap_cache[r.seq] = self._gmap_path_to_hit(r, path)
+        self.gmap_seconds += _time.time() - t0
+
+    def _gmap_path_to_hit(self, rec: Record, path):
+        """Convert a GMAP Path into a rescue HostHit, applying the
+        reference acceptance gates (end chop, stage2 coverage, bad
+        stretch); vectorized over exon match masks."""
+        from ..io import gmap_out
+        from . import gmap as gmap_mod
+
+        if path is None or not path.exons:
+            return None
+        L = len(rec.seq)
+        qstr = rec.seq.upper() if path.watsonp else dna.revcomp_str(rec.seq.upper())
+        gstr = self._genome_str
+        gmap_mod.chop_path_ends(gstr, qstr, path)
+        if not path.exons:
+            return None
+        qb = np.frombuffer(qstr.encode("latin-1"), np.uint8)
+        gb = self._genome_bytes
+
+        def exon_eq(e):
+            return gmap_mod._match_vec(gb, qb, e.qstart, e.qend,
+                                       e.gstart - e.qstart)
+
+        # stage2 oligo-chain viability (Stage2_compute
+        # proceed_pctcoverage=0.5, stage1hr.c:11257): exact runs >= the
+        # oligoindex size must cover half the read or the rescue fails
+        cov = 0
+        for e in path.exons:
+            eq = exon_eq(e)
+            # run lengths of consecutive matches
+            d = np.diff(np.concatenate([[0], eq.astype(np.int8), [0]]))
+            starts = np.flatnonzero(d == 1)
+            ends = np.flatnonzero(d == -1)
+            runs = ends - starts
+            cov += int(runs[runs >= 8].sum())
+        if cov * 2 < L:
+            return None
+        core, md, nm, has_intron = gmap_out.path_cigar_md(
+            path, qstr, gstr, sam_mode="gsnap"
+        )
+        mmpos = []
+        for e in path.exons:
+            eq = exon_eq(e)
+            qn = qb[e.qstart : e.qend] == ord("N")
+            mmpos.extend((np.flatnonzero(~eq & ~qn) + e.qstart).tolist())
+        mmpos.sort()
+
+        # Stage3end_bad_stretch_p: reject GMAP hits whose aligned
+        # columns contain a Viterbi-detected bad stretch or too many
+        # indel breaks (stage3hr.c:882)
+        nindelbreaks = 0
+        events = []
+        prev = None
+        for e in path.exons:
+            if prev is not None:
+                dq = e.qstart - prev.qend
+                dg = e.gstart - prev.gend
+                if dq > 0 or (0 < dg < 9):
+                    nindelbreaks += 1
+                    events.append(
+                        np.ones(dq + (dg if dg < 9 else 0), bool))
+            eq = exon_eq(e)
+            qn = qb[e.qstart : e.qend] == ord("N")
+            events.append(~eq & ~qn)
+            prev = e
+        events = np.concatenate(events) if events else np.zeros(0, bool)
+        if nindelbreaks > 3 or rescue.bad_stretch_p(events.tolist()):
+            return None
+        qual = rec.quality if rec.quality else None
+        if qual is None:
+            qv = np.full(L, MAX_QUALITY_SCORE, int)
+        else:
+            qq = qual if path.watsonp else qual[::-1]
+            qv = np.clip(np.frombuffer(qq.encode(), np.uint8).astype(int)
+                         - QUALITY_ADJ, 0, MAX_QUALITY_SCORE)
+        loglik = float(MISMATCH_LOGPROB[qv[np.array(mmpos, int)]].sum()) if mmpos else 0.0
+        intron = sum(
+            (b.gstart - a.gend)
+            for a, b in zip(path.exons, path.exons[1:])
+            if b.gstart - a.gend >= 9
+        )
+        ndel = sum(
+            (b.gstart - a.gend)
+            for a, b in zip(path.exons, path.exons[1:])
+            if 0 < b.gstart - a.gend < 9
+        )
+        xs = None
+        if has_intron and path.cdna_direction:
+            xs = "+" if path.cdna_direction > 0 else "-"
+        t5, t3 = path.qstart, L - path.qend
+        covered = sum(e.qend - e.qstart for e in path.exons)
+        nmatches = covered - len(mmpos)
+        # comparison nmatches = nmatches_posttrim: for GMAP hits the
+        # reference's Pair_nmatches_posttrim (pair.c:5250, fed into
+        # Stage3end_new_gmap) simply counts MATCH columns of the
+        # pairarray inside the ambig-clipped range — NO GSNAP-trim-
+        # policy re-trim — which is why an untrimmed full-length GMAP
+        # rescue outranks a trimmed sub of the same locus (t18 case)
+        post = nmatches
+        d = PostHit(path.gstart - path.qstart, path.watsonp, t5, t3, nm,
+                    nmatches, loglik, md, core,
+                    path.gend - path.gstart, xs, intron, ndel,
+                    tuple((e.qstart, e.qend, e.gstart) for e in path.exons),
+                    tuple(mmpos), nmatches)
+        return rescue.HostHit(d, "gmap", post, np.array(mmpos, int), loglik)
+
     def _rescued_hits(self, rec: Record, hits, row: int, npaths: int,
                       maxpaths: int):
-        """Device hits + end-indel, distant and terminal lanes -> final
-        ordered HostHit list (align_end tail, stage1hr.c:12400-12530).
-        The short-end and GMAP stages of the JAX runner need known sites
-        or GMAP lanes, which the port does not have."""
+        """Device hits + end-indel, distant, terminal and GMAP lanes ->
+        final ordered HostHit list (align_end tail,
+        stage1hr.c:12400-12530).  The short-end stage of the JAX runner
+        needs known sites, which the port does not have."""
         L = len(rec.seq)
         kindname = {KIND_SUB: "sub", KIND_INS: "ins", KIND_DEL: "del",
                     KIND_SPLICE: "splice", KIND_SHORTEXON: "shortexon"}
@@ -1194,7 +1344,8 @@ class GsnapRunner:
         best = int(hits["score"][row, 0]) if n > 0 else 10**6
         done = min(budget, best)
 
-        # device lane-noop gate: the end-indel and terminal lanes are
+        # device lane-noop gate: the end-indel and terminal lanes (and
+        # the GMAP improvement pass that only fires on terminals) are
         # provably empty for this row — skip them
         lane_clear = ("lane_noop" in hits
                       and bool(np.asarray(hits["lane_noop"])[row]))
@@ -1222,11 +1373,75 @@ class GsnapRunner:
                             for h in dh)
                 done = min(done, found)  # opt_level update, gates stage 10+
 
+        gmap_cache = [False, None]
+
+        def gmap_once():
+            if not gmap_cache[0]:
+                gmap_cache[0] = True
+                gmap_cache[1] = self._gmap_hosthit(rec)
+            return gmap_cache[1]
+
+        def gmap_beats_sub(g) -> bool:
+            """Does the full-length GMAP rescue replace a trimmed SUB of
+            the same locus?  Empirical boundary of the reference's
+            path_trim end policy (Pair_trim_ends + end-dynprog
+            re-extension, stage3.c:9712-9741), fit to a 25-probe sweep
+            vs the oracle:
+
+              * GMAP must be STRICTLY better than the sub's posttrim
+                matches (ties go to the lower hittype = sub);
+              * a genome-LEFT trim is recovered only when it holds
+                <= 1 mismatch and NO interior mismatch sits within
+                24 bp (maxpeelback_distalmedial) of the kept boundary;
+              * a genome-RIGHT trim is recovered only when the NEAREST
+                interior mismatch (if any) sits within 24 bp of the
+                kept boundary — the left/right asymmetry matches the
+                end dynprogs' jump_late split.
+
+            Observed only in STANDARD runs without SNPs or known sites,
+            which is all the port runs."""
+            for i in range(n):
+                if int(hits["kind"][row, i]) != KIND_SUB:
+                    continue
+                d0 = self._end_hit(rec, hits, row, i)
+                if abs(int(g.d.left) - int(d0.left)) > 2 * L:
+                    continue
+                mmp = np.asarray(d0.mmpos, int)
+                t5, t3 = d0.trim5, d0.trim3
+                inner = mmp[(mmp >= t5) & (mmp < L - t3)]
+                post = (L - t5 - t3) - len(inner)
+                if g.nmatches <= post:
+                    return False
+                if not end_policy_ok(t5, t3, mmp):
+                    return False
+            return True
+
+        def end_policy_ok(t5, t3, mmp) -> bool:
+            """Shared trim-geometry half of gmap_beats_sub, also applied
+            to the terminals a GMAP rescue would displace (a terminal
+            whose left trim holds 2 mismatches survives)."""
+            mmp = np.asarray(mmp, int)
+            inner = mmp[(mmp >= t5) & (mmp < L - t3)]
+            if t5 > 0:
+                if int((mmp < t5).sum()) >= 2:
+                    return False
+                if len(inner) and int(inner.min()) - t5 < 24:
+                    return False
+            if t3 > 0:
+                if len(inner) and (L - t3) - int(inner.max()) > 24:
+                    return False
+            return True
+
         if done >= self.params.terminal_threshold and not lane_clear:
             mm_fn = self._cand_mm_fn(rec, hits, row, L)
-            # indel solvers mark their diagonal pairs used; SUB
-            # diagonals stay unused at the default done levels
-            # (stage1hr.c:10789) and feed the terminal lane
+            # indel/splice solvers mark their diagonal pairs usedp as
+            # they go (stage1hr.c:4318,6566), but SUB diagonals are only
+            # marked by find_complete_mm — which is SKIPPED when
+            # done_level <= fast_level (stage1hr.c:10789), i.e. for
+            # almost every read under default settings.  Such reads' sub
+            # diagonals stay unused and feed the terminal lane: a
+            # trimmed sub's own locus becomes a terminal, anchors GMAP,
+            # and the untrimmed GMAP rescue can replace the trimmed sub.
             used = set(end_used)
             for i in range(n):
                 if int(hits["kind"][row, i]) == KIND_SUB:
@@ -1234,18 +1449,11 @@ class GsnapRunner:
                 pp = bool(hits["plusp"][row, i])
                 used.add((int(hits["left"][row, i]), pp))
                 used.add((int(hits["right"][row, i]), pp))
-
-            # TERM-end trims (trim_left_end / trim_right_end at -3):
-            # the primed cache when it holds them, else computed here
-            # (rescue.trim_term, the fallback of make_terminals, would
-            # import the JAX runner)
-            def trims_of(left, plusp):
-                t = (self._lane_trims.get((id(rec), int(left), bool(plusp)))
-                     if self.params.trim_mismatch_score == -3 else None)
-                if t is None:
-                    t = trim_ends(mm_fn(int(left), bool(plusp)), -3)
-                return t
-
+            trims_of = None
+            if self.params.trim_mismatch_score == -3:
+                def trims_of(left, plusp):
+                    return self._lane_trims.get(
+                        (id(rec), int(left), bool(plusp)))
             tcl = np.asarray(hits["cand_left"][row])
             tcp = np.asarray(hits["cand_plusp"][row])
             tcn = np.asarray(hits["cand_nmm"][row])
@@ -1259,17 +1467,76 @@ class GsnapRunner:
                 spansize + self.db.interval - 1, used=used,
                 k=self.db.k, interval=self.db.interval, trims_of=trims_of,
             )
+            term_hits = []
             for left, plusp, t5, t3, nmm_trim, pos in terms:
                 d = self._terminal_hit(rec, left, plusp, t5, t3)
-                # HostHit.nmatches is the TRIMMED-region matches
-                # (Stage3end_new_terminal recomputes over the trim)
-                hhits.append(rescue.HostHit(
+                # HostHit.nmatches is the TRIMMED-region matches: the
+                # reference recomputes terminal nmismatches over the
+                # trimmed span (Stage3end_new_terminal), and the
+                # GMAP-on-terminals acceptance compares against that
+                term_hits.append(rescue.HostHit(
                     d, "terminal", d.nmatches, pos, d.loglik))
+            hhits.extend(term_hits)
+            # early skip: when the acceptance gates below are provably
+            # unsatisfiable, don't run the (expensive) GMAP engine at
+            # all: a geometry-failing SUB blocks it (a different-locus
+            # GMAP with more matches would have been a better sub the
+            # complete seed set had found), and so does every beatable
+            # terminal failing geometry
+            gmap_possible = True
+            for h in hhits[:n]:
+                if h.hittype == "sub" and not end_policy_ok(
+                        h.d.trim5, h.d.trim3, h.d.mmpos):
+                    gmap_possible = False
+                    break
+            if gmap_possible and term_hits and not any(
+                    end_policy_ok(t.d.trim5, t.d.trim3, t.mm_positions)
+                    for t in term_hits):
+                gmap_possible = False
+            if (term_hits and gmap_possible
+                    and "terminal" in self.gmap_modes
+                    and len(term_hits) <= self.params.max_gmap_terminal):
+                g = gmap_once()
+                # GMAP is anchored near each terminal: align_single_hit_
+                # with_gmap extends a TERM end by shortsplicedist +
+                # querylength UNCONDITIONALLY (stage1hr.c:11060-11066);
+                # a global alignment outside every anchor window would
+                # not have been found
+                win = self.params.shortsplicedist + 2 * L
+                if (g is not None and any(
+                        g.nmatches > t.nmatches
+                        and abs(int(g.d.left) - int(t.d.left)) <= win
+                        for t in term_hits)
+                        and gmap_beats_sub(g)
+                        and all(end_policy_ok(t.d.trim5, t.d.trim3,
+                                              t.mm_positions)
+                                for t in term_hits
+                                if g.nmatches > t.nmatches)):
+                    hhits.append(g)
 
         if not hhits:
             return []
-        final = rescue.select_final(hhits, L,
-                                    subopt=self.params.subopt_levels)
+
+        win = self.params.shortsplicedist + 2 * L
+
+        def gmap_for_anchor(anchor):
+            g = gmap_once()
+            if g is None:
+                return None
+            if abs(int(g.d.left) - int(anchor.d.left)) > win:
+                return None  # outside the anchor's genomic window
+            if not gmap_beats_sub(g):
+                return None  # reference path_trim would chop it back
+            return g
+
+        final = rescue.select_final(
+            hhits, L,
+            improvement_fn=(gmap_for_anchor
+                            if "improvement" in self.gmap_modes else None),
+            subopt=self.params.subopt_levels,
+        )
+        # Stage3end_resolve_multimapping is the identity without genes /
+        # tally / runlength maps (not ported)
         return final[:maxpaths]
 
     def _se_category(self, final) -> str:
@@ -1713,8 +1980,9 @@ class GsnapRunner:
     # ------------------------------------------------------- paired-end host
     def _cat_row(self, j: int) -> None:
         """Record the GLOBAL chunk row about to emit — resulttype
-        categories key on it, not on the res-local row (which differs
-        inside the wide/overflow lane)."""
+        categories and the GMAP collection pass key on it, not on the
+        res-local row (which differs inside the wide/overflow lane)."""
+        self._gmap_row = j
         self._catkey = j
 
     def _cat_key(self, row: int) -> int:
@@ -1766,12 +2034,12 @@ class GsnapRunner:
         return gsnap_pe.PT_CONCORDANT
 
     def _pe_rescue(self, rec5: Record, rec3_inv: Record, res, row: int):
-        """Terminal lane feeding the pairing stage when the device grid
-        found no concordant pair (stage1hr.c:15138 terminal +
-        Stage3pair_new).  The JAX runner's GMAP pairsearch branch needs
-        the GMAP lanes, and its inside-pair ambiguous-splice resolution
-        (``_resolve_inside_ambi``) needs the known-site short-end lane;
-        the port has neither yet.
+        """Terminal + GMAP lanes feeding the pairing stage when the
+        device grid found no concordant pair (stage1hr.c:13520/14556/
+        15138 GMAP pairsearch/halfmapping/terminal + Stage3pair_new).
+        The JAX runner's inside-pair ambiguous-splice resolution
+        (``_resolve_inside_ambi``) needs the known-site short-end lane,
+        which the port does not have yet.
 
         Returns (pairs, concordant_p, final5, final3) where pairs is a
         ranked list of (hit5, hit3, pairtype, pair_score, insertlen)."""
@@ -1781,6 +2049,41 @@ class GsnapRunner:
         f3 = self._rescued_hits(rec3_inv, e3, row, int(e3["npaths"][row]),
                                 maxp)
         pairmax = self._pairmax()
+        window = pairmax + self.params.shortsplicedist
+
+        def gmap_for(rec, anchors, is5):
+            # pairsearch/halfmapping GMAP anchored near the mate's hits
+            # (stage1hr.c:14556/14625); reject short alignments
+            # (Stage3_short_alignment_p, stage3.c:8362) and alignments
+            # outside mate +- (pairmax + shortsplicedist)
+            g = self._gmap_hosthit(rec)
+            if g is None:
+                return None
+            d = g.d
+            L = len(rec.seq)
+            if (L - d.trim3) - d.trim5 < L // 2:
+                return None
+            for a in anchors:
+                pt = (self._host_pairtype(d, a.d, pairmax) if is5
+                      else self._host_pairtype(a.d, d, pairmax))
+                if pt != gsnap_pe.PT_UNPAIRED and abs(d.left - a.d.left) <= window + L:
+                    return g
+            return None
+
+        # GMAP hits never serve as anchors: the reference's pairsearch
+        # iterates hits5/hits3 before any GMAP hit joins those lists
+        # (stage1hr.c:14552, 15133), and its own products go straight
+        # into pair lists
+        anch5 = [h for h in f5 if h.hittype != "gmap"]
+        anch3 = [h for h in f3 if h.hittype != "gmap"]
+        # pairsearch tries at most max_gmap_pairsearch anchors
+        # (stage1hr.c:14552 "i < max_gmap_pairsearch")
+        cap = self.params.max_gmap_pairsearch
+        psearch = "pairsearch" in self.gmap_modes
+        g3 = (gmap_for(rec3_inv, anch5[:cap], is5=False)
+              if anch5 and psearch else None)
+        g5 = (gmap_for(rec5, anch3[:cap], is5=True)
+              if anch3 and psearch else None)
 
         def hkey(h):
             return (h.hittype, h.d.left, h.d.plusp, h.d.trim5, h.d.trim3,
@@ -1810,6 +2113,15 @@ class GsnapRunner:
         for h5 in f5:
             for h3 in f3:
                 addpair(h5, h3)
+        # pairsearch GMAP hits pair ONLY with their anchor hits, not
+        # cross-product (stage1hr.c:14556/14625 Stage3pair_new per
+        # anchor); the pair class follows the anchor's hittype
+        if g3 is not None:
+            for h5 in anch5:
+                addpair(h5, g3)
+        if g5 is not None:
+            for h3 in anch3:
+                addpair(g5, h3)
 
         # Stage3pair_remove_overlaps: pairs at the same genomic
         # positions collapse to the better one (nmatches, then the
@@ -2284,7 +2596,7 @@ class GsnapRunner:
 
     # ------------------------------------------------------------------ main
     def _emit(self, rec: Record, res, row: int, j: int) -> str:
-        self._catkey = j
+        self._cat_row(j)
         try:
             return self.sam_records(rec, res, row, int(res["npaths"][row]),
                                     self.params.maxpaths)
@@ -2338,6 +2650,9 @@ class GsnapRunner:
                          {j: wi for wi, j in enumerate(rows_sel)},
                          not widen))
                     wide_row.update(rows_sel)
+            # pass 1: GMAP-rescue requests are collected, not solved
+            self._gmap_collect = []
+            self._gmap_rows = set()
             self._categories = {}
             texts = [None] * len(chunk)
             need_full = self._need_full(chunk, res)
@@ -2357,6 +2672,7 @@ class GsnapRunner:
             for j, rec in enumerate(chunk):
                 if j not in wide_row and texts[j] is None:
                     texts[j] = self._emit(rec, res, j, j)
+            wide_ctx = {}   # chunk row -> (tree, row) for re-emission
             for wdisp, lane_rows, is_final in wide_lanes:
                 wide_res = self.fetch_records(wdisp)
                 if not is_final:
@@ -2391,14 +2707,26 @@ class GsnapRunner:
                                 texts[j] = ft[wi]
                                 self._categories[j] = "unpaired_uniq"
                 for j, wi in lane_rows.items():
+                    wide_ctx[j] = (wide_res, wi)
                     if texts[j] is None:
                         texts[j] = self._emit(chunk[j], wide_res, wi, j)
+            pending = self._gmap_collect
+            rows = self._gmap_rows
+            self._gmap_collect = None
+            if pending:
+                # one batched device pass resolves every rescue, then
+                # only the affected reads re-emit (pass 2)
+                self.prefetch_gmap(pending)
+                for j in sorted(rows):
+                    rres, rrow = wide_ctx.get(j, (res, j))
+                    texts[j] = self._emit(chunk[j], rres, rrow, j)
             for j in range(len(chunk)):
                 self.category_counts[
                     self._categories.get(j, "unpaired_uniq")] += 1
             for t in texts:
                 out.write(t)
             total += len(chunk)
+            self._gmap_cache.clear()
             self.batch_times.append((_time.time() - t_batch, len(chunk)))
         return total
 
@@ -2732,6 +3060,10 @@ class GsnapRunner:
                          not widen))
                     wide_row.update(rows_sel)
             t_batch = _time.time()
+            # pass 1 collects GMAP-rescue requests; one batched device
+            # pass resolves them; affected pairs re-emit (pass 2)
+            self._gmap_collect = []
+            self._gmap_rows = set()
             self._categories = {}
             self._catkey = None
             texts = [None] * len(chunk5)
@@ -2762,6 +3094,7 @@ class GsnapRunner:
             for j in range(len(chunk5)):
                 if j not in wide_row and texts[j] is None:
                     texts[j] = self._emit_pe(recs_of(j), res, j, j)
+            wide_ctx = {}   # chunk row -> (tree, row) for re-emission
             for wdisp, lane_rows, is_final in wide_lanes:
                 wide_res = self.fetch_pairs(wdisp)
                 if not is_final and lane_rows:
@@ -2801,8 +3134,17 @@ class GsnapRunner:
                                 texts[j] = ft[wi]
                                 self._categories[j] = "concordant_uniq"
                 for j, wi in lane_rows.items():
+                    wide_ctx[j] = (wide_res, wi)
                     if texts[j] is None:
                         texts[j] = self._emit_pe(recs_of(j), wide_res, wi, j)
+            pending = self._gmap_collect
+            rows = self._gmap_rows
+            self._gmap_collect = None
+            if pending:
+                self.prefetch_gmap(pending)
+                for j in sorted(rows):
+                    rres, rrow = wide_ctx.get(j, (res, j))
+                    texts[j] = self._emit_pe(recs_of(j), rres, rrow, j)
             # -a/--adapter-strip: pairs with no concordant/paired
             # result retry with detected primer readthrough chopped
             # (gsnap.c:621-665 + Shortread_chop_primers); both the
@@ -2845,5 +3187,6 @@ class GsnapRunner:
             for t in texts:
                 out.write(t)
             total += len(chunk5)
+            self._gmap_cache.clear()
             self.batch_times.append((_time.time() - t_batch, len(chunk5)))
         return total

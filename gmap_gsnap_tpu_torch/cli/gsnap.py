@@ -1,17 +1,18 @@
 """gsnap-compatible CLI of the port: single-end or paired-end, standard
-mode, -N 0 or -N 1 (novel splicing), --gmap-mode none, SAM output, on one
-CUDA device.
+mode, -N 0 or -N 1 (novel splicing), the GMAP rescue lanes of
+--gmap-mode (all of them by default), SAM output, on one CUDA device.
 
 Usage:  python -m gmap_gsnap_tpu_torch.cli.gsnap -D <dir> -d <db> \\
-            --gmap-mode none [-N 1] [options] <fastq> [<fastq of read 2>]
+            [-N 1] [--gmap-mode <lanes>] [options] <fastq> [<fastq of read 2>]
 
 Paired-end input is two files (read 1, read 2) or one FASTA whose
 records carry two sequence lines.  The flags keep the names and
 defaults of gmap_gsnap_tpu/cli/gsnap.py (whose parser cannot be
 imported: it sets up JAX).  Flags of paths the port does not have yet —
-the GMAP lanes (the default --gmap-mode), -s, -v, --mode other than
-standard, -A gsnap, three or more input files — exit with an error
-naming the ROADMAP.md item instead of running a reduced path.
+-s, -v, --mode other than standard, -A gsnap, three or more input
+files, and values of --trigger-score-for-gmap or --max-gmap-improvement
+that no lane reads — exit with an error naming the ROADMAP.md item
+instead of running a reduced path.
 """
 
 from __future__ import annotations
@@ -23,16 +24,29 @@ import time
 _ROADMAP = "not ported yet (ROADMAP.md queue A)"
 
 
-def _gmap_mode_none(s: str) -> bool:
-    """--gmap-mode parser rule (gsnap.c add_gmap_mode): 'none' clears
-    the lanes and stops parsing; any lane left set is unsupported."""
+def _expand_gmap_mode(s: str) -> str:
+    """--gmap-mode parser (gsnap.c:1032 add_gmap_mode): each token ORs
+    a lane in; 'none' clears and stops parsing further tokens."""
+    allowed = {"improve": "improvement", "improvement": "improvement",
+               "terminal": "terminal",
+               "indel_knownsplice": "indel_knownsplice",
+               "pairsearch": "pairsearch", "all": "all"}
+    modes: set[str] = set()
     for tok in s.split(","):
         tok = tok.strip()
+        if not tok:
+            continue
         if tok == "none":
-            return True
-        if tok:
-            return False
-    return True
+            return ""
+        if tok not in allowed:
+            print(f"Don't recognize gmap-mode type {tok}\n"
+                  "Allowed values are: none, improve, terminal, "
+                  "indel_knownsplice, pairsearch", file=sys.stderr)
+            sys.exit(9)
+        if tok == "all":
+            return "pairsearch,indel_knownsplice,terminal,improvement"
+        modes.add(allowed[tok])
+    return ",".join(sorted(modes))
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -89,7 +103,24 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("-Q", "--quiet-if-excessive", action="store_true")
     p.add_argument("--mode", default="standard")
     p.add_argument("--gmap-mode",
-                   default="pairsearch,indel_knownsplice,terminal,improvement")
+                   default="pairsearch,indel_knownsplice,terminal,improvement",
+                   help="when to run GMAP on reads: comma-separated list "
+                        "of none, all, pairsearch, indel_knownsplice, "
+                        "terminal, improvement (gsnap.c:1188)")
+    p.add_argument("--trigger-score-for-gmap", type=int, default=5,
+                   help="try GMAP pairsearch on nearby genomic regions "
+                        "when best score is greater than this (gsnap.c:98; "
+                        "no lane reads it yet, so only 5 is accepted)")
+    p.add_argument("--max-gmap-pairsearch", type=int, default=10,
+                   help="perform GMAP pairsearch on nearby genomic regions "
+                        "up to this many hits (gsnap.c:90)")
+    p.add_argument("--max-gmap-terminal", type=int, default=50,
+                   help="perform GMAP terminal on nearby genomic regions up "
+                        "to this many hits (gsnap.c:91)")
+    p.add_argument("--max-gmap-improvement", type=int, default=5,
+                   help="perform GMAP improvement on nearby genomic regions "
+                        "up to this many hits (gsnap.c:92; no lane reads "
+                        "it yet, so only 5 is accepted)")
     p.add_argument("--query-unk-mismatch", type=int, default=0, choices=[0, 1])
     p.add_argument("--genome-unk-mismatch", type=int, default=1, choices=[0, 1])
     p.add_argument("-v", "--use-snps", default=None)
@@ -110,9 +141,6 @@ def main(argv=None) -> int:
     p = _parser()
     args = p.parse_args(argv)
     unsupported = [
-        (not _gmap_mode_none(args.gmap_mode),
-         f"--gmap-mode {args.gmap_mode}: GMAP rescue lanes are {_ROADMAP} "
-         "(item 3); pass --gmap-mode none"),
         (args.use_splicing is not None, f"-s: known splice sites are {_ROADMAP} (item 4)"),
         (args.use_snps is not None, f"-v: SNP-tolerant alignment is {_ROADMAP} (item 4)"),
         (args.mode != "standard", f"--mode {args.mode} is {_ROADMAP} (item 4)"),
@@ -120,15 +148,18 @@ def main(argv=None) -> int:
         (len(args.input) > 2,
          "three or more input files (read as one single-end stream) are "
          f"{_ROADMAP} (item 7)"),
+        (args.trigger_score_for_gmap != 5,
+         f"--trigger-score-for-gmap other than 5 is {_ROADMAP} (item 3)"),
+        (args.max_gmap_improvement != 5,
+         f"--max-gmap-improvement other than 5 is {_ROADMAP} (item 3)"),
     ]
     for bad, msg in unsupported:
         if bad:
             p.error(msg)
 
-    from gmap_gsnap_tpu.db.datadir import GenomeDB
-    from gmap_gsnap_tpu.io import fasta
-
     from ..align import gsnap_se, runner as runner_mod
+    from ..db.datadir import GenomeDB
+    from ..io import fasta
     from ..ops import mismatch as mismatch_mod
 
     paired = len(args.input) == 2
@@ -183,7 +214,10 @@ def main(argv=None) -> int:
         pairmax_rna=args.pairmax_rna,
         terminal_threshold=args.terminal_threshold,
         trim_mismatch_score=args.trim_mismatch_score,
-        gmap_mode="",
+        gmap_mode=_expand_gmap_mode(args.gmap_mode),
+        trigger_score_for_gmap=args.trigger_score_for_gmap,
+        max_gmap_pairsearch=args.max_gmap_pairsearch,
+        max_gmap_terminal=args.max_gmap_terminal,
         expected_pairlength=args.pairexpect,
         pairlength_deviation=args.pairdev,
     )

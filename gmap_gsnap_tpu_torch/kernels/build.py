@@ -2,8 +2,9 @@
 
 Modelled on ``gmap_gsnap_tpu/native/__init__.py``: the sources under
 ``gmap_gsnap_tpu_torch/csrc/`` are compiled at first use with
-``nvcc -gencode arch=compute_90a,code=sm_90a -shared`` into one shared
-library with a plain C interface, loaded with ``ctypes``.  The library
+``nvcc -gencode arch=compute_90a,code=sm_90a``, one nvcc process per
+``.cu`` file, all started together, and linked into one shared library
+with a plain C interface, loaded with ``ctypes``.  The library
 name carries a hash of the sources and flags, so an edited source is
 rebuilt and a stale library is never loaded.  The build directory
 (``kernels/_build``) is listed in ``.gitignore``.
@@ -31,8 +32,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "kernels", "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-lineinfo", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
+              "-O3", "-lineinfo", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 # launches per kernel in this process (reset with LAUNCHES.clear())
 LAUNCHES: Counter = Counter()
@@ -48,6 +48,10 @@ _SIGNATURES = {
     "gsnap_select_triples": "p" * 6 + "i" * 3 + "l",
     "gsnap_solve_doublesplices": "p" * 24 + "l" + "i" * 4,
     "gsnap_pair_grid": "p" * 28 + "i" * 6,
+    "gmap_seed_segments": "p" * 11 + "i" * 6 + "ll" + "ii",
+    "gmap_chain": "p" * 10 + "i" * 5,
+    "gmap_banded_gotoh": "p" * 12 + "i" * 6,
+    "gmap_bridge_traceback": "p" * 21 + "i" * 8,
 }
 
 _lib = None
@@ -84,16 +88,31 @@ def library() -> ctypes.CDLL:
     if not os.path.exists(so):
         nvcc = _nvcc()
         os.makedirs(BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-               *[s for s in srcs if s.endswith(".cu")]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+        objdir = tempfile.mkdtemp(dir=BUILD_DIR)
+        cus = [s for s in srcs if s.endswith(".cu")]
+        objs = [os.path.join(objdir, os.path.basename(s)[:-3] + ".o")
+                for s in cus]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(cus, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        build_log = "".join(logs)
+        failed = [(s, p.returncode, log) for s, p, log in zip(cus, procs, logs)
+                  if p.returncode != 0]
+        if not failed:
+            tmp = os.path.join(objdir, "lib.so")
+            link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                                  capture_output=True, text=True)
+            build_log += link.stdout + link.stderr
+            if link.returncode != 0:
+                failed = [("link", link.returncode, link.stdout + link.stderr)]
+        if failed:
+            shutil.rmtree(objdir, ignore_errors=True)
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{s} ({rc}):\n{log}" for s, rc, log in failed))
         os.replace(tmp, so)
+        shutil.rmtree(objdir, ignore_errors=True)
     lib = ctypes.CDLL(so)
     kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int32, "l": ctypes.c_int64}
     for name, sig in _SIGNATURES.items():

@@ -3,8 +3,9 @@ gmap_gsnap_tpu/ops/maxent.py).
 
 The host half (``_MODELS``, ``_tables_np``, ``_prob_from_window``,
 ``splice_prob_np``, ``prob_from_str`` and the donor/acceptor helpers) is
-copied from the JAX package: float64 numpy over the tables in
-``gmap_gsnap_tpu/data/maxent_hr_tables.npz`` (read with numpy; no JAX).
+copied from the JAX package: float64 numpy over the tables in the
+port's copy of its data file, ``gmap_gsnap_tpu_torch/data/
+maxent_hr_tables.npz`` (read with numpy).
 
 The device half is plain torch.  Tables are float32, cast from the
 float64 npz as the JAX package's ``_tables_jnp`` casts them, and the
@@ -39,11 +40,9 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-import gmap_gsnap_tpu
-
 from . import genome as genome_ops
 
-_DATA = os.path.join(os.path.dirname(os.path.abspath(gmap_gsnap_tpu.__file__)),
+_DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                      "data", "maxent_hr_tables.npz")
 
 # (table_name, nt offsets) per model; offsets are LSB-first digit order

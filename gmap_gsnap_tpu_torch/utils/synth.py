@@ -13,10 +13,10 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from gmap_gsnap_tpu.db import indexdb
-from gmap_gsnap_tpu.db.datadir import GenomeDB
-from gmap_gsnap_tpu.io.fasta import Record
-from gmap_gsnap_tpu.utils import dna
+from ..db import indexdb
+from ..db.datadir import GenomeDB
+from ..io.fasta import Record
+from . import dna
 
 _ACGT = np.frombuffer(b"ACGT", np.uint8)
 _COMP = np.zeros(256, np.uint8)
@@ -164,7 +164,8 @@ class SplicedTruth:
     nsub: int          # substitutions planted
 
 
-SPLICED_KINDS = ("unspliced", "junction", "shortexon", "distant", "n_indel")
+SPLICED_KINDS = ("unspliced", "junction", "shortexon", "distant", "n_indel",
+                 "messy_junction")
 MIN_SITE_PROB = 0.90
 
 
@@ -206,7 +207,11 @@ def plant_spliced_reads(rng: np.random.Generator, genome: Genome, n: int,
     shortexon: three pieces around two such introns, the middle exon
     20-45 nt; distant: halves of 40-60 nt ending at a donor and starting
     after an acceptor on another chromosome, or > 200 kb away on the same
-    one; n_indel: plant_reads' "n" or "mid_indel" reads.  A spliced
+    one; n_indel: plant_reads' "n" or "mid_indel" reads; messy_junction:
+    a junction read (pieces >= 20 nt) with a 1-3 nt insertion or
+    deletion, or 2-3 substitutions, within 11 nt of its junction — the
+    reads GSNAP's cascade leaves to the GMAP lanes, whose junction
+    dynprog re-solves them.  A spliced
     read's gene lies on either strand: on the minus strand its introns
     read CT..AC on the plus strand (antiacceptor, antidonor sites).
     Spliced reads carry 0-2 substitutions (distant 0-1).  Half the reads
@@ -260,13 +265,16 @@ def plant_spliced_reads(rng: np.random.Generator, genome: Genome, n: int,
             if kind == "unspliced":
                 p = int(rng.integers(0, len(g) - L))
                 pieces, juncs = [(p, p + L)], ()
-            elif kind == "junction":
+            elif kind in ("junction", "messy_junction"):
                 s = rand_site(ks)
                 e = pick(_good_sites(genome, codes, s + 80, s + 20_001, ke))
                 if e is None:
                     continue
-                a = int(rng.integers(12, L - 11))
-                pieces, juncs = [(s - a, s), (e, e + L - a)], ((s, e),)
+                edge = 12 if kind == "junction" else 20
+                a = int(rng.integers(edge, L - edge + 1))
+                # a messy read takes 3 nt more, for a deletion to eat
+                extra = 3 if kind == "messy_junction" else 0
+                pieces, juncs = [(s - a, s), (e, e + L - a + extra)], ((s, e),)
             elif kind == "shortexon":
                 e1 = rand_site(ke)
                 s2 = pick(_good_sites(genome, codes, e1 + 20, e1 + 46, ks))
@@ -296,7 +304,23 @@ def plant_spliced_reads(rng: np.random.Generator, genome: Genome, n: int,
         seq = np.concatenate([g[x:y] for x, y in pieces])
         nmax = {"unspliced": 3, "distant": 1}.get(kind, 2)
         nsub = int(rng.integers(0, nmax + 1))
-        for q in rng.choice(L, nsub, replace=False):
+        subs = rng.choice(L, nsub, replace=False)
+        if kind == "messy_junction":
+            nsub = 0
+            at = a + int(rng.integers(-11, 12))
+            if rng.random() < 0.5:
+                size = int(rng.integers(1, 4))
+                if rng.random() < 0.5:   # deletion from the read
+                    seq = np.concatenate([seq[:at], seq[at + size :]])
+                else:                    # insertion into the read
+                    seq = np.concatenate([seq[:at], _ACGT[rng.integers(
+                        0, 4, size)], seq[at:]])
+            else:
+                nsub = int(rng.integers(2, 4))
+                subs = np.clip(a + rng.choice(np.arange(-11, 12), nsub,
+                                              replace=False), 0, L - 1)
+            seq = seq[:L]
+        for q in subs:
             seq[q] = _ACGT[(np.flatnonzero(_ACGT == seq[q])[0]
                             + rng.integers(1, 4)) % 4]
         plusp = bool(rng.random() < 0.5)
@@ -344,7 +368,7 @@ class PairTruth:
     flanks: tuple      # per read: aligned piece lengths in genome order
 
 
-SPLICED_PAIR_KINDS = ("junction", "across", "shortexon")
+SPLICED_PAIR_KINDS = ("junction", "across", "shortexon", "messy_junction")
 PAIR_KINDS = ("concordant", "indel", "halfmapping", "random", "toolong",
               "inversion", "scramble", "transloc", "repeat",
               *SPLICED_PAIR_KINDS)
@@ -374,8 +398,11 @@ def plant_pairs(rng: np.random.Generator, genome: Genome, n: int,
     reads overflow the candidate budget); junction: one read across a
     GT-AG or CT-AC intron (80-20,000 nt, maxent >= 0.90 at both sites),
     the other on one exon; across: the two reads on the two sides of
-    such an intron; shortexon: one read across a 20-45 nt middle exon.
-    Spliced reads carry 0-2 substitutions.  30% of the pairs are written
+    such an intron; shortexon: one read across a 20-45 nt middle exon;
+    messy_junction (in no default mix): a junction pair whose spliced read
+    (pieces >= 20 nt) carries a 1-3 nt insertion or deletion, or 2-3
+    substitutions, within 11 nt of the junction — reads the GSNAP cascade
+    leaves to the GMAP lanes.  Spliced reads carry 0-2 substitutions.  30% of the pairs are written
     mate first (read 1 from the fragment's other end), so both strands
     occur.  Placements avoid N runs and chromosome ends."""
     if weights is None:
@@ -450,10 +477,12 @@ def plant_pairs(rng: np.random.Generator, genome: Genome, n: int,
             introns = ((s, e),)
             if kind == "across":
                 t0 = int(rng.integers(700 - ins + L, 700 - L + 1))
-            elif rng.random() < 0.5:           # read 1 across the junction
-                t0 = 700 - int(rng.integers(12, L - 11))
-            else:                              # read 2 across it
-                t0 = 700 - int(rng.integers(12, L - 11)) + L - ins
+            else:
+                edge = 20 if kind == "messy_junction" else 12
+                mate2 = rng.random() >= 0.5    # read 2 across the junction
+                t0 = 700 - int(rng.integers(edge, L - edge + 1))
+                if mate2:
+                    t0 += L - ins
         if not all(clean(x, y) for x, y in exons):
             return None
         p1 = tx_slice(exons, t0, t0 + L)
@@ -524,8 +553,31 @@ def plant_pairs(rng: np.random.Generator, genome: Genome, n: int,
                 span = L - size
             seqs[m] = w_[:L] if m == 0 else w_[:L][::-1]
             lefts[m] = x if m == 0 else y - span
-        for s, k in zip(seqs, nsub):
-            mutate(s, k)
+        messy = None
+        if kind == "messy_junction":
+            messy = m = 0 if introns[0] else 1
+            nsub[m] = 0
+            (x, y), (_, y2) = (p1, p2)[m][:2]
+            at = (y - x) + int(rng.integers(-11, 12))
+            if rng.random() < 0.5:
+                size = int(rng.integers(1, 4))
+                w_ = np.concatenate([seqs[m], g[y2 : y2 + size]])
+                if rng.random() < 0.5:         # deletion from the read
+                    w_ = np.concatenate([w_[:at], w_[at + size :]])
+                else:                          # insertion into the read
+                    w_ = np.concatenate([w_[:at], _ACGT[rng.integers(
+                        0, 4, size)], w_[at:]])
+                seqs[m] = w_[:L]
+            else:
+                nsub[m] = int(rng.integers(2, 4))
+                for q in at + rng.choice(np.arange(-11, 12), nsub[m],
+                                         replace=False):
+                    q = min(max(int(q), 0), L - 1)
+                    seqs[m][q] = _ACGT[(np.flatnonzero(_ACGT == seqs[m][q])[0]
+                                        + rng.integers(1, 4)) % 4]
+        for m in range(2):
+            if m != messy:
+                mutate(seqs[m], nsub[m])
         if not same_strand:
             seqs[1] = _COMP[seqs[1][::-1]]
         for m in range(2):

@@ -11,11 +11,13 @@ import pytest
 import torch
 
 from gmap_gsnap_tpu_torch import convert
+from gmap_gsnap_tpu_torch.align import gmap_engine as eng
 from gmap_gsnap_tpu_torch.align import gsnap_gapped as gg
 from gmap_gsnap_tpu_torch.align import gsnap_pe as pe
 from gmap_gsnap_tpu_torch.align import gsnap_se as se
 from gmap_gsnap_tpu_torch.align import runner as trun
 from gmap_gsnap_tpu_torch.kernels import build as kbuild
+from gmap_gsnap_tpu_torch.ops import dynprog as dp
 from gmap_gsnap_tpu_torch.ops import mismatch as mmo
 from gmap_gsnap_tpu_torch.ops.genome import GenomeArrays
 from gmap_gsnap_tpu_torch.utils import device as tdevice
@@ -238,6 +240,109 @@ def test_pair_grid_matches_plain(cuda):
             assert want["npairs"].sum() > 0
             cases += 1
     assert cases == 6
+
+
+def _gmap_queries(db, g, rng, n):
+    """[2n, 128] oligo rows of planted reads (repeat copies, indels,
+    junctions) and their reverse complements, as align_cdna_batch makes
+    them."""
+    recs, _ = synth.plant_reads(rng, g, n, weights=dict(
+        sub=2, repeat=2, mid_indel=1, junk=0.5))
+    srecs, _ = synth.plant_spliced_reads(rng, g, n // 2)
+    seqs = [r.seq for r in recs + srecs]
+    seqs += [trun.dna.revcomp_str(x) for x in seqs]
+    oligos = np.zeros((len(seqs), 128), np.int32)
+    valid = np.zeros((len(seqs), 128), bool)
+    for i, x in enumerate(seqs):
+        c, f = trun.dna.encode(x)
+        oligos[i, : len(c) - 11] = trun.dna.pack_kmers(c, 12)
+        valid[i, : len(c) - 11] = ~(np.convolve(f.astype(int), np.ones(12, int),
+                                                "valid") > 0)
+    return oligos, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,S,smem", [(1024, 192, True), (64, 8, True),
+                                      (128, 512, True), (16384, 192, True),
+                                      (1024, 3072, False)])
+def test_gmap_seed_and_chain_match_plain(cuda, monkeypatch, H, S, smem):
+    """K9 and K10 against their plain versions: hit and segment overflow,
+    segment arrays narrower than S, the largest H of 100 bp reads, the
+    global-scratch path; both intron limits; a backtrack of one step
+    (every chain is deeper)."""
+    rng = np.random.default_rng(43)
+    g = synth.make_genome(rng, [400_000, 250_000, 100_000])
+    db = synth.genome_db(g, 12, 3)
+    ti = convert.index_from_arrays(db.offsets, db.positions, 12, 3, cuda)
+    oligos, valid = (torch.from_numpy(x).to(cuda)
+                     for x in _gmap_queries(db, g, rng, 256))
+    if not smem:
+        monkeypatch.setattr(eng, "SEED_SMEM_BYTES", 0)
+    got = eng._seed_segments_cuda(ti.offsets, ti.positions, oligos, valid, 12,
+                                  H, S, 100)
+    want = eng._seed_segments_plain(ti.offsets, ti.positions, oligos, valid,
+                                    12, H, S, 100)
+    _equal([got[k] for k in eng.SEG_KEYS], [want[k] for k in eng.SEG_KEYS])
+    segs = [want[k] for k in ("qstart", "qend", "diag", "valid")]
+    for il, C in ((30, 192), (200_000, 192), (200_000, 1)):
+        got = eng._chain_cuda(*segs, 12, il, C)
+        want = eng._chain_plain(*segs, 12, il, C)
+        _equal([got[k] for k in eng.CHAIN_KEYS],
+               [want[k] for k in eng.CHAIN_KEYS])
+    assert want["deep"].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [32, 128])
+def test_gmap_dynprog_matches_plain(cuda, nb):
+    """K11 and K12 against banded_matrices -> bridge_intron -> traceback:
+    random junction windows with code-5 padding, both gap tiers, all
+    three cdna_direction tables, halfp, nosplicing, known-site rewards."""
+    rng = np.random.default_rng(nb)
+    M, W, NL = 64, 23, 72
+    q = rng.integers(0, 5, (2 * nb, M)).astype(np.int32)
+    g = rng.integers(0, 5, (2 * nb, NL)).astype(np.int32)
+    g[:, :M] = np.where(rng.random((2 * nb, M)) < 0.8, q, g[:, :M])
+    len1 = np.tile(rng.integers(2, M + 1, nb), 2).astype(np.int32)
+    q[np.arange(M)[None, :] >= len1[:, None]] = 5
+    len2 = len1 + 8
+    lb, rb = dp.compute_bands(len1, len2, 7)
+    late = np.arange(2 * nb) >= nb
+    known = torch.from_numpy((rng.integers(0, 2, (nb, NL + 1)) * 20)
+                             .astype(np.int32)).to(cuda)
+    loff = rng.integers(0, 1000, nb)
+    roff = loff + rng.integers(0, 200, nb)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    for open_, ext in ((dp.PAIRED_OPEN, dp.PAIRED_EXTEND),
+                       (dp.SINGLE_OPEN, dp.SINGLE_EXTEND)):
+        args = (t(q), t(g), t(len1), t(len2), t(lb), t(rb),
+                dp.pair_matrix(dp.MISMATCH_HIGHQ), t(late), M, W, open_, ext)
+        mats = dp._banded_matrices_plain(*args)
+        _equal(dp._banded_matrices_cuda(*args), mats)
+        for cd, halfp, nospl, kn in ((1, False, False, known * 0),
+                                     (-1, True, False, known),
+                                     (0, False, True, known * 0)):
+            bargs = (mats, t(len1[:nb]), t(len2[:nb]), t(len2[nb:]),
+                     t(lb[:nb]), t(lb[nb:]), t(g[:nb]), t(g[nb:]), kn, kn,
+                     t(loff), t(roff), M, W, M + NL + 2, open_, ext, 30, cd,
+                     True, halfp, nospl)
+            _equal(dp._bridge_traceback_cuda(*bargs),
+                   dp._bridge_traceback_plain(*bargs))
+
+
+def test_gmap_wrappers_reject_other_devices():
+    meta = torch.empty((2, 64), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        eng.seed_segments(meta[0], meta[0], meta, meta.bool(), 12, 64, 8, 100)
+    with pytest.raises(ValueError, match="unsupported device"):
+        eng.chain(meta, meta, meta.long(), meta.bool(), 12, 30)
+    with pytest.raises(ValueError, match="unsupported device"):
+        dp.banded_matrices(meta, meta, meta[0], meta[0], meta[0], meta[0],
+                           dp.pair_matrix(-3), meta[0].bool(), 64, 23, -18, -3)
+    mats = (torch.empty((4, 65, 23), device="meta"),) * 4
+    with pytest.raises(ValueError, match="unsupported device"):
+        dp.bridge_traceback(mats, *(meta[0, :2],) * 11, 64, 23, 138, -18, -3,
+                            30, 1, True, False)
 
 
 def test_wrappers_reject_other_devices():

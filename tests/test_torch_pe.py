@@ -23,6 +23,7 @@ from gmap_gsnap_tpu_torch.align import gsnap_pe as tpe
 from gmap_gsnap_tpu_torch.align import gsnap_se as tse
 from gmap_gsnap_tpu_torch.align import runner as trun
 from gmap_gsnap_tpu_torch.utils import synth
+from torch_parity import jax_db
 
 
 @pytest.fixture(scope="module")
@@ -189,7 +190,7 @@ def test_run_pe_sam_byte_equal(world, monkeypatch, novel):
     rng, g, db, *_ = world
     r1, r2, truth = synth.plant_pairs(np.random.default_rng(31 + novel), g,
                                       192, rna=novel)
-    jr = jrun.GsnapRunner(db, params=jse.GsnapParams(gmap_mode=""),
+    jr = jrun.GsnapRunner(jax_db(db), params=jse.GsnapParams(gmap_mode=""),
                           novelsplicing=novel)
     jout = io.StringIO()
     jr.run_pe(r1, r2, jout, batch_size=64)

@@ -1,8 +1,9 @@
 """Port parity for the slice as a whole: GsnapRunner.run and the gsnap
 CLI (single-end, -N 0, --gmap-mode none) against the JAX package on
 synthetic reads — SAM byte-equal — plus the port's refusals of paths it
-does not have, and a run in a process where JAX cannot be imported (SE
--N 0, SE -N 1 and PE -N 1)."""
+does not have, its own database loader against the JAX package's, and
+a run in a process where neither JAX nor the JAX package can be
+imported (SE -N 0, SE -N 1 and PE -N 1, with the default GMAP lanes)."""
 
 import dataclasses
 import io
@@ -20,11 +21,14 @@ from gmap_gsnap_tpu.align import gsnap_se as jse
 from gmap_gsnap_tpu.align import runner as jrun
 from gmap_gsnap_tpu.cli import gsnap as jcli
 from gmap_gsnap_tpu.db import build
+from gmap_gsnap_tpu.db import datadir as jdatadir
 from gmap_gsnap_tpu_torch.align import gsnap_se as tse
 from gmap_gsnap_tpu_torch.align import runner as trun
 from gmap_gsnap_tpu_torch.cli import gsnap as tcli
+from gmap_gsnap_tpu_torch.db import datadir as tdatadir
 from gmap_gsnap_tpu_torch.utils import device as tdevice
 from gmap_gsnap_tpu_torch.utils import synth
+from torch_parity import jax_db
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KINDS = dict(sub=4, n=1, mid_indel=1.5, end_indel=1.5, terminal=1.5,
@@ -48,7 +52,7 @@ def world():
 def test_runner_sam_byte_equal(world, monkeypatch):
     g, db, recs = world
     jout = io.StringIO()
-    jrun.GsnapRunner(db, params=jse.GsnapParams(gmap_mode="")).run(
+    jrun.GsnapRunner(jax_db(db), params=jse.GsnapParams(gmap_mode="")).run(
         recs, jout, batch_size=64)
 
     seen = {"wide": 0, "end_indel": 0, "terminal": 0}
@@ -107,14 +111,13 @@ def test_cli_byte_equal(disk_db, capsys):
 
 
 @pytest.mark.parametrize("extra", [
-    [], ["--gmap-mode", "terminal"], ["-s", "sites"],
+    ["--mode", "atoi-stranded"], ["-s", "sites", "-N", "1"], ["-s", "sites"],
     ["-v", "snps"], ["--mode", "cmet-stranded"], ["-A", "gsnap"],
-    ["-A", "gsnap", "SECOND_FILE"], ["SECOND_FILE", "SECOND_FILE"]])
+    ["-A", "gsnap", "SECOND_FILE"], ["SECOND_FILE", "SECOND_FILE"],
+    ["--trigger-score-for-gmap", "3"], ["--max-gmap-improvement", "2"]])
 def test_cli_rejects_unported(disk_db, capsys, extra):
     fq = str(disk_db / "reads.fq")
     args = ["-D", str(disk_db), "-d", "syn", "--device", "cpu"]
-    if extra != []:
-        args = ["--gmap-mode", "none"] + args
     files = [fq] + [fq for e in extra if e == "SECOND_FILE"]
     with pytest.raises(SystemExit) as e:
         tcli.main(args + [e for e in extra if e != "SECOND_FILE"] + files)
@@ -125,7 +128,8 @@ def test_cli_rejects_unported(disk_db, capsys, extra):
 def test_runner_rejects_unported(world, monkeypatch):
     _, db, _ = world
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trun.GsnapRunner(db, device="cpu")      # default GMAP lanes
+        trun.GsnapRunner(db, tse.GsnapParams(mode="atoi-stranded"),
+                         device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trun.GsnapRunner(db, tse.GsnapParams(gmap_mode="", mode="cmet-stranded"),
                          device="cpu")
@@ -134,58 +138,80 @@ def test_runner_rejects_unported(world, monkeypatch):
         tdevice.resolve_device("cuda")
 
 
+def test_loaders_agree(disk_db):
+    """One database directory opened by the JAX package's GenomeDB and
+    by the port's copy gives the same arrays."""
+    j = jdatadir.GenomeDB.open(str(disk_db), "syn")
+    t = tdatadir.GenomeDB.open(str(disk_db), "syn")
+    for name in ("codes", "flags", "chr_starts", "chr_ends", "offsets",
+                 "positions"):
+        a, b = getattr(j, name), getattr(t, name)
+        assert a.dtype == b.dtype and np.array_equal(a, b), name
+    assert (t.chr_names, t.k, t.interval, t.basesize) == (
+        j.chr_names, j.k, j.interval, j.basesize)
+    assert t.genome_str[5:60] == j.genome_str[5:60]
+
+
 _NO_JAX = textwrap.dedent("""
     import io, json, sys
-    sys.modules["jax"] = None            # any import of jax now fails
+    sys.modules["jax"] = None            # any import of jax now fails,
+    sys.modules["gmap_gsnap_tpu"] = None  # and of the JAX package
     sys.path.insert(0, {repo!r})
     import numpy as np
     from gmap_gsnap_tpu_torch.align import gsnap_se, runner
     from gmap_gsnap_tpu_torch.cli import gsnap as cli
+    from gmap_gsnap_tpu_torch.io.fasta import Record
     from gmap_gsnap_tpu_torch.utils import synth
-    from gmap_gsnap_tpu.io.fasta import Record
 
-    seen = {{"terminal": 0, "fallback_trims": 0}}
+    seen = {{"terminal": 0, "fallback_trims": 0, "gmap": 0}}
     make_terminals, trim_ends = runner.rescue.make_terminals, runner.trim_ends
     def spy_terms(*a, **k):
         out = make_terminals(*a, **k)
         seen["terminal"] += len(out)
         return out
-    def spy_trims(mm, score=-3):
+    def spy_trims(mm, trim_mismatch_score=-3):
         seen["fallback_trims"] += 1
-        return trim_ends(mm, score)
+        return trim_ends(mm, trim_mismatch_score)
     runner.rescue.make_terminals = spy_terms
     runner.trim_ends = spy_trims
+    path_to_hit = runner.GsnapRunner._gmap_path_to_hit
+    def spy_gmap(self, rec, path):
+        h = path_to_hit(self, rec, path)
+        seen["gmap"] += h is not None
+        return h
+    runner.GsnapRunner._gmap_path_to_hit = spy_gmap
     recs = [Record(*l.split("\\t")) for l in open({reads!r}).read().splitlines()]
     g = synth.make_genome(np.random.default_rng(11), [150_000, 100_000, 50_000])
     db = synth.genome_db(g, 12, 3)
     out = io.StringIO()
-    p = gsnap_se.GsnapParams(gmap_mode="", trim_mismatch_score=-2)
+    p = gsnap_se.GsnapParams(trim_mismatch_score=-2)
     runner.GsnapRunner(db, p, device="cpu").run(recs, out, batch_size=64)
     open({sam!r}, "w").write(out.getvalue())
     srecs, _ = synth.plant_spliced_reads(np.random.default_rng(5), g, 48)
     out = io.StringIO()
-    runner.GsnapRunner(db, gsnap_se.GsnapParams(gmap_mode=""),
-                       novelsplicing=True, device="cpu").run(srecs, out,
-                                                             batch_size=48)
+    runner.GsnapRunner(db, novelsplicing=True, device="cpu").run(
+        srecs, out, batch_size=48)
     open({sam_n1!r}, "w").write(out.getvalue())
     p1, p2, _ = synth.plant_pairs(np.random.default_rng(9), g, 40, rna=True)
     out = io.StringIO()
-    runner.GsnapRunner(db, gsnap_se.GsnapParams(gmap_mode=""),
-                       novelsplicing=True, device="cpu").run_pe(
+    runner.GsnapRunner(db, novelsplicing=True, device="cpu").run_pe(
         p1, p2, out, batch_size=40)
     open({sam_pe!r}, "w").write(out.getvalue())
-    assert cli.main(["-D", {dbdir!r}, "-d", "syn", "--gmap-mode", "none",
-                     "--device", "cpu", {fastq!r}]) == 0
-    leaked = [m for m in sys.modules if m == "jaxlib" or m.startswith(("jax.", "jaxlib."))]
+    assert cli.main(["-D", {dbdir!r}, "-d", "syn", "--device", "cpu",
+                     {fastq!r}]) == 0
+    leaked = [m for m in sys.modules if m == "jaxlib" or m.startswith(
+        ("jax.", "jaxlib.", "gmap_gsnap_tpu."))]
     assert sys.modules["jax"] is None and not leaked, leaked
+    assert sys.modules["gmap_gsnap_tpu"] is None
     print(json.dumps(seen), file=sys.stderr)
 """)
 
 
 def test_runs_without_jax(world, disk_db, tmp_path):
-    """The port imports no JAX, even transitively; the terminal lane
-    (whose JAX-package trim fallback imports JAX) runs, here with a
-    non-default trim score so the lane's trims come from the fallback;
+    """The port imports no JAX and nothing of the JAX package, even
+    transitively; the terminal lane runs, here with a non-default trim
+    score so the lane's trims come from make_terminals' fallback (the
+    port runner's trim_ends); the GMAP lanes run (default --gmap-mode);
     and an -N 1 batch of spliced reads and a PE -N 1 batch of read pairs
     run too."""
     g, db, recs = world
@@ -202,26 +228,26 @@ def test_runs_without_jax(world, disk_db, tmp_path):
                           text=True, env=env, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     seen = json.loads(proc.stderr.strip().splitlines()[-1])
-    assert seen["terminal"] > 0 and seen["fallback_trims"] > 0, seen
+    assert min(seen.values()) > 0, seen
     assert proc.stdout.startswith("@SQ")
 
     jout = io.StringIO()
-    jrun.GsnapRunner(db, params=jse.GsnapParams(
-        gmap_mode="", trim_mismatch_score=-2)).run(sub, jout, batch_size=64)
+    jrun.GsnapRunner(jax_db(db), params=jse.GsnapParams(
+        trim_mismatch_score=-2)).run(sub, jout, batch_size=64)
     assert (tmp_path / "port.sam").read_text() == jout.getvalue()
 
     srecs, _ = synth.plant_spliced_reads(np.random.default_rng(5), g, 48)
     jout = io.StringIO()
-    jrun.GsnapRunner(db, params=jse.GsnapParams(gmap_mode=""),
-                     novelsplicing=True).run(srecs, jout, batch_size=48)
+    jrun.GsnapRunner(jax_db(db), novelsplicing=True).run(srecs, jout,
+                                                         batch_size=48)
     n1 = (tmp_path / "port_n1.sam").read_text()
     cigars = [l.split("\t")[5] for l in n1.splitlines() if l[0] != "@"]
     assert n1 == jout.getvalue() and any("N" in c for c in cigars)
 
     p1, p2, _ = synth.plant_pairs(np.random.default_rng(9), g, 40, rna=True)
     jout = io.StringIO()
-    jrun.GsnapRunner(db, params=jse.GsnapParams(gmap_mode=""),
-                     novelsplicing=True).run_pe(p1, p2, jout, batch_size=40)
+    jrun.GsnapRunner(jax_db(db), novelsplicing=True).run_pe(p1, p2, jout,
+                                                            batch_size=40)
     pe = (tmp_path / "port_pe.sam").read_text()
     flags = [int(l.split("\t")[1]) for l in pe.splitlines() if l[0] != "@"]
     assert pe == jout.getvalue() and any(f & 0x2 for f in flags)

@@ -25,6 +25,7 @@ from gmap_gsnap_tpu_torch.align import gsnap_se as tse
 from gmap_gsnap_tpu_torch.align import runner as trun
 from gmap_gsnap_tpu_torch.cli import gsnap as tcli
 from gmap_gsnap_tpu_torch.utils import synth
+from torch_parity import jax_db
 
 KINDS = dict(unspliced=3, junction=4, shortexon=3, distant=2.5, n_indel=1)
 
@@ -165,7 +166,7 @@ def test_runner_splicing_sam_byte_equal(world, monkeypatch):
     # re-runs them with -N 1 too
     recs = recs + synth.plant_reads(np.random.default_rng(3), g, 8,
                                     weights=dict(repeat=1), prefix="p")[0]
-    jr = jrun.GsnapRunner(db, params=jse.GsnapParams(gmap_mode=""),
+    jr = jrun.GsnapRunner(jax_db(db), params=jse.GsnapParams(gmap_mode=""),
                           novelsplicing=True)
     jout = io.StringIO()
     jr.run(recs, jout, batch_size=48)
