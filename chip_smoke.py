@@ -4,6 +4,9 @@
     python3 chip_smoke.py [--mbp 100] [--reads 8192] [--pairs 8192]
                           [--batch 2048]
 
+Runs in about 10 minutes on one H100 (build, six paths, checks,
+timings).
+
 Needs one CUDA device; exits nonzero, printing no result, without one.
 Every path runs gsnap's default --gmap-mode (pairsearch,
 indel_knownsplice, terminal, improvement).  Phases (any failure raises
@@ -30,6 +33,19 @@ and ends the run with a nonzero exit):
      set also carries 1-3% messy junctions (a junction read with a 1-3
      nt indel or 2-3 substitutions within 11 nt of the junction), reads
      the GSNAP cascade leaves to the GMAP lanes;
+     for paths 5 and 6 (known sites and SNPs, BASELINE config 4): a
+     splicesites map of ~50,000 introns (every planted local junction,
+     400 non-canonical introns, 4,000 introns for short-end reads, the
+     inside-ambiguous pairs' introns, random ones) and 5,000 decoy sites,
+     and a SNP map of one SNP per 1,000 bp plus the SNP-heavy reads'
+     SNPs, written with the port's IIT writer into a temporary directory,
+     the SNP index built there by db/transforms.write_snp_index; path 5
+     reads are path 2's RNA mix with 10% SNP-heavy reads (5-8 alt
+     alleles), 5% short-end reads (1-12 nt past a known site) and 5%
+     reads across known non-canonical introns; path 6 pairs are path 4's
+     mix with the same additions as read 1 of concordant pairs and 3%
+     pairs whose ambiguous short end faces inside the pair; each set-up
+     step's time is printed;
   4. each kernel against its plain torch version on the same CUDA
      tensors at the main paths' shapes (2048 reads x 2 strands, L=100,
      W=384 / 512 and 4096, NC=32 and 128, P=16, T=8; K8 on the PE -N 1
@@ -39,7 +55,11 @@ and ends the run with a nonzero exit):
      (max_intronlen 200,000 and 30), K9 also at a
      forced hit/segment overflow and at the retry's sizes, K11/K12 also
      on 32 and 128 random junction windows with both gap tiers and every
-     cdna_direction): outputs must be equal, float32 ones bit for bit;
+     cdna_direction; K1/K2 on the SNP index, K3 with the alt genome and
+     K5/K7 with the known-site masks at novel 1 and 0 on path 5's reads,
+     and K5/K7 on dense random masks with word-aligned, genome-end and
+     INVALID diagonals): outputs must be equal, float32 ones bit for
+     bit;
   5. the four main paths, each through GsnapRunner.run or run_pe over all
      its reads into a SAM buffer, with every kernel's launch count reset
      before and read after:
@@ -53,6 +73,17 @@ and ends the run with a nonzero exit):
      PE -N 0 (--pairs / 2): K1-K4, K8, K9, K10 must launch, K5-K7 must
            not;
      PE -N 1 (--pairs): K1-K12 must all launch;
+     SE -N 1 -s -v (--reads): K1-K7 must launch (the GMAP terminal and
+           improvement lanes are gated off under -s/-v); >= 99% of the
+           SNP-heavy reads placed once at their origin, >= 90% of the
+           short-end reads whose short end matches only its planted
+           partner site spliced with their intron, >= 90% of the
+           non-canonical reads spliced, >= 90% of the easy junctions;
+     PE -N 1 -s -v (--pairs): K1-K8 must launch; >= 1 inside-ambiguous
+           pair resolved by the runner's _resolve_inside_ambi, >= 99% of
+           the SNP-heavy reads' pairs placed, the PE -N 1 bars on the
+           pairs of path 4's mix, >= 90% of the non-canonical reads
+           spliced;
      on both PE paths >= 99% of the concordant pairs with <= 2
      substitutions per read must be reported as one proper pair (0x2)
      at both planted positions with |TLEN| the fragment length; with
@@ -65,14 +96,16 @@ and ends the run with a nonzero exit):
   6. each path's SAM from the plain torch path on the CPU must be
      byte-equal to the CUDA run's (first 512 reads, first 256 pairs),
      and the CUDA run of that subset must launch K9/K10 and convert at
-     least one GMAP candidate hit;
+     least one GMAP candidate hit (paths 5 and 6: launch K5-K7, with
+     SNP-heavy and short-end reads in the subset);
   7. each kernel's device time (torch.profiler) and per-call time beside
      its plain version's, and profiles of the SE -N 1 and PE -N 1 runs
      (device busy share, top device ops), measured last so that the
      profiler cannot perturb step 5's timing.
 
 Prints one JSON line with every kernel's launches (on the PE -N 1 path,
-which runs all twelve; per path under launches_by_path), error, device
+which runs all twelve; per path under launches_by_path; the checks of
+other inputs, such as K5 with known masks, under variants), error, device
 time (ms, plain_ms at the first shape checked), its bound (bound_ms: the
 larger of the bytes it must move over 3.35 TB/s and its operations over
 67 T/s, the H100's float32 rate outside the tensor cores: its int32 rate
@@ -89,8 +122,10 @@ import argparse
 import io
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from functools import partial
 
@@ -213,27 +248,35 @@ def _sam_lines(sam_text: str) -> dict:
     return lines
 
 
-def _planted_ok(sam_text: str, truth, genome) -> tuple[int, int]:
-    """(#reads with <= 2 substitutions placed uniquely at their planted
-    position and strand, #such reads)."""
+def _placed_ok(sam_text: str, items, genome, mate: int | None = None
+               ) -> tuple[int, int]:
+    """(#reads placed once at their planted position and strand, #reads)
+    of items (read name, universal left, plusp); with ``mate`` (0 or 1)
+    the reads are that mate of a pair placed once."""
     starts = dict(zip(genome.names,
                       np.concatenate([[0], genome.chr_ends[:-1]]).tolist()))
     lines = _sam_lines(sam_text)
-    good = total = 0
-    for i, t in enumerate(truth):
-        if t.kind != "sub" or t.nsub > 2:
-            continue
-        total += 1
-        recs = lines.get(f"r{i}", [])
+    good = 0
+    for name, left, plusp in items:
+        recs = lines.get(name, [])
+        if mate is not None:
+            m = _mates(recs)
+            recs = [] if m is None else [m[mate]]
         if len(recs) != 1 or recs[0][2] == "*":
             continue
         f = recs[0]
-        cigar = f[5]
-        lead = int(cigar[: cigar.index("S")]) if "S" in cigar.split("M")[0] else 0
-        left = starts[f[2]] + int(f[3]) - 1 - lead
-        plusp = not int(f[1]) & 16
-        good += left == t.left and plusp == t.plusp
-    return good, total
+        lead = int(f[5][: f[5].index("S")]) if "S" in f[5].split("M")[0] else 0
+        good += (starts[f[2]] + int(f[3]) - 1 - lead == left
+                 and (not int(f[1]) & 16) == plusp)
+    return good, len(items)
+
+
+def _planted_ok(sam_text: str, truth, genome) -> tuple[int, int]:
+    """(#reads with <= 2 substitutions placed uniquely at their planted
+    position and strand, #such reads)."""
+    return _placed_ok(sam_text, [(f"r{i}", t.left, t.plusp)
+                                 for i, t in enumerate(truth)
+                                 if t.kind == "sub" and t.nsub <= 2], genome)
 
 
 def _introns(f, starts) -> list:
@@ -326,6 +369,40 @@ def _junction_pairs_ok(sam_text: str, truth, genome) -> tuple[int, int]:
         if mates is not None:
             good += _introns(mates[m], starts) == list(t.introns[m])
     return good, total
+
+
+def _spliced_ok(sam_text: str, items, genome, mate: int | None = None
+                ) -> tuple[int, int]:
+    """(#reads placed once with exactly their planted intron, #reads) of
+    items (read name, (donor, acceptor)); with ``mate`` (0 or 1) the
+    reads are that mate of a pair placed once."""
+    starts = dict(zip(genome.names,
+                      np.concatenate([[0], genome.chr_ends[:-1]]).tolist()))
+    lines = _sam_lines(sam_text)
+    good = 0
+    for name, intron in items:
+        recs = lines.get(name, [])
+        if mate is not None:
+            m = _mates(recs)
+            recs = [] if m is None else [m[mate]]
+        if len(recs) == 1 and recs[0][2] != "*":
+            good += _introns(recs[0], starts) == [intron]
+    return good, len(items)
+
+
+def _known_masks(torch, rng, nwords: int, dev, density: float) -> tuple:
+    """Four random known-site bitvectors of ``nwords`` words, the last
+    words included (INVALID diagonals read them), about ``density`` of
+    their bits set."""
+    out = []
+    for _ in range(4):
+        words = np.zeros(nwords, np.uint32)
+        nset = int(nwords * 32 * density)
+        pos = rng.integers(0, nwords * 32, nset)
+        np.bitwise_or.at(words, pos >> 5,
+                         np.left_shift(np.uint32(1), (pos & 31).astype(np.uint32)))
+        out.append(torch.from_numpy(words.view(np.int32)).to(dev))
+    return tuple(out)
 
 
 def _junction_windows(torch, dp, rng, nb: int, dev):
@@ -535,6 +612,7 @@ def _drive(torch, kbuild, runner, records, batch: int, label: str,
     runner.category_counts.clear()
     runner.gmap_seconds = 0.0
     counts = _count_gmap_hits(runner)
+    runner.ambi_resolved = 0
     kbuild.LAUNCHES.clear()
     out = io.StringIO()
     t0 = time.time()
@@ -559,7 +637,8 @@ def _drive(torch, kbuild, runner, records, batch: int, label: str,
           + f" (of {counts['candidates']} GMAP candidate hits that "
           f"prefetch_gmap converted); prefetch_gmap "
           f"{runner.gmap_seconds:.3f} s of host wall", flush=True)
-    return dict(sam=out.getvalue(), launches=launches)
+    return dict(sam=out.getvalue(), launches=launches,
+                ambi_resolved=runner.ambi_resolved)
 
 
 def _profile_run(torch, run, label: str) -> None:
@@ -615,6 +694,8 @@ def main(argv=None) -> int:
     from gmap_gsnap_tpu_torch.align import gsnap_pe as pe
     from gmap_gsnap_tpu_torch.align import gsnap_se as se
     from gmap_gsnap_tpu_torch.align import runner as runner_mod
+    from gmap_gsnap_tpu_torch.db import iit_text, splicesites, transforms
+    from gmap_gsnap_tpu_torch.db.iit import IIT
     from gmap_gsnap_tpu_torch.kernels import build as kbuild
     from gmap_gsnap_tpu_torch.ops import dynprog as dp
     from gmap_gsnap_tpu_torch.ops import mismatch as mmo
@@ -687,6 +768,107 @@ def main(argv=None) -> int:
                                        novelsplicing=True, device=dev)
     index, genome_dev = runner.index, runner.genome
     assert runner_n1.index is index and runner_n1.genome is genome_dev
+
+    # 3b. known splice sites (-s) and SNPs (-v) for paths 5 and 6, and
+    # their reads: path 2's RNA mix with 10% SNP-heavy reads, 5% short-end
+    # reads and 5% reads across known non-canonical introns; path 4's
+    # pair mix with the same additions as read 1 of concordant pairs and
+    # 3% pairs whose ambiguous short end faces inside the pair
+    t0 = time.time()
+    n5, n6 = args.reads, args.pairs
+    add5 = (n5 // 10, n5 // 20, n5 // 20)
+    add6 = (n6 // 10, n6 // 20, n6 // 20, 3 * n6 // 100)
+    nc_introns = synth.random_introns(rng, genome, 400, canonical=False)
+    pool = synth.random_introns(rng, genome, 4000)   # short ends' introns
+    snp5, snp5_t, (sp5, sa5) = synth.plant_snp_reads(rng, genome, add5[0])
+    short5, short5_t = synth.plant_site_reads(rng, genome, pool, add5[1],
+                                              short_end=True)
+    nc5, nc5_t = synth.plant_site_reads(rng, genome, nc_introns, add5[2],
+                                        prefix="c")
+    n_base5 = n5 - sum(add5)
+    rna5 = rna[:n_base5] + snp5 + short5 + nc5
+    rna5 = [rna5[i] for i in rng.permutation(len(rna5))]
+    snp6, snp6_t, (sp6, sa6) = synth.plant_snp_reads(rng, genome, add6[0],
+                                                     prefix="w")
+    short6, short6_t = synth.plant_site_reads(rng, genome, pool, add6[1],
+                                              short_end=True, prefix="j")
+    nc6, nc6_t = synth.plant_site_reads(rng, genome, nc_introns, add6[2],
+                                        prefix="n")
+    amb1, amb2, _, amb_introns = synth.inside_ambiguous_pairs(
+        rng, genome, add6[3])
+    spans = ([(t.left, t.left + 100, t.plusp) for t in snp6_t]
+             + [(t.left, t.intron.acceptor + t.flanks[1], t.plusp)
+                for t in short6_t + nc6_t])
+    extra1 = snp6 + short6 + nc6
+    extra2 = synth.mates_for(rng, genome, extra1, spans)
+    n_base6 = n6 - sum(add6)
+    order6 = rng.permutation(n6)
+    r61 = [(rp1[:n_base6] + extra1 + amb1)[i] for i in order6]
+    r62 = [(rp2[:n_base6] + extra2 + amb2)[i] for i in order6]
+    # the map: every planted local intron, the non-canonical and short-end
+    # ones, random introns up to ~50,000, and 5,000 decoy sites
+    # a planted junction's gene strand shows in its donor dinucleotide
+    sense = lambda a: genome.ascii[a : a + 2].tobytes() == b"GT"
+    planted = [synth.Intron(a, b, sense(a))
+               for t in rna_truth for a, b in t.junctions
+               if 0 < b - a < params.shortsplicedist]
+    planted += [synth.Intron(a, b, sense(a))
+                for t in rp_truth for iv in t.introns for a, b in iv]
+    introns = planted + nc_introns + pool + amb_introns
+    introns += synth.random_introns(rng, genome, max(50_000 - len(introns),
+                                                     0))
+    decoys = synth.random_decoys(rng, genome, 5_000)
+    bg_pos, bg_alt = synth.random_snps(rng, genome, 1 / 1000)
+    spos = np.concatenate([sp5, sp6, bg_pos])
+    salt = np.concatenate([sa5, sa6, bg_alt])
+    spos, first = np.unique(spos, return_index=True)
+    salt = salt[first]
+    print(f"setup -s/-v: {len(introns)} introns ({len(nc_introns)} "
+          f"non-canonical) + {len(decoys)} decoy sites, {len(spos)} SNPs, "
+          f"{len(rna5)} reads for path 5, {len(r61)} pairs for path 6 in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    # removed when the process ends, whether or not a phase failed
+    tmpdir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    tmp = tmpdir.name
+    sites_path = os.path.join(tmp, "sites.iit")
+    t0 = time.time()
+    iit_text.iit_from_text(synth.splicesites_text(
+        genome, introns, decoys)).write(sites_path)
+    t_sites = time.time() - t0
+    t0 = time.time()
+    snps_iit = iit_text.iit_from_text(synth.snps_text(genome, spos, salt))
+    snps_iit.write(os.path.join(tmp, "snps.iit"))
+    t_snps = time.time() - t0
+    t0 = time.time()
+    codes, flags = genome.codes_flags
+    alt_codes = transforms.alt_genome_from_snps(codes, snps_iit, db.chr_names,
+                                                db.chr_starts)
+    transforms.write_snp_index(tmp, db.dbname, "snps", codes, flags,
+                               db.chr_ends, alt_codes, k=db.k,
+                               basesize=db.k, interval=db.interval,
+                               ref_index=(db.offsets, db.positions))
+    t_index = time.time() - t0
+    t0 = time.time()
+    sites = splicesites.load_splicesites(IIT.read(sites_path), db.chr_names,
+                                         db.chr_starts)
+    t_load = time.time() - t0
+    t0 = time.time()
+    sites.device_bitmasks(len(db.codes), dev)
+    torch.cuda.synchronize()
+    t_bits = time.time() - t0
+    t0 = time.time()
+    runner_sv = runner_mod.GsnapRunner(
+        db, params, lmax=100, novelsplicing=True, splicesdb=sites_path,
+        snpsdb="snps", snps_dir=tmp, device=dev)
+    torch.cuda.synchronize()
+    t_runner = time.time() - t0
+    print(f"setup -s/-v times: splicesites IIT write {t_sites:.2f} s "
+          f"({sites.nsites} sites), SNP IIT write {t_snps:.2f} s, alt genome "
+          f"+ write_snp_index {t_index:.2f} s "
+          f"({len(runner_sv.index.positions)} positions), load_splicesites "
+          f"{t_load:.2f} s, bitmask upload {t_bits:.3f} s, runner set-up "
+          f"(splice sites again, SNP index read and upload) {t_runner:.2f} s",
+          flush=True)
 
     # 4. each kernel against its plain version, at the main path's shapes
     def strands(recs):
@@ -829,6 +1011,95 @@ def main(argv=None) -> int:
             partial(_fields, pe._pair_grid_plain, gargs, pe.PAIR_GRID_KEYS)))
         costs.setdefault("pair_grid", lambda out, a=gargs: (
             _nbytes(a, out), 0))
+    # the -s / -v inputs: path 5's reads, seeded on the SNP index (K1, K2),
+    # verified against the alt genome (K3), spliced with the known-site
+    # masks at novel 1 and 0 (K5, K7); then K5/K7 again on dense random
+    # masks with diagonals whose start is a multiple of 32, diagonals next
+    # to the genome end and INVALID ones
+    v2, vf2, vl2 = strands(rna5)
+    vq2 = se._pack_device(v2, vf2, vl2, 100)
+    vbudget = se.auto_budget(vl2, db.k, db.interval, -1)
+    sidx, alt, known = runner_sv.index, runner_sv.alt, runner_sv.known
+    p = se.GsnapParams(seed_total=runner_sv.params.seed_total, ncand=32,
+                       size_threshold=params.size_threshold)
+    seed = se._seed_diagonals_plain(sidx, v2, vf2, vl2, p, True)
+    top_d, votes, _ = se._top_diagonals_plain(seed[0], 32)
+    shape = "path 5 NC=32"
+    checks += [
+        ("seed_diagonals/snp index", shape,
+         partial(se._seed_diagonals_cuda, sidx, v2, vf2, vl2, p, True),
+         partial(se._seed_diagonals_plain, sidx, v2, vf2, vl2, p, True)),
+        ("top_diagonals/snp index", shape,
+         partial(se._top_diagonals_cuda, seed[0], 32),
+         partial(se._top_diagonals_plain, seed[0], 32)),
+        ("prefix_mismatches/alt", shape,
+         partial(mmo._prefix_mismatches_cuda, genome_dev, vq2, top_d, vl2,
+                 None, alt),
+         partial(mmo._prefix_mismatches_plain, genome_dev, vq2, top_d, vl2,
+                 None, alt))]
+    kmers5 = v2.shape[0] * (100 - db.k + 1)
+    costs["seed_diagonals/snp index"] = lambda out: (
+        _nbytes(v2, vf2, vl2, out) + kmers5 * 8
+        + int((out[0] != se.INVALID_DIAG).sum()) * 4, 0)
+    costs["top_diagonals/snp index"] = lambda out, d=seed[0]: (
+        _nbytes(d, out), d.numel() * math.log2(d.shape[1]))
+    # K3 with alt reads the alt words of each span too
+    costs["prefix_mismatches/alt"] = lambda out, t=top_d: (
+        _nbytes(vq2, t, vl2, out) + t.numel() * gwords(100) * 3 // 2, 0)
+    _, vpref = mmo._prefix_mismatches_plain(genome_dev, vq2, top_d, vl2, None,
+                                            alt)
+    si, sj, sv = gg._select_pairs(top_d, votes,
+                                  gg._splice_pairs_eligible(sdist), 16)
+    tr = gg._select_triples_plain(top_d, votes, sdist, 8)
+    G = int(genome_dev.length)
+    top_e = top_d.clone()
+    top_e[0::4, 5] &= ~31                            # start & 31 == 0
+    top_e[1::4, 6] = G - 40 - torch.arange(top_e[1::4].shape[0],
+                                           device=dev) % 30
+    top_e[2::4, 7] = se.INVALID_DIAG
+    _, epref = mmo._prefix_mismatches_plain(genome_dev, vq2, top_e, vl2, None,
+                                            alt)
+    ei, ej = si.clone(), sj.clone()
+    ei[:, 10], ej[:, 11], ei[:, 12], ej[:, 13] = 5, 6, 7, 5
+    etr = [x.clone() for x in tr]
+    etr[0][:, 4], etr[1][:, 5], etr[2][:, 6] = 5, 6, 7
+    rnd_known = _known_masks(torch, rng, known[0].shape[0], dev, 0.15)
+    kwords = lambda n_seg: n_seg * 2 * ((100 + 1 + 31) // 32 + 1) * 4
+    for label, td, pr, pairs, trip, kn, novel in (
+            ("no masks novel=1", top_d, vpref, (si, sj, sv), tr, None, True),
+            ("known novel=1", top_d, vpref, (si, sj, sv), tr, known, True),
+            ("known novel=0", top_d, vpref, (si, sj, sv), tr, known, False),
+            ("random masks novel=1", top_e, epref, (ei, ej, sv), etr,
+             rnd_known, True),
+            ("random masks novel=0", top_e, epref, (ei, ej, sv), etr,
+             rnd_known, False)):
+        sargs = (genome_dev, td, pr, *pairs, vl2, vbudget, 100, novel, kn)
+        dargs = (genome_dev, td, pr, *trip, vl2, vbudget, 100, novel, kn)
+        checks += [
+            (f"solve_splices/{label}", shape,
+             partial(_fields, gg._solve_splices_cuda, sargs, gg._SPLICE_KEYS),
+             partial(_fields, gg._solve_splices_plain, sargs,
+                     gg._SPLICE_KEYS)),
+            (f"solve_doublesplices/{label}", shape,
+             partial(_fields, gg._solve_doublesplices_cuda, dargs,
+                     gg._SHORTEXON_KEYS),
+             partial(_fields, gg._solve_doublesplices_plain, dargs,
+                     gg._SHORTEXON_KEYS))]
+        # the splice kernels' bytes plus the bitvector words they read: per
+        # pair (triple), 2 (3) segments, 2 classes, the words of L + 1 bits
+        nk = 0 if kn is None else 1
+        costs[f"solve_splices/{label}"] = lambda out, a=sargs, nk=nk: (
+            _nbytes(a[1:9], out) + a[3].numel() * 2 * gwords(164)
+            + nk * kwords(a[3].numel() * 2), 0)
+        costs[f"solve_doublesplices/{label}"] = lambda out, a=dargs, nk=nk: (
+            _nbytes(a[1:10], out) + a[3].numel() * 3 * gwords(164)
+            + nk * kwords(a[3].numel() * 3), 0)
+        if label.startswith("known"):
+            sp = gg._solve_splices_plain(*sargs)
+            sx = gg._solve_doublesplices_plain(*dargs)
+            print(f"splice inputs of path 5, {label}: "
+                  f"{int(sp['valid'].sum())} valid splice pairs, "
+                  f"{int(sx['valid'].sum())} valid short exons", flush=True)
     lanes = [("SE -N 1", _lane_inputs(eng, dp, runner_n1, rna, args.batch,
                                       "SE -N 1")),
              ("SE -N 0", _lane_inputs(eng, dp, runner, records, args.batch,
@@ -845,7 +1116,8 @@ def main(argv=None) -> int:
                              f"version (max_abs_err={err})")
         if name not in errs:
             errs[name] = err
-            bounds[name] = _bound(*costs[name.split("/")[0]](want))
+            cost = costs.get(name) or costs[name.split("/")[0]]
+            bounds[name] = _bound(*cost(want))
     torch.cuda.synchronize()
 
     # 5. the four main paths
@@ -887,6 +1159,55 @@ def main(argv=None) -> int:
     bar("PE -N 1", "easy junction pairs with their planted intron",
         *_junction_pairs_ok(sam, rp_truth, genome), 0.90)
 
+    # paths 5 and 6: -N 1 with known sites and the SNP index.  The GMAP
+    # terminal and improvement lanes are gated off under -s/-v
+    # (runner.py:2208, :2299-2301, :2342); pairsearch is not
+    sites_of = synth.site_arrays(introns, decoys)
+    # the short-end lane splices a read whose short end matches its planted
+    # partner site alone; it never splices a minus read whose short end is
+    # the left piece of a sense intron (runner.py:1532, the reference's
+    # own behaviour)
+    splices = lambda t: (synth.shortend_unique(genome, sites_of, t)
+                         and not (t.intron.sense and t.short_side == "L"
+                                  and not t.plusp))
+    sam = path("SE -N 1 -s -v", N0_KERNELS + SPLICE_KERNELS, rna5, runner_sv,
+               optional=GMAP_KERNELS + DYNPROG_KERNELS)
+    bar("SE -N 1 -s -v", "SNP-heavy reads placed at their origin",
+        *_placed_ok(sam, [(f"v{i}", t.left, t.plusp)
+                          for i, t in enumerate(snp5_t)], genome), 0.99)
+    eligible = [(f"k{i}", (t.intron.donor, t.intron.acceptor))
+                for i, t in enumerate(short5_t) if splices(t)]
+    print(f"SE -N 1 -s -v: {len(eligible)} of {len(short5_t)} short-end "
+          f"reads have a unique partner site", flush=True)
+    bar("SE -N 1 -s -v", "short-end reads with a unique partner spliced "
+        "with their planted intron", *_spliced_ok(sam, eligible, genome), 0.90)
+    bar("SE -N 1 -s -v", "reads across known non-canonical introns spliced",
+        *_spliced_ok(sam, [(f"c{i}", (t.intron.donor, t.intron.acceptor))
+                           for i, t in enumerate(nc5_t)], genome), 0.90)
+    bar("SE -N 1 -s -v", "easy planted junctions recovered",
+        *_junctions_ok(sam, rna_truth[:n_base5], genome), 0.90)
+    sam = path("PE -N 1 -s -v", N0_KERNELS + SPLICE_KERNELS + PAIR_KERNELS,
+               r61, runner_sv, r62, optional=GMAP_KERNELS + DYNPROG_KERNELS)
+    resolved = runner_sv.ambi_resolved
+    print(f"PE -N 1 -s -v: {resolved} ambiguous short ends resolved inside "
+          f"a pair by _resolve_inside_ambi ({len(amb1)} such pairs planted)",
+          flush=True)
+    if resolved < 1:
+        raise SystemExit("PE -N 1 -s -v: no inside-ambiguous pair resolved")
+    bar("PE -N 1 -s -v", "SNP-heavy read 1 of a pair placed at its origin",
+        *_placed_ok(sam, [(f"w{i}", t.left, t.plusp)
+                          for i, t in enumerate(snp6_t)], genome, mate=0),
+        0.99)
+    bar("PE -N 1 -s -v", "planted <=2-sub concordant pairs proper at both "
+        "positions and |TLEN|", *_pairs_ok(sam, rp_truth[:n_base6], genome),
+        0.99)
+    bar("PE -N 1 -s -v", "easy junction pairs with their planted intron",
+        *_junction_pairs_ok(sam, rp_truth[:n_base6], genome), 0.90)
+    bar("PE -N 1 -s -v", "reads across known non-canonical introns spliced "
+        "in a pair", *_spliced_ok(
+            sam, [(f"n{i}", (t.intron.donor, t.intron.acceptor))
+                  for i, t in enumerate(nc6_t)], genome, mate=0), 0.90)
+
     # 6. the plain torch path on the CPU gives the same SAM
     print(f"CPU plain paths at {time.time() - t_start:.1f} s", flush=True)
     nsub, npairs = min(512, len(records)), min(256, len(p1))
@@ -921,6 +1242,37 @@ def main(argv=None) -> int:
               f"candidate hits ({counts['final']} in final hit lists, "
               f"{counts['pairs']} in rescued pairs; launches {gmap})",
               flush=True)
+    # paths 5 and 6: the subset must launch K5/K7 (with the known masks,
+    # which runner_sv always passes) and hold short-end and SNP-heavy reads
+    cpu_sv = runner_mod.GsnapRunner(
+        db, params, lmax=100, novelsplicing=True, splicesdb=sites_path,
+        snpsdb="snps", snps_dir=tmp, device="cpu")
+    for label, recs, run in (
+            ("SE -N 1 -s -v", rna5[:nsub],
+             lambda r, out: r.run(rna5[:nsub], out, batch_size=256)),
+            ("PE -N 1 -s -v", r61[:npairs],
+             lambda r, out: r.run_pe(r61[:npairs], r62[:npairs], out,
+                                     batch_size=128))):
+        kinds = {c: sum(r.label[0] == c for r in recs) for c in "vwkjcna"}
+        ref_out, cuda_out = io.StringIO(), io.StringIO()
+        run(cpu_sv, ref_out)
+        kbuild.LAUNCHES.clear()
+        run(runner_sv, cuda_out)
+        if ref_out.getvalue() != cuda_out.getvalue():
+            raise SystemExit(f"{label}: CUDA and CPU plain-path SAM differ")
+        spl = {k: kbuild.LAUNCHES.get(k, 0) for k in SPLICE_KERNELS}
+        snp = kinds["v"] + kinds["w"]
+        short = kinds["k"] + kinds["j"]
+        if 0 in spl.values() or not snp or not short:
+            raise SystemExit(f"{label}: the compared subset lacks known-site "
+                             f"splicing launches ({spl}), SNP-heavy ({snp}) "
+                             f"or short-end ({short}) reads")
+        unit = f"{npairs} pairs" if label[0] == "P" else f"{nsub} reads"
+        print(f"{label} cpu plain path: SAM of {unit} byte-equal to the CUDA "
+              f"run ({snp} SNP-heavy, {short} short-end, "
+              f"{kinds['c'] + kinds['n']} non-canonical, {kinds['a']} "
+              f"inside-ambiguous; launches {spl})", flush=True)
+    del cpu_sv
     if "jax" in sys.modules or "gmap_gsnap_tpu" in sys.modules:
         raise SystemExit("jax or the JAX package was imported")
 
@@ -978,6 +1330,11 @@ def main(argv=None) -> int:
     kernels = []
     for name, (entry, cu, replaces) in sources.items():
         ms, plain_ms = times[name]
+        variants = {v.split("/", 1)[1]: {
+            "ms": times[v][0], "plain_ms": times[v][1],
+            "max_abs_err": errs[v], "bound_ms": bounds[v][0],
+            "bound_by": bounds[v][1]}
+            for v in errs if v.startswith(name + "/")}
         kernels.append({"name": name, "route": "cuda",
                         "source": f"gmap_gsnap_tpu_torch/csrc/{cu}",
                         "replaces": replaces,
@@ -988,7 +1345,8 @@ def main(argv=None) -> int:
                         "max_abs_err": errs[name], "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bounds[name][0],
                         "bound_by": bounds[name][1],
-                        "library_ms": library_ms.get(name)})
+                        "library_ms": library_ms.get(name),
+                        "variants": variants})
     print(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

@@ -17,15 +17,17 @@ Layer map:
   align/    GSNAP seed -> vote -> verify -> indels/splices -> rank ->
             pair, the GMAP engine and its rescue lanes, and the host
             runner (FASTQ -> SAM)
-  db/       database loader and device containers
+  db/       database loader and device containers, the IIT reader and
+            writer, known splice sites, the SNP-tolerant index builder
   io/       FASTA/FASTQ input, SAM output
   native/   C host loops (gamma offsets, SAM lines), built with cc
   cli/      ``python -m gmap_gsnap_tpu_torch.cli.gsnap``
   convert   JAX-package state (as numpy arrays) -> port containers
 
 GSNAP single-end and paired-end, standard mode, ``-N 0`` / ``-N 1``,
-with the default GMAP rescue lanes, exist so far; ROADMAP.md lists what
-is still to be ported.
+known splice sites (``-s``) and SNP-tolerant alignment (``-v``), with
+the default GMAP rescue lanes, exist so far; ROADMAP.md lists what is
+still to be ported.
 """
 
 __version__ = "0.1.0"

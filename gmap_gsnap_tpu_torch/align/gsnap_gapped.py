@@ -9,8 +9,11 @@ K4 :func:`solve_indels` (the JAX package's _solve_indels), K5
 (_select_triples) and K7 :func:`solve_doublesplices`
 (_solve_doublesplices).  The stages around them (pair choice, trims,
 lane features and gate, assembly, ranking, the overflow gate) are plain
-torch on the device.  Known splice sites (``known``, gsnap ``-s``) are
-not ported yet and raise NotImplementedError (ROADMAP item 4).
+torch on the device.  Known splice sites (``known``, gsnap ``-s``: four
+genome-length bitvectors from db/splicesites.device_bitmasks) are
+candidates of K5 and K7 whatever their dinucleotides and score
+probability 1.0; with ``-s`` and without ``-N 1`` the solvers run with
+``novel=False``, where only known sites are candidates.
 """
 
 from __future__ import annotations
@@ -46,11 +49,6 @@ KIND_SPLICE = 3
 KIND_SHORTEXON = 4
 
 BIG_SCORE = 10**6
-
-_NOT_PORTED = ("known splice sites (-s) are not ported yet; see ROADMAP.md "
-               "item 4 (db/splicesites.device_bitmasks, "
-               "ops/genome.fetch_span_bits)")
-
 
 @dataclass(frozen=True)
 class GappedParams:
@@ -437,6 +435,26 @@ def _sites(span, kind: str, npos: int):
     return (at(-2) == 0) & (at(-1) == 1)                  # antidonor
 
 
+# index of each site class in the ``known`` bitvector tuple (donor,
+# acceptor, antidonor, antiacceptor), the order of csrc/maxent.cuh's Kind
+_KNOWN_INDEX = {"donor": 0, "acceptor": 1, "antidonor": 2, "antiacceptor": 3}
+
+
+def _class_sites(span, d, kind: str, npos: int, novel: bool, known):
+    """(candidate, known) bool[B, P, npos] of one site class on a
+    segment: the dinucleotide test when ``novel``, OR the known-site bit
+    at d + s (ops/genome.fetch_span_bits)."""
+    if novel:
+        cand = _sites(span, kind, npos)
+    else:
+        cand = torch.zeros(span.shape[:2] + (npos,), dtype=torch.bool,
+                           device=span.device)
+    if known is None:
+        return cand, torch.zeros_like(cand)
+    kn = genome_ops.fetch_span_bits(known[_KNOWN_INDEX[kind]], d, npos)
+    return cand | kn, kn
+
+
 def _first_cands(cand, k: int):
     """The k smallest candidate positions, ascending (JAX: top_k of the
     negated key, whose non-candidates all carry npos + 7).  Returns
@@ -460,12 +478,19 @@ def _prob_at(span, kind: str, sel):
     return odds / (1.0 + odds)
 
 
+def _site_prob(span, kind: str, sel, kn):
+    """_prob_at, with 1.0 where the selected position is a known site
+    (stage1hr.c:6330-6339)."""
+    return torch.where(torch.gather(kn, 2, sel), 1.0,
+                       _prob_at(span, kind, sel))
+
+
 _SPLICE_KEYS = ("valid", "split", "sense", "prob_d", "prob_a", "nmm1",
                 "nmm2", "left", "right")
 
 
 def _solve_splices_plain(genome, top_d, pref, ii, jj, pvalid, lengths,
-                         budget, lmax):
+                         budget, lmax, novel=True, known=None):
     b, p = ii.shape
     dev = pref.device
     di = _gather_rows(top_d, ii)
@@ -485,10 +510,12 @@ def _solve_splices_plain(genome, top_d, pref, ii, jj, pvalid, lengths,
     nmm_j = tot_j - pref_j[:, :, :npos]
     under = (nmm_i + nmm_j) <= budget[:, None, None]
 
-    def solve_class(cand, kind_i, kind_j):
-        sel, sel_ok = _first_cands(cand, SPLICE_CANDS)
-        p_i = _prob_at(span_i, kind_i, sel)
-        p_j = _prob_at(span_j, kind_j, sel)
+    def solve_class(kind_i, kind_j):
+        c_i, kn_i = _class_sites(span_i, di, kind_i, npos, novel, known)
+        c_j, kn_j = _class_sites(span_j, dj, kind_j, npos, novel, known)
+        sel, sel_ok = _first_cands(c_i & c_j & inb & under, SPLICE_CANDS)
+        p_i = _site_prob(span_i, kind_i, sel, kn_i)
+        p_j = _site_prob(span_j, kind_j, sel, kn_j)
         mi = torch.gather(nmm_i, 2, sel)
         mj = torch.gather(nmm_j, 2, sel)
         ok = (sel_ok & _suff_local(sel, mi, p_i)
@@ -498,12 +525,8 @@ def _solve_splices_plain(genome, top_d, pref, ii, jj, pvalid, lengths,
         take = lambda x: torch.gather(x, 2, bi)[:, :, 0]
         return take(prob), take(sel), take(p_i), take(p_j)
 
-    prob_s, split_s, pd_s, pa_s = solve_class(
-        _sites(span_i, "donor", npos) & _sites(span_j, "acceptor", npos)
-        & inb & under, "donor", "acceptor")
-    prob_a_, split_a, pa_i, pd_j = solve_class(
-        _sites(span_i, "antiacceptor", npos) & _sites(span_j, "antidonor", npos)
-        & inb & under, "antiacceptor", "antidonor")
+    prob_s, split_s, pd_s, pa_s = solve_class("donor", "acceptor")
+    prob_a_, split_a, pa_i, pd_j = solve_class("antiacceptor", "antidonor")
 
     use_anti = prob_a_ > prob_s           # antisense must strictly beat sense
     split = torch.where(use_anti, split_a, split_s)
@@ -542,24 +565,49 @@ def _splice_outputs(keys, shape, dev):
             for k in keys}
 
 
+def _check_known(known):
+    """``known`` as the solvers take it: None, or four int32 word vectors
+    of one length on one device (db/splicesites.device_bitmasks)."""
+    if known is None:
+        return None
+    if (len(known) != 4 or not all(isinstance(k, torch.Tensor)
+                                   for k in known)
+            or any(k.dtype != torch.int32 or k.shape != known[0].shape
+                   or k.dim() != 1 or k.device != known[0].device
+                   for k in known)):
+        raise ValueError("known: four int32 word vectors of one length")
+    return tuple(known)
+
+
+def _known_args(known):
+    """(kd, ka, kad, kaa, words): the four known-site word tensors (None
+    each without known sites) and their word count, as the kernels take
+    them (the count after the genome's word count)."""
+    if known is None:
+        return (None,) * 4 + (0,)
+    return tuple(k.contiguous() for k in known) + (known[0].shape[0],)
+
+
 def _solve_splices_cuda(genome, top_d, pref, ii, jj, pvalid, lengths,
-                        budget, lmax):
+                        budget, lmax, novel=True, known=None):
     b, p = ii.shape
     dev = pref.device
     out = _splice_outputs(_SPLICE_KEYS, (b, p), dev)
+    *kn_words, kn_len = _known_args(known)
     kbuild.launch(
         "gsnap_solve_splices", dev,
         genome.ref16, maxent.flat_tables(dev), top_d.contiguous(),
         pref.contiguous(), ii.contiguous(), jj.contiguous(),
         pvalid.contiguous(), lengths.int().contiguous(),
         budget.int().contiguous(), *(out[k] for k in _SPLICE_KEYS),
-        genome.ref16.shape[0], b, p, top_d.shape[1], lmax)
+        *kn_words, genome.ref16.shape[0], kn_len, b, p, top_d.shape[1],
+        lmax, int(novel))
     return out
 
 
 def solve_splices(genome, top_d, pref, ii, jj, pvalid, lengths, budget,
-                  lmax: int):
-    """Novel local splices between diagonal pairs (kernel K5;
+                  lmax: int, novel: bool = True, known=None):
+    """Local splices between diagonal pairs (kernel K5;
     solve_singlesplice, stage1hr.c:6195, over the pairs of
     find_singlesplices_plus, stage1hr.c:7235).
 
@@ -567,7 +615,11 @@ def solve_splices(genome, top_d, pref, ii, jj, pvalid, lengths, budget,
     [2, len - 2] whose mismatch sum fits the budget are candidates where
     segment i carries a donor GT at s and segment j an acceptor AG at
     s - 2 (sense), or an antiacceptor CT and an antidonor AC
-    (antisense).  The first SPLICE_CANDS candidates of each class are
+    (antisense); the dinucleotide tests only when ``novel``.  With
+    ``known`` (four int32 bitvectors: donor, acceptor, antidonor,
+    antiacceptor), a set bit at d + s makes that side a candidate of its
+    class whatever its dinucleotides, with probability 1.0 in place of
+    its maxent score.  The first SPLICE_CANDS candidates of each class are
     scored with float32 maxent and the sufficiency gate; the class's best
     is its first maximum of prob_i + prob_j, and antisense wins only if
     strictly better.  Pairs with a diagonal below 64 have no candidates.
@@ -575,7 +627,8 @@ def solve_splices(genome, top_d, pref, ii, jj, pvalid, lengths, budget,
     Returns a dict of [B, P] tensors: valid, split, sense (``~(anti >
     sense)`` also where invalid), prob_d, prob_a (float32), nmm1, nmm2,
     left (di), right (dj)."""
-    args = (genome, top_d, pref, ii, jj, pvalid, lengths, budget, lmax)
+    args = (genome, top_d, pref, ii, jj, pvalid, lengths, budget, lmax,
+            novel, known)
     if pref.device.type == "cpu":
         return _solve_splices_plain(*args)
     if pref.device.type == "cuda":
@@ -650,7 +703,8 @@ _SHORTEXON_KEYS = ("valid", "split", "split2", "sense", "prob_d", "prob_a",
 
 
 def _solve_doublesplices_plain(genome, top_d, pref, ti, tm, tj, tvalid,
-                               lengths, budget, lmax):
+                               lengths, budget, lmax, novel=True,
+                               known=None):
     b, t = ti.shape
     dev = pref.device
     di = _gather_rows(top_d, ti)
@@ -675,14 +729,16 @@ def _solve_doublesplices_plain(genome, top_d, pref, ti, tm, tj, tvalid,
     pick = lambda x, sel: torch.gather(x, 2, sel)
 
     def solve_sense(kind_i, kind_m, kind2_m, kind_j):
-        sel1, ok1 = _first_cands(_sites(span_i, kind_i, npos)
-                                 & _sites(span_m, kind_m, npos) & inb, K)
-        sel2, ok2 = _first_cands(_sites(span_m, kind2_m, npos)
-                                 & _sites(span_j, kind_j, npos) & inb, K)
-        p1i = _prob_at(span_i, kind_i, sel1)
-        p1m = _prob_at(span_m, kind_m, sel1)
-        p2m = _prob_at(span_m, kind2_m, sel2)
-        p2j = _prob_at(span_j, kind_j, sel2)
+        c1i, k1i = _class_sites(span_i, di, kind_i, npos, novel, known)
+        c1m, k1m = _class_sites(span_m, dm, kind_m, npos, novel, known)
+        c2m, k2m = _class_sites(span_m, dm, kind2_m, npos, novel, known)
+        c2j, k2j = _class_sites(span_j, dj, kind_j, npos, novel, known)
+        sel1, ok1 = _first_cands(c1i & c1m & inb, K)
+        sel2, ok2 = _first_cands(c2m & c2j & inb, K)
+        p1i = _site_prob(span_i, kind_i, sel1, k1i)
+        p1m = _site_prob(span_m, kind_m, sel1, k1m)
+        p2m = _site_prob(span_m, kind2_m, sel2, k2m)
+        p2j = _site_prob(span_j, kind_j, sel2, k2j)
         mi1, cm1 = pick(nmm_i, sel1), pick(cum_m, sel1)
         cm2, mj2 = pick(cum_m, sel2), pick(nmm_j_suf, sel2)
         # joint [B, T, K1, K2]
@@ -742,28 +798,32 @@ def _solve_doublesplices_plain(genome, top_d, pref, ti, tm, tj, tvalid,
 
 
 def _solve_doublesplices_cuda(genome, top_d, pref, ti, tm, tj, tvalid,
-                              lengths, budget, lmax):
+                              lengths, budget, lmax, novel=True, known=None):
     b, t = ti.shape
     dev = pref.device
     out = _splice_outputs(_SHORTEXON_KEYS, (b, t), dev)
+    *kn_words, kn_len = _known_args(known)
     kbuild.launch(
         "gsnap_solve_doublesplices", dev,
         genome.ref16, maxent.flat_tables(dev), top_d.contiguous(),
         pref.contiguous(), ti.contiguous(), tm.contiguous(), tj.contiguous(),
         tvalid.contiguous(), lengths.int().contiguous(),
         budget.int().contiguous(), *(out[k] for k in _SHORTEXON_KEYS),
-        genome.ref16.shape[0], b, t, top_d.shape[1], lmax)
+        *kn_words, genome.ref16.shape[0], kn_len, b, t, top_d.shape[1],
+        lmax, int(novel))
     return out
 
 
 def solve_doublesplices(genome, top_d, pref, ti, tm, tj, tvalid, lengths,
-                        budget, lmax: int):
+                        budget, lmax: int, novel: bool = True, known=None):
     """Short middle exons between two local introns (kernel K7;
     solve_doublesplice, stage1hr.c:6612).
 
     For triple (i, m, j): junction 1 at s1 needs a donor on i and an
     acceptor on m, junction 2 at s2 > s1 a donor on m and an acceptor on
-    j (sense; antisense uses antiacceptor/antidonor).  The first
+    j (sense; antisense uses antiacceptor/antidonor); dinucleotides count
+    only when ``novel``, and known sites (``known``, as for
+    :func:`solve_splices`) are candidates with probability 1.0.  The first
     SHORTEXON_CANDS positions of each junction are joined in an 8 x 8
     grid keyed by -total_mismatches * 8 + (((p1i + p1m) + p2m) + p2j) in
     float32, each of the four probabilities gated by the sufficiency
@@ -773,7 +833,8 @@ def solve_doublesplices(genome, top_d, pref, ti, tm, tj, tvalid, lengths,
     Returns a dict of [B, T] tensors: valid, split, split2, sense,
     prob_d, prob_a, prob_d2, prob_a2 (float32), nmm1, nmm2, nmm3, left,
     mid, right (the triple's diagonals)."""
-    args = (genome, top_d, pref, ti, tm, tj, tvalid, lengths, budget, lmax)
+    args = (genome, top_d, pref, ti, tm, tj, tvalid, lengths, budget, lmax,
+            novel, known)
     if pref.device.type == "cpu":
         return _solve_doublesplices_plain(*args)
     if pref.device.type == "cuda":
@@ -793,7 +854,7 @@ def _bitpack_mask(mm: torch.Tensor) -> torch.Tensor:
 
 
 def _strand_hits(genome, index, queries, codes, nflags, lengths, conv, alt,
-                 budget, params: GappedParams):
+                 budget, params: GappedParams, known=None):
     """seed -> vote -> verify -> middle indels for one strand batch.
     Returns (hits, cands): dicts of [B, K] candidate arrays."""
     base = params.base
@@ -824,15 +885,17 @@ def _strand_hits(genome, index, queries, codes, nflags, lengths, conv, alt,
     nc = top_d.shape[1]
     nsp, ntr = params.splice_pairs, params.shortexon_triples
     z = lambda n, dt=torch.int32: torch.zeros((b, n), dtype=dt, device=dev)
-    if params.novelsplicing:
+    if params.novelsplicing or known is not None:
         si, sj, sv = _select_pairs(
             top_d, votes, _splice_pairs_eligible(base.shortsplicedist), nsp)
         spl = solve_splices(genome, top_d, pref, si, sj, sv, lengths, budget,
-                            queries.lmax)
+                            queries.lmax, novel=params.novelsplicing,
+                            known=known)
         ti, tm, tj, tv = select_triples(top_d, votes, base.shortsplicedist,
                                         ntr)
         shx = solve_doublesplices(genome, top_d, pref, ti, tm, tj, tv,
-                                  lengths, budget, queries.lmax)
+                                  lengths, budget, queries.lmax,
+                                  novel=params.novelsplicing, known=known)
         ntr = ti.shape[1]
     else:
         # splicing off: empty splice / shortexon blocks keep the JAX
@@ -897,7 +960,7 @@ def _strand_hits(genome, index, queries, codes, nflags, lengths, conv, alt,
 
 
 def gather_candidates(genome, index, index_minus, codes, nflags, lengths,
-                      params: GappedParams, alt=None):
+                      params: GappedParams, alt=None, known=None):
     """Both-strand candidate gathering; returns (unranked hits [B, K],
     cands)."""
     base = params.base
@@ -921,18 +984,18 @@ def gather_candidates(genome, index, index_minus, codes, nflags, lengths,
         h2, c2 = _strand_hits(
             genome, index, q2, torch.cat([codes, codes_rc]),
             torch.cat([nflags, nflags_rc]), torch.cat([lengths, lengths]),
-            None, alt, torch.cat([budget, budget]), params)
+            None, alt, torch.cat([budget, budget]), params, known)
         hf = {k: v[:b] for k, v in h2.items()}
         hr = {k: v[b:] for k, v in h2.items()}
         cf = {k: v[:b] for k, v in c2.items()}
         cr = {k: v[b:] for k, v in c2.items()}
     else:
         hf, cf = _strand_hits(genome, index, queries_fwd, codes, nflags,
-                              lengths, conv_plus, alt, budget, params)
+                              lengths, conv_plus, alt, budget, params, known)
         hr, cr = _strand_hits(genome, index if index_minus is None else index_minus,
                               queries_rev,
                               codes_rc, nflags_rc, lengths, conv_minus, alt,
-                              budget, params)
+                              budget, params, known)
 
     out = {k: torch.cat([hf[k], hr[k]], 1) for k in hf}
     nplus = hf["kind"].shape[1]
@@ -1000,40 +1063,43 @@ def align_batch_gapped(genome, index: IndexArrays, codes, nflags, lengths,
                        params: GappedParams = GappedParams(),
                        index_minus: IndexArrays | None = None, alt=None,
                        known=None):
-    """Single-end pipeline: substitutions + middle indels, plus novel
-    local splices and short-exon doublesplices when
-    ``params.novelsplicing``.  Returns the same keys as the JAX function:
+    """Single-end pipeline: substitutions + middle indels, plus local
+    splices and short-exon doublesplices when ``params.novelsplicing``
+    (novel sites) or ``known`` is given (known sites).  ``alt`` is the
+    SNP-tolerant alt genome (ref16, flag16) that K3 also accepts as a
+    match.  Returns the same keys as the JAX function:
     ranked [B, maxpaths] hit fields (kind, score, nmm, left, right,
     split, split2, mid, nindels, sense, prob_*, plusp), npaths, the
     unranked cand_* arrays, overflow / overflow_trunc and the lane-noop
     gate (lane_noop, lane_ind, lane_term)."""
-    if known is not None:
-        raise NotImplementedError(_NOT_PORTED)
     base = params.base
+    known = _check_known(known)
     out, cands = gather_candidates(genome, index, index_minus, codes, nflags,
-                                   lengths, params, alt)
+                                   lengths, params, alt, known)
     final = rank_hits(out, base)
     final.update(cands)
-    # candidate-budget overflow gate (see the JAX function): rows whose
-    # done level sits below every lane gate, or that have a hit the
-    # dropped diagonals provably cannot reach, clear the flag
     lengths_i = lengths.int()
-    budget = auto_budget(lengths_i, index.k, index.interval,
-                         base.max_mismatches)
-    done = torch.minimum(budget, torch.where(final["npaths"] > 0,
-                                             final["score"][:, 0], BIG_NMM))
-    lane_gate = min(base.indel_penalty_middle, base.indel_penalty_end,
-                    base.terminal_threshold)
-    if params.novelsplicing:
-        # the splice solvers admit dropped diagonals at
-        # localsplicing_penalty: only the floor-bound branch clears
-        lane_gate = min(lane_gate, base.localsplicing_penalty)
-    so = base.subopt_levels
-    safe = (((done + so < lane_gate)
-             | ((final["npaths"] > 0) & (final["hbound"] > done + so)))
-            & (final["ovf_bound"] > done + so)
-            & ~final["overflow_trunc"])
-    final["overflow"] = final["overflow"] & ~safe
+    if known is None:
+        # candidate-budget overflow gate (see the JAX function): rows
+        # whose done level sits below every lane gate, or that have a hit
+        # the dropped diagonals provably cannot reach, clear the flag;
+        # with known sites every overflow row takes the wide lane
+        budget = auto_budget(lengths_i, index.k, index.interval,
+                             base.max_mismatches)
+        done = torch.minimum(budget, torch.where(
+            final["npaths"] > 0, final["score"][:, 0], BIG_NMM))
+        lane_gate = min(base.indel_penalty_middle, base.indel_penalty_end,
+                        base.terminal_threshold)
+        if params.novelsplicing:
+            # the splice solvers admit dropped diagonals at
+            # localsplicing_penalty: only the floor-bound branch clears
+            lane_gate = min(lane_gate, base.localsplicing_penalty)
+        so = base.subopt_levels
+        safe = (((done + so < lane_gate)
+                 | ((final["npaths"] > 0) & (final["hbound"] > done + so)))
+                & (final["ovf_bound"] > done + so)
+                & ~final["overflow_trunc"])
+        final["overflow"] = final["overflow"] & ~safe
     final.pop("ovf_bound")
     final.pop("hbound")
     if base.trim_mismatch_score == -3:

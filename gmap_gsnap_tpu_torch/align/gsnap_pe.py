@@ -280,11 +280,10 @@ def align_batch_pe(genome, index, codes5, nflags5, lengths5,
     emission) and "end5_pairing" / "end3_pairing" (unfiltered, NP per
     end); and the per-end candidate arrays "cands5" / "cands3" with the
     gated overflow flags."""
-    if known is not None:
-        raise NotImplementedError(gsnap_gapped._NOT_PORTED)
     gp = params.gapped
     base = gp.base
     np_ = params.npair_end
+    known = gsnap_gapped._check_known(known)
 
     # both ends ride ONE [2B] candidate gathering (and, in standard
     # mode, one [4B] strand-stacked core inside)
@@ -292,7 +291,7 @@ def align_batch_pe(genome, index, codes5, nflags5, lengths5,
     out2, cands2 = gsnap_gapped.gather_candidates(
         genome, index, index_minus, torch.cat([codes5, codes3]),
         torch.cat([nflags5, nflags3]), torch.cat([lengths5, lengths3]), gp,
-        alt)
+        alt, known)
     out5 = {k: v[:b_] for k, v in out2.items()}
     out3 = {k: v[b_:] for k, v in out2.items()}
     cands5 = {k: v[:b_] for k, v in cands2.items()}
@@ -309,29 +308,33 @@ def align_batch_pe(genome, index, codes5, nflags5, lengths5,
     # a concordant row clears its ends' flags when no dropped diagonal
     # can reach the best pair score, as a SUB end or as an indel (or,
     # with -N 1, splice) piece.  pscore[:, 0] is the best pair score
-    # (BIG when there is no pair: end scores are < BIG_NMM).
-    npairs = grid["npairs"]
-    conc_ok = grid["pair_concordant"] & (npairs > 0)
-    so = base.subopt_levels
-    pbest = grid["pscore"][:, 0]
-    s5b = h5["score"][:, 0]
-    s3b = h3["score"][:, 0]
-    b5 = cands5["ovf_bound"]
-    b3 = cands3["ovf_bound"]
-    sub_ok = ((b5 + s3b > pbest + so) & (b3 + s5b > pbest + so)
-              & (b5 + b3 > pbest + so))
-    alloc5 = pbest + so - s3b
-    alloc3 = pbest + so - s5b
-    hb5 = cands5["hbound"]
-    hb3 = cands3["hbound"]
-    ind_ok = (((alloc5 < base.indel_penalty_middle) | (hb5 > alloc5))
-              & ((alloc3 < base.indel_penalty_middle) | (hb3 > alloc3)))
-    if gp.novelsplicing:
-        ind_ok = ind_ok & (hb5 > alloc5) & (hb3 > alloc3)
-    safe = conc_ok & sub_ok & ind_ok
+    # (BIG when there is no pair: end scores are < BIG_NMM).  Known-site
+    # runs keep the rescue unconditionally.
+    if known is None:
+        npairs = grid["npairs"]
+        conc_ok = grid["pair_concordant"] & (npairs > 0)
+        so = base.subopt_levels
+        pbest = grid["pscore"][:, 0]
+        s5b = h5["score"][:, 0]
+        s3b = h3["score"][:, 0]
+        b5 = cands5["ovf_bound"]
+        b3 = cands3["ovf_bound"]
+        sub_ok = ((b5 + s3b > pbest + so) & (b3 + s5b > pbest + so)
+                  & (b5 + b3 > pbest + so))
+        alloc5 = pbest + so - s3b
+        alloc3 = pbest + so - s5b
+        hb5 = cands5["hbound"]
+        hb3 = cands3["hbound"]
+        ind_ok = (((alloc5 < base.indel_penalty_middle) | (hb5 > alloc5))
+                  & ((alloc3 < base.indel_penalty_middle)
+                     | (hb3 > alloc3)))
+        if gp.novelsplicing:
+            ind_ok = ind_ok & (hb5 > alloc5) & (hb3 > alloc3)
+        safe = conc_ok & sub_ok & ind_ok
+        for c in (cands5, cands3):
+            # the floor bound covers top-ncand drops only, not truncation
+            c["overflow"] = c["overflow"] & ~(safe & ~c["overflow_trunc"])
     for c in (cands5, cands3):
-        # the floor bound covers top-ncand drops only, not truncation
-        c["overflow"] = c["overflow"] & ~(safe & ~c["overflow_trunc"])
         c.pop("ovf_bound")
         c.pop("hbound")
 

@@ -10,14 +10,15 @@ the pairing grid kernel) and the plain-torch ranking around them; the
 full result tree comes to the host in one copy.  The reads the GMAP
 lanes take are aligned once per batch by ``gmap.align_cdna_batch``
 (kernels K9-K12).  The host half — end trimming, MD/NM, the end indel,
-terminal, GMAP and (with ``-N 1``) distant splice rescue lanes, pair
-rescue, MAPQ and SAM emission — is the numpy code of
-gmap_gsnap_tpu/align/runner.py, copied (not rewritten) because that
-module imports JAX.  What this module leaves out of it: native output,
-SNP/cmet/atoi modes, known splice sites and the short-end lane and
-inside-pair ambiguous-splice resolution they drive (so
-``indel_knownsplice`` does nothing), gene/tally/runlength multimapping
-resolution (the identity without those databases), output routing
+terminal, GMAP, (with known splice sites, ``-s``) short-end and (with
+``-N 1``) distant splice rescue lanes, pair rescue with its inside-pair
+ambiguous-splice resolution, MAPQ and SAM emission — is the numpy code
+of gmap_gsnap_tpu/align/runner.py, copied (not rewritten) because that
+module imports JAX.  SNP-tolerant runs (``-v``) seed on the SNP index
+and accept the alt genome's alleles as matches.  What this module
+leaves out of it: native output, the cmet/atoi modes,
+gene/tally/runlength multimapping resolution (the identity without
+those databases), output routing
 (--split-output), ``warmup`` (XLA compiles) and the TPU transfer
 slimming (compact views, row-subset fetches, pad buckets); see
 ROADMAP.md.
@@ -27,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import sys as _sys
 import time as _time
 from collections import Counter
@@ -36,8 +38,9 @@ import numpy as np
 import torch
 
 from .. import native as native_mod
-from ..db import datadir
+from ..db import datadir, splicesites
 from ..db.datadir import GenomeDB
+from ..db.iit import IIT
 from ..io import sam
 from ..io.fasta import Record
 from ..io.gsnap_native import _align_score
@@ -344,6 +347,9 @@ class PostHit:
     distant: dict | None = None  # distant-splice info (sense, type,
     # dist, sites, probs, per-part MD/NM, penalty, dinucl) for the
     # translocation SAM records (XT tag)
+    ambi: dict | None = None  # ambiguous shortend-splice alternatives
+    # (side, sp, sense, sites, nmm, long_left) for inside-pair
+    # resolution (resolve_inside_ambiguous_splice, stage3hr.c:6329)
 
 
 def invert_records(recs: list[Record]) -> list[Record]:
@@ -409,16 +415,24 @@ def _tree_host(tree: dict, b: int) -> dict:
 
 
 class GsnapRunner:
-    """SE and PE GSNAP runner on one device (``device`` is required to be
-    explicit; "cuda" raises where there is no CUDA device).
+    """SE and PE GSNAP runner on one device (``device`` defaults to
+    "cuda", which raises where there is no CUDA device).
 
     ``params`` defaults to GsnapParams() with the dynamic size threshold,
     like the JAX runner (so the default GMAP lanes run).
     ``novelsplicing`` is gsnap -N 1: local splices and short exons on the
-    device, the distant lane on the host."""
+    device, the distant lane on the host.  ``splicesdb`` is gsnap -s: a
+    splicesites (or introns) map IIT, a path or a name looked up in
+    ``splicing_dir`` and ``<db>.maps``; it turns splicing on even without
+    -N 1.  ``snpsdb`` is gsnap -v: the SNP-tolerant index and alt genome
+    that db/transforms.write_snp_index wrote into ``snps_dir`` (default:
+    the database directory)."""
 
     def __init__(self, db: GenomeDB, params: gsnap_se.GsnapParams | None = None,
-                 lmax: int = 100, novelsplicing: bool = False,
+                 lmax: int = 100, snpsdb: str | None = None,
+                 novelsplicing: bool = False, splicesdb: str | None = None,
+                 snps_dir: str | None = None,
+                 splicing_dir: str | None = None,
                  device: str | torch.device = "cuda"):
         if params is None:
             params = gsnap_se.GsnapParams()
@@ -447,12 +461,48 @@ class GsnapRunner:
         # standard mode: no cmet/atoi conversion on either strand
         self._conv_plus = self._conv_minus = None
         self.device = resolve_device(device)
+        self.known = None
+        self._known_sites = None
+        self._splice_labels = None
+        if splicesdb is not None:
+            path = splicesdb
+            if splicing_dir and not os.path.exists(path):
+                path = os.path.join(splicing_dir, f"{splicesdb}.iit")
+            if not os.path.exists(path):
+                path = os.path.join(db.dbdir, f"{db.dbname}.maps",
+                                    f"{splicesdb}.iit")
+            if not os.path.exists(path):
+                raise FileNotFoundError(f"no splicesites map {splicesdb}")
+            sites = splicesites.load_splicesites(
+                IIT.read(path), db.chr_names, db.chr_starts)
+            self.known = sites.device_bitmasks(len(db.codes), self.device)
+            self._known_sites = sites  # host arrays for the shortend lane
+            self._splice_labels = sites.labels
+            self.splicing_on = True
         self.genome = datadir.device_genome(db, self.device)
-        self.index = datadir.device_index(db, self.device)
         # lazy genome view: slices decode on demand, vectorized host
         # compares use the shared ASCII array (no whole-genome str)
         self._genome_str = db.genome_str
         self._genome_bytes = self._genome_str.ascii
+        self.alt = None
+        self._alt_str = None
+        self._alt_bytes = None
+        self._snpsdb = snpsdb
+        if snpsdb is None:
+            self.index = datadir.device_index(db, self.device)
+        else:
+            # SNP-tolerant: the SNP index replaces the standard one, and
+            # the alt genome's alleles count as matches
+            self.index, self.alt, self._alt_str = datadir.device_snps(
+                db, snpsdb, snps_dir, self.device)
+            self._alt_bytes = self._alt_str.ascii
+        # gsnap --ambig-splice-noclip sets this False (amb_clip_p,
+        # gsnap.c:1247 / splicetrie.c:1945,2099): ambiguous known
+        # splicing at a read end is then DROPPED instead of emitted as
+        # a soft-clipped ambiguous hit, and short ends below
+        # min_shortend never splice
+        self.amb_clip = True
+        self.ambi_resolved = 0  # ambiguous ends _resolve_inside_ambi resolved
         self._gmap_cache: dict = {}
         self._lane_masks: dict = {}   # (id(rec), left, plusp) -> (sel, ref)
         self._lane_trims: dict = {}   # same key -> (t5, t3) at params score
@@ -489,7 +539,8 @@ class GsnapRunner:
         res = gsnap_gapped.align_batch_gapped(
             self.genome, self.index,
             torch.from_numpy(codes).to(dev), torch.from_numpy(nflags).to(dev),
-            torch.from_numpy(lengths).to(dev), self._gp_uniform(gp, lengths))
+            torch.from_numpy(lengths).to(dev), self._gp_uniform(gp, lengths),
+            alt=self.alt, known=self.known)
         return res, len(records)
 
     def dispatch_records(self, records: list[Record]):
@@ -542,7 +593,8 @@ class GsnapRunner:
         params = gsnap_pe.PEParams(gapped=self._gp_uniform(gp, l5, l3),
                                    pairmax=self._pairmax())
         res = gsnap_pe.align_batch_pe(self.genome, self.index, t(c5), t(f5),
-                                      t(l5), t(c3), t(f3), t(l3), params)
+                                      t(l5), t(c3), t(f3), t(l3), params,
+                                      alt=self.alt, known=self.known)
         return res, len(recs5)
 
     def dispatch_pairs(self, recs5: list[Record], recs3_inv: list[Record]):
@@ -591,8 +643,9 @@ class GsnapRunner:
                         conv=None) -> tuple[np.ndarray, np.ndarray]:
         """(selection mask, ref-relative mask) for query part ``q``
         aligned at genome position g0.  ``conv`` is the strand's cmet/atoi
-        conversion: None in standard mode, the only mode the port runs,
-        where the two masks agree."""
+        conversion: None in standard mode, the only mode the port runs.
+        Selection honors SNP tolerance (a base equal to the alt allele
+        matches); MD/NM stay ref-relative."""
         n = len(q)
         qb = np.frombuffer(q.encode("latin-1"), np.uint8)
         gb = self._genome_bytes[g0 : g0 + n]
@@ -600,7 +653,14 @@ class GsnapRunner:
             gb = np.concatenate([gb, np.zeros(n - len(gb), np.uint8)])
         qn = qb == ord("N")
         mm = ~qn & (~self._ACGT_SET[gb] | (qb != gb))
-        return mm, mm
+        mm_ref = mm
+        if self._alt_bytes is not None:
+            ab = self._alt_bytes[g0 : g0 + n]
+            if len(ab) < n:
+                ab = np.concatenate([ab, np.zeros(n - len(ab), np.uint8)])
+            # a new array: mm_ref must keep the ref-relative mismatches
+            mm = mm & (qb != ab)
+        return mm, mm_ref
 
     def _prime_lane_masks(self, jobs, shifts=None) -> None:
         """Vectorize the host rescue lanes' mismatch-mask computation.
@@ -655,6 +715,10 @@ class GsnapRunner:
                 [np.broadcast_to(qnn, (n, L)) for _, qnn, n in qmat_g])
             mm = ~qn & (~self._ACGT_SET[gmat] | (qmat != gmat))
             mm_ref = mm
+            if self._alt_bytes is not None:
+                amat = np.where(okm, self._alt_bytes[np.clip(gidx, 0, G - 1)],
+                                0)
+                mm = mm & (qmat != amat)
             # trims are consulted only for the UNSHIFTED diagonals
             t5s = t3s = None
             if sh0 >= 0:
@@ -996,6 +1060,294 @@ class GsnapRunner:
                     out.append((h, score, (left, plusp)))
         return out
 
+    def _shortend_hits(self, rec: Record, hits, row: int, done: int):
+        """Stage 8 short-end known-site splicing (find_spliceends_
+        shortend stage1hr.c:8330 + find_splicepairs_shortend :10045):
+        a known splice site inside a candidate diagonal lets the read
+        splice even when the far side is too short to seed (down to
+        1 bp).  Partner sites of the opposite class within
+        shortsplicedist stand in for the reference's splicetrie: the
+        short end is matched after each partner; a unique best partner
+        with endlength >= min_shortend(2) gives a clean spliced hit,
+        otherwise an ambiguous one (long side only, soft-clipped but
+        XS-tagged, nmatches credited with amb_nmatches)."""
+        sites = self._known_sites
+        if sites is None:
+            return []
+        L = len(rec.seq)
+        max_mm = done  # localsplicing_penalty = 0 (gsnap.c:196)
+        if max_mm < 0:
+            return []
+        G = len(self._genome_bytes)
+        cl = np.asarray(hits["cand_left"][row]).astype(np.int64)
+        cp = np.asarray(hits["cand_plusp"][row])
+        valid = cl < np.iinfo(np.uint32).max
+        seen_diag = set()
+        out = []
+        seen_hit = set()
+        # (boundary class, partner class, long side, sense) configs:
+        # long-left pairs donor->acceptor / antiacceptor->antidonor to
+        # the right; long-right pairs acceptor<-donor / antidonor<-
+        # antiacceptor to the left (plus-text sense; both read strands
+        # use the same plus-genome class arrays, like the device scan)
+        configs = [
+            (sites.donors, sites.acceptors, "L", True),
+            (sites.antiacceptors, sites.antidonors, "L", False),
+            (sites.acceptors, sites.donors, "R", True),
+            (sites.antidonors, sites.antiacceptors, "R", False),
+        ]
+        # End 8 (antiacceptors_minus, stage1hr.c:10553) walks an
+        # acceptor site's donor trie with minus-query coordinates that
+        # never match, so (minus read, acceptor boundary, long-right)
+        # yields no splice in the reference — verified empirically
+        # (short-left minus reads over a sense intron stay soft-clipped)
+        minus_skip = {(id(sites.acceptors), "R", True)}
+        for ci in range(len(cl)):
+            if not valid[ci]:
+                continue
+            left, plusp = int(cl[ci]), bool(cp[ci])
+            if (left, plusp) in seen_diag:
+                continue
+            seen_diag.add((left, plusp))
+            if left < 0 or left + L > G:
+                continue
+            q = (rec.seq.upper() if plusp
+                 else dna.revcomp_str(rec.seq.upper()))
+            conv = self._conv_plus if plusp else self._conv_minus
+            mm_sel, _ = self._mismatch_masks(q, left, conv)
+            pref = np.concatenate([[0], np.cumsum(mm_sel)])
+            for bnd, partners, side, sense in configs:
+                if not len(bnd) or not len(partners):
+                    continue
+                if not plusp and (id(bnd), side, sense) in minus_skip:
+                    continue
+                # per-site observed intron distances (splicedists):
+                # partners within the boundary site's observed distance
+                # pay no penalty; partners beyond it (but within
+                # shortsplicedist) pay OBSMAX_PENALTY=1 — the
+                # obs/max trie pair of Splicetrie_find_left/right
+                # (splicetrie.c:1910,2002-2050)
+                bnd_dists = (sites.dists_for(bnd)
+                             if sites.distances_observed else None)
+                ssd = self.params.shortsplicedist
+                j0 = int(np.searchsorted(bnd, left + 1))
+                j1 = int(np.searchsorted(bnd, left + L))
+                for jsite in range(j0, j1):
+                    c = int(bnd[jsite])
+                    sp = c - left
+                    if side == "L":
+                        endlength, support = L - sp, sp
+                        nmm_long = int(pref[sp])
+                    else:
+                        endlength, support = sp, L - sp
+                        nmm_long = int(pref[L] - pref[sp])
+                    if endlength > support or nmm_long > max_mm:
+                        continue
+                    if (not self.amb_clip
+                            and endlength < self.params.min_shortend):
+                        # --ambig-splice-noclip: Splicetrie_find_left/
+                        # right return NULL for ends below min_shortend
+                        # (splicetrie.c:1945,2142)
+                        continue
+                    allowed = max_mm - nmm_long
+                    if side == "L":
+                        p0 = int(np.searchsorted(partners, c + 1))
+                        p1 = int(np.searchsorted(
+                            partners, c + ssd, "right"))
+                        cand = partners[p0:p1]
+                    else:
+                        p0 = int(np.searchsorted(partners, c - ssd))
+                        p1 = int(np.searchsorted(partners, c))
+                        cand = partners[p0:p1]
+                    obs_win = None
+                    if bnd_dists is not None:
+                        D = int(bnd_dists[jsite])
+                        # splicetrie_build.c:506-510 cap/extra
+                        obs_win = ssd if D > ssd else D + 10
+                        # obsmax penalty applies only when the site HAS
+                        # obs-window partners (trieoffsets_obs[i] set)
+                        if side == "L":
+                            has_obs = bool(np.any(
+                                (cand > c) & (cand < c + obs_win)))
+                        else:
+                            has_obs = bool(np.any(cand > c - obs_win))
+                    else:
+                        has_obs = False
+                    if sites.introns_only and not has_obs:
+                        # introns-format maps build no max trie
+                        # (gsnap.c:2214): sites without obs-window
+                        # partners have none at all
+                        continue
+                    best_obs_mm, obs_list = None, []
+                    best_max_mm, max_list = None, []
+                    for a in cand:
+                        a = int(a)
+                        left2 = a - sp
+                        if left2 < 0 or left2 + L > G:
+                            continue
+                        mm2, _ = self._mismatch_masks(q, left2, conv)
+                        nmm_s = int(mm2[sp:].sum() if side == "L"
+                                    else mm2[:sp].sum())
+                        if nmm_s > allowed:
+                            continue
+                        in_obs = (not has_obs) or (
+                            (a - c < obs_win) if side == "L"
+                            else (c - a < obs_win))
+                        if sites.introns_only and not in_obs:
+                            continue
+                        if in_obs:
+                            if best_obs_mm is None or nmm_s < best_obs_mm:
+                                best_obs_mm, obs_list = nmm_s, [a]
+                            elif nmm_s == best_obs_mm:
+                                obs_list.append(a)
+                        else:
+                            if best_max_mm is None or nmm_s < best_max_mm:
+                                best_max_mm, max_list = nmm_s, [a]
+                            elif nmm_s == best_max_mm:
+                                max_list.append(a)
+                    # obs partners win unless a beyond-obs partner beats
+                    # them by MORE than OBSMAX_PENALTY=1 (the two-trie
+                    # search of Splicetrie_find_left, splicetrie.c:2002-
+                    # 2050: max-trie bound = best_obs - penalty, winner
+                    # only when best_max + penalty < best_obs)
+                    obs_nm = (best_obs_mm if best_obs_mm is not None
+                              else allowed)
+                    if (best_max_mm is not None
+                            and best_max_mm + 1 < obs_nm):
+                        best_mm, best = best_max_mm, max_list
+                    elif best_obs_mm is not None:
+                        best_mm, best = best_obs_mm, obs_list
+                    else:
+                        best_mm, best = None, []
+                    if best_mm is None:
+                        continue
+                    if (endlength >= self.params.min_shortend
+                            and len(best) == 1):
+                        a = best[0]
+                        if side == "L":
+                            l1, rdiag = left, a - sp
+                        else:
+                            l1, rdiag = a - sp, left
+                        if rdiag <= l1:
+                            continue
+                        key = (l1, rdiag, sp, plusp)
+                        if key in seen_hit:
+                            continue
+                        seen_hit.add(key)
+                        d = self._hit_details(
+                            rec, KIND_SPLICE, l1, rdiag, sp, 0, sense,
+                            plusp)
+                        out.append((rescue.HostHit(
+                            d, "splice", d.nmatches_whole,
+                            np.array(d.mmpos, int), d.loglik),
+                            nmm_long + best_mm))
+                    elif not self.amb_clip:
+                        # --ambig-splice-noclip: multiple tied partner
+                        # sites are dropped outright instead of
+                        # soft-clipped (splicetrie.c:2099,2296) — the
+                        # plain substring alignment extends into the
+                        # intron
+                        continue
+                    else:
+                        # ambiguous: long side only, junction side
+                        # soft-clipped, amb_nmatches credited
+                        amb = endlength - best_mm
+                        if side == "L":
+                            t5, _ = trim_ends(mm_sel[:sp], self.params.trim_mismatch_score)
+                            t3 = endlength
+                        else:
+                            t5 = endlength
+                            _, t3 = trim_ends(mm_sel[sp:], self.params.trim_mismatch_score)
+                        key = (left, sp, side, plusp, "amb")
+                        if key in seen_hit:
+                            continue
+                        seen_hit.add(key)
+                        d = self._terminal_hit(rec, left, plusp, t5, t3)
+                        # amb_nmatches counts toward nmatches (Stage3end
+                        # _new_splice, stage3hr.c: ambiguous end credit)
+                        # so the splice outranks the equivalent sub/
+                        # terminal in hit_goodness_cmp.  The tied
+                        # partner sites ride along for inside-pair
+                        # resolution (resolve_inside_ambiguous_splice,
+                        # stage3hr.c:6329/6811).
+                        d = dataclasses.replace(
+                            d, xs="+" if sense else "-",
+                            nmatches=d.nmatches + amb,
+                            nmatches_whole=d.nmatches_whole + amb,
+                            term_ends=None,
+                            ambi={"side": side, "sp": sp, "sense": sense,
+                                  "sites": [int(a) for a in best],
+                                  "nmm": best_mm, "long_left": left})
+                        out.append((rescue.HostHit(
+                            d, "splice", d.nmatches + amb,
+                            np.array(d.mmpos, int), d.loglik),
+                            nmm_long + best_mm))
+        return out
+
+    def _resolve_inside_ambi(self, rec5, rec3_inv, h5, h3):
+        """resolve_inside_ambiguous_splice_plus/minus (stage3hr.c:6329,
+        6811): an ambiguous shortend splice whose junction faces INSIDE
+        a candidate pair resolves to the unique partner site bounded by
+        the mate's span; unresolved (0 or >1 bounded) keeps the
+        soft-clipped ambiguous form."""
+        a5 = h5.d.ambi
+        a3 = h3.d.ambi
+        if a5 is None and a3 is None:
+            return h5, h3
+        if h5.d.plusp != h3.d.plusp:
+            return h5, h3
+        plusp = h5.d.plusp
+        L5, L3 = len(rec5.seq), len(rec3_inv.seq)
+        in5 = a5 is not None and a5["side"] == ("L" if plusp else "R")
+        in3 = a3 is not None and a3["side"] == ("R" if plusp else "L")
+        if not (in5 or in3):
+            return h5, h3
+        span5 = h5.d.trim5 + h5.d.ref_consumed + h5.d.trim3
+        span3 = h3.d.trim5 + h3.d.ref_consumed + h3.d.trim3
+        gs3 = h3.d.left if plusp else h3.d.left + span3
+        ge5 = h5.d.left + span5 if plusp else h5.d.left
+        pick5 = pick3 = None
+        if in5 and in3:
+            combos = [(s5, s3) for s5 in a5["sites"] for s3 in a3["sites"]
+                      if (s5 < s3 if plusp else s3 < s5)]
+            if len(combos) == 1:
+                pick5, pick3 = combos[0]
+        elif in5:
+            b = [s for s in a5["sites"]
+                 if (s < gs3 + L3 if plusp else gs3 < s + L3)]
+            if len(b) == 1:
+                pick5 = b[0]
+        else:
+            b = [s for s in a3["sites"]
+                 if (ge5 < s + L5 if plusp else s < ge5 + L5)]
+            if len(b) == 1:
+                pick3 = b[0]
+
+        def build(rec, a, site, plusp):
+            sp = a["sp"]
+            if a["side"] == "L":
+                l1, rdiag = a["long_left"], site - sp
+            else:
+                l1, rdiag = site - sp, a["long_left"]
+            if rdiag <= l1:
+                return None
+            d = self._hit_details(rec, KIND_SPLICE, l1, rdiag, sp, 0,
+                                  a["sense"], plusp)
+            return rescue.HostHit(d, "splice", d.nmatches_whole,
+                                  np.array(d.mmpos, int), d.loglik)
+
+        if pick5 is not None:
+            r = build(rec5, a5, pick5, plusp)
+            if r is not None:
+                h5 = r
+                self.ambi_resolved += 1
+        if pick3 is not None:
+            r = build(rec3_inv, a3, pick3, plusp)
+            if r is not None:
+                h3 = r
+                self.ambi_resolved += 1
+        return h5, h3
+
     def _distant_hits(self, rec: Record, hits, row: int, done: int):
         """Step 9 distant/translocation splicing (stage1hr.c:12218):
         runs only when the cascade found nothing and splicing is on."""
@@ -1323,10 +1675,9 @@ class GsnapRunner:
 
     def _rescued_hits(self, rec: Record, hits, row: int, npaths: int,
                       maxpaths: int):
-        """Device hits + end-indel, distant, terminal and GMAP lanes ->
-        final ordered HostHit list (align_end tail,
-        stage1hr.c:12400-12530).  The short-end stage of the JAX runner
-        needs known sites, which the port does not have."""
+        """Device hits + end-indel, short-end, distant, terminal and GMAP
+        lanes -> final ordered HostHit list (align_end tail,
+        stage1hr.c:12400-12530)."""
         L = len(rec.seq)
         kindname = {KIND_SUB: "sub", KIND_INS: "ins", KIND_DEL: "del",
                     KIND_SPLICE: "splice", KIND_SHORTEXON: "shortexon"}
@@ -1360,6 +1711,16 @@ class GsnapRunner:
                 hhits.append(h)
                 end_used.add(anchor)
                 end_found = True
+                done = min(done, score + self.params.subopt_levels)
+
+        # 8. short-end known-site splicing (stage1hr.c:12134 gating:
+        # knownsplicingp && done_level >= localsplicing_penalty)
+        if self._known_sites is not None and done >= 0:
+            sh = self._shortend_hits(rec, hits, row, done)
+            for h, score in sh:
+                if score > done:
+                    continue
+                hhits.append(h)
                 done = min(done, score + self.params.subopt_levels)
 
         # 9. distant splicing: only when the cascade found nothing
@@ -1398,8 +1759,12 @@ class GsnapRunner:
                 kept boundary — the left/right asymmetry matches the
                 end dynprogs' jump_late split.
 
-            Observed only in STANDARD runs without SNPs or known sites,
-            which is all the port runs."""
+            Observed only in STANDARD runs: with a SNP-tolerant index
+            or known splice sites loaded the reference keeps the
+            trimmed sub even in winning geometries, so those modes stay
+            conservative."""
+            if self._snpsdb is not None or self._known_sites is not None:
+                return False
             for i in range(n):
                 if int(hits["kind"][row, i]) != KIND_SUB:
                     continue
@@ -1479,16 +1844,20 @@ class GsnapRunner:
             hhits.extend(term_hits)
             # early skip: when the acceptance gates below are provably
             # unsatisfiable, don't run the (expensive) GMAP engine at
-            # all: a geometry-failing SUB blocks it (a different-locus
-            # GMAP with more matches would have been a better sub the
-            # complete seed set had found), and so does every beatable
-            # terminal failing geometry
-            gmap_possible = True
-            for h in hhits[:n]:
-                if h.hittype == "sub" and not end_policy_ok(
-                        h.d.trim5, h.d.trim3, h.d.mmpos):
-                    gmap_possible = False
-                    break
+            # all.  SNP and known-site runs always reject the
+            # replacement (gmap_beats_sub); otherwise a geometry-failing
+            # SUB blocks it (a different-locus GMAP with more matches
+            # would have been a better sub the complete seed set had
+            # found), and so does every beatable terminal failing
+            # geometry
+            gmap_possible = (self._snpsdb is None
+                             and self._known_sites is None)
+            if gmap_possible:
+                for h in hhits[:n]:
+                    if h.hittype == "sub" and not end_policy_ok(
+                            h.d.trim5, h.d.trim3, h.d.mmpos):
+                        gmap_possible = False
+                        break
             if gmap_possible and term_hits and not any(
                     end_policy_ok(t.d.trim5, t.d.trim3, t.mm_positions)
                     for t in term_hits):
@@ -1520,6 +1889,8 @@ class GsnapRunner:
         win = self.params.shortsplicedist + 2 * L
 
         def gmap_for_anchor(anchor):
+            if self._snpsdb is not None or self._known_sites is not None:
+                return None  # gmap_beats_sub always rejects: skip call
             g = gmap_once()
             if g is None:
                 return None
@@ -1778,6 +2149,12 @@ class GsnapRunner:
         gb = self._genome_bytes[gidx]
         qn = qb == ord("N")
         mm_sel = mm_ref = ~qn & (~self._ACGT_SET[gb] | (qb != gb))
+        if self._alt_bytes is not None:
+            # the alt allele counts for selection and trims, not MD/NM;
+            # read at ``lefts`` even for spliced rows, as the JAX runner
+            # does (runner.py:3244-3246)
+            ab = self._alt_bytes[lefts[:, None] + ar]
+            mm_sel = mm_sel & (qb != ab)
         if splits is None:
             trim5, trim3 = trim_ends_batch(
                 mm_sel, self.params.trim_mismatch_score)
@@ -2036,10 +2413,9 @@ class GsnapRunner:
     def _pe_rescue(self, rec5: Record, rec3_inv: Record, res, row: int):
         """Terminal + GMAP lanes feeding the pairing stage when the
         device grid found no concordant pair (stage1hr.c:13520/14556/
-        15138 GMAP pairsearch/halfmapping/terminal + Stage3pair_new).
-        The JAX runner's inside-pair ambiguous-splice resolution
-        (``_resolve_inside_ambi``) needs the known-site short-end lane,
-        which the port does not have yet.
+        15138 GMAP pairsearch/halfmapping/terminal + Stage3pair_new),
+        with each candidate pair's inside-facing ambiguous short-end
+        splices resolved against the mate (``_resolve_inside_ambi``).
 
         Returns (pairs, concordant_p, final5, final3) where pairs is a
         ranked list of (hit5, hit3, pairtype, pair_score, insertlen)."""
@@ -2093,6 +2469,7 @@ class GsnapRunner:
         pairs = []
 
         def addpair(h5, h3):
+            h5, h3 = self._resolve_inside_ambi(rec5, rec3_inv, h5, h3)
             k = (hkey(h5), hkey(h3))
             if k in seen:
                 return
@@ -2606,14 +2983,16 @@ class GsnapRunner:
 
     def _need_full(self, recs, res, rows=None) -> np.ndarray:
         """Rows whose emission takes the rescue lanes (or has more than
-        one hit): no hit, more than PAIR_KTOP hits, or a done level that
-        opens the lanes without a device lane-noop verdict."""
+        one hit): no hit, more than PAIR_KTOP hits, a done level that
+        opens the lanes without a device lane-noop verdict, or any row
+        when known sites open the short-end lane."""
         r = np.arange(len(recs)) if rows is None else np.asarray(rows, np.int64)
         np_a = np.asarray(res["npaths"])[r]
         done = self._se_done_level(recs, res, rows)
         noop = np.asarray(res["lane_noop"])[r]
         return ((np_a == 0) | (np_a > PAIR_KTOP)
-                | ((done >= self.params.indel_penalty_end) & ~noop))
+                | ((done >= self.params.indel_penalty_end) & ~noop)
+                | (self._known_sites is not None))
 
     def run(self, records: list[Record], out, batch_size: int = 256,
             emit_header: bool = True) -> int:

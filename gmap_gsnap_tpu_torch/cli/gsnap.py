@@ -1,18 +1,20 @@
 """gsnap-compatible CLI of the port: single-end or paired-end, standard
-mode, -N 0 or -N 1 (novel splicing), the GMAP rescue lanes of
---gmap-mode (all of them by default), SAM output, on one CUDA device.
+mode, -N 0 or -N 1 (novel splicing), known splice sites (-s) and
+SNP-tolerant alignment (-v), the GMAP rescue lanes of --gmap-mode (all
+of them by default), SAM output, on one CUDA device.
 
 Usage:  python -m gmap_gsnap_tpu_torch.cli.gsnap -D <dir> -d <db> \\
-            [-N 1] [--gmap-mode <lanes>] [options] <fastq> [<fastq of read 2>]
+            [-N 1] [-s <sites> [--splicingdir D]] [-v <snps> [-V D]] \\
+            [--gmap-mode <lanes>] [options] <fastq> [<fastq of read 2>]
 
 Paired-end input is two files (read 1, read 2) or one FASTA whose
 records carry two sequence lines.  The flags keep the names and
 defaults of gmap_gsnap_tpu/cli/gsnap.py (whose parser cannot be
 imported: it sets up JAX).  Flags of paths the port does not have yet —
--s, -v, --mode other than standard, -A gsnap, three or more input
-files, and values of --trigger-score-for-gmap or --max-gmap-improvement
-that no lane reads — exit with an error naming the ROADMAP.md item
-instead of running a reduced path.
+--mode other than standard, -A gsnap, three or more input files, and
+values of --trigger-score-for-gmap or --max-gmap-improvement that no
+lane reads — exit with an error naming the ROADMAP.md item instead of
+running a reduced path.
 """
 
 from __future__ import annotations
@@ -123,9 +125,20 @@ def _parser() -> argparse.ArgumentParser:
                         "it yet, so only 5 is accepted)")
     p.add_argument("--query-unk-mismatch", type=int, default=0, choices=[0, 1])
     p.add_argument("--genome-unk-mismatch", type=int, default=1, choices=[0, 1])
-    p.add_argument("-v", "--use-snps", default=None)
+    p.add_argument("-V", "--snpsdir", default=None,
+                   help="directory holding the snpindex files (default: "
+                        "the genome directory)")
+    p.add_argument("--splicingdir", default=None,
+                   help="directory holding the splicesites map IIT")
+    p.add_argument("-v", "--use-snps", default=None,
+                   help="use SNP-tolerant index built by snpindex")
     p.add_argument("-N", "--novelsplicing", type=int, default=0, choices=[0, 1])
-    p.add_argument("-s", "--use-splicing", default=None)
+    p.add_argument("-s", "--use-splicing", default=None,
+                   help="known splice sites map IIT (name in <db>.maps or path)")
+    p.add_argument("--ambig-splice-noclip", action="store_true",
+                   help="for ambiguous known splicing at read ends, do "
+                        "not clip at the splice site but extend into "
+                        "the intron (gsnap.c:1247 amb_clip_p=false)")
     p.add_argument("--batch-size", type=int, default=256)
     p.add_argument("--npaths", "-n", type=int, default=100)
     p.add_argument("-M", "--suboptimal-levels", type=int, default=0)
@@ -141,8 +154,6 @@ def main(argv=None) -> int:
     p = _parser()
     args = p.parse_args(argv)
     unsupported = [
-        (args.use_splicing is not None, f"-s: known splice sites are {_ROADMAP} (item 4)"),
-        (args.use_snps is not None, f"-v: SNP-tolerant alignment is {_ROADMAP} (item 4)"),
         (args.mode != "standard", f"--mode {args.mode} is {_ROADMAP} (item 4)"),
         (args.format != "sam", f"-A {args.format} is {_ROADMAP} (item 3)"),
         (len(args.input) > 2,
@@ -224,12 +235,16 @@ def main(argv=None) -> int:
     # set before any alignment (read by the mismatch kernel's callers)
     mismatch_mod.QUERY_UNK_MISMATCH = bool(args.query_unk_mismatch)
     mismatch_mod.GENOME_UNK_MISMATCH = bool(args.genome_unk_mismatch)
-    r = runner_mod.GsnapRunner(db, params, lmax=lmax,
+    r = runner_mod.GsnapRunner(db, params, lmax=lmax, snpsdb=args.use_snps,
                                novelsplicing=bool(args.novelsplicing),
+                               splicesdb=args.use_splicing,
+                               snps_dir=args.snpsdir,
+                               splicing_dir=args.splicingdir,
                                device=args.device)
     r.quiet_if_excessive = args.quiet_if_excessive
     r.merge_samechr = args.merge_distant_samechr
     r.clip_overlap = args.clip_overlap
+    r.amb_clip = not args.ambig_splice_noclip
     r.invert_first = args.orientation == "RF"
     r.invert_second = args.orientation == "FR"
     # the reference enables chopping for BOTH 'paired' and 'off'

@@ -63,6 +63,31 @@ __device__ __forceinline__ bool site_at(const uint32_t* __restrict__ ref16,
   }
 }
 
+// Known splice sites (gsnap -s): four genome-length bitvectors of
+// uint32 words, indexed by Kind (donor, acceptor, antidonor,
+// antiacceptor), as db/splicesites.device_bitmasks builds them; nw == 0
+// when there are none.
+struct Known {
+  const uint32_t* w[4];
+  int64_t nw;
+};
+
+// Bit `site` of the class's vector: gmap_gsnap_tpu/ops/genome.py
+// fetch_span_bits(bits, start, n)[s] for site = start + s.  That
+// function gathers words clip(start >> 5 + j, 0, nw - 1) and returns bit
+// b of (raw[j] >> sh) | (raw[j + 1] << (32 - sh)) (sh = start & 31, the
+// second term 0 when sh == 0); bit b of word j of that is bit (sh + b) &
+// 31 of word min((start + s) >> 5, nw - 1), s = 32 j + b, which this
+// reads directly (no shift by 32 arises).  A site past the vector, as
+// from an INVALID diagonal, reads the last word.
+__device__ __forceinline__ bool known_bit(const Known& kn, int kind,
+                                          uint64_t site) {
+  if (kn.nw == 0) return false;
+  uint64_t w = site >> 5;
+  if (w > (uint64_t)(kn.nw - 1)) w = (uint64_t)(kn.nw - 1);
+  return (__ldg(kn.w[kind] + w) >> (site & 31)) & 1u;
+}
+
 __device__ __forceinline__ float fac(const float* __restrict__ t, int off,
                                      uint32_t idx) {
   return __ldg(t + off + idx);

@@ -5,13 +5,16 @@
 // :160 / ops/select :49) — solve_doublesplice, stage1hr.c:6612.  One warp
 // per (read, triple i -> m -> j), for each sense class in turn:
 //   * lanes walk s = 0..L; junction 1 is a candidate at s when 2 <= s <=
-//     len - 2, all three diagonals are >= 64 and the genome has the
-//     class's first dinucleotides (sense: donor GT on i at s, acceptor AG
-//     on m at s - 2; antisense: antiacceptor CT on i, antidonor AC on
-//     m); junction 2 likewise on (m, j).  A ballot and a popc prefix keep
+//     len - 2, all three diagonals are >= 64 and each side is a site of
+//     the class's first junction: with `novel`, by its dinucleotides
+//     (sense: donor GT on i at s, acceptor AG on m at s - 2; antisense:
+//     antiacceptor CT on i, antidonor AC on m), or by its known-site bit
+//     at d + s (gsnap -s, `known_bit` in maxent.cuh, JAX :753-764);
+//     junction 2 likewise on (m, j).  A ballot and a popc prefix keep
 //     the first K = 8 of each in ascending s (JAX: top_k of the negated
 //     key) in shared memory;
-//   * lanes 0-7 score junction-1 slot k (maxent on i and m, mismatches
+//   * lanes 0-7 score junction-1 slot k (maxent on i and m, 1.0 on a
+//     known site, as JAX :808-811; mismatches
 //     before s on i and on m), lanes 8-15 junction-2 slot k (maxent on m
 //     and j, mismatches before s on m and from s on j);
 //   * the 8 x 8 grid is 64 cells, two per lane, read from those lanes by
@@ -26,7 +29,8 @@
 //
 // Bound: latency of the dependent genome and table reads of at most 32
 // maxent evaluations per triple and class; device memory traffic is three
-// pref rows (~1.2 KB, in L2 after K3) per triple.
+// pref rows (~1.2 KB, in L2 after K3) per triple, plus with known sites
+// at most 4 bitvector words per lane pass.
 #include "maxent.cuh"
 
 namespace {
@@ -72,6 +76,7 @@ __device__ __forceinline__ int first_cands(int L, int lane, int* sel,
 
 __device__ Result solve_class(const uint32_t* __restrict__ ref16,
                               int64_t nwords, const float* __restrict__ tab,
+                              const gsnap_maxent::Known& known, int novel,
                               int cls, int64_t di, int64_t dm, int64_t dj,
                               const int32_t* pi, const int32_t* pm,
                               const int32_t* pj, int len, int tot_j, int bud,
@@ -83,13 +88,22 @@ __device__ Result solve_class(const uint32_t* __restrict__ ref16,
   const int k2j = k1m;                                 // junction 2 on j
   const bool margins = di >= 64 && dm >= 64 && dj >= 64;
   auto inb = [&](int s) { return margins && s >= 2 && s <= len - 2; };
+  // a site of class `kind` on the segment at diagonal d, scan position s
+  auto site = [&](int kind, int64_t d, int s) {
+    return known_bit(known, kind, (uint64_t)d + s) ||
+           (novel && site_at(ref16, nwords, kind, (uint64_t)d + s));
+  };
+  // maxent probability there, 1.0 at a known site
+  auto p_at = [&](int kind, int64_t d, int s) {
+    return known_bit(known, kind, (uint64_t)d + s)
+               ? 1.0f
+               : prob(ref16, nwords, tab, kind, (uint64_t)d + s);
+  };
   const int n1 = first_cands(L, lane, sel1, [&](int s) {
-    return inb(s) && site_at(ref16, nwords, k1i, (uint64_t)di + s) &&
-           site_at(ref16, nwords, k1m, (uint64_t)dm + s);
+    return inb(s) && site(k1i, di, s) && site(k1m, dm, s);
   });
   const int n2 = first_cands(L, lane, sel2, [&](int s) {
-    return inb(s) && site_at(ref16, nwords, k2m, (uint64_t)dm + s) &&
-           site_at(ref16, nwords, k2j, (uint64_t)dj + s);
+    return inb(s) && site(k2m, dm, s) && site(k2j, dj, s);
   });
 
   // per-slot values: lanes 0-7 junction 1, lanes 8-15 junction 2
@@ -97,14 +111,14 @@ __device__ Result solve_class(const uint32_t* __restrict__ ref16,
   int s = 0, ma = 0, mb = 0;   // (nmm_i, cum_m) or (cum_m, suffix on j)
   if (lane < kK && lane < n1) {
     s = sel1[lane];
-    pa = prob(ref16, nwords, tab, k1i, (uint64_t)di + s);
-    pb = prob(ref16, nwords, tab, k1m, (uint64_t)dm + s);
+    pa = p_at(k1i, di, s);
+    pb = p_at(k1m, dm, s);
     ma = pi[s];
     mb = pm[s];
   } else if (lane >= kK && lane < 2 * kK && lane - kK < n2) {
     s = sel2[lane - kK];
-    pa = prob(ref16, nwords, tab, k2m, (uint64_t)dm + s);
-    pb = prob(ref16, nwords, tab, k2j, (uint64_t)dj + s);
+    pa = p_at(k2m, dm, s);
+    pb = p_at(k2j, dj, s);
     ma = pm[s];
     mb = tot_j - pj[s];
   }
@@ -175,7 +189,8 @@ __global__ void solve_doublesplices_kernel(
     int32_t* __restrict__ nmm1_o, int32_t* __restrict__ nmm2_o,
     int32_t* __restrict__ nmm3_o, int64_t* __restrict__ left_o,
     int64_t* __restrict__ mid_o, int64_t* __restrict__ right_o,
-    int64_t nwords, int B, int T, int NC, int L) {
+    const gsnap_maxent::Known known, int64_t nwords, int B, int T, int NC, int L,
+    int novel) {
   __shared__ int s_sel[kWarpsPerBlock][2 * kK];
   const int wib = threadIdx.x >> 5;
   const int64_t warp = (int64_t)blockIdx.x * kWarpsPerBlock + wib;
@@ -195,12 +210,12 @@ __global__ void solve_doublesplices_kernel(
   int* sel1 = s_sel[wib];
   int* sel2 = s_sel[wib] + kK;
 
-  const Result sense = solve_class(ref16, nwords, tables, 0, di, dm, dj, pi,
-                                   pm, pj, len, tot_j, bud, L, lane, sel1,
-                                   sel2);
-  const Result anti = solve_class(ref16, nwords, tables, 1, di, dm, dj, pi,
-                                  pm, pj, len, tot_j, bud, L, lane, sel1,
-                                  sel2);
+  const Result sense = solve_class(ref16, nwords, tables, known, novel, 0,
+                                   di, dm, dj, pi, pm, pj, len, tot_j, bud,
+                                   L, lane, sel1, sel2);
+  const Result anti = solve_class(ref16, nwords, tables, known, novel, 1,
+                                  di, dm, dj, pi, pm, pj, len, tot_j, bud, L,
+                                  lane, sel1, sel2);
   if (lane == 0) {
     const bool use_anti = anti.score > sense.score;
     const Result& w = use_anti ? anti : sense;
@@ -231,9 +246,15 @@ extern "C" int gsnap_solve_doublesplices(
     const void* tvalid, const void* lengths, const void* budget,
     void* valid, void* split, void* split2, void* sense, void* prob_d,
     void* prob_a, void* prob_d2, void* prob_a2, void* nmm1, void* nmm2,
-    void* nmm3, void* left, void* mid, void* right, int64_t nwords, int B,
-    int T, int NC, int L, void* stream) {
-  if (nwords < 1 || L < 1) return (int)cudaErrorInvalidValue;
+    void* nmm3, void* left, void* mid, void* right, const void* kd,
+    const void* ka, const void* kad, const void* kaa, int64_t nwords,
+    int64_t kwords, int B, int T, int NC, int L, int novel, void* stream) {
+  if (nwords < 1 || L < 1 || kwords < 0) return (int)cudaErrorInvalidValue;
+  if (kwords > 0 && !(kd && ka && kad && kaa))
+    return (int)cudaErrorInvalidValue;
+  const gsnap_maxent::Known known{{(const uint32_t*)kd, (const uint32_t*)ka,
+                     (const uint32_t*)kad, (const uint32_t*)kaa},
+                    kwords};
   if ((int64_t)B * T == 0) return 0;
   const int64_t blocks = ((int64_t)B * T + kWarpsPerBlock - 1) / kWarpsPerBlock;
   solve_doublesplices_kernel<<<(unsigned)blocks, 32 * kWarpsPerBlock, 0,
@@ -244,7 +265,7 @@ extern "C" int gsnap_solve_doublesplices(
       (const int32_t*)budget, (uint8_t*)valid, (int32_t*)split,
       (int32_t*)split2, (uint8_t*)sense, (float*)prob_d, (float*)prob_a,
       (float*)prob_d2, (float*)prob_a2, (int32_t*)nmm1, (int32_t*)nmm2,
-      (int32_t*)nmm3, (int64_t*)left, (int64_t*)mid, (int64_t*)right, nwords,
-      B, T, NC, L);
+      (int32_t*)nmm3, (int64_t*)left, (int64_t*)mid, (int64_t*)right, known,
+      nwords, B, T, NC, L, novel);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,4 @@
-// Kernel K5: novel local splices between diagonal pairs.
+// Kernel K5: local splices between diagonal pairs, novel and known.
 //
 // Replaces gmap_gsnap_tpu/align/gsnap_gapped.py _solve_splices (:515,
 // with _fetch_span :502, _suff_local :495, ops/genome.fetch_span_codes
@@ -7,15 +7,18 @@
 //   * lanes walk the scan positions s = 0..L in ceil((L+1)/32) passes;
 //     s is a candidate of a sense class when 2 <= s <= len - 2, both
 //     diagonals are >= 64, the mismatch sum pref_i[s] + (tot_j -
-//     pref_j[s]) fits the budget and the genome carries the class's
-//     dinucleotides (sense: donor GT on i at s, acceptor AG on j at
-//     s - 2; antisense: antiacceptor CT on i, antidonor AC on j), read
-//     straight from the packed genome words;
+//     pref_j[s]) fits the budget and each side is a site of the class:
+//     with `novel`, the genome carries its dinucleotides (sense: donor
+//     GT on i at s, acceptor AG on j at s - 2; antisense: antiacceptor
+//     CT on i, antidonor AC on j), read straight from the packed genome
+//     words; or its known-site bit at d + s is set (the four bitvectors
+//     of gsnap -s, `known_bit` in maxent.cuh, JAX :553-572);
 //   * a ballot and a popc prefix keep the first SPLICE_CANDS (16)
 //     candidates in ascending s — what top_k(-key, 16) keeps in JAX,
 //     whose remaining slots are masked;
 //   * each kept lane scores its position with float32 maxent
-//     (maxent.cuh) and the sufficiency gate; a warp reduction takes the
+//     (maxent.cuh), 1.0 on a side that is a known site (JAX :619-620),
+//     and the sufficiency gate; a warp reduction takes the
 //     first maximum of prob_i + prob_j (ties to the smaller s);
 //   * antisense wins only when strictly better.  Outputs of invalid
 //     pairs are the JAX ones: sense = !(anti > sense), left/right = the
@@ -23,7 +26,8 @@
 //
 // Bound: latency of the genome and table reads (dependent __ldg loads
 // per candidate, 8 factors for an acceptor); a pair reads two pref rows
-// (~800 B, in L2 after K3) and at most ~600 genome words.
+// (~800 B, in L2 after K3), at most ~600 genome words and, with known
+// sites, at most 2 x 4 bitvector words per lane pass.
 #include "maxent.cuh"
 
 namespace {
@@ -58,7 +62,8 @@ __global__ void solve_splices_kernel(
     float* __restrict__ prob_d_o, float* __restrict__ prob_a_o,
     int32_t* __restrict__ nmm1_o, int32_t* __restrict__ nmm2_o,
     int64_t* __restrict__ left_o, int64_t* __restrict__ right_o,
-    int64_t nwords, int B, int P, int NC, int L) {
+    const gsnap_maxent::Known known, int64_t nwords, int B, int P, int NC, int L,
+    int novel) {
   using namespace gsnap_maxent;
   const int64_t warp = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
@@ -84,19 +89,28 @@ __global__ void solve_splices_kernel(
     for (int base = 0; base <= L && count < kCands; base += 32) {
       const int s = base + lane;
       bool cand = false;
+      bool kn_i = false, kn_j = false;
       int mi = 0, mj = 0;
       if (margins && s >= 2 && s <= len - 2) {   // s <= len - 2 <= L
         mi = pi[s];
         mj = tot_j - pj[s];
+        kn_i = known_bit(known, kind_i, (uint64_t)di + s);
+        kn_j = known_bit(known, kind_j, (uint64_t)dj + s);
         cand = mi + mj <= bud &&
-               site_at(ref16, nwords, kind_i, (uint64_t)di + s) &&
-               site_at(ref16, nwords, kind_j, (uint64_t)dj + s);
+               (kn_i || (novel &&
+                         site_at(ref16, nwords, kind_i, (uint64_t)di + s))) &&
+               (kn_j || (novel &&
+                         site_at(ref16, nwords, kind_j, (uint64_t)dj + s)));
       }
       const uint32_t m = __ballot_sync(GSNAP_FULL_MASK, cand);
       const int rank = count + __popc(m & lt_mask);
       if (cand && rank < kCands) {
-        const float p_i = prob(ref16, nwords, tables, kind_i, (uint64_t)di + s);
-        const float p_j = prob(ref16, nwords, tables, kind_j, (uint64_t)dj + s);
+        const float p_i =
+            kn_i ? 1.0f
+                 : prob(ref16, nwords, tables, kind_i, (uint64_t)di + s);
+        const float p_j =
+            kn_j ? 1.0f
+                 : prob(ref16, nwords, tables, kind_j, (uint64_t)dj + s);
         if (suff_local(s, mi, p_i) && suff_local(len - s, mj, p_j)) {
           const float p = __fadd_rn(p_i, p_j);
           if (p > bb.prob) {  // ascending s within a lane: first max
@@ -134,9 +148,15 @@ extern "C" int gsnap_solve_splices(
     const void* pref, const void* ii, const void* jj, const void* pvalid,
     const void* lengths, const void* budget, void* valid, void* split,
     void* sense, void* prob_d, void* prob_a, void* nmm1, void* nmm2,
-    void* left, void* right, int64_t nwords, int B, int P, int NC, int L,
-    void* stream) {
-  if (nwords < 1 || L < 1) return (int)cudaErrorInvalidValue;
+    void* left, void* right, const void* kd, const void* ka,
+    const void* kad, const void* kaa, int64_t nwords, int64_t kwords, int B,
+    int P, int NC, int L, int novel, void* stream) {
+  if (nwords < 1 || L < 1 || kwords < 0) return (int)cudaErrorInvalidValue;
+  if (kwords > 0 && !(kd && ka && kad && kaa))
+    return (int)cudaErrorInvalidValue;
+  const gsnap_maxent::Known known{{(const uint32_t*)kd, (const uint32_t*)ka,
+                     (const uint32_t*)kad, (const uint32_t*)kaa},
+                    kwords};
   if ((int64_t)B * P == 0) return 0;
   constexpr int kThreads = 256;
   solve_splices_kernel<<<gsnap_blocks((int64_t)B * P * 32, kThreads),
@@ -146,6 +166,7 @@ extern "C" int gsnap_solve_splices(
       (const uint8_t*)pvalid, (const int32_t*)lengths,
       (const int32_t*)budget, (uint8_t*)valid, (int32_t*)split,
       (uint8_t*)sense, (float*)prob_d, (float*)prob_a, (int32_t*)nmm1,
-      (int32_t*)nmm2, (int64_t*)left, (int64_t*)right, nwords, B, P, NC, L);
+      (int32_t*)nmm2, (int64_t*)left, (int64_t*)right, known, nwords, B, P,
+      NC, L, novel);
   return (int)cudaGetLastError();
 }

@@ -7,7 +7,8 @@ arrays.  It is the host half of gmap_gsnap_tpu/db/datadir.py's
 cached properties build JAX arrays, and the two functions at the end of
 this module stand in for them.  Like those properties they cache their
 result on the database, here per device, so runners over one database
-share one copy (at k=15 the offsets alone are 4.3 GB).
+share one copy (at k=15 the offsets alone are 4.3 GB); ``device_snps``
+does the same for a SNP-tolerant index and its alt genome.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from functools import cached_property
 import numpy as np
 
 from .. import convert
+from ..ops import genome as genome_ops
 from ..utils.device import resolve_device
 from . import genomecomp, indexdb
 from .iit import IIT
@@ -151,6 +153,36 @@ def device_genome(db, device):
     """The packed genome of ``db`` on ``device``."""
     return _cached(db, "genome", device, lambda dev: convert.genome_from_host(
         db.codes, db.flags, db.chr_ends, dev))
+
+
+def device_snps(db, snpsdb: str, snps_dir: str | None, device):
+    """The SNP-tolerant index ``snpsdb`` of ``db`` (written by
+    db/transforms.write_snp_index into ``snps_dir``, default the database
+    directory) on ``device``, with its alt genome: (IndexArrays, (alt
+    ref16, flag16) as ops/mismatch takes it, LazyGenomeStr of the alt
+    codes).  The alt genome's flags mark SNPs, so the reference N flags
+    serve for matching, as in the JAX runner (runner.py:551-587)."""
+    snp_base = snps_dir or db.dbdir
+
+    def make(dev):
+        files = indexdb.index_filenames(snp_base, db.dbname, "ref",
+                                        snps_suffix=snpsdb)
+        if files is None:
+            raise FileNotFoundError(f"no SNP index {snpsdb} in {snp_base}")
+        index = convert.index_from_arrays(
+            indexdb.read_offsets(files),
+            indexdb.read_positions(files["positions"]), files["k"],
+            files["interval"], dev)
+        alt_codes, _ = genomecomp.read(
+            os.path.join(snp_base, f"{db.dbname}.genomecomp.{snpsdb}"),
+            len(db.codes))
+        alt16, _ = genome_ops.pack16(alt_codes, db.flags)
+        alt16 = genome_ops.words_to_device(
+            genome_ops._pad_rows(alt16, 0xFFFFFFFF), dev)
+        return (index, (alt16, device_genome(db, dev).flag16),
+                LazyGenomeStr(alt_codes, db.flags))
+
+    return _cached(db, ("snps", snp_base, snpsdb), device, make)
 
 
 def device_index(db, device):

@@ -1,7 +1,10 @@
 """K-mer positional index ("indexdb"): in-memory build and file reading.
 
-A copy of gmap_gsnap_tpu/db/indexdb.py without its file writers (the port
-opens databases that gmap_build wrote; it writes none).
+A copy of gmap_gsnap_tpu/db/indexdb.py.  Its writers serve the port's
+SNP-tolerant index builder (db/transforms.write_snp_index); the
+Elias-gamma writer keeps only the JAX module's Python loop (the JAX
+module runs the same loop in C when its native library is built; the
+bytes are the same).
 
 Semantics match the reference builder (src/indexdb.c:2041-2310
 Indexdb_write_offsets, :2527-2741 compute_positions_in_memory):
@@ -86,11 +89,53 @@ def build_index(
 
 # --------------------------------------------------------------- positions IO
 
+def write_positions(path: str, positions: np.ndarray) -> None:
+    positions.astype("<u4").tofile(path)
+
+
 def read_positions(path: str) -> np.ndarray:
     return np.fromfile(path, dtype="<u4").astype(np.uint32)
 
 
 # ------------------------------------------------------------ gamma offsets IO
+
+def write_offsets_gamma(
+    gammaptrs_path: str, offsetscomp_path: str, offsets: np.ndarray, basesize: int, k: int
+) -> None:
+    """Write blocked Elias-gamma offsets, byte-identical to the reference
+    writer (src/indexdb.c:1979-2039)."""
+    blocksize = 4 ** (k - basesize)
+    oligospace = len(offsets) - 1
+    if blocksize == 1:
+        offsets.astype("<u4").tofile(offsetscomp_path)
+        return
+
+    gammaptrs = []
+    words: list[int] = []
+    off = offsets.astype(np.uint64)
+    for blk in range(0, oligospace, blocksize):
+        gammaptrs.append(len(words))
+        words.append(int(off[blk]))
+        buffer = 0
+        ctr = 32
+        for j in range(1, blocksize):
+            gamma = int(off[blk + j] - off[blk + j - 1]) + 1
+            length = 2 * (gamma.bit_length() - 1) + 1
+            while length > ctr:
+                if length - ctr < 32:
+                    buffer |= gamma >> (length - ctr)
+                words.append(buffer & 0xFFFFFFFF)
+                length -= ctr
+                ctr = 32
+                buffer = 0
+            buffer |= (gamma << (ctr - length)) & 0xFFFFFFFF
+            ctr -= length
+        words.append(buffer & 0xFFFFFFFF)
+    gammaptrs.append(len(words))
+    words.append(int(off[oligospace]))
+    np.asarray(gammaptrs, dtype="<u4").tofile(gammaptrs_path)
+    np.asarray(words, dtype="<u4").tofile(offsetscomp_path)
+
 
 def read_offsets_gamma(
     gammaptrs_path: str, offsetscomp_path: str, basesize: int, k: int
@@ -159,6 +204,10 @@ def read_offsets_gamma(
             oligok += 1
     offsets[oligok] = int(comp[int(gammaptrs[-1])])
     return offsets
+
+
+def write_offsets_flat(path: str, offsets: np.ndarray) -> None:
+    offsets.astype("<u4").tofile(path)
 
 
 def read_offsets_flat(path: str) -> np.ndarray:

@@ -44,9 +44,9 @@ _SIGNATURES = {
     "gsnap_top_diagonals": "p" * 5 + "i" * 4,
     "gsnap_prefix_mismatches": "p" * 10 + "ll" + "i" * 7,
     "gsnap_solve_indels": "p" * 18 + "i" * 8,
-    "gsnap_solve_splices": "p" * 18 + "l" + "i" * 4,
+    "gsnap_solve_splices": "p" * 22 + "ll" + "i" * 5,
     "gsnap_select_triples": "p" * 6 + "i" * 3 + "l",
-    "gsnap_solve_doublesplices": "p" * 24 + "l" + "i" * 4,
+    "gsnap_solve_doublesplices": "p" * 28 + "ll" + "i" * 5,
     "gsnap_pair_grid": "p" * 28 + "i" * 6,
     "gmap_seed_segments": "p" * 11 + "i" * 6 + "ll" + "ii",
     "gmap_chain": "p" * 10 + "i" * 5,

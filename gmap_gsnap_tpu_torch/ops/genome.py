@@ -134,3 +134,26 @@ def fetch_span_codes(ref16: torch.Tensor, start: torch.Tensor,
     the end and reads T throughout, as in JAX."""
     pos = (start & MASK32)[..., None] + torch.arange(n, device=start.device)
     return fetch_codes(ref16, pos)
+
+
+def fetch_span_bits(bits32: torch.Tensor, start: torch.Tensor,
+                    n: int) -> torch.Tensor:
+    """Bits of a genome-length bitvector (int32 words holding uint32
+    bits) over [start, start + n) for start positions (int64[...]
+    holding uint32 values) -> bool[..., n]; plain torch
+    gmap_gsnap_tpu/ops/genome.py:fetch_span_bits.  As there, the word
+    index is clipped to the last word (INVALID diagonals and starts at
+    the genome end read it) and a word shifted by 32 contributes 0
+    (JAX's _shl32)."""
+    nwords = (n + 31) // 32
+    start = start & MASK32
+    w0 = start >> 5
+    sh = (start & 31)[..., None]
+    idx = w0[..., None] + torch.arange(nwords + 1, device=start.device)
+    idx = idx.clamp(0, bits32.shape[0] - 1)
+    raw = u32(bits32[idx])
+    # raw[j + 1] << 32 of an int64 leaves only bits above 32: the mask
+    # clears them, which is _shl32's 0
+    al = ((raw[..., :-1] >> sh) | (raw[..., 1:] << (32 - sh))) & MASK32
+    b = ((al[..., None] >> torch.arange(32, device=start.device)) & 1).bool()
+    return b.reshape(al.shape[:-1] + (nwords * 32,))[..., :n]

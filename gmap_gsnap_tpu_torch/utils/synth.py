@@ -673,3 +673,362 @@ def pair_hit_cases(rng: np.random.Generator, b: int, chr_ends, nc: int = 24,
     lengths3 = (L - rng.integers(0, 41, b)).astype(np.int32)
     lengths3[:3] = L
     return out, lengths5, lengths3
+
+
+# ------------------------------------------------ known sites (-s) and SNPs (-v)
+
+@dataclass
+class Intron:
+    donor: int         # first intron base (plus strand, universal)
+    acceptor: int      # first base after the intron
+    sense: bool        # gene on the plus strand (GT..AG-style sites)
+
+
+def _ncum(genome: Genome) -> np.ndarray:
+    """Cumulative N counts of the genome (computed once per genome)."""
+    if getattr(genome, "_ncum_cache", None) is None:
+        genome._ncum_cache = np.concatenate(
+            [[0], np.cumsum(genome.ascii == ord("N"))])
+    return genome._ncum_cache
+
+
+def random_introns(rng: np.random.Generator, genome: Genome, n: int,
+                   canonical: bool = True, lo: int = 80,
+                   hi: int = 20_000) -> list[Intron]:
+    """``n`` introns of ``lo``..``hi`` nt inside one chromosome, free of
+    N, half on each strand.  Canonical ones read GT..AG (sense) or CT..AC
+    (antisense) on the plus strand; non-canonical ones neither (they are
+    found only through a known-site map)."""
+    g = genome.ascii
+    starts = np.concatenate([[0], genome.chr_ends[:-1]])
+    ncum = _ncum(genome)
+    # dinucleotide codes of g[a : b + 1]
+    dn = lambda a, b: g[a:b].astype(np.int32) * 256 + g[a + 1 : b + 1]
+    code = lambda s: s[0] * 256 + s[1]
+    canon_don = {True: code(b"GT"), False: code(b"CT")}
+    canon_acc = {True: code(b"AG"), False: code(b"AC")}
+    out = []
+    while len(out) < n:
+        m = max(2 * (n - len(out)), 64)
+        s = rng.integers(200, len(g) - hi - 400, m)
+        e = s + rng.integers(lo, hi + 1, m)
+        sense = rng.random(m) < 0.5
+        chrom = np.searchsorted(genome.chr_ends, s, side="right")
+        same = np.searchsorted(genome.chr_ends, e + 200, side="right") == chrom
+        ok = same & (s - starts[np.minimum(chrom, len(starts) - 1)] > 200)
+        ok &= (ncum[e + 200] - ncum[s - 200]) == 0
+        for i in np.flatnonzero(ok):
+            sd, ea = int(dn(s[i], s[i] + 1)[0]), int(dn(e[i] - 2, e[i] - 1)[0])
+            if canonical:
+                # move the sites onto the nearest canonical dinucleotides
+                cd, ca = canon_don[bool(sense[i])], canon_acc[bool(sense[i])]
+                sp = np.flatnonzero(dn(s[i], s[i] + 400) == cd)
+                ep = np.flatnonzero(dn(e[i] - 2, e[i] + 398) == ca)
+                if not len(sp) or not len(ep):
+                    continue
+                ss, ee = int(s[i] + sp[0]), int(e[i] + ep[0])
+                if ee - ss < lo or ncum[ee + 200] - ncum[ss - 200]:
+                    continue
+                out.append(Intron(ss, ee, bool(sense[i])))
+            else:
+                if sd in (code(b"GT"), code(b"CT")) or \
+                        ea in (code(b"AG"), code(b"AC")):
+                    continue
+                out.append(Intron(int(s[i]), int(e[i]), bool(sense[i])))
+            if len(out) == n:
+                break
+    return out
+
+
+def splicesites_text(genome: Genome, introns, decoys=()) -> str:
+    """A splicesites map in iit_store input form (GMAP README "known
+    splice sites"): per intron a donor and an acceptor entry ``>label
+    chr:X..Y donor|acceptor dist`` with X on the donor (acceptor: intron)
+    side and Y on the intron (exon) side, 1-based, so X > Y on the minus
+    strand.  db/splicesites.load_splicesites maps each entry to the
+    universal position synth uses (the intron's first base for a donor
+    or antiacceptor, the base after it for an acceptor or antidonor).
+    ``decoys`` are (position, kind) sites with no intron (kind one of
+    donor, acceptor, antidonor, antiacceptor); their distance is 0."""
+    starts = np.concatenate([[0], genome.chr_ends[:-1]])
+
+    def loc(p):
+        c = int(np.searchsorted(genome.chr_ends, p, side="right"))
+        return genome.names[c], p - int(starts[c])
+
+    lines = []
+
+    def entry(label, p, kind, dist):
+        name, r = loc(p)        # r = 0-based chromosome position
+        plus = kind in ("donor", "acceptor")
+        x, y = (r, r + 1) if plus else (r + 1, r)
+        typ = "donor" if kind in ("donor", "antidonor") else "acceptor"
+        lines.append(f">{label} {name}:{x}..{y} {typ} {dist}\n")
+
+    for i, t in enumerate(introns):
+        dist = t.acceptor - t.donor
+        if t.sense:
+            entry(f"i{i}.d", t.donor, "donor", dist)
+            entry(f"i{i}.a", t.acceptor, "acceptor", dist)
+        else:
+            entry(f"i{i}.a", t.donor, "antiacceptor", dist)
+            entry(f"i{i}.d", t.acceptor, "antidonor", dist)
+    for i, (p, kind) in enumerate(decoys):
+        entry(f"x{i}", int(p), kind, 0)
+    return "".join(lines)
+
+
+def random_decoys(rng: np.random.Generator, genome: Genome, n: int):
+    """``n`` known sites of random kinds at random N-free positions."""
+    kinds = ("donor", "acceptor", "antidonor", "antiacceptor")
+    g = genome.ascii
+    pos = rng.integers(300, len(g) - 300, 2 * n)
+    pos = pos[g[pos] != ord("N")][:n]
+    return [(int(p), kinds[int(k)])
+            for p, k in zip(pos, rng.integers(0, 4, len(pos)))]
+
+
+@dataclass
+class SiteTruth:
+    left: int          # universal start of the read's first piece
+    plusp: bool        # read aligns on the plus strand
+    intron: Intron
+    flanks: tuple      # aligned piece lengths in genome order
+    short_side: str    # "R": the short end is the right piece; "L": left
+
+
+def plant_site_reads(rng: np.random.Generator, genome: Genome, introns,
+                     n: int, L: int = 100, short_end: bool = False,
+                     prefix: str = "k"):
+    """``n`` reads across introns drawn from ``introns`` (no
+    substitutions), with their truth (SiteTruth).  Without ``short_end``
+    both pieces are >= 20 nt (the device's splice solver sees two
+    diagonals); with it one piece is 1-12 nt, too short to seed, which
+    only the host short-end lane over known sites splices.  Half the
+    reads are reverse complemented."""
+    g = genome.ascii
+    ncum = _ncum(genome)
+    records, truth = [], []
+    i = 0
+    while len(records) < n:
+        t = introns[int(rng.integers(0, len(introns)))]
+        if short_end:
+            m = int(rng.integers(1, 13))
+            a = L - m if rng.random() < 0.5 else m
+        else:
+            a = int(rng.integers(20, L - 19))
+        x0, x1 = t.donor - a, t.acceptor + L - a
+        if x0 < 0 or x1 > len(g) or ncum[t.donor] - ncum[x0] \
+                or ncum[x1] - ncum[t.acceptor]:
+            continue
+        seq = np.concatenate([g[x0 : t.donor], g[t.acceptor : x1]])
+        plusp = bool(rng.random() < 0.5)
+        if not plusp:
+            seq = _COMP[seq[::-1]]
+        name = f"{prefix}{i}"
+        i += 1
+        qual = (rng.integers(20, 41, L) + 33).astype(np.uint8)
+        records.append(Record(name, name, seq.tobytes().decode(),
+                              qual.tobytes().decode()))
+        truth.append(SiteTruth(x0, plusp, t, (a, L - a),
+                               "R" if a > L // 2 else "L"))
+    return records, truth
+
+
+def site_arrays(introns, decoys=()) -> dict:
+    """Sorted universal positions of each known-site class (donor,
+    acceptor, antidonor, antiacceptor) of a map's introns and decoys."""
+    out = {k: [] for k in ("donor", "acceptor", "antidonor", "antiacceptor")}
+    for t in introns:
+        if t.sense:
+            out["donor"].append(t.donor)
+            out["acceptor"].append(t.acceptor)
+        else:
+            out["antiacceptor"].append(t.donor)
+            out["antidonor"].append(t.acceptor)
+    for p, kind in decoys:
+        out[kind].append(p)
+    return {k: np.unique(np.asarray(v, np.int64)) for k, v in out.items()}
+
+
+def shortend_unique(genome: Genome, sites: dict, tr: SiteTruth,
+                    shortsplicedist: int = 200_000) -> bool:
+    """Does the short end of ``tr`` match its planted partner site and no
+    other known partner site of the class (``sites``: site_arrays of the
+    map) within ``shortsplicedist``, exactly (the reads carry no
+    substitutions)?  The short-end lane splices only such reads; ties
+    make it an ambiguous, clipped hit."""
+    g = genome.ascii
+    t = tr.intron
+    m = min(tr.flanks)
+    kind = {(True, "R"): "acceptor", (True, "L"): "donor",
+            (False, "R"): "antidonor", (False, "L"): "antiacceptor"}[
+        (t.sense, tr.short_side)]
+    pos = sites[kind]
+    if tr.short_side == "R":
+        c = t.donor
+        pos = pos[(pos > c) & (pos <= c + shortsplicedist)]
+        want = g[t.acceptor : t.acceptor + m].tobytes()
+        got = [g[p : p + m].tobytes() for p in pos]
+    else:
+        c = t.acceptor
+        pos = pos[(pos >= c - shortsplicedist) & (pos < c)]
+        want = g[t.donor - m : t.donor].tobytes()
+        got = [g[p - m : p].tobytes() for p in pos]
+    return sum(x == want for x in got) == 1
+
+
+def mates_for(rng: np.random.Generator, genome: Genome, records, spans,
+              L: int = 100):
+    """Read-2 records making each of ``records`` (read 1, aligned on the
+    plus strand when spans[i] = (x0, x1, plusp) says so, over genomic
+    extent [x0, x1)) a concordant FR pair: the mate lies 20-300 nt
+    beyond the read's 3' end, on the other strand.  Mates running into
+    N or off the chromosome are shifted until they do not."""
+    g = genome.ascii
+    ncum = _ncum(genome)
+    out = []
+    for rec, (x0, x1, plusp) in zip(records, spans):
+        gap = int(rng.integers(20, 301))
+        while True:
+            a = x1 + gap if plusp else x0 - gap - L
+            if 0 <= a and a + L <= len(g) and not ncum[a + L] - ncum[a] \
+                    and np.searchsorted(genome.chr_ends, a, side="right") \
+                    == np.searchsorted(genome.chr_ends, a + L - 1,
+                                       side="right"):
+                break
+            gap += 97
+        seq = g[a : a + L]
+        if plusp:
+            seq = _COMP[seq[::-1]]
+        qual = (rng.integers(20, 41, L) + 33).astype(np.uint8)
+        out.append(Record(rec.label, rec.header, seq.tobytes().decode(),
+                          qual.tobytes().decode()))
+    return out
+
+
+def inside_ambiguous_pairs(rng: np.random.Generator, genome: Genome,
+                           n: int, L: int = 100, prefix: str = "a"):
+    """``n`` read pairs whose read 1 ends 5-8 nt into the next exon of a
+    sense intron (s, e), with read 2 downstream in that exon, and for
+    each a second known intron (s, e2) from the same donor whose acceptor
+    e2 lies past read 2 and starts with the same 5-8 nt.  The short end
+    mismatches the intron enough that the device places no read 1, so
+    the pair goes to the host rescue, where read 1's short end ties
+    between e and e2 (an ambiguous splice facing inside the pair) and the
+    mate's span resolves it to e.  Returns (read 1 records, read 2
+    records, truth as SiteTruth of read 1, the introns to put in the
+    map)."""
+    g = genome.ascii
+    ncum = _ncum(genome)
+    r1s, r2s, truth, introns = [], [], [], []
+    while len(r1s) < n:
+        (t,) = random_introns(rng, genome, 1, lo=150, hi=2_000)
+        if not t.sense:
+            continue
+        s, e = t.donor, t.acceptor
+        m = int(rng.integers(5, 9))
+        if sum(a != b for a, b in zip(g[s : s + m], g[e : e + m])) < 5:
+            continue
+        gap = int(rng.integers(50, 300))
+        r2 = e + m + gap
+        # a second acceptor past read 2 with the same first m nt
+        lo, hi = r2 + L + 50, s + 20_000
+        if hi + m > len(g):
+            continue
+        w = g[lo : hi + m]
+        win = np.lib.stride_tricks.sliding_window_view(w, m)
+        hit = np.flatnonzero((win == g[e : e + m]).all(1))
+        if not len(hit):
+            continue
+        e2 = int(lo + hit[0])
+        if ncum[r2 + L] - ncum[s - L] or ncum[e2 + m] - ncum[e2]:
+            continue
+        seq1 = np.concatenate([g[s - (L - m) : s], g[e : e + m]])
+        seq2 = _COMP[g[r2 : r2 + L][::-1]]
+        name = f"{prefix}{len(r1s)}"
+        qual = lambda: (rng.integers(20, 41, L) + 33).astype(
+            np.uint8).tobytes().decode()
+        r1s.append(Record(name, name, seq1.tobytes().decode(), qual()))
+        r2s.append(Record(name, name, seq2.tobytes().decode(), qual()))
+        truth.append(SiteTruth(s - (L - m), True, t, (L - m, m), "R"))
+        introns += [t, Intron(s, e2, True)]
+    return r1s, r2s, truth, introns
+
+
+def random_snps(rng: np.random.Generator, genome: Genome, density: float,
+                avoid=None):
+    """SNPs at about ``density`` per nt: (positions int64, alt codes
+    uint8), positions sorted, N-free and outside the boolean mask
+    ``avoid``; each alt allele differs from the reference base."""
+    g = genome.ascii
+    n = int(len(g) * density)
+    pos = np.unique(rng.integers(0, len(g), n))
+    ok = g[pos] != ord("N")
+    if avoid is not None:
+        ok &= ~avoid[pos]
+    pos = pos[ok]
+    ref = dna.CODE_TABLE[g[pos]]
+    alt = ((ref + rng.integers(1, 4, len(pos))) % 4).astype(np.uint8)
+    return pos.astype(np.int64), alt
+
+
+def plant_snp_reads(rng: np.random.Generator, genome: Genome, n: int,
+                    L: int = 100, prefix: str = "v"):
+    """``n`` reads carrying 5-8 alternative alleles of SNPs planted
+    inside them (each 15-mer of the read holds at most 3 of them) and 0-1
+    true substitution, with their truth (Truth, nsub counting only the
+    true substitution), and the SNPs they need: (positions, alt codes).
+    With 5-8 mismatches against the reference such a read exceeds the
+    4-mismatch budget of a 100 nt read at k=15 / interval 3, so only a
+    SNP-tolerant run (-v) places it."""
+    g = genome.ascii
+    ncum = _ncum(genome)
+    records, truth, spos, salt = [], [], [], []
+    while len(records) < n:
+        p = int(rng.integers(100, len(g) - L - 100))
+        if ncum[p + L] - ncum[p] or np.searchsorted(
+                genome.chr_ends, p, side="right") != np.searchsorted(
+                genome.chr_ends, p + L, side="right"):
+            continue
+        k = int(rng.integers(5, 9))
+        # spread: one SNP per L/k-nt slot
+        slots = np.linspace(2, L - 3, k + 1).astype(int)
+        offs = np.array([int(rng.integers(a, max(a + 1, b - 1)))
+                         for a, b in zip(slots[:-1], slots[1:])])
+        seq = g[p : p + L].copy()
+        ref = dna.CODE_TABLE[seq[offs]]
+        alt = ((ref + rng.integers(1, 4, k)) % 4).astype(np.uint8)
+        seq[offs] = _ACGT[alt]
+        nsub = int(rng.integers(0, 2))
+        if nsub:
+            q = int(rng.choice(np.setdiff1d(np.arange(L), offs)))
+            seq[q] = _ACGT[(np.flatnonzero(_ACGT == seq[q])[0]
+                            + rng.integers(1, 4)) % 4]
+        plusp = bool(rng.random() < 0.5)
+        if not plusp:
+            seq = _COMP[seq[::-1]]
+        name = f"{prefix}{len(records)}"
+        qual = (rng.integers(20, 41, L) + 33).astype(np.uint8)
+        records.append(Record(name, name, seq.tobytes().decode(),
+                              qual.tobytes().decode()))
+        truth.append(Truth(p, plusp, "snp", nsub))
+        spos.append(p + offs)
+        salt.append(alt)
+    return records, truth, (np.concatenate(spos).astype(np.int64),
+                            np.concatenate(salt).astype(np.uint8))
+
+
+def snps_text(genome: Genome, positions, alt_codes) -> str:
+    """A SNP map in iit_store input form (snpindex's input): ``>label
+    chr:pos XY`` with pos 1-based and XY the reference and the alternative
+    allele (db/transforms.alt_genome_from_snps puts in whichever of the
+    two is not the reference base)."""
+    starts = np.concatenate([[0], genome.chr_ends[:-1]])
+    chrom = np.searchsorted(genome.chr_ends, positions, side="right")
+    ref = genome.ascii[positions]
+    out = []
+    for i, (p, c, r, a) in enumerate(zip(positions, chrom, ref, alt_codes)):
+        out.append(f">snp{i} {genome.names[c]}:{int(p - starts[c]) + 1} "
+                   f"{chr(r)}{'ACGT'[a]}\n")
+    return "".join(out)

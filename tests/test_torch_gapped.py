@@ -174,6 +174,20 @@ def test_gapped_params_copy():
 
 
 def test_known_sites_not_ported(world):
-    _, ta = _args(world)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Known sites (-s) were refused here until they were ported; now
+    ``known`` runs: with empty masks and novel splicing off, the splice
+    solvers run with no candidate and the overflow gate stays open, as
+    in the JAX package (every key equal); four None vectors raise."""
+    ja, ta = _args(world)
+    jg, tg = ja[0], ta[0]
+    nwords = (int(tg.length) + 31) // 32 + 2
+    jknown = tuple(jnp.zeros(nwords, jnp.uint32) for _ in range(4))
+    tknown = tuple(torch.zeros(nwords, dtype=torch.int32) for _ in range(4))
+    jout = jgg.align_batch_gapped(*ja, jgg.GappedParams(), known=jknown)
+    tout = tgg.align_batch_gapped(*ta, tgg.GappedParams(), known=tknown)
+    assert set(jout) == set(tout)
+    for k in jout:
+        assert np.array_equal(np.asarray(jout[k]).astype(np.int64),
+                              tout[k].numpy().astype(np.int64)), k
+    with pytest.raises(ValueError, match="known"):
         tgg.align_batch_gapped(*ta, known=(None,) * 4)

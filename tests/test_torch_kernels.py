@@ -118,6 +118,83 @@ def test_splice_kernels_match_plain(spliced, seed_total, ncand):
     assert want["valid"].any()
 
 
+def _known_masks(rng, nwords, dev, density):
+    """Four random known-site bitvectors of ``nwords`` words (the last
+    words too, which INVALID diagonals read) with about ``density`` of
+    their bits set, as int32 tensors."""
+    out = []
+    for _ in range(4):
+        bits = (rng.random((nwords, 32)) < density).astype(np.uint64)
+        words = (bits << np.arange(32, dtype=np.uint64)).sum(1)
+        out.append(torch.from_numpy(words.astype(np.uint32).view(np.int32))
+                   .to(dev))
+    return tuple(out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("novel", [True, False])
+@pytest.mark.parametrize("density", [0.002, 0.15])
+def test_splice_kernels_known_match_plain(spliced, novel, density):
+    """K5 and K7 with known-site bitvectors against their plain versions,
+    at novel True and False, on sparse and dense random masks, with
+    diagonals whose span starts on a word boundary, diagonals next to the
+    genome end and INVALID diagonals (which read the vectors' last
+    word)."""
+    tg, ti, c, f, l, _ = spliced
+    p = se.GsnapParams(seed_total=512, ncand=32)
+    seed = se._seed_diagonals_plain(ti, c, f, l, p, True)
+    top_d, votes, _ = se._top_diagonals_plain(seed[0], 32)
+    top_d[0::4, 5] = top_d[0::4, 5] & ~31            # start & 31 == 0
+    top_d[1::4, 6] = tg.length - 40 - torch.arange(
+        top_d[1::4].shape[0], device=top_d.device) % 30
+    top_d[2::4, 7] = 0xFFFFFFFF
+    q = se._pack_device(c, f, l, 100)
+    _, pref = mmo._prefix_mismatches_plain(tg, q, top_d, l, None, None)
+    budget = se.auto_budget(l, 12, 3, -1)
+    rng = np.random.default_rng(5)
+    known = _known_masks(rng, (tg.length + 31) // 32 + 2, top_d.device,
+                         density)
+    g = torch.Generator(device="cpu").manual_seed(4)
+    rnd = lambda n: torch.randint(0, 32, (len(l), n), generator=g).to(l.device)
+    ii, jj, pv = gg._select_pairs(top_d, votes,
+                                  gg._splice_pairs_eligible(200_000), 16)
+    ii[:, 10:], jj[:, 10:] = rnd(6), rnd(6)
+    ii[:, 10], jj[:, 11] = 5, 7
+    args = (tg, top_d, pref, ii, jj, pv, l, budget, 100, novel, known)
+    want = gg._solve_splices_plain(*args)
+    _equal([gg._solve_splices_cuda(*args)[k] for k in gg._SPLICE_KEYS],
+           [want[k] for k in gg._SPLICE_KEYS])
+    assert want["valid"].any() or (not novel and density < 0.01)
+    t3 = list(gg._select_triples_plain(top_d, votes, 200_000, 8))
+    t3[0][:, 4:], t3[2][:, 4:] = rnd(4), rnd(4)
+    t3[1][:, 4] = 6
+    args = (tg, top_d, pref, *t3, l, budget, 100, novel, known)
+    want = gg._solve_doublesplices_plain(*args)
+    _equal([gg._solve_doublesplices_cuda(*args)[k] for k in gg._SHORTEXON_KEYS],
+           [want[k] for k in gg._SHORTEXON_KEYS])
+
+
+@pytest.mark.cuda
+def test_align_batch_gapped_known_alt_cuda_equals_cpu(spliced):
+    """align_batch_gapped with known sites (novel off) and an alt genome:
+    the card's result tree equals the CPU plain path's."""
+    tg, ti, _, _, _, (c, f, l) = spliced
+    rng = np.random.default_rng(6)
+    known = _known_masks(rng, (tg.length + 31) // 32 + 2, c.device, 0.01)
+    alt = (tg.ref16.flip(0).contiguous(), tg.flag16)
+    gp = gg.GappedParams(base=se.GsnapParams(seed_total=512))
+    got = gg.align_batch_gapped(tg, ti, c, f, l, gp, alt=alt, known=known)
+    cpu = lambda x: x.cpu()
+    tg_c = GenomeArrays(cpu(tg.ref16), cpu(tg.flag16), tg.length,
+                        cpu(tg.chr_offsets))
+    ti_c = se.IndexArrays(cpu(ti.offsets), cpu(ti.positions), ti.k, ti.interval)
+    want = gg.align_batch_gapped(tg_c, ti_c, cpu(c), cpu(f), cpu(l), gp,
+                                 alt=tuple(cpu(a) for a in alt),
+                                 known=tuple(cpu(k) for k in known))
+    assert set(got) == set(want)
+    _equal([got[k].cpu() for k in sorted(want)], [want[k] for k in sorted(want)])
+
+
 @pytest.mark.cuda
 def test_align_batch_gapped_splicing_cuda_equals_cpu(spliced):
     tg, ti, _, _, _, (c, f, l) = spliced
@@ -393,3 +470,38 @@ def test_device_helpers():
     assert tdevice.resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         tdevice.resolve_device("meta")
+
+
+@pytest.mark.parametrize("with_known", [False, True])
+def test_splice_wrappers_argument_order(monkeypatch, with_known):
+    """K5's and K7's wrappers hand the C entry points their arguments in
+    the declared order (checked on the CPU with the launch captured): the
+    known-site words (or null pointers) after the outputs, then the
+    genome's word count, then the known vectors' word count and the
+    novel flag."""
+    seen = {}
+    monkeypatch.setattr(kbuild, "launch",
+                        lambda name, dev, *a: seen.__setitem__(name, a))
+    g = GenomeArrays(torch.zeros(96, dtype=torch.int32),
+                     torch.zeros(96, dtype=torch.int32), 1000,
+                     torch.zeros(2, dtype=torch.int64))
+    known = (tuple(torch.full((34,), i, dtype=torch.int32) for i in range(4))
+             if with_known else None)
+    top_d = torch.zeros((2, 8), dtype=torch.int64)
+    pref = torch.zeros((2, 8, 101), dtype=torch.int32)
+    idx = torch.zeros((2, 4), dtype=torch.int64)
+    ok = torch.zeros((2, 4), dtype=torch.bool)
+    ln = torch.full((2,), 100, dtype=torch.int32)
+    gg._solve_splices_cuda(g, top_d, pref, idx, idx, ok, ln, ln, 100, False,
+                           known)
+    gg._solve_doublesplices_cuda(g, top_d, pref, idx, idx, idx, ok, ln, ln,
+                                 100, True, known)
+    for name, nptr, novel in (("gsnap_solve_splices", 22, 0),
+                              ("gsnap_solve_doublesplices", 28, 1)):
+        a = seen[name]
+        assert len(a) == len(kbuild._SIGNATURES[name]) == nptr + 7
+        assert kbuild._SIGNATURES[name][nptr - 4:] == "pppplliiiii"
+        kw = a[nptr - 4 : nptr]
+        assert all((k is None) != with_known for k in kw)
+        assert a[nptr : nptr + 2] == (96, 34 if with_known else 0)
+        assert a[nptr + 2 :] == (2, 4, 8, 100, novel)

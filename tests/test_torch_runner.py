@@ -1,9 +1,10 @@
 """Port parity for the slice as a whole: GsnapRunner.run and the gsnap
 CLI (single-end, -N 0, --gmap-mode none) against the JAX package on
 synthetic reads — SAM byte-equal — plus the port's refusals of paths it
-does not have, its own database loader against the JAX package's, and
-a run in a process where neither JAX nor the JAX package can be
-imported (SE -N 0, SE -N 1 and PE -N 1, with the default GMAP lanes)."""
+does not have (the cmet/atoi modes, native output), its own database
+loader against the JAX package's, and a run in a process where neither
+JAX nor the JAX package can be imported (SE -N 0, SE -N 1 and PE -N 1,
+with the default GMAP lanes)."""
 
 import dataclasses
 import io
@@ -111,8 +112,10 @@ def test_cli_byte_equal(disk_db, capsys):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--mode", "atoi-stranded"], ["-s", "sites", "-N", "1"], ["-s", "sites"],
-    ["-v", "snps"], ["--mode", "cmet-stranded"], ["-A", "gsnap"],
+    ["--mode", "atoi-stranded"], ["-v", "snps", "--mode", "cmet-stranded"],
+    ["-s", "sites", "-A", "gsnap"], ["-s", "sites", "-v", "snps", "--mode",
+                                     "atoi-stranded"],
+    ["--mode", "cmet-stranded"], ["-A", "gsnap"],
     ["-A", "gsnap", "SECOND_FILE"], ["SECOND_FILE", "SECOND_FILE"],
     ["--trigger-score-for-gmap", "3"], ["--max-gmap-improvement", "2"]])
 def test_cli_rejects_unported(disk_db, capsys, extra):
