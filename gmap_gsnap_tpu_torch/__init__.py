@@ -18,16 +18,18 @@ Layer map:
             pair, the GMAP engine and its rescue lanes, and the host
             runner (FASTQ -> SAM)
   db/       database loader and device containers, the IIT reader and
-            writer, known splice sites, the SNP-tolerant index builder
+            writer, known splice sites, the SNP-tolerant index and the
+            cmet/atoi converted indexes
   io/       FASTA/FASTQ input, SAM output
   native/   C host loops (gamma offsets, SAM lines), built with cc
-  cli/      ``python -m gmap_gsnap_tpu_torch.cli.gsnap``
+  cli/      ``python -m gmap_gsnap_tpu_torch.cli.gsnap``, ``cli.cmetindex``,
+            ``cli.atoiindex``
   convert   JAX-package state (as numpy arrays) -> port containers
 
-GSNAP single-end and paired-end, standard mode, ``-N 0`` / ``-N 1``,
-known splice sites (``-s``) and SNP-tolerant alignment (``-v``), with
-the default GMAP rescue lanes, exist so far; ROADMAP.md lists what is
-still to be ported.
+GSNAP single-end and paired-end, standard, cmet-stranded and
+atoi-stranded mode, ``-N 0`` / ``-N 1``, known splice sites (``-s``) and
+SNP-tolerant alignment (``-v``), with the default GMAP rescue lanes,
+exist so far; ROADMAP.md lists what is still to be ported.
 """
 
 __version__ = "0.1.0"

@@ -3,13 +3,17 @@ gmap_gsnap_tpu/align/gsnap_gapped.py): substitutions, middle indels and,
 with ``novelsplicing`` (``-N 1``), novel local splices and short-exon
 doublesplices; end trims, the lane-noop gate and ranking.
 
-Holds four kernels, each with its plain torch version beside it:
+Holds eight kernels, each with its plain torch version beside it:
 K4 :func:`solve_indels` (the JAX package's _solve_indels), K5
 :func:`solve_splices` (_solve_splices), K6 :func:`select_triples`
-(_select_triples) and K7 :func:`solve_doublesplices`
-(_solve_doublesplices).  The stages around them (pair choice, trims,
-lane features and gate, assembly, ranking, the overflow gate) are plain
-torch on the device.  Known splice sites (``known``, gsnap ``-s``: four
+(_select_triples), K7 :func:`solve_doublesplices`
+(_solve_doublesplices), K13 :func:`lane_features` (_trim_ends_device,
+_lane_features and _bitpack_mask), K14 :func:`rank_hits` (rank_hits,
+with the SE overflow gate and _lane_noop_device as an epilogue in
+:func:`align_batch_gapped`) and K16 :func:`select_pairs`
+(_select_pairs); K15 (_qpos_ranges) is in gsnap_se.  The candidate
+assembly between them is plain torch on the device.  Known splice
+sites (``known``, gsnap ``-s``: four
 genome-length bitvectors from db/splicesites.device_bitmasks) are
 candidates of K5 and K7 whatever their dinucleotides and score
 probability 1.0; with ``-s`` and without ``-N 1`` the solvers run with
@@ -35,9 +39,9 @@ from .gsnap_se import (
     _MODE_CONV,
     _convert_codes,
     _pack_device,
-    _qpos_ranges,
     _revcomp_batch,
     auto_budget,
+    qpos_ranges,
     seed_diagonals,
     top_diagonals,
 )
@@ -120,8 +124,8 @@ def _trim_ends_device(mm, lengths, trim_mm_score: int):
     return t5.int(), t3.int()
 
 
-def _lane_features(mm, pref, lengths, k: int, interval: int,
-                   trim_mm_score: int):
+def _lane_features_plain(mm, pref, lengths, k: int, interval: int,
+                         trim_mm_score: int):
     """Per-candidate features for the device lane-noop gate (the host
     rescue lanes' entry/acceptance tests).  The JAX package's mask
     matmuls are prefix-sum lookups here: #mismatches below a position
@@ -180,6 +184,39 @@ _LANE_FEATURE_KEYS = (
     "lane_npos", "lane_t5", "lane_t3", "lane_lowc", "lane_lbc",
     "lane_cle", "lane_clt", "lane_pfirst", "lane_plast", "lane_present",
     "lane_nmm_tt", "lane_nmm_0t3", "lane_nmm_t50")
+
+
+def _lane_features_cuda(mm, lengths, k: int, interval: int,
+                        trim_mm_score: int):
+    r, kc, L = mm.shape
+    dev = mm.device
+    feats = {key: torch.empty((r, kc), dtype=torch.bool
+                              if key == "lane_present" else torch.int32,
+                              device=dev) for key in _LANE_FEATURE_KEYS}
+    packed = torch.empty((r, kc, (L + 7) // 8), dtype=torch.uint8,
+                         device=dev)
+    kbuild.launch("gsnap_lane_features", dev, mm.contiguous(),
+                  lengths.int().contiguous(),
+                  *(feats[key] for key in _LANE_FEATURE_KEYS), packed,
+                  r, kc, L, k, interval, trim_mm_score)
+    return {"cand_mm": packed, **feats}
+
+
+def lane_features(mm, pref, lengths, k: int, interval: int,
+                  trim_mm_score: int):
+    """End trims, lane features and the bit-packed mask of every
+    candidate (kernel K13; the JAX package's _trim_ends_device,
+    _lane_features and _bitpack_mask): from mm bool[R, K, L] and pref
+    int32[R, K, L+1] (K3's output, pref = cat(0, cumsum(mm)); the kernel
+    counts the mask itself), the _LANE_FEATURE_KEYS [R, K] int32 (bool
+    lane_present) and "cand_mm" uint8[R, K, ceil(L/8)]."""
+    if mm.device.type == "cpu":
+        return {"cand_mm": _bitpack_mask(mm),
+                **_lane_features_plain(mm, pref, lengths, k, interval,
+                                       trim_mm_score)}
+    if mm.device.type == "cuda":
+        return _lane_features_cuda(mm, lengths, k, interval, trim_mm_score)
+    raise ValueError(f"unsupported device {mm.device}")
 
 
 def _lane_noop_device(final, cands, lengths, k: int, interval: int,
@@ -247,7 +284,7 @@ def _lane_noop_device(final, cands, lengths, k: int, interval: int,
 
 # ------------------------------------------------------------- pair selection
 
-def _select_pairs(top_d, votes, eligible_fn, maxpairs: int):
+def _select_pairs_plain(top_d, votes, eligible_fn, maxpairs: int):
     """Up to ``maxpairs`` ordered diagonal pairs (i -> left part, j ->
     right part) per read, ranked by vote sum (stable, so ties keep the
     JAX order).  Returns (ii, jj int64[B, P], valid bool[B, P])."""
@@ -277,6 +314,41 @@ def _splice_pairs_eligible(maxdist: int):
         d = (dj - di) & MASK32
         return (d >= 1) & (d <= maxdist)
     return fn
+
+
+def _select_pairs_cuda(top_d, votes, maxpairs, rule, a, b_):
+    b, nc = top_d.shape
+    dev = top_d.device
+    p = min(maxpairs, nc * nc)
+    ii = torch.empty((b, p), dtype=torch.int64, device=dev)
+    jj = torch.empty((b, p), dtype=torch.int64, device=dev)
+    valid = torch.empty((b, p), dtype=torch.bool, device=dev)
+    kbuild.launch("gsnap_select_pairs", dev, top_d.contiguous(),
+                  votes.int().contiguous(), ii, jj, valid, b, nc, p, rule,
+                  a, b_)
+    return ii, jj, valid
+
+
+def select_pairs(top_d, votes, maxpairs: int, max_del: int | None = None,
+                 max_ins: int | None = None, maxdist: int | None = None):
+    """Up to ``maxpairs`` ordered diagonal pairs (i -> left part, j ->
+    right part) per read, ranked by vote sum, ties in flat (i, j) order
+    (kernel K16; the JAX package's _select_pairs).  The middle-indel rule
+    (``max_del``, ``max_ins``: int32(dj - di) in [1, max_del] or
+    int32(di - dj) in [1, max_ins], the uint32 difference wrapping) or,
+    with ``maxdist``, the local-splice rule (dj - di as uint32 in [1,
+    maxdist]).  Returns (ii, jj int64[B, P], valid bool[B, P])."""
+    if maxdist is not None:
+        rule, a, b_ = 1, maxdist, 0
+        fn = _splice_pairs_eligible(maxdist)
+    else:
+        rule, a, b_ = 0, max_del, max_ins
+        fn = _indel_pairs_eligible(max_del, max_ins)
+    if top_d.device.type == "cpu":
+        return _select_pairs_plain(top_d, votes, fn, maxpairs)
+    if top_d.device.type == "cuda":
+        return _select_pairs_cuda(top_d, votes, maxpairs, rule, a, b_)
+    raise ValueError(f"unsupported device {top_d.device}")
 
 
 # ----------------------------------------------------------------- indel solve
@@ -870,12 +942,10 @@ def _strand_hits(genome, index, queries, codes, nflags, lengths, conv, alt,
     nmm_raw = torch.where(ok, pref[:, :, -1], BIG_NMM)
     nmm_sub = torch.where(nmm_raw <= budget[:, None], nmm_raw, BIG_NMM)
 
-    ii, jj, pv = _select_pairs(
-        top_d, votes,
-        _indel_pairs_eligible(base.max_middle_deletions,
-                              base.max_middle_insertions),
-        params.indel_pairs)
-    qp5, qp3 = _qpos_ranges(diag, qpos_grid, top_d)
+    ii, jj, pv = select_pairs(top_d, votes, params.indel_pairs,
+                              max_del=base.max_middle_deletions,
+                              max_ins=base.max_middle_insertions)
+    qp5, qp3 = qpos_ranges(diag, qpos_grid, top_d)
     ind = solve_indels(top_d, mm, pref, ii, jj, pv, lengths, budget,
                        queries.lmax, qp5=qp5, qp3=qp3,
                        max_ins=base.max_middle_insertions,
@@ -886,8 +956,8 @@ def _strand_hits(genome, index, queries, codes, nflags, lengths, conv, alt,
     nsp, ntr = params.splice_pairs, params.shortexon_triples
     z = lambda n, dt=torch.int32: torch.zeros((b, n), dtype=dt, device=dev)
     if params.novelsplicing or known is not None:
-        si, sj, sv = _select_pairs(
-            top_d, votes, _splice_pairs_eligible(base.shortsplicedist), nsp)
+        si, sj, sv = select_pairs(top_d, votes, nsp,
+                                  maxdist=base.shortsplicedist)
         spl = solve_splices(genome, top_d, pref, si, sj, sv, lengths, budget,
                             queries.lmax, novel=params.novelsplicing,
                             known=known)
@@ -949,9 +1019,9 @@ def _strand_hits(genome, index, queries, codes, nflags, lengths, conv, alt,
 
     cands = {
         "cand_left": top_d, "cand_votes": votes, "cand_nmm": nmm_raw,
-        "cand_mm": _bitpack_mask(mm), "overflow": overflow,
-        **_lane_features(mm, pref, lengths, index.k, index.interval,
-                         base.trim_mismatch_score),
+        "overflow": overflow,
+        **lane_features(mm, pref, lengths, index.k, index.interval,
+                        base.trim_mismatch_score),
         "overflow_trunc": trunc,
         "ovf_bound": floor_bound(nphase_min),
         "hbound": floor_bound(nph_half),
@@ -1013,8 +1083,8 @@ def gather_candidates(genome, index, index_minus, codes, nflags, lengths,
     return out, cands
 
 
-def rank_hits(out, base: GsnapParams, apply_optimal: bool = True,
-              maxout: int | None = None):
+def _rank_hits_plain(out, base: GsnapParams, apply_optimal: bool = True,
+                     maxout: int | None = None):
     """Dedup + optimal-score filter + ranking by (score, left, plus
     first), all through stable argsorts.  Returns dict of [B, maxout]
     tensors plus npaths."""
@@ -1059,6 +1129,147 @@ def rank_hits(out, base: GsnapParams, apply_optimal: bool = True,
     return final
 
 
+# K14's key fields with the dtypes it reads
+_RANK_KEY_FIELDS = (("kind", torch.int32), ("split", torch.int32),
+                    ("split2", torch.int32), ("mid", torch.int64),
+                    ("right", torch.int64), ("plusp", torch.bool),
+                    ("left", torch.int64), ("score", torch.int32))
+
+
+def _rank_hits_cuda(out, base: GsnapParams, apply_optimal: bool = True,
+                    maxout: int | None = None, se=None):
+    """K14 on ``out``; with ``se`` (a dict of the SE epilogue's inputs,
+    see :func:`_rank_gate_se_cuda`) also the overflow gate and the lane
+    gate.  Returns (final, epilogue outputs or None)."""
+    score = out["score"]
+    b, ncand = score.shape
+    dev = score.device
+    nout = min(base.maxpaths if maxout is None else maxout, ncand)
+    perm = torch.empty((b, nout), dtype=torch.int64, device=dev)
+    fscore = torch.empty((b, nout), dtype=torch.int32, device=dev)
+    npaths = torch.empty(b, dtype=torch.int32, device=dev)
+    keys = [out[k].to(dt).contiguous() for k, dt in _RANK_KEY_FIELDS]
+    ep = None
+    if se is None:
+        ep_args = [None] * 23
+        ep_ints = [0, 0, 0, 0, 0, 1, 1, 0, 0]
+    else:
+        ep = {"overflow": torch.empty(b, dtype=torch.bool, device=dev)
+              if se["gate"] else se["overflow"],
+              "lane_noop": torch.zeros(b, dtype=torch.bool, device=dev)}
+        cands = se["cands"]
+        nc2 = cands["cand_nmm"].shape[1]
+        if se["noop"]:
+            ep["lane_ind"] = torch.empty((b, nc2), dtype=torch.bool,
+                                         device=dev)
+            ep["lane_term"] = torch.empty((b, nc2), dtype=torch.bool,
+                                          device=dev)
+        ep_args = [se["lengths"].contiguous(), se["overflow"].contiguous(),
+                   cands["overflow_trunc"].contiguous(),
+                   cands["ovf_bound"].contiguous(),
+                   cands["hbound"].contiguous(),
+                   ep["overflow"] if se["gate"] else None,
+                   cands["cand_nmm"].contiguous(),
+                   *(cands[k].contiguous() for k in _LANE_FEATURE_KEYS),
+                   ep["lane_noop"] if se["noop"] else None,
+                   ep.get("lane_ind"), ep.get("lane_term")]
+        ep_ints = [int(se["gate"]), se["lane_gate"], base.max_mismatches,
+                   int(se["noop"]), nc2, se["k"], se["interval"],
+                   base.indel_penalty_end, base.terminal_threshold]
+    kbuild.launch("gsnap_rank_hits", dev, *keys, perm, fscore, npaths,
+                  *ep_args, b, ncand, nout, base.subopt_levels,
+                  int(apply_optimal), *ep_ints)
+    final = {k: torch.gather(v, 1, perm) for k, v in out.items()}
+    ok = fscore < BIG_NMM
+    final["score"] = fscore
+    final["npaths"] = npaths
+    for k in ("left", "right", "mid", "kind", "split", "split2", "nindels",
+              "nmm"):
+        final[k] = torch.where(ok, final[k], 0)
+    return final, ep
+
+
+def rank_hits(out, base: GsnapParams, apply_optimal: bool = True,
+              maxout: int | None = None):
+    """Dedup identical (kind, split, split2, mid, right, plusp, left)
+    candidates, apply the optimal-score filter (``apply_optimal``: scores
+    above the best + subopt_levels drop) and rank by (score, left, plus
+    first, candidate order), keeping min(maxout, ncand) (kernel K14; the
+    JAX package's rank_hits).  Returns a dict of [B, maxout] tensors
+    (every field of ``out`` gathered; score BIG_NMM and left, right, mid,
+    kind, split, split2, nindels, nmm 0 where no hit) plus npaths."""
+    dev = out["score"].device
+    if dev.type == "cpu":
+        return _rank_hits_plain(out, base, apply_optimal, maxout)
+    if dev.type == "cuda":
+        return _rank_hits_cuda(out, base, apply_optimal, maxout)[0]
+    raise ValueError(f"unsupported device {dev}")
+
+
+def _lane_gate(params: GappedParams) -> int:
+    """The lowest score at which a rescue lane could admit a dropped
+    diagonal (the SE overflow gate's lane_gate)."""
+    base = params.base
+    lane_gate = min(base.indel_penalty_middle, base.indel_penalty_end,
+                    base.terminal_threshold)
+    if params.novelsplicing:
+        # the splice solvers admit dropped diagonals at
+        # localsplicing_penalty: only the floor-bound branch clears
+        lane_gate = min(lane_gate, base.localsplicing_penalty)
+    return lane_gate
+
+
+def _rank_gate_se_plain(out, cands, lengths_i, k, interval,
+                        params: GappedParams, gate: bool):
+    base = params.base
+    final = _rank_hits_plain(out, base)
+    final.update(cands)
+    if gate:
+        # candidate-budget overflow gate (see the JAX function): rows
+        # whose done level sits below every lane gate, or that have a hit
+        # the dropped diagonals provably cannot reach, clear the flag;
+        # with known sites every overflow row takes the wide lane
+        budget = auto_budget(lengths_i, k, interval, base.max_mismatches)
+        done = torch.minimum(budget, torch.where(
+            final["npaths"] > 0, final["score"][:, 0], BIG_NMM))
+        lane_gate = _lane_gate(params)
+        so = base.subopt_levels
+        safe = (((done + so < lane_gate)
+                 | ((final["npaths"] > 0) & (final["hbound"] > done + so)))
+                & (final["ovf_bound"] > done + so)
+                & ~final["overflow_trunc"])
+        final["overflow"] = final["overflow"] & ~safe
+    final.pop("ovf_bound")
+    final.pop("hbound")
+    if base.trim_mismatch_score == -3:
+        noop, ind_f, term_f = _lane_noop_device(
+            final, final, lengths_i, k, interval, base)
+        final["lane_noop"] = noop
+        final["lane_ind"] = ind_f
+        final["lane_term"] = term_f
+    else:
+        final["lane_noop"] = torch.zeros(lengths_i.shape[0],
+                                         dtype=torch.bool,
+                                         device=lengths_i.device)
+    for key in _LANE_FEATURE_KEYS:
+        final.pop(key)
+    return final
+
+
+def _rank_gate_se_cuda(out, cands, lengths_i, k, interval,
+                       params: GappedParams, gate: bool):
+    base = params.base
+    se = dict(cands=cands, lengths=lengths_i, overflow=cands["overflow"],
+              gate=gate, noop=base.trim_mismatch_score == -3,
+              lane_gate=_lane_gate(params), k=k, interval=interval)
+    final, ep = _rank_hits_cuda(out, base, se=se)
+    final.update(cands)
+    final.update(ep)
+    for key in ("ovf_bound", "hbound", *_LANE_FEATURE_KEYS):
+        final.pop(key)
+    return final
+
+
 def align_batch_gapped(genome, index: IndexArrays, codes, nflags, lengths,
                        params: GappedParams = GappedParams(),
                        index_minus: IndexArrays | None = None, alt=None,
@@ -1072,45 +1283,16 @@ def align_batch_gapped(genome, index: IndexArrays, codes, nflags, lengths,
     split, split2, mid, nindels, sense, prob_*, plusp), npaths, the
     unranked cand_* arrays, overflow / overflow_trunc and the lane-noop
     gate (lane_noop, lane_ind, lane_term)."""
-    base = params.base
     known = _check_known(known)
     out, cands = gather_candidates(genome, index, index_minus, codes, nflags,
                                    lengths, params, alt, known)
-    final = rank_hits(out, base)
-    final.update(cands)
-    lengths_i = lengths.int()
-    if known is None:
-        # candidate-budget overflow gate (see the JAX function): rows
-        # whose done level sits below every lane gate, or that have a hit
-        # the dropped diagonals provably cannot reach, clear the flag;
-        # with known sites every overflow row takes the wide lane
-        budget = auto_budget(lengths_i, index.k, index.interval,
-                             base.max_mismatches)
-        done = torch.minimum(budget, torch.where(
-            final["npaths"] > 0, final["score"][:, 0], BIG_NMM))
-        lane_gate = min(base.indel_penalty_middle, base.indel_penalty_end,
-                        base.terminal_threshold)
-        if params.novelsplicing:
-            # the splice solvers admit dropped diagonals at
-            # localsplicing_penalty: only the floor-bound branch clears
-            lane_gate = min(lane_gate, base.localsplicing_penalty)
-        so = base.subopt_levels
-        safe = (((done + so < lane_gate)
-                 | ((final["npaths"] > 0) & (final["hbound"] > done + so)))
-                & (final["ovf_bound"] > done + so)
-                & ~final["overflow_trunc"])
-        final["overflow"] = final["overflow"] & ~safe
-    final.pop("ovf_bound")
-    final.pop("hbound")
-    if base.trim_mismatch_score == -3:
-        noop, ind_f, term_f = _lane_noop_device(
-            final, final, lengths_i, index.k, index.interval, base)
-        final["lane_noop"] = noop
-        final["lane_ind"] = ind_f
-        final["lane_term"] = term_f
-    else:
-        final["lane_noop"] = torch.zeros(lengths.shape[0], dtype=torch.bool,
-                                         device=lengths.device)
-    for key in _LANE_FEATURE_KEYS:
-        final.pop(key)
-    return final
+    # ranking (K14) and, as its epilogue on the card, the candidate-budget
+    # overflow gate (off with known sites: every overflow row then takes
+    # the wide lane) and the lane-noop gate
+    args = (out, cands, lengths.int(), index.k, index.interval, params,
+            known is None)
+    if codes.device.type == "cpu":
+        return _rank_gate_se_plain(*args)
+    if codes.device.type == "cuda":
+        return _rank_gate_se_cuda(*args)
+    raise ValueError(f"unsupported device {codes.device}")

@@ -2,8 +2,9 @@
 gmap_gsnap_tpu/align/gsnap_se.py).
 
 Holds kernels K1 (:func:`seed_diagonals`, the JAX package's
-_extract_oligos + _seed_rank_map + _seed_diagonals) and K2
-(:func:`top_diagonals`, its _top_diagonals), each with its plain torch
+_extract_oligos + _seed_rank_map + _seed_diagonals), K2
+(:func:`top_diagonals`, its _top_diagonals) and K15
+(:func:`qpos_ranges`, its _qpos_ranges), each with its plain torch
 version beside it.  CPU tensors take the plain version; CUDA tensors
 launch the kernel in ``csrc/`` or raise.
 
@@ -292,7 +293,7 @@ def top_diagonals(diag: torch.Tensor, ncand: int):
     raise ValueError(f"unsupported device {diag.device}")
 
 
-def _qpos_ranges(diag_grid, qpos_grid, d_sel):
+def _qpos_ranges_plain(diag_grid, qpos_grid, d_sel):
     """First/last seed query position per selected diagonal (reference
     Segment querypos5/querypos3, stage1hr.c:9000), from the unsorted
     seed grid.  Row chunks bound the [rows, P, W] compare's memory."""
@@ -306,6 +307,31 @@ def _qpos_ranges(diag_grid, qpos_grid, d_sel):
         qp5.append(torch.where(eq, qpos, 2**30).min(2).values)
         qp3.append(torch.where(eq, qpos, -1).max(2).values)
     return torch.cat(qp5), torch.cat(qp3)
+
+
+def _qpos_ranges_cuda(diag_grid, qpos_grid, d_sel):
+    b, p = d_sel.shape
+    dev = d_sel.device
+    qp5 = torch.empty((b, p), dtype=torch.int32, device=dev)
+    qp3 = torch.empty((b, p), dtype=torch.int32, device=dev)
+    kbuild.launch("gsnap_qpos_ranges", dev, diag_grid.contiguous(),
+                  qpos_grid.int().contiguous(), d_sel.contiguous(), qp5, qp3,
+                  b, diag_grid.shape[1], p)
+    return qp5, qp3
+
+
+def qpos_ranges(diag_grid, qpos_grid, d_sel):
+    """First/last seed query position per selected diagonal (kernel K15;
+    reference Segment querypos5/querypos3, stage1hr.c:9000): for diag_grid
+    int64[B, W] and qpos_grid int32[B, W] (the unsorted seed grid of
+    :func:`seed_diagonals`) and d_sel int64[B, P], (qp5, qp3) int32[B, P]:
+    the min and max qpos of the slots whose diagonal equals d_sel (2^30
+    and -1 where none does)."""
+    if d_sel.device.type == "cpu":
+        return _qpos_ranges_plain(diag_grid, qpos_grid, d_sel)
+    if d_sel.device.type == "cuda":
+        return _qpos_ranges_cuda(diag_grid, qpos_grid, d_sel)
+    raise ValueError(f"unsupported device {d_sel.device}")
 
 
 def _verify(genome, queries, diags, lengths, conversion=None, alt=None):

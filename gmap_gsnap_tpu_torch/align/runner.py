@@ -1,7 +1,8 @@
 """Host-side GSNAP runner for the port: FASTQ records -> device -> SAM.
 
-Single-end (``run``) and paired-end (``run_pe``), standard mode, ``-N 0``
-or ``-N 1`` (novel splicing), with the GMAP rescue lanes of
+Single-end (``run``) and paired-end (``run_pe``), standard,
+cmet-stranded or atoi-stranded mode (``--mode``), ``-N 0`` or ``-N 1``
+(novel splicing), with the GMAP rescue lanes of
 ``--gmap-mode`` (terminal, improvement, PE pairsearch; the default runs
 them all).  The device half is one call per batch of
 ``gsnap_gapped.align_batch_gapped`` (SE) or ``gsnap_pe.align_batch_pe``
@@ -15,8 +16,10 @@ terminal, GMAP, (with known splice sites, ``-s``) short-end and (with
 ambiguous-splice resolution, MAPQ and SAM emission — is the numpy code
 of gmap_gsnap_tpu/align/runner.py, copied (not rewritten) because that
 module imports JAX.  SNP-tolerant runs (``-v``) seed on the SNP index
-and accept the alt genome's alleles as matches.  What this module
-leaves out of it: native output, the cmet/atoi modes,
+and accept the alt genome's alleles as matches; cmet/atoi runs seed each
+strand on its converted index (db/transforms.write_converted_indexes)
+and tolerate the conversion in selection, and only its own direction in
+MD/NM.  What this module leaves out of it: native output,
 gene/tally/runlength multimapping resolution (the identity without
 those databases), output routing
 (--split-output), ``warmup`` (XLA compiles) and the TPU transfer
@@ -27,6 +30,7 @@ ROADMAP.md.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import os
 import sys as _sys
@@ -68,7 +72,9 @@ EXCEPTION_GUARD = True
 # rows with more hits than this take the full emission path
 PAIR_KTOP = 2
 
-_NOT_PORTED = "not ported yet; see ROADMAP.md"
+# genome base and read base of each cmet/atoi conversion: the read
+# shows the second where the genome has the first
+_CONV_BASES = {"ct": "CT", "ga": "GA", "ag": "AG", "tc": "TC"}
 
 
 def _offending_read(*recs) -> None:
@@ -426,14 +432,21 @@ class GsnapRunner:
     ``splicing_dir`` and ``<db>.maps``; it turns splicing on even without
     -N 1.  ``snpsdb`` is gsnap -v: the SNP-tolerant index and alt genome
     that db/transforms.write_snp_index wrote into ``snps_dir`` (default:
-    the database directory)."""
+    the database directory).  ``params.mode`` cmet-stranded or
+    atoi-stranded loads the converted index pair (metct/metga or
+    a2iag/a2itc, written by cli/cmetindex or cli/atoiindex) from
+    ``cmet_dir`` / ``atoi_dir`` or the database directory; with ``snpsdb``
+    the SNP index serves both strands instead, as in the JAX runner."""
 
     def __init__(self, db: GenomeDB, params: gsnap_se.GsnapParams | None = None,
                  lmax: int = 100, snpsdb: str | None = None,
                  novelsplicing: bool = False, splicesdb: str | None = None,
                  snps_dir: str | None = None,
                  splicing_dir: str | None = None,
+                 cmet_dir: str | None = None, atoi_dir: str | None = None,
                  device: str | torch.device = "cuda"):
+        self.cmet_dir = cmet_dir
+        self.atoi_dir = atoi_dir
         if params is None:
             params = gsnap_se.GsnapParams()
             if db.offsets is not None:
@@ -446,8 +459,6 @@ class GsnapRunner:
             # larger shared seed budget keeps the fullwide rescue lane rare
             params = dataclasses.replace(
                 params, seed_total=max(params.seed_total, 512))
-        if params.mode != "standard":
-            raise NotImplementedError(f"--mode {params.mode} is {_NOT_PORTED}")
         self.db = db
         self.lmax = lmax
         self.params = params
@@ -458,8 +469,6 @@ class GsnapRunner:
                            self.params.gmap_mode.split(",") if m.strip()}
         self.splicing_on = novelsplicing
         self.merge_samechr = False  # gsnap --merge-distant-samechr
-        # standard mode: no cmet/atoi conversion on either strand
-        self._conv_plus = self._conv_minus = None
         self.device = resolve_device(device)
         self.known = None
         self._known_sites = None
@@ -488,14 +497,30 @@ class GsnapRunner:
         self._alt_str = None
         self._alt_bytes = None
         self._snpsdb = snpsdb
-        if snpsdb is None:
-            self.index = datadir.device_index(db, self.device)
-        else:
+        self.index_minus = None
+        mode = self.params.mode
+        if snpsdb is not None:
             # SNP-tolerant: the SNP index replaces the standard one, and
-            # the alt genome's alleles count as matches
+            # the alt genome's alleles count as matches.  As in the JAX
+            # runner (runner.py:551-589) this branch comes first: under
+            # --mode the SNP index serves both strands and the host keeps
+            # no conversion, while the device cascade still converts
+            # each strand by params.mode
             self.index, self.alt, self._alt_str = datadir.device_snps(
                 db, snpsdb, snps_dir, self.device)
             self._alt_bytes = self._alt_str.ascii
+            self._conv_plus = self._conv_minus = None
+        else:
+            if mode == "standard":
+                self.index = datadir.device_index(db, self.device)
+            else:
+                # cmet/atoi: the converted index pair (--cmetdir /
+                # --atoidir override, gsnap.c:257-263)
+                self.index, self.index_minus = datadir.device_converted(
+                    db, mode, cmet_dir if mode.startswith("cmet")
+                    else atoi_dir, self.device)
+            # conversion names for host-side MD/trim computation
+            self._conv_plus, self._conv_minus = gsnap_se._MODE_CONV[mode]
         # gsnap --ambig-splice-noclip sets this False (amb_clip_p,
         # gsnap.c:1247 / splicetrie.c:1945,2099): ambiguous known
         # splicing at a read end is then DROPPED instead of emitted as
@@ -540,7 +565,7 @@ class GsnapRunner:
             self.genome, self.index,
             torch.from_numpy(codes).to(dev), torch.from_numpy(nflags).to(dev),
             torch.from_numpy(lengths).to(dev), self._gp_uniform(gp, lengths),
-            alt=self.alt, known=self.known)
+            index_minus=self.index_minus, alt=self.alt, known=self.known)
         return res, len(records)
 
     def dispatch_records(self, records: list[Record]):
@@ -594,6 +619,7 @@ class GsnapRunner:
                                    pairmax=self._pairmax())
         res = gsnap_pe.align_batch_pe(self.genome, self.index, t(c5), t(f5),
                                       t(l5), t(c3), t(f3), t(l3), params,
+                                      index_minus=self.index_minus,
                                       alt=self.alt, known=self.known)
         return res, len(recs5)
 
@@ -634,6 +660,16 @@ class GsnapRunner:
                 else self.params.pairmax_dna)
 
     # ------------------------------------------------------------------ host
+    @staticmethod
+    @functools.lru_cache(maxsize=8)
+    def _conv_lut(conv) -> np.ndarray:
+        """uint8[256] byte-translation table for a cmet/atoi conversion."""
+        lut = np.arange(256, dtype=np.uint8)
+        if conv is not None:
+            a, b = _CONV_BASES[conv]
+            lut[ord(a)] = ord(b)
+        return lut
+
     _ACGT_SET = np.zeros(256, bool)
     for _c in b"ACGT":
         _ACGT_SET[_c] = True
@@ -642,18 +678,31 @@ class GsnapRunner:
     def _mismatch_masks(self, q: str, g0: int,
                         conv=None) -> tuple[np.ndarray, np.ndarray]:
         """(selection mask, ref-relative mask) for query part ``q``
-        aligned at genome position g0.  ``conv`` is the strand's cmet/atoi
-        conversion: None in standard mode, the only mode the port runs.
-        Selection honors SNP tolerance (a base equal to the alt allele
-        matches); MD/NM stay ref-relative."""
+        aligned at genome position g0.  Selection honors the strand's
+        cmet/atoi conversion ``conv`` (both directions) and SNP tolerance
+        (a base equal to the alt allele matches); MD/NM stay
+        ref-relative."""
         n = len(q)
         qb = np.frombuffer(q.encode("latin-1"), np.uint8)
         gb = self._genome_bytes[g0 : g0 + n]
         if len(gb) < n:  # past end of genome: mismatch
             gb = np.concatenate([gb, np.zeros(n - len(gb), np.uint8)])
+        lut = self._conv_lut(conv)
         qn = qb == ord("N")
-        mm = ~qn & (~self._ACGT_SET[gb] | (qb != gb))
-        mm_ref = mm
+        mm = ~qn & (~self._ACGT_SET[gb] | (lut[qb] != lut[gb]))
+        if conv is None:
+            mm_ref = mm
+        else:
+            # display (MD/NM) tolerance is ONE-directional: only the
+            # genuine conversion direction (genome C -> read T for ct,
+            # genome G -> read A for ga, ...) counts as a match; the
+            # reverse (read C vs genome T) aligns under the two-sided
+            # selection conversion but is REPORTED as a mismatch
+            # (reference cmet MD/NM, e.g. MD:Z:72C7T19 on a read-C/
+            # genome-T site)
+            ga, rb = _CONV_BASES[conv]
+            tol = (gb == ord(ga)) & (qb == ord(rb))
+            mm_ref = ~qn & (~self._ACGT_SET[gb] | ((qb != gb) & ~tol))
         if self._alt_bytes is not None:
             ab = self._alt_bytes[g0 : g0 + n]
             if len(ab) < n:
@@ -691,6 +740,7 @@ class GsnapRunner:
             return
         gb_all = self._genome_bytes
         G = len(gb_all)
+        std = self._conv_plus is None and self._conv_minus is None
         by_len: dict[int, list] = {}
         for gi, (rec, L, plusp, uls) in enumerate(groups):
             by_len.setdefault(L, []).append(gi)
@@ -701,24 +751,48 @@ class GsnapRunner:
                 q = (rec.seq.upper() if plusp
                      else dna.revcomp_str(rec.seq.upper()))
                 qb = np.frombuffer(q.encode("latin-1"), np.uint8)
+                conv = self._conv_plus if plusp else self._conv_minus
                 g0s = (uls[:, None] + shifts_a[None, :]).ravel()
                 g0_list.append(g0s)
                 ginfo.append((rec, plusp, uls, len(g0s)))
-                qmat_g.append((qb, qb == ord("N"), len(g0s)))
+                qmat_g.append((self._conv_lut(conv)[qb], qb, qb == ord("N"),
+                               conv, len(g0s)))
             g0_all = np.concatenate(g0_list)
             gidx = g0_all[:, None] + np.arange(L)[None, :]
             okm = (gidx >= 0) & (gidx < G)
             gmat = np.where(okm, gb_all[np.clip(gidx, 0, G - 1)], 0)
             qmat = np.concatenate(
-                [np.broadcast_to(qc, (n, L)) for qc, _, n in qmat_g])
+                [np.broadcast_to(qc, (n, L)) for qc, _, _, _, n in qmat_g])
             qn = np.concatenate(
-                [np.broadcast_to(qnn, (n, L)) for _, qnn, n in qmat_g])
-            mm = ~qn & (~self._ACGT_SET[gmat] | (qmat != gmat))
-            mm_ref = mm
+                [np.broadcast_to(qnn, (n, L)) for _, _, qnn, _, n in qmat_g])
+            qraw = np.concatenate(
+                [np.broadcast_to(qb_, (n, L)) for _, qb_, _, _, n in qmat_g])
+            if std:
+                mm = ~qn & (~self._ACGT_SET[gmat] | (qmat != gmat))
+                mm_ref = mm
+            else:
+                gconv = gmat.copy()
+                tol = np.zeros(gmat.shape, bool)
+                off = 0
+                for _, _, _, conv, n in qmat_g:
+                    gconv[off : off + n] = self._conv_lut(conv)[
+                        gmat[off : off + n]]
+                    if conv is not None:
+                        gc_, rc_ = _CONV_BASES[conv]
+                        tol[off : off + n] = (
+                            (gmat[off : off + n] == ord(gc_))
+                            & (qraw[off : off + n] == ord(rc_)))
+                    off += n
+                # selection tolerates both conversion directions (the
+                # two-sided LUT); display tolerates only the genuine
+                # one (see _mismatch_masks)
+                mm = ~qn & (~self._ACGT_SET[gmat] | (qmat != gconv))
+                mm_ref = ~qn & (~self._ACGT_SET[gmat]
+                                | ((qraw != gmat) & ~tol))
             if self._alt_bytes is not None:
                 amat = np.where(okm, self._alt_bytes[np.clip(gidx, 0, G - 1)],
                                 0)
-                mm = mm & (qmat != amat)
+                mm = mm & (qraw != amat)
             # trims are consulted only for the UNSHIFTED diagonals
             t5s = t3s = None
             if sh0 >= 0:
@@ -753,7 +827,8 @@ class GsnapRunner:
         if v is not None:
             return v
         q = rec.seq.upper() if plusp else dna.revcomp_str(rec.seq.upper())
-        return self._mismatch_masks(q, left)
+        conv = self._conv_plus if plusp else self._conv_minus
+        return self._mismatch_masks(q, left, conv)
 
     def _prime_rows(self, triples) -> None:
         """Prime the lane-mask cache for result rows.
@@ -1763,7 +1838,8 @@ class GsnapRunner:
             or known splice sites loaded the reference keeps the
             trimmed sub even in winning geometries, so those modes stay
             conservative."""
-            if self._snpsdb is not None or self._known_sites is not None:
+            if self._snpsdb is not None or self._known_sites is not None \
+                    or self.params.mode != "standard":
                 return False
             for i in range(n):
                 if int(hits["kind"][row, i]) != KIND_SUB:
@@ -1851,7 +1927,8 @@ class GsnapRunner:
             # found), and so does every beatable terminal failing
             # geometry
             gmap_possible = (self._snpsdb is None
-                             and self._known_sites is None)
+                             and self._known_sites is None
+                             and self.params.mode == "standard")
             if gmap_possible:
                 for h in hhits[:n]:
                     if h.hittype == "sub" and not end_policy_ok(
@@ -1889,7 +1966,8 @@ class GsnapRunner:
         win = self.params.shortsplicedist + 2 * L
 
         def gmap_for_anchor(anchor):
-            if self._snpsdb is not None or self._known_sites is not None:
+            if (self._snpsdb is not None or self._known_sites is not None
+                    or self.params.mode != "standard"):
                 return None  # gmap_beats_sub always rejects: skip call
             g = gmap_once()
             if g is None:
@@ -2148,7 +2226,21 @@ class GsnapRunner:
                             lefts[:, None] + ar, rights[:, None] + ar)
         gb = self._genome_bytes[gidx]
         qn = qb == ord("N")
-        mm_sel = mm_ref = ~qn & (~self._ACGT_SET[gb] | (qb != gb))
+        if self._conv_plus is None and self._conv_minus is None:
+            mm_sel = mm_ref = ~qn & (~self._ACGT_SET[gb] | (qb != gb))
+        else:
+            lut_p = self._conv_lut(self._conv_plus)
+            lut_m = self._conv_lut(self._conv_minus)
+            diff = np.where(plusps[:, None], lut_p[qb] != lut_p[gb],
+                            lut_m[qb] != lut_m[gb])
+            mm_sel = ~qn & (~self._ACGT_SET[gb] | diff)
+            # display tolerance is one-directional (see _mismatch_masks)
+            gp_, rp_ = _CONV_BASES.get(self._conv_plus, ("\0", "\0"))
+            gm_, rm_ = _CONV_BASES.get(self._conv_minus, ("\0", "\0"))
+            tol = np.where(plusps[:, None],
+                           (gb == ord(gp_)) & (qb == ord(rp_)),
+                           (gb == ord(gm_)) & (qb == ord(rm_)))
+            mm_ref = ~qn & (~self._ACGT_SET[gb] | ((qb != gb) & ~tol))
         if self._alt_bytes is not None:
             # the alt allele counts for selection and trims, not MD/NM;
             # read at ``lefts`` even for spliced rows, as the JAX runner
@@ -2951,7 +3043,8 @@ class GsnapRunner:
         if m <= 0:
             return None
         q = rec.seq.upper() if d.plusp else dna.revcomp_str(rec.seq.upper())
-        _, mm_ref = self._mismatch_masks(q, d.left)
+        conv = self._conv_plus if d.plusp else self._conv_minus
+        _, mm_ref = self._mismatch_masks(q, d.left, conv)
         span = mm_ref[t5n : L - t3n]
         refs = self._genome_str[d.left + t5n : d.left + L - t3n]
         md, nm = sam.md_gapped([(span, refs)], [])

@@ -1,5 +1,6 @@
-"""gsnap-compatible CLI of the port: single-end or paired-end, standard
-mode, -N 0 or -N 1 (novel splicing), known splice sites (-s) and
+"""gsnap-compatible CLI of the port: single-end or paired-end, standard,
+cmet-stranded or atoi-stranded mode (--mode, with --cmetdir /
+--atoidir), -N 0 or -N 1 (novel splicing), known splice sites (-s) and
 SNP-tolerant alignment (-v), the GMAP rescue lanes of --gmap-mode (all
 of them by default), SAM output, on one CUDA device.
 
@@ -11,7 +12,7 @@ Paired-end input is two files (read 1, read 2) or one FASTA whose
 records carry two sequence lines.  The flags keep the names and
 defaults of gmap_gsnap_tpu/cli/gsnap.py (whose parser cannot be
 imported: it sets up JAX).  Flags of paths the port does not have yet —
---mode other than standard, -A gsnap, three or more input files, and
+-A gsnap, three or more input files, and
 values of --trigger-score-for-gmap or --max-gmap-improvement that no
 lane reads — exit with an error naming the ROADMAP.md item instead of
 running a reduced path.
@@ -71,6 +72,7 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("-e", "--local-splice-penalty", type=int, default=0)
     p.add_argument("-E", "--distant-splice-penalty", type=int, default=1)
     p.add_argument("-K", "--distant-splice-endlength", type=int, default=16)
+    p.add_argument("-l", "--shortend-splice-endlength", type=int, default=2)
     p.add_argument("--merge-distant-samechr", action="store_true",
                    help="print same-chromosome distant splices as one "
                         "record instead of translocation halves "
@@ -101,9 +103,30 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("-k", "--kmer", type=int, default=0)
     p.add_argument("--sampling", type=int, default=0)
     p.add_argument("--basesize", type=int, default=0)
+    p.add_argument("--sam-use-0M", action="store_true",
+                   help="insert 0M between adjacent gap CIGAR ops "
+                        "(Picard compat, samprint.c)")
+    p.add_argument("--sam-multiple-primaries", action="store_true",
+                   help="do not mark multimappers secondary (0x100)")
     p.add_argument("--no-sam-headers", action="store_true")
     p.add_argument("-Q", "--quiet-if-excessive", action="store_true")
-    p.add_argument("--mode", default="standard")
+    p.add_argument("--mode", default="standard",
+                   choices=["standard", "cmet-stranded", "atoi-stranded"])
+    p.add_argument("--cmetdir", default=None,
+                   help="directory for methylcytosine index files "
+                        "(gsnap.c:257-259)")
+    p.add_argument("--atoidir", default=None,
+                   help="directory for A-to-I RNA editing index files "
+                        "(gsnap.c:261-263)")
+    p.add_argument("-J", "--quality-zero-score", type=int, default=None,
+                   help="FASTQ quality score corresponding to zero "
+                        "(default 33 sanger; gsnap.c:443)")
+    p.add_argument("-0", "--noexceptions", action="store_true",
+                   help="turn off the offending-read crash guard "
+                        "(gsnap.c:454 exception_raise_p)")
+    p.add_argument("--time", action="store_true", dest="timing",
+                   help="print per-batch alignment runtimes to stderr "
+                        "(gsnap.c:581-599 --time)")
     p.add_argument("--gmap-mode",
                    default="pairsearch,indel_knownsplice,terminal,improvement",
                    help="when to run GMAP on reads: comma-separated list "
@@ -154,7 +177,6 @@ def main(argv=None) -> int:
     p = _parser()
     args = p.parse_args(argv)
     unsupported = [
-        (args.mode != "standard", f"--mode {args.mode} is {_ROADMAP} (item 4)"),
         (args.format != "sam", f"-A {args.format} is {_ROADMAP} (item 3)"),
         (len(args.input) > 2,
          "three or more input files (read as one single-end stream) are "
@@ -171,6 +193,7 @@ def main(argv=None) -> int:
     from ..align import gsnap_se, runner as runner_mod
     from ..db.datadir import GenomeDB
     from ..io import fasta
+    from ..io import sam as sam_mod
     from ..ops import mismatch as mismatch_mod
 
     paired = len(args.input) == 2
@@ -220,6 +243,7 @@ def main(argv=None) -> int:
         localsplicing_penalty=args.local_splice_penalty,
         distantsplicing_penalty=args.distant_splice_penalty,
         min_distant_end_matches=args.distant_splice_endlength,
+        min_shortend=args.shortend_splice_endlength,
         shortsplicedist=args.localsplicedist,
         pairmax_dna=args.pairmax_dna,
         pairmax_rna=args.pairmax_rna,
@@ -235,11 +259,16 @@ def main(argv=None) -> int:
     # set before any alignment (read by the mismatch kernel's callers)
     mismatch_mod.QUERY_UNK_MISMATCH = bool(args.query_unk_mismatch)
     mismatch_mod.GENOME_UNK_MISMATCH = bool(args.genome_unk_mismatch)
+    if args.quality_zero_score is not None:
+        runner_mod.QUALITY_ADJ = args.quality_zero_score
+    if args.noexceptions:
+        runner_mod.EXCEPTION_GUARD = False
     r = runner_mod.GsnapRunner(db, params, lmax=lmax, snpsdb=args.use_snps,
                                novelsplicing=bool(args.novelsplicing),
                                splicesdb=args.use_splicing,
                                snps_dir=args.snpsdir,
                                splicing_dir=args.splicingdir,
+                               cmet_dir=args.cmetdir, atoi_dir=args.atoidir,
                                device=args.device)
     r.quiet_if_excessive = args.quiet_if_excessive
     r.merge_samechr = args.merge_distant_samechr
@@ -249,6 +278,8 @@ def main(argv=None) -> int:
     r.invert_second = args.orientation == "FR"
     # the reference enables chopping for BOTH 'paired' and 'off'
     r.chop_primers = args.adapter_strip is not None
+    sam_mod.INSERT_0M = args.sam_use_0M
+    sam_mod.MULTIPLE_PRIMARIES = args.sam_multiple_primaries
 
     t0 = time.time()
     if paired:
@@ -259,6 +290,13 @@ def main(argv=None) -> int:
         n = r.run(records, sys.stdout, batch_size=args.batch_size,
                   emit_header=not args.no_sam_headers)
     dt = time.time() - t0
+    if args.timing:
+        for cat in sorted(r.category_counts):
+            print(f"{cat}: {r.category_counts[cat]}", file=sys.stderr)
+        for bi, (bt, nb) in enumerate(r.batch_times):
+            print(f"batch {bi}: {nb} reads in {bt:.3f} s "
+                  f"({1000.0 * bt / max(nb, 1):.3f} ms/read)",
+                  file=sys.stderr)
     print(f"Processed {n} queries in {dt:.2f} seconds "
           f"({n / max(dt, 1e-9):.2f} queries/sec)", file=sys.stderr)
     return 0

@@ -8,7 +8,8 @@ cached properties build JAX arrays, and the two functions at the end of
 this module stand in for them.  Like those properties they cache their
 result on the database, here per device, so runners over one database
 share one copy (at k=15 the offsets alone are 4.3 GB); ``device_snps``
-does the same for a SNP-tolerant index and its alt genome.
+does the same for a SNP-tolerant index and its alt genome, and
+``device_converted`` for the cmet/atoi converted index pair.
 """
 
 from __future__ import annotations
@@ -183,6 +184,50 @@ def device_snps(db, snpsdb: str, snps_dir: str | None, device):
                 LazyGenomeStr(alt_codes, db.flags))
 
     return _cached(db, ("snps", snp_base, snpsdb), device, make)
+
+
+# converted index pair of each mode (plus strand, minus strand), as
+# cmetindex / atoiindex name them
+CONVERTED_PREFIXES = {"cmet-stranded": ("metct", "metga"),
+                      "atoi-stranded": ("a2iag", "a2itc")}
+
+
+def device_converted(db, mode: str, conv_dir: str | None, device):
+    """The cmet/atoi converted index pair of ``db`` for ``mode`` on
+    ``device``: (IndexArrays of the plus-strand conversion, IndexArrays
+    of the minus-strand one), read from ``conv_dir`` (gsnap --cmetdir /
+    --atoidir) or else the database directory, as the JAX runner does
+    (runner.py:590-620).  Each converted k=15 index is ~4.4 GB on the
+    card; :func:`release` frees a pair."""
+
+    def make(dev):
+        pair = []
+        for prefix in CONVERTED_PREFIXES[mode]:
+            files = (indexdb.index_filenames(conv_dir, db.dbname, prefix)
+                     if conv_dir else None)
+            if files is None:
+                files = indexdb.index_filenames(db.dbdir, db.dbname, prefix)
+            if files is None:
+                tool = "cmetindex" if prefix.startswith("met") else "atoiindex"
+                raise FileNotFoundError(
+                    f"no {prefix} index in {db.dbdir}; run {tool}")
+            pair.append(convert.index_from_arrays(
+                indexdb.read_offsets(files),
+                indexdb.read_positions(files["positions"]), files["k"],
+                files["interval"], dev))
+        return tuple(pair)
+
+    return _cached(db, ("converted", mode, conv_dir), device, make)
+
+
+def release(db, kind: str) -> None:
+    """Drop ``db``'s cached device arrays of one kind ("genome", "index",
+    "snps" or "converted") on every device, so that their memory can be
+    reused once no runner holds them."""
+    cache = db.__dict__.get("_port_device_arrays", {})
+    for key in [k for k in cache
+                if (k[0] if isinstance(k[0], str) else k[0][0]) == kind]:
+        del cache[key]
 
 
 def device_index(db, device):

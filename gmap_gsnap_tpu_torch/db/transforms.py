@@ -1,8 +1,15 @@
-"""SNP-tolerant index transform (snpindex).
+"""Index transforms: bisulfite (cmet), RNA-editing (atoi), SNP-tolerant.
 
-The SNP half of gmap_gsnap_tpu/db/transforms.py, copied: the alt genome,
-the SNP-substituted k-mers and the index writer (replaces snpindex.c).
-The cmet/atoi converted indexes are not ported yet (ROADMAP A4).
+gmap_gsnap_tpu/db/transforms.py, copied (replaces cmetindex.c /
+atoiindex.c / snpindex.c).  Where the reference transforms the stored
+oligos of an existing index (converting each oligo and re-sorting
+positions, cmetindex.c:196-243), the index is rebuilt over the
+nucleotide-converted genome — identical results (the converted oligo at
+position p equals the oligo at p of the converted genome).
+
+Conversions (cmet.c / atoi.c semantics):
+    metct: C -> T      metga: G -> A
+    a2iag: A -> G      a2itc: T -> C
 """
 
 from __future__ import annotations
@@ -14,6 +21,62 @@ import numpy as np
 from ..utils import dna
 from . import genomecomp, indexdb
 from .iit import IIT
+
+CONVERSIONS = {
+    "metct": (dna.C, dna.T),
+    "metga": (dna.G, dna.A),
+    "a2iag": (dna.A, dna.G),
+    "a2itc": (dna.T, dna.C),
+}
+
+
+def convert_codes(codes: np.ndarray, conversion: str) -> np.ndarray:
+    src, dst = CONVERSIONS[conversion]
+    out = codes.copy()
+    out[codes == src] = dst
+    return out
+
+
+def build_converted_index(
+    codes: np.ndarray,
+    flags: np.ndarray,
+    chr_ends,
+    conversion: str,
+    k: int = 12,
+    interval: int = 3,
+):
+    conv = convert_codes(codes, conversion)
+    return indexdb.build_index(conv, flags, chr_ends, k, interval)
+
+
+def write_converted_indexes(
+    dbdir: str, dbname: str, codes, flags, chr_ends,
+    kind: str, k: int = 12, basesize: int | None = None, interval: int = 3,
+) -> None:
+    """kind 'cmet' writes metct+metga; 'atoi' writes a2iag+a2itc
+    (cmetindex.c:641-652 / atoiindex.c naming)."""
+    if basesize is None:
+        basesize = min(12, k)
+    base = os.path.join(dbdir, dbname)
+    names = ("metct", "metga") if kind == "cmet" else ("a2iag", "a2itc")
+    for prefix in names:
+        offsets, positions = build_converted_index(
+            codes, flags, chr_ends, prefix, k, interval
+        )
+        if basesize == k:
+            indexdb.write_offsets_flat(
+                f"{base}.{prefix}{basesize:02d}{k:02d}{interval}offsetscomp", offsets
+            )
+        else:
+            indexdb.write_offsets_gamma(
+                f"{base}.{prefix}{basesize:02d}{k:02d}{interval}gammaptrs",
+                f"{base}.{prefix}{basesize:02d}{k:02d}{interval}offsetscomp",
+                offsets, basesize, k,
+            )
+        indexdb.write_positions(f"{base}.{prefix}{k:02d}{interval}positions", positions)
+
+
+# ------------------------------------------------------------------ snpindex
 
 def alt_genome_from_snps(codes: np.ndarray, snps_iit: IIT, chr_names, chr_starts):
     """Substitute minor alleles into a copy of the genome.

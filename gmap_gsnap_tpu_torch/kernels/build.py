@@ -52,6 +52,10 @@ _SIGNATURES = {
     "gmap_chain": "p" * 10 + "i" * 5,
     "gmap_banded_gotoh": "p" * 12 + "i" * 6,
     "gmap_bridge_traceback": "p" * 21 + "i" * 8,
+    "gsnap_lane_features": "p" * 16 + "i" * 6,
+    "gsnap_rank_hits": "p" * 34 + "i" * 14,
+    "gsnap_qpos_ranges": "p" * 5 + "i" * 3,
+    "gsnap_select_pairs": "p" * 5 + "i" * 4 + "li",
 }
 
 _lib = None

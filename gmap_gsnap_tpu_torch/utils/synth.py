@@ -1032,3 +1032,212 @@ def snps_text(genome: Genome, positions, alt_codes) -> str:
         out.append(f">snp{i} {genome.names[c]}:{int(p - starts[c]) + 1} "
                    f"{chr(r)}{'ACGT'[a]}\n")
     return "".join(out)
+
+
+# ------------------------------------------------ cmet / atoi (--mode) reads
+
+@dataclass
+class BisulfiteTruth:
+    left: int      # universal start of the planted placement (plus strand)
+    plusp: bool
+    kind: str      # "bisulfite", "ct_site" or "repeat"
+    nsub: int      # extra substitutions planted
+    site: int      # read-space position of the read-C / genome-T site, or -1
+
+
+def plant_bisulfite_reads(rng: np.random.Generator, genome: Genome, n: int,
+                          L: int = 100, ct_sites: float = 0.05,
+                          repeats: float = 0.01, methylated: float = 0.75,
+                          prefix: str = "b"):
+    """``n`` bisulfite reads for ``--mode cmet-stranded``: read 1 of a
+    stranded protocol, a fragment of either genome strand in which every
+    C not followed by G turns into T in read space and each CpG C stays C
+    (methylated) with probability ``methylated``; then 0-2 extra
+    substitutions (the model of bench_workloads.make_cmet_workload).  A
+    share ``ct_sites`` of the reads carry one read-C / genome-T site 20-79
+    nt in (a T of the fragment read as C), which aligns under the
+    two-sided conversion and must show as a mismatch in MD; a share
+    ``repeats`` lie inside a repeat copy.  Returns (records,
+    BisulfiteTruth per read)."""
+    g = genome.ascii
+    starts = np.concatenate([[0], genome.chr_ends[:-1]])
+    ncum = np.concatenate([[0], np.cumsum(g == ord("N"))])
+    records, truth = [], []
+    for i in range(n):
+        u = rng.random()
+        kind = ("repeat" if u < repeats else
+                "ct_site" if u < repeats + ct_sites else "bisulfite")
+        while True:
+            c = int(rng.integers(0, len(starts)))
+            lo, hi = int(starts[c]), int(genome.chr_ends[c]) - L - 1
+            p = int(rng.integers(lo, hi))
+            if kind == "repeat":
+                p = int(rng.choice(genome.repeats)) + int(
+                    rng.integers(0, genome.repeat_unit - L))
+                if not lo <= p < hi:
+                    continue
+            if ncum[p + L] - ncum[p] == 0:
+                break
+        plusp = bool(rng.random() < 0.5)
+        # the fragment in read orientation, one base of context past its end
+        frag = (g[p : p + L + 1].copy() if plusp
+                else _COMP[g[p - 1 : p + L][::-1]])
+        seq = frag[:L].copy()
+        site = -1
+        if kind == "ct_site":
+            ts = np.flatnonzero(seq[20:80] == ord("T")) + 20
+            if len(ts):
+                site = int(rng.choice(ts))
+        isc = seq == ord("C")
+        cpg = isc & (frag[1:] == ord("G"))
+        keep = cpg & (rng.random(L) < methylated)
+        seq[isc & ~keep] = ord("T")
+        nsub = int(rng.integers(0, 3))
+        for q in rng.choice(L, nsub, replace=False):
+            if q != site:
+                seq[q] = _ACGT[(np.flatnonzero(_ACGT == seq[q])[0]
+                                + rng.integers(1, 4)) % 4]
+        if site >= 0:
+            seq[site] = ord("C")
+        qual = (rng.integers(20, 41, L) + 33).astype(np.uint8)
+        name = f"{prefix}{i}"
+        records.append(Record(name, name, seq.tobytes().decode(),
+                              qual.tobytes().decode()))
+        truth.append(BisulfiteTruth(p, plusp, kind, nsub, site))
+    return records, truth
+
+
+def plant_bisulfite_pairs(rng: np.random.Generator, genome: Genome, n: int,
+                          L: int = 100, methylated: float = 0.75,
+                          prefix: str = "f"):
+    """``n`` directional bisulfite read pairs for ``--mode cmet-stranded``:
+    a 200-600 nt fragment of either genome strand, each C not followed by
+    G turned into T (CpG Cs kept with probability ``methylated``), read 1
+    its first L nt and read 2 the reverse complement of its last L nt
+    (gsnap's FR orientation), 0-2 substitutions per read.  Returns
+    (records of read 1, records of read 2, (universal start, plusp) of
+    each fragment)."""
+    g = genome.ascii
+    starts = np.concatenate([[0], genome.chr_ends[:-1]])
+    ncum = np.concatenate([[0], np.cumsum(g == ord("N"))])
+    r1s, r2s, where = [], [], []
+    for i in range(n):
+        ins = int(rng.integers(200, 601))
+        while True:
+            c = int(rng.integers(0, len(starts)))
+            p = int(rng.integers(starts[c] + 1, genome.chr_ends[c] - ins - 1))
+            if ncum[p + ins] - ncum[p] == 0:
+                break
+        plusp = bool(rng.random() < 0.5)
+        frag = (g[p : p + ins + 1].copy() if plusp
+                else _COMP[g[p - 1 : p + ins][::-1]])
+        isc = frag[:ins] == ord("C")
+        keep = isc & (frag[1:] == ord("G")) & (rng.random(ins) < methylated)
+        seq = frag[:ins].copy()
+        seq[isc & ~keep] = ord("T")
+        reads = [seq[:L].copy(), _COMP[seq[ins - L :][::-1]]]
+        for r in reads:
+            for q in rng.choice(L, int(rng.integers(0, 3)), replace=False):
+                r[q] = _ACGT[(np.flatnonzero(_ACGT == r[q])[0]
+                              + rng.integers(1, 4)) % 4]
+        name = f"{prefix}{i}"
+        for out, r in zip((r1s, r2s), reads):
+            qual = (rng.integers(20, 41, L) + 33).astype(np.uint8)
+            out.append(Record(name, name, r.tobytes().decode(),
+                              qual.tobytes().decode()))
+        where.append((p, plusp))
+    return r1s, r2s, where
+
+
+def plant_edited_pairs(rng: np.random.Generator, genome: Genome, n: int,
+                       L: int = 100, edited: float = 0.30,
+                       prefix: str = "e"):
+    """``n`` RNA read pairs for ``--mode atoi-stranded``: the mix of
+    :func:`plant_pairs` with ``rna`` (junctions, short exons, the DNA
+    kinds), with A-to-I (read A -> G) edits in a share ``edited`` of the
+    pairs: 2-10 sites within one 50-nt window of each mate that has
+    enough As, in that mate's own conversion direction.  atoi-stranded
+    converts read 1 A -> G (plus strand) and the runner inverts read 2
+    at input (gsnap's FR orientation), so read 1 shows G where its
+    sequence had A and read 2 shows C where it had T (A -> G on its
+    reverse complement).  Returns (records of read 1, records of read 2,
+    PairTruth per pair, edited bool per pair)."""
+    r1s, r2s, truth = plant_pairs(rng, genome, n, L, rna=True,
+                                  prefix=prefix)
+    flags = rng.random(n) < edited
+
+    def edit(rec, src, dst):
+        seq = np.frombuffer(rec.seq.encode(), np.uint8).copy()
+        w0 = int(rng.integers(0, len(seq) - 50 + 1))
+        at = np.flatnonzero(seq[w0 : w0 + 50] == ord(src)) + w0
+        if len(at) >= 2:
+            k = int(rng.integers(2, min(10, len(at)) + 1))
+            seq[rng.choice(at, k, replace=False)] = ord(dst)
+        return Record(rec.label, rec.header, seq.tobytes().decode(),
+                      rec.quality)
+
+    for i in np.flatnonzero(flags):
+        r1s[i] = edit(r1s[i], "A", "G")
+        r2s[i] = edit(r2s[i], "T", "C")
+    return r1s, r2s, truth, flags
+
+
+# ------------------------------------- hand-built inputs of the cascade stages
+
+def mismatch_rows(rng: np.random.Generator, r: int, k: int, L: int = 100):
+    """(mm bool[r, k, L], pref int32[r, k, L+1], lengths int32[r]) for
+    the trim and lane-feature stages: random masks at densities 0-60%,
+    with all-mismatch and no-mismatch rows, a clean read end, reads
+    shorter than L (down to 20 nt; the mask runs on past the length, as
+    K3's may under query-N rules) and one read of length L."""
+    dens = rng.choice([0.0, 0.02, 0.05, 0.1, 0.3, 0.6], size=(r, k, 1))
+    mm = rng.random((r, k, L)) < dens
+    mm[0] = True
+    mm[1] = False
+    mm[2, :, : L // 2] = False
+    lengths = rng.integers(20, L + 1, r).astype(np.int32)
+    lengths[:3] = L
+    lengths[3] = L - 1
+    pref = np.concatenate([np.zeros((r, k, 1), np.int32),
+                           np.cumsum(mm, 2, dtype=np.int32)], 2)
+    return mm, pref, lengths
+
+
+def diag_pair_cases(rng: np.random.Generator, b: int, nc: int):
+    """(top_d int64[b, nc] holding uint32, votes int32[b, nc]) for the
+    pair selectors: diagonals in clusters within 40 of bases near 0,
+    2^24, 2^31 and 2^32 (so dj - di wraps in int32 and in uint32), some
+    INVALID (0xFFFFFFFF), and many equal votes."""
+    bases = np.array([30, 2**24, 2**31 - 20, 2**32 - 60], np.int64)
+    top = (rng.choice(bases, (b, 1)) + rng.integers(-20, 40, (b, nc)))
+    top = np.where(rng.random((b, nc)) < 0.1, 0xFFFFFFFF, top % 2**32)
+    votes = rng.integers(0, 6, (b, nc)).astype(np.int32)
+    return top.astype(np.int64), votes
+
+
+def rank_hit_cases(rng: np.random.Generator, b: int, n: int):
+    """A gather_candidates-layout dict of [b, n] hit fields for the
+    ranking stage: few distinct values, so exact duplicate candidates
+    (all seven dedup fields equal), equal score and left on both strands,
+    and BIG_NMM scores occur in every row; plusp marks the first half."""
+    big = 10**6
+    pick = lambda vals: rng.choice(np.asarray(vals), (b, n))
+    left = pick([5, 7, 2**31 + 3, 2**32 - 2]).astype(np.int64)
+    out = {
+        "kind": pick([0, 0, 1, 3]).astype(np.int32),
+        "score": pick([0, 1, 1, 2, 5, big]).astype(np.int32),
+        "nmm": rng.integers(0, 4, (b, n)).astype(np.int32),
+        "left": left,
+        "right": (left + pick([0, 0, 3])) % 2**32,
+        "split": pick([0, 0, 40]).astype(np.int32),
+        "split2": np.zeros((b, n), np.int32),
+        "mid": left.copy(),
+        "nindels": pick([0, 0, 2]).astype(np.int32),
+        "sense": rng.random((b, n)) < 0.5,
+        "prob_d": rng.random((b, n)).astype(np.float32),
+        "prob_a": rng.random((b, n)).astype(np.float32),
+        "prob_d2": np.zeros((b, n), np.float32),
+        "prob_a2": np.zeros((b, n), np.float32),
+        "plusp": np.broadcast_to(np.arange(n) < n // 2, (b, n)).copy(),
+    }
+    return out

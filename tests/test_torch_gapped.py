@@ -124,14 +124,14 @@ def test_solve_indels_direct(world):
     top_d[:, 4] = 2                          # far-apart / wrapping pairs
     mm, pref = tgg._prefix_mm(tg, q, top_d, tl, None, None)
     # the selector's pairs, with random pairs in the second half
-    ii, jj, pv = tgg._select_pairs(
+    ii, jj, pv = tgg._select_pairs_plain(
         top_d, votes, tgg._indel_pairs_eligible(30, 9), 16)
     rng = np.random.default_rng(0)
     ii[:, 8:] = torch.from_numpy(rng.integers(0, 32, (len(c), 8)))
     jj[:, 8:] = torch.from_numpy(rng.integers(0, 32, (len(c), 8)))
     ii[:, 15], jj[:, 15] = 4, 3
     pv[:, 8:] = torch.from_numpy(rng.random((len(c), 8)) < 0.8)
-    qp5, qp3 = tse._qpos_ranges(diag, qg, top_d)
+    qp5, qp3 = tse._qpos_ranges_plain(diag, qg, top_d)
     budget = tse.auto_budget(tl, 12, 3, -1)
     jres = jgg._solve_indels(
         jnp.asarray(top_d.numpy().astype(np.uint32)), jnp.asarray(mm.numpy()),

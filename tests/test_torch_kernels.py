@@ -96,8 +96,8 @@ def test_splice_kernels_match_plain(spliced, seed_total, ncand):
     g = torch.Generator(device="cpu").manual_seed(3)
     rnd = lambda n: torch.randint(0, ncand, (len(l), n), generator=g).to(l.device)
 
-    ii, jj, pv = gg._select_pairs(top_d, votes,
-                                  gg._splice_pairs_eligible(200_000), 16)
+    ii, jj, pv = gg._select_pairs_plain(top_d, votes,
+                                        gg._splice_pairs_eligible(200_000), 16)
     ii[:, 12:], jj[:, 12:] = rnd(4), rnd(4)
     args = (tg, top_d, pref, ii, jj, pv, l, budget, 100)
     want = gg._solve_splices_plain(*args)
@@ -156,8 +156,8 @@ def test_splice_kernels_known_match_plain(spliced, novel, density):
                          density)
     g = torch.Generator(device="cpu").manual_seed(4)
     rnd = lambda n: torch.randint(0, 32, (len(l), n), generator=g).to(l.device)
-    ii, jj, pv = gg._select_pairs(top_d, votes,
-                                  gg._splice_pairs_eligible(200_000), 16)
+    ii, jj, pv = gg._select_pairs_plain(top_d, votes,
+                                        gg._splice_pairs_eligible(200_000), 16)
     ii[:, 10:], jj[:, 10:] = rnd(6), rnd(6)
     ii[:, 10], jj[:, 11] = 5, 7
     args = (tg, top_d, pref, ii, jj, pv, l, budget, 100, novel, known)
@@ -223,9 +223,9 @@ def test_kernels_match_plain(batch, seed_total, ncand):
     mm, pref = mmo._prefix_mismatches_plain(tg, q, top[0], l, None, None)
     _equal(mmo._prefix_mismatches_cuda(tg, q, top[0], l, None, None),
            (mm, pref))
-    ii, jj, pv = gg._select_pairs(top[0], top[1],
-                                  gg._indel_pairs_eligible(30, 9), 16)
-    qp5, qp3 = se._qpos_ranges(seed[0], seed[1], top[0])
+    ii, jj, pv = gg._select_pairs_plain(top[0], top[1],
+                                        gg._indel_pairs_eligible(30, 9), 16)
+    qp5, qp3 = se._qpos_ranges_plain(seed[0], seed[1], top[0])
     args = (top[0], mm, pref, ii, jj, pv, l, se.auto_budget(l, 12, 3, -1),
             100, qp5, qp3, 9, 30, 4)
     want = gg._solve_indels_plain(*args)
@@ -505,3 +505,106 @@ def test_splice_wrappers_argument_order(monkeypatch, with_known):
         assert all((k is None) != with_known for k in kw)
         assert a[nptr : nptr + 2] == (96, 34 if with_known else 0)
         assert a[nptr + 2 :] == (2, 4, 8, 100, novel)
+
+
+# ------------------------------------------- K13-K16: the cascade's stages
+
+def _dict_equal(got, want):
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ncand", [32, 128])
+def test_lane_features_matches_plain(batch, cuda, ncand):
+    """K13 against _trim_ends_device + _lane_features + _bitpack_mask on
+    K3's output for planted reads (mixed lengths, NC = 32 and the wide
+    lane's 128) and on hand-built masks (all / no mismatches, reads
+    shorter than lmax), at trim scores -3, -1 and 0."""
+    tg, ti, c, f, l, _ = batch
+    p = se.GsnapParams(seed_total=512 if ncand == 32 else 4096, ncand=ncand)
+    seed = se._seed_diagonals_plain(ti, c, f, l, p, True)
+    top_d = se._top_diagonals_plain(seed[0], ncand)[0]
+    q = se._pack_device(c, f, l, 100)
+    mm, pref = mmo._prefix_mismatches_plain(tg, q, top_d, l, None, None)
+    hm, hp, hl = synth.mismatch_rows(np.random.default_rng(5), 64, ncand)
+    cases = [(mm, pref, l)] + [(torch.from_numpy(x).to(cuda) for x in
+                                (hm, hp, hl))]
+    for mm_, pref_, l_ in cases:
+        for score in (-3, -1, 0):
+            want = gg.lane_features(mm_.cpu(), pref_.cpu(), l_.cpu(), 12, 3,
+                                    score)
+            got = gg._lane_features_cuda(mm_, l_, 12, 3, score)
+            _dict_equal({k: v.cpu() for k, v in got.items()}, want)
+
+
+@pytest.mark.cuda
+def test_rank_hits_matches_plain(batch, spliced, cuda):
+    """K14 against _rank_hits_plain on gather_candidates' output (DNA and
+    spliced reads, both apply_optimal, maxout below and above ncand) and
+    on hand-built rows with exact duplicates and equal (score, left) on
+    both strands; and its SE epilogue (overflow and lane gates) against
+    the plain gates through align_batch_gapped's ranking step."""
+    base = se.GsnapParams(seed_total=512)
+    cases = []
+    for tg, ti, _, _, _, (c, f, l) in (batch, spliced):
+        for novel in (False, True):
+            gp = gg.GappedParams(base=base, novelsplicing=novel)
+            out, cands = gg.gather_candidates(tg, ti, None, c, f, l, gp)
+            cases.append(out)
+            for gate in (True, False):
+                args = (out, cands, l.int(), 12, 3, gp, gate)
+                want = gg._rank_gate_se_plain(*args)
+                got = gg._rank_gate_se_cuda(*args)
+                _dict_equal({k: v for k, v in got.items()},
+                            {k: v.to(cuda) for k, v in want.items()})
+    hand = synth.rank_hit_cases(np.random.default_rng(9), 128, 144)
+    cases.append({k: torch.from_numpy(v).to(cuda) for k, v in hand.items()})
+    for out in cases:
+        ncand = out["score"].shape[1]
+        for opt, maxout in ((True, None), (False, 16), (True, ncand + 7)):
+            want = gg._rank_hits_plain(out, base, opt, maxout)
+            got = gg._rank_hits_cuda(out, base, opt, maxout)[0]
+            _dict_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed_total,ncand", [(384, 32), (4096, 128)])
+def test_qpos_ranges_matches_plain(batch, seed_total, ncand):
+    """K15 against _qpos_ranges_plain on the seed grids of planted reads
+    (empty slots carrying the last usable qpos) and INVALID diagonals."""
+    tg, ti, c, f, l, _ = batch
+    p = se.GsnapParams(seed_total=seed_total, ncand=ncand)
+    diag, qg, *_ = se._seed_diagonals_plain(ti, c, f, l, p, True)
+    top_d = se._top_diagonals_plain(diag, ncand)[0]
+    top_d[:, -3:] = se.INVALID_DIAG
+    _equal(se._qpos_ranges_cuda(diag, qg, top_d),
+           se._qpos_ranges_plain(diag, qg, top_d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nc", [32, 128])
+def test_select_pairs_matches_plain(batch, cuda, nc):
+    """K16 against _select_pairs_plain, indel and splice rules, on
+    planted reads' top diagonals and on hand-built diagonals near 2^31
+    and 2^32 with INVALID ones and equal votes; maxpairs 16 and above
+    NC^2 for a tiny NC."""
+    tg, ti, c, f, l, _ = batch
+    p = se.GsnapParams(seed_total=512 if nc == 32 else 4096, ncand=nc)
+    diag = se._seed_diagonals_plain(ti, c, f, l, p, True)[0]
+    top_d, votes, _ = se._top_diagonals_plain(diag, nc)
+    hd, hv = synth.diag_pair_cases(np.random.default_rng(7), 256, nc)
+    cases = [(top_d, votes), (torch.from_numpy(hd).to(cuda),
+                              torch.from_numpy(hv).to(cuda)),
+             (top_d[:, :3].contiguous(), votes[:, :3].contiguous())]
+    for td, vt in cases:
+        for kw in (dict(max_del=30, max_ins=9), dict(maxdist=200_000),
+                   dict(maxdist=2**31 + 5)):
+            fn = (gg._splice_pairs_eligible(kw["maxdist"]) if "maxdist" in kw
+                  else gg._indel_pairs_eligible(30, 9))
+            want = gg._select_pairs_plain(td, vt, fn, 16)
+            rule, a, b_ = ((1, kw["maxdist"], 0) if "maxdist" in kw
+                           else (0, 30, 9))
+            _equal(gg._select_pairs_cuda(td, vt, 16, rule, a, b_), want)

@@ -180,7 +180,7 @@ def _cascade(world, recs, ncand=32):
 def test_solve_splices_known(world, novel):
     (jg, _), (tg, _) = world["jax"], world["torch"]
     top_d, votes, pref, l2, budget = _cascade(world, world["reads"][::6])
-    ii, jj, pv = tgg._select_pairs(top_d, votes,
+    ii, jj, pv = tgg._select_pairs_plain(top_d, votes,
                                    tgg._splice_pairs_eligible(200_000), 16)
     ii[:, 12], jj[:, 13], ii[:, 14] = 5, 6, 7
     jres = jgg._solve_splices(

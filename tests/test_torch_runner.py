@@ -112,10 +112,7 @@ def test_cli_byte_equal(disk_db, capsys):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--mode", "atoi-stranded"], ["-v", "snps", "--mode", "cmet-stranded"],
-    ["-s", "sites", "-A", "gsnap"], ["-s", "sites", "-v", "snps", "--mode",
-                                     "atoi-stranded"],
-    ["--mode", "cmet-stranded"], ["-A", "gsnap"],
+    ["-s", "sites", "-A", "gsnap"], ["-A", "gsnap"],
     ["-A", "gsnap", "SECOND_FILE"], ["SECOND_FILE", "SECOND_FILE"],
     ["--trigger-score-for-gmap", "3"], ["--max-gmap-improvement", "2"]])
 def test_cli_rejects_unported(disk_db, capsys, extra):
@@ -128,14 +125,7 @@ def test_cli_rejects_unported(disk_db, capsys, extra):
     assert "ROADMAP" in capsys.readouterr().err
 
 
-def test_runner_rejects_unported(world, monkeypatch):
-    _, db, _ = world
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trun.GsnapRunner(db, tse.GsnapParams(mode="atoi-stranded"),
-                         device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trun.GsnapRunner(db, tse.GsnapParams(gmap_mode="", mode="cmet-stranded"),
-                         device="cpu")
+def test_runner_rejects_unported(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         tdevice.resolve_device("cuda")

@@ -24,6 +24,7 @@ from gmap_gsnap_tpu_torch.utils import dna
 from torch_parity import (align_batch_as_runners, fresh_jax_caches, jax_db,
                           jax_runner_one_device, one_torch_thread,
                           runner_params, site_snp_world)
+from torch_parity import same_tree as _same_tree
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -35,22 +36,6 @@ def _jax_reference():
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     return site_snp_world(tmp_path_factory.mktemp("snps"))
-
-
-def _same_tree(j, t, path=""):
-    """JAX result tree vs the port's: same keys, shapes and values
-    (float32 by their bits)."""
-    if isinstance(j, dict):
-        assert set(j) == set(t), (path, set(j) ^ set(t))
-        for k in j:
-            _same_tree(j[k], t[k], f"{path}.{k}")
-        return
-    a, b = np.asarray(j), t.numpy()
-    assert a.shape == b.shape, (path, a.shape, b.shape)
-    if a.dtype == np.float32:
-        assert np.array_equal(a.view(np.uint32), b.view(np.uint32)), path
-    else:
-        assert np.array_equal(a.astype(np.int64), b.astype(np.int64)), path
 
 
 @pytest.mark.parametrize("k,basesize", [(12, 12), (8, 6)])

@@ -84,7 +84,7 @@ def _j(x, dt=None):
 def test_solve_splices_direct(world, ncand):
     jg, tg = world[4], world[6]
     top_d, votes, pref, l2, budget = _cascade(world, ncand)
-    ii, jj, pv = tgg._select_pairs(top_d, votes,
+    ii, jj, pv = tgg._select_pairs_plain(top_d, votes,
                                    tgg._splice_pairs_eligible(200_000), 16)
     rng = np.random.default_rng(0)
     ii[:, 10:] = torch.from_numpy(rng.integers(0, ncand, (len(l2), 6)))

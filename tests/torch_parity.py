@@ -171,7 +171,8 @@ def align_batch_as_runners(jr, tr, recs, recs3=None):
                                    index_minus=jr.index_minus, alt=jr.alt,
                                    known=jr.known)
         t = tgg.align_batch_gapped(tr.genome, tr.index, *t_args, tgp,
-                                   alt=tr.alt, known=tr.known)
+                                   index_minus=tr.index_minus, alt=tr.alt,
+                                   known=tr.known)
     else:
         j = jpe.align_batch_pe(
             jr.genome, jr.index, *j_args,
@@ -179,9 +180,27 @@ def align_batch_as_runners(jr, tr, recs, recs3=None):
             index_minus=jr.index_minus, alt=jr.alt, known=jr.known)
         t = tpe.align_batch_pe(
             tr.genome, tr.index, *t_args,
-            tpe.PEParams(gapped=tgp, pairmax=tr._pairmax()), alt=tr.alt,
-            known=tr.known)
+            tpe.PEParams(gapped=tgp, pairmax=tr._pairmax()),
+            index_minus=tr.index_minus, alt=tr.alt, known=tr.known)
     return j, t
+
+
+def same_tree(j, t, path=""):
+    """JAX result tree vs the port's: same keys, shapes and values
+    (float32 by their bits)."""
+    import numpy as np
+
+    if isinstance(j, dict):
+        assert set(j) == set(t), (path, set(j) ^ set(t))
+        for k in j:
+            same_tree(j[k], t[k], f"{path}.{k}")
+        return
+    a, b = np.asarray(j), t.numpy()
+    assert a.shape == b.shape, (path, a.shape, b.shape)
+    if a.dtype == np.float32:
+        assert np.array_equal(a.view(np.uint32), b.view(np.uint32)), path
+    else:
+        assert np.array_equal(a.astype(np.int64), b.astype(np.int64)), path
 
 
 @contextlib.contextmanager
@@ -198,3 +217,157 @@ def one_torch_thread():
         yield
     finally:
         torch.set_num_threads(n)
+
+
+GMAP_LANE_KINDS = dict(sub=4, n=1, mid_indel=1.5, end_indel=1.5,
+                       terminal=1.5, repeat=1.5, junk=0.5)
+
+
+def gmap_lanes_world():
+    """The GMAP lane tests' world: a 300 kbp genome, 150 planted DNA
+    reads of every kind and 60 spliced / messy-junction reads, 100 RNA
+    pairs: (genome, db, the JAX package's db, reads, (read 1s, read 2s))."""
+    import numpy as np
+
+    from gmap_gsnap_tpu_torch.utils import synth
+
+    rng = np.random.default_rng(11)
+    g = synth.make_genome(rng, [150_000, 100_000, 50_000])
+    db = synth.genome_db(g, 12, 3)
+    recs, _ = synth.plant_reads(rng, g, 150, weights=GMAP_LANE_KINDS)
+    srecs, _ = synth.plant_spliced_reads(
+        np.random.default_rng(5), g, 60,
+        weights=dict(unspliced=0.3, junction=0.3, messy_junction=0.4))
+    p1, p2, _ = synth.plant_pairs(np.random.default_rng(9), g, 100, rna=True)
+    return g, db, jax_db(db), recs + srecs, (p1, p2)
+
+
+def count_lanes(monkeypatch, runner):
+    """Install the lane counters on ``runner`` (and the port's
+    select_final, solve_junctions_finish and prefetch_gmap)."""
+    from gmap_gsnap_tpu_torch.align import gmap_engine as teng
+    from gmap_gsnap_tpu_torch.align import rescue as trescue
+
+    seen = dict(prefetch=0, prefetched_reads=0, terminal=0, improvement=0,
+                pairsearch=0, dynprog=0)
+    select_final, finish = trescue.select_final, teng.solve_junctions_finish
+    prefetch, pe_rescue = runner.prefetch_gmap, runner._pe_rescue
+
+    def spy_select(hits, L, improvement_fn=None, **kw):
+        # in _rescued_hits only the terminal lane puts GMAP hits into
+        # the pool before select_final
+        seen["terminal"] += any(h.hittype == "gmap" for h in hits)
+
+        def improvement(anchor):
+            g = improvement_fn(anchor)
+            seen["improvement"] += g is not None and g.nmatches > anchor.nmatches
+            return g
+
+        return select_final(hits, L, improvement_fn=improvement
+                            if improvement_fn else None, **kw)
+
+    def spy_pe_rescue(*a):
+        out = pe_rescue(*a)
+        chosen, _, f5, f3 = out
+        own = {id(h) for h in f5 + f3}
+        # a GMAP hit the ends' own lanes did not produce: pairsearch's
+        seen["pairsearch"] += any(h.hittype == "gmap" and id(h) not in own
+                                  for p in chosen for h in p[:2])
+        return out
+
+    def spy_prefetch(recs):
+        seen["prefetch"] += 1
+        seen["prefetched_reads"] += len(recs)
+        return prefetch(recs)
+
+    def spy_finish(d):
+        out = finish(d)
+        seen["dynprog"] += sum(x is not None for x in out)
+        return out
+
+    monkeypatch.setattr(trescue, "select_final", spy_select)
+    monkeypatch.setattr(teng, "solve_junctions_finish", spy_finish)
+    monkeypatch.setattr(runner, "prefetch_gmap", spy_prefetch)
+    monkeypatch.setattr(runner, "_pe_rescue", spy_pe_rescue)
+    return seen
+
+
+def mode_params(mod, db, mode: str, **changes):
+    """``mod.GsnapParams(mode=mode)`` (either package's) with the size
+    threshold the gsnap CLI computes for ``mode`` (3^k oligos under a
+    conversion), so the runner tests share the CLI tests' compiles."""
+    return mod.GsnapParams(
+        mode=mode, size_threshold=mod.dynamic_size_threshold(
+            int(db.offsets[-1]), db.k, mode), **changes)
+
+
+def modes_world(d, seed: int = 37):
+    """A ~600 kbp synthetic genome built on disk into ``d``/syn (the JAX
+    package's gmap_build), with the port's cmet and atoi converted
+    indexes written into the database directory and into ``d``/conv (for
+    --cmetdir / --atoidir), a SNP index "snps" and a splicesites map
+    "sites" (for -v / -s together with --mode), planted bisulfite reads
+    (some with a read-C / genome-T site), bisulfite pairs (under cmet)
+    and A-to-I edited RNA pairs (under atoi).
+    Reads and pairs that overflow a candidate budget under either mode
+    are left out, so no JAX configuration compiles its wide lanes.
+    Returns a dict."""
+    import os
+
+    import numpy as np
+
+    from gmap_gsnap_tpu.db import build
+    from gmap_gsnap_tpu_torch.align import gsnap_se, runner
+    from gmap_gsnap_tpu_torch.db import iit_text, transforms
+    from gmap_gsnap_tpu_torch.db.datadir import GenomeDB
+    from gmap_gsnap_tpu_torch.utils import synth
+
+    rng = np.random.default_rng(seed)
+    g = synth.make_genome(rng, [300_000, 200_000, 100_000])
+    g.write_fasta(os.path.join(d, "g.fa"))
+    build.build_db([os.path.join(d, "g.fa")], "syn", str(d), k=12)
+    dbdir = os.path.join(d, "syn")
+    db = GenomeDB.open(dbdir, "syn")
+    conv = os.path.join(d, "conv")
+    os.makedirs(conv)
+    for kind in ("cmet", "atoi"):
+        for out in (dbdir, conv):
+            transforms.write_converted_indexes(out, "syn", db.codes, db.flags,
+                                               db.chr_ends, kind, k=12)
+    pos, alt = synth.random_snps(rng, g, 1 / 1000)
+    snps = iit_text.iit_from_text(synth.snps_text(g, pos, alt))
+    alt_codes = transforms.alt_genome_from_snps(db.codes, snps, db.chr_names,
+                                                db.chr_starts)
+    transforms.write_snp_index(dbdir, "syn", "snps", db.codes, db.flags,
+                               db.chr_ends, alt_codes, k=12, interval=3)
+    os.makedirs(os.path.join(dbdir, "syn.maps"), exist_ok=True)
+    iit_text.iit_from_text(synth.splicesites_text(
+        g, synth.random_introns(rng, g, 100))).write(
+            os.path.join(dbdir, "syn.maps", "sites.iit"))
+    reads, truth = synth.plant_bisulfite_reads(rng, g, 160, ct_sites=0.15)
+    pairs = {"cmet-stranded": synth.plant_bisulfite_pairs(rng, g, 48)[:2],
+             "atoi-stranded": synth.plant_edited_pairs(rng, g, 120)[:2]}
+    over = set()
+    for mode, (p1, p2) in pairs.items():
+        single = reads if mode == "cmet-stranded" else p1
+        for novel in (False, True):
+            r = runner.GsnapRunner(db, mode_params(gsnap_se, db, mode),
+                                   novelsplicing=novel, device="cpu")
+            res = r.align_records(single)
+            over |= {x.label for x, o in zip(single, res["overflow"]) if o}
+            res = r.align_pairs(p1, runner.invert_records(p2))
+            over |= {x.label for x, o5, o3 in zip(
+                p1, res["end5"]["overflow"], res["end3"]["overflow"])
+                if o5 or o3}
+    keep = [i for i, x in enumerate(reads) if x.label not in over]
+    reads = [reads[i] for i in keep]
+    for mode, (p1, p2) in pairs.items():
+        kept = [i for i, x in enumerate(p1) if x.label not in over]
+        pairs[mode] = ([p1[i] for i in kept], [p2[i] for i in kept])
+    synth.write_fastq(os.path.join(d, "b.fq"), reads)
+    for mode, stem in (("cmet-stranded", "f"), ("atoi-stranded", "e")):
+        for m in range(2):
+            synth.write_fastq(os.path.join(d, f"{stem}_{m + 1}.fq"),
+                              pairs[mode][m])
+    return dict(genome=g, db=db, dir=str(d), conv=conv, reads=reads,
+                truth=[truth[i] for i in keep], pairs=pairs)
