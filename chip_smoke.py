@@ -4,8 +4,8 @@
     python3 chip_smoke.py [--mbp 100] [--reads 8192] [--pairs 8192]
                           [--batch 2048]
 
-Runs in about 15 minutes on one H100 (build, eight paths, checks,
-timings).
+Runs in about 16 minutes on one H100 (build, the database tools, eight
+paths, the gsnap CLI, checks, timings).
 
 Needs one CUDA device; exits nonzero, printing no result, without one.
 Every path runs gsnap's default --gmap-mode (pairsearch,
@@ -14,10 +14,16 @@ and ends the run with a nonzero exit):
 
   1. the card: torch.cuda.get_device_name and nvidia-smi's name and
      power limit;
-  2. build the sixteen CUDA kernels from csrc/ (nvcc, sm_90a);
+  2. build the seventeen CUDA kernels from csrc/ (nvcc, sm_90a);
   3. a synthetic genome of 4 chromosomes (--mbp, default 100, about the
-     C. elegans genome) with N runs and a repeat family, indexed at
-     gmap_build's large-genome setting k=15 / interval 3; planted 100 bp
+     C. elegans genome) with N runs and a repeat family, written as FASTA
+     and built into a database directory by the port's gmap_build
+     (python -m gmap_gsnap_tpu_torch.cli.gmap_build -k 15 -q 3: the
+     large-genome setting, at the default basesize 12, so gamma offsets),
+     opened with GenomeDB.open; its codes, flags, chromosome bounds,
+     offsets and positions must equal synth.genome_db of the same genome,
+     and every path runs on it; the seconds of the FASTA write, the build
+     and the open are printed; planted 100 bp
      DNA reads for the SE -N 0 path (0-3 substitutions, half
      reverse-complemented, some with N, some with 1-3 nt indels, in a
      random order with the messy junctions below), RNA
@@ -38,8 +44,8 @@ and ends the run with a nonzero exit):
      400 non-canonical introns, 4,000 introns for short-end reads, the
      inside-ambiguous pairs' introns, random ones) and 5,000 decoy sites,
      and a SNP map of one SNP per 1,000 bp plus the SNP-heavy reads'
-     SNPs, written with the port's IIT writer into a temporary directory,
-     the SNP index built there by db/transforms.write_snp_index; path 5
+     SNPs, each written as text and stored by the port's iit_store into
+     the database's maps folder, the SNP index built by its snpindex; path 5
      reads are path 2's RNA mix with 10% SNP-heavy reads (5-8 alt
      alleles), 5% short-end reads (1-12 nt past a known site) and 5%
      reads across known non-canonical introns; path 6 pairs are path 4's
@@ -48,7 +54,7 @@ and ends the run with a nonzero exit):
      step's time is printed; for path 7 bisulfite reads (--reads; either
      strand, non-CpG C -> T, CpG C kept with probability 0.75, 0-2 extra
      substitutions, 5% with a read-C / genome-T site, 1% in repeat
-     copies) and for path 8 RNA pairs of path 4's mix (--pairs / 2) with
+     copies) and for path 8 RNA pairs of path 4's mix (--pairs / 4) with
      2-10 A-to-I edits in a 50-nt window of each mate of 30% of them;
   4. each kernel against its plain torch version on the same CUDA
      tensors at the main paths' shapes (2048 reads x 2 strands, L=100,
@@ -70,7 +76,13 @@ and ends the run with a nonzero exit):
      no-mismatch masks and reads shorter than lmax, exact duplicate
      candidates and equal (score, left) on both strands, INVALID
      diagonals and seed slots, diagonals near 2^31 and 2^32 under both
-     pair rules): outputs must be equal, float32 ones bit for bit;
+     pair rules); K17 on each path's batch as the path gives it (the
+     uniform flip) and in a mixed-length form (lengths 1, 15, 16, 17, 100,
+     N runs); K8 with its overflow-gate epilogue on the PE -N 1 runner's
+     own candidates of one batch and on hand-built rows where each term of
+     the gate flips (truncated ends, int32 sums that wrap), at -N 0 and
+     -N 1, and without the gate (known sites): outputs must be equal,
+     float32 ones bit for bit;
   5. the four main paths, each through GsnapRunner.run or run_pe over all
      its reads into a SAM buffer, with every kernel's launch count reset
      before and read after:
@@ -95,7 +107,7 @@ and ends the run with a nonzero exit):
            the SNP-heavy reads' pairs placed, the PE -N 1 bars on the
            pairs of path 4's mix, >= 90% of the non-canonical reads
            spliced;
-     every path must launch K13-K16 too;
+     every path must launch K13-K17 too;
      on both PE paths >= 99% of the concordant pairs with <= 2
      substitutions per read must be reported as one proper pair (0x2)
      at both planted positions with |TLEN| the fragment length; with
@@ -106,17 +118,18 @@ and ends the run with a nonzero exit):
      candidate hits they came from, and the host seconds of its
      prefetch_gmap passes;
   5b. paths 7 and 8, one at a time: the mode's converted index pair
-     written by db/transforms.write_converted_indexes into the temporary
-     directory and loaded by the runner (cmet_dir / atoi_dir); K1 on
+     written into the database directory by the port's cmetindex /
+     atoiindex (gamma offsets) and loaded by the runner (cmet_dir /
+     atoi_dir); K1 on
      both converted indexes, K3 with each strand's conversion and
      K13-K16 checked on the path's own strands; then the path, its bars
      and a CPU-vs-CUDA SAM subset (512 reads, 256 pairs); then the pair
      and its files are freed:
-     SE --mode cmet-stranded -N 0 (--reads): K1-K4 and K13-K16 must
+     SE --mode cmet-stranded -N 0 (--reads): K1-K4 and K13-K17 must
            launch; >= 99% of the non-repeat bisulfite reads placed once at
            their origin; every read-C / genome-T site of a placed read
            shown as a mismatch in MD;
-     PE --mode atoi-stranded -N 1 (--pairs / 2): K1-K8 and K13-K16 must
+     PE --mode atoi-stranded -N 1 (--pairs / 4): K1-K8 and K13-K17 must
            launch; >= 99% of the edited (and of all) concordant pairs
            with <= 2 substitutions proper at both positions;
      both print whether K9-K12 launched (the modes gate the GMAP
@@ -126,13 +139,24 @@ and ends the run with a nonzero exit):
      and the CUDA run of that subset must launch K9/K10 and convert at
      least one GMAP candidate hit (paths 5 and 6: launch K5-K7, with
      SNP-heavy and short-end reads in the subset);
+  6b. the gsnap CLI on the card: python -m gmap_gsnap_tpu_torch.cli.gsnap
+     -D <dir> -d syn as a subprocess on the first 2048 reads or pairs of
+     path 1 (SE -N 0), path 4 (PE -N 1, two FASTQ files), path 5 (-N 1 -s
+     sites -v snps) and path 7 (--mode cmet-stranded --cmetdir, during
+     5b): SAM byte-equal to the runner's for the same reads at the same
+     batch size, header included, and the kernels the process launched
+     (GSNAP_TORCH_LAUNCHES_OUT) those of its path; its wall time and its
+     own rate line printed;
+  6c. -A gsnap (GSNAP's native output) on the card on 256 reads or pairs
+     of paths 1, 4 and 5 (with --print-snps), byte-equal to the same CLI
+     with --device cpu;
   7. each kernel's device time (torch.profiler) and per-call time beside
-     its plain version's, and profiles of the SE -N 1 and PE -N 1 runs
+     its plain version's at its first shape, and profiles of the SE -N 1 and PE -N 1 runs
      (device busy share, top device ops), measured last so that the
      profiler cannot perturb step 5's timing.
 
 Prints one JSON line with every kernel's launches (on the PE -N 1 path,
-which runs all sixteen; per path under launches_by_path; the checks of
+which runs all seventeen; per path under launches_by_path; the checks of
 other inputs, such as K5 with known masks, under variants), error, device
 time (ms, plain_ms at the first shape checked), its bound (bound_ms: the
 larger of the bytes it must move over 3.35 TB/s and its operations over
@@ -152,7 +176,6 @@ import io
 import json
 import math
 import os
-import shutil
 import subprocess
 import sys
 import tempfile
@@ -170,12 +193,15 @@ GMAP_KERNELS = ("gmap_seed_segments", "gmap_chain")
 DYNPROG_KERNELS = ("gmap_banded_gotoh", "gmap_bridge_traceback")
 # K13-K16: trims and lane features, ranking (+ the SE gates), seed qpos
 # ranges, pair selection — every path runs them
+# K17 the read packing and reverse complement at the head of the cascade
 STAGE_KERNELS = ("gsnap_lane_features", "gsnap_rank_hits",
-                 "gsnap_qpos_ranges", "gsnap_select_pairs")
+                 "gsnap_qpos_ranges", "gsnap_select_pairs",
+                 "gsnap_pack_queries")
 ALL_KERNELS = (N0_KERNELS + SPLICE_KERNELS + PAIR_KERNELS + GMAP_KERNELS
                + DYNPROG_KERNELS + STAGE_KERNELS)
-GMAP_CHECKS = ("seed_segments", "chain", "banded_gotoh", "bridge_traceback")
-STAGE_NAMES = ("lane_features", "rank_hits", "qpos_ranges", "select_pairs")
+REPO = os.path.dirname(os.path.abspath(__file__))
+CLI_READS = 2048     # reads or pairs of each path the gsnap CLI aligns
+NATIVE_READS = 256   # reads or pairs of each -A gsnap GPU-vs-CPU check
 MEM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 # the float32 rate outside the tensor cores, the nearest published rate
 # to the kernels' int32 work; the card's int32 rate is lower (64 int32
@@ -245,6 +271,71 @@ def _device_ms(fn, reps: int = 5) -> float:
     print("  (torch.profiler recorded no device time twice: CUDA event "
           "time instead)", flush=True)
     return _call_ms(fn, reps)
+
+
+def _start_tool(name: str, *args, env=None) -> subprocess.Popen:
+    """Start ``python -m gmap_gsnap_tpu_torch.cli.<name> args`` from the
+    checkout's root."""
+    return subprocess.Popen(
+        [sys.executable, "-m", f"gmap_gsnap_tpu_torch.cli.{name}",
+         *map(str, args)], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env)
+
+
+def _finish_tool(proc: subprocess.Popen, name: str) -> tuple:
+    """(stdout, stderr) of a started tool; raises when it failed."""
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise SystemExit(f"{name} exited {proc.returncode}:\n{err[-4000:]}")
+    return out, err
+
+
+def _tool(name: str, *args, env=None) -> tuple:
+    return _finish_tool(_start_tool(name, *args, env=env), name)
+
+
+def _rate_line(stderr: str) -> str:
+    """The gsnap CLI's own rate line ("Processed N queries in ...")."""
+    lines = [l for l in stderr.splitlines() if l.startswith("Processed")]
+    return lines[-1] if lines else "(no rate line)"
+
+
+def _packed(fn, *a) -> tuple:
+    """pack_batch's four outputs as a flat tuple of tensors."""
+    fwd, crc, frc, rev = fn(*a)
+    return (fwd.codes16, fwd.nflags16, crc, frc, rev.codes16, rev.nflags16)
+
+
+def _mixed_lengths(torch, c, f, ln):
+    """A copy of a read batch with the edge lengths 1, 15, 16, 17 and L
+    in its first rows, random shorter reads in every seventh, and N runs
+    in every ninth (the codes past each length stay as they are)."""
+    c, f, ln = c.clone(), f.clone(), ln.clone()
+    L = c.shape[1]
+    edges = torch.tensor([1, 15, 16, 17, L], dtype=ln.dtype, device=ln.device)
+    ln[:5] = edges
+    ln[5::7] = (L - torch.arange(ln[5::7].shape[0], device=ln.device) % 60
+                ).to(ln.dtype)
+    f[::9, L // 3 : L // 3 + 12] = True
+    return c, f, ln
+
+
+def _grid_gate(pe, cuda: bool, gargs, c5, c3, ipm: int, novel: bool,
+               gate: bool = True) -> tuple:
+    """K8 with its overflow-gate epilogue (cuda) or the plain grid and
+    the plain gate: the grid's fields and both ends' overflow flags, from
+    ONE K8 call.  Without ``gate`` (known sites) the flags stay."""
+    d5, d3 = dict(c5), dict(c3)
+    g = (d5, d3, ipm, novel) if gate else None
+    if cuda:
+        grid = pe._pair_grid_cuda(*gargs, g)
+    else:
+        grid = pe._pair_grid_plain(*gargs)
+        if gate:
+            d5["overflow"], d3["overflow"] = pe._pair_gate_plain(
+                grid, gargs[0], gargs[1], d5, d3, gargs[6], ipm, novel)
+    return (tuple(grid[k] for k in pe.PAIR_GRID_KEYS)
+            + (d5["overflow"], d3["overflow"]))
 
 
 def _fields(fn, args, keys) -> tuple:
@@ -599,7 +690,7 @@ def _stage_checks(torch, gg, se, mmo, genome_dev, index, index_minus, c, f,
     filter, maxout 16) and maxout above the candidate count."""
     base = gp.base
     conv_plus, conv_minus = se._MODE_CONV[base.mode]
-    crc, frc = se._revcomp_batch(c, f, ln)
+    crc, frc = se._revcomp_batch_plain(c, f, ln)
     if conv_plus is None and index_minus is None:
         batches = [("both strands", index, torch.cat([c, crc]),
                     torch.cat([f, frc]), torch.cat([ln, ln]), None)]
@@ -610,7 +701,7 @@ def _stage_checks(torch, gg, se, mmo, genome_dev, index, index_minus, c, f,
     lf_keys = ("cand_mm",) + gg._LANE_FEATURE_KEYS
     for strand, idx, cc, ff, ll, conv in batches:
         shape = f"{label} {strand} NC={base.ncand}"
-        q = se._pack_device(cc, ff, ll, 100)
+        q = se._pack_device_plain(cc, ff, ll, 100)
         cconv = se._convert_codes(cc, conv)
         diag, qgrid = se._seed_diagonals_plain(idx, cconv, ff, ll, base,
                                                True)[:2]
@@ -957,8 +1048,8 @@ def main(argv=None) -> int:
     from gmap_gsnap_tpu_torch.align import gsnap_pe as pe
     from gmap_gsnap_tpu_torch.align import gsnap_se as se
     from gmap_gsnap_tpu_torch.align import runner as runner_mod
-    from gmap_gsnap_tpu_torch.db import datadir, iit_text, splicesites
-    from gmap_gsnap_tpu_torch.db import transforms
+    from gmap_gsnap_tpu_torch.db import datadir, splicesites
+    from gmap_gsnap_tpu_torch.io import fasta
     from gmap_gsnap_tpu_torch.db.iit import IIT
     from gmap_gsnap_tpu_torch.kernels import build as kbuild
     from gmap_gsnap_tpu_torch.ops import dynprog as dp
@@ -992,7 +1083,52 @@ def main(argv=None) -> int:
     chr_lengths = [total * w // 10 for w in (4, 3, 2)]
     chr_lengths.append(total - sum(chr_lengths))
     genome = synth.make_genome(rng, chr_lengths, n_runs=20)
-    db = synth.genome_db(genome, k=15, interval=3)
+    t_genome = time.time() - t0
+    # 3a. the user's database flow: the genome as FASTA, the port's
+    # gmap_build at the large-genome setting (k=15, interval 3, the
+    # default basesize 12: Elias-gamma offsets) and GenomeDB.open of the
+    # directory it wrote; its arrays must equal the in-memory database of
+    # the same genome.  Removed when the process ends, whether or not a
+    # phase failed
+    tmpdir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    tmp = tmpdir.name
+    t1 = time.time()
+    fasta_path = os.path.join(tmp, "genome.fa")
+    genome.write_fasta(fasta_path)
+    t_fa = time.time() - t1
+    t1 = time.time()
+    _tool("gmap_build", "-d", "syn", "-D", tmp, "-k", 15, "-q", 3, fasta_path)
+    t_build = time.time() - t1
+    dbdir = os.path.join(tmp, "syn")
+    maps = os.path.join(dbdir, "syn.maps")
+    t1 = time.time()
+    db = datadir.GenomeDB.open(dbdir, "syn")
+    _ = db.offsets, db.positions     # read lazily: count them in the open
+    t_open = time.time() - t1
+    gamma = sorted(f for f in os.listdir(dbdir) if "gammaptrs" in f)
+    t1 = time.time()
+    mem = synth.genome_db(genome, k=15, interval=3)
+    t_mem = time.time() - t1
+    diff = [f for f in ("codes", "flags", "chr_starts", "chr_ends", "offsets",
+                        "positions") if not np.array_equal(getattr(db, f),
+                                                           getattr(mem, f))]
+    if (diff or db.chr_names != mem.chr_names or (db.k, db.interval,
+                                                   db.basesize) != (15, 3, 12)
+            or not gamma):
+        raise SystemExit(f"the FASTA-built directory differs from the "
+                         f"in-memory database: {diff}, {db.chr_names}, k "
+                         f"{db.k}, interval {db.interval}, basesize "
+                         f"{db.basesize}, gamma files {gamma}")
+    del mem
+    print(f"database: FASTA write {t_fa:.2f} s ({os.path.getsize(fasta_path)}"
+          f" B), gmap_build -k 15 -q 3 {t_build:.2f} s (basesize 12, gamma "
+          f"offsets: {', '.join(gamma)}; "
+          f"{sum(os.path.getsize(os.path.join(dbdir, f)) for f in os.listdir(dbdir) if os.path.isfile(os.path.join(dbdir, f)))}"
+          f" B on disk), GenomeDB.open with the offsets decoded and "
+          f"positions read {t_open:.2f} s; codes, flags, chromosome bounds "
+          f"and names, offsets and positions equal to synth.genome_db "
+          f"(built in {t_mem:.2f} s)", flush=True)
+    t0 = time.time()
     # 1% of the DNA reads are messy junctions, for the GMAP lanes
     nmessy = args.reads // 100
     records, truth = synth.plant_reads(
@@ -1021,15 +1157,16 @@ def main(argv=None) -> int:
         weights={**synth.RNA_PAIR_MIX, "messy_junction": 0.03})
     # path 7: bisulfite reads (cmet); path 8: A-to-I edited RNA pairs (atoi)
     bis, bis_truth = synth.plant_bisulfite_reads(rng, genome, args.reads)
+    # (--pairs / 4: path 8 runs at ~100 pairs/s, host-bound)
     ep1, ep2, ep_truth, ep_edited = synth.plant_edited_pairs(
-        rng, genome, args.pairs // 2)
+        rng, genome, args.pairs // 4)
     print(f"setup: {total / 1e6:.1f} Mbp, 4 chromosomes, k=15/3 index "
           f"({len(db.positions)} positions), {len(records)} DNA + {len(rna)} "
           f"RNA reads, {len(p1)} DNA + {len(rp1)} RNA pairs, "
           f"{len(bis)} bisulfite reads ({sum(t.site >= 0 for t in bis_truth)}"
           f" with a read-C / genome-T site), {len(ep1)} RNA pairs "
-          f"({int(ep_edited.sum())} A-to-I edited) in "
-          f"{time.time() - t0:.1f} s", flush=True)
+          f"({int(ep_edited.sum())} A-to-I edited): genome "
+          f"{t_genome:.1f} s, reads {time.time() - t0:.1f} s", flush=True)
     params = se.GsnapParams(   # the default --gmap-mode: every GMAP lane
         size_threshold=se.dynamic_size_threshold(int(db.offsets[-1]), db.k,
                                                  "standard"))
@@ -1098,26 +1235,25 @@ def main(argv=None) -> int:
           f"non-canonical) + {len(decoys)} decoy sites, {len(spos)} SNPs, "
           f"{len(rna5)} reads for path 5, {len(r61)} pairs for path 6 in "
           f"{time.time() - t0:.1f} s", flush=True)
-    # removed when the process ends, whether or not a phase failed
-    tmpdir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
-    tmp = tmpdir.name
-    sites_path = os.path.join(tmp, "sites.iit")
+    # the maps from text through the port's iit_store into the
+    # database's maps folder, and the SNP index through its snpindex
+    # (gamma offsets, as the database's own)
+    sites_path = os.path.join(maps, "sites.iit")
+    with open(os.path.join(tmp, "sites.txt"), "w") as f:
+        f.write(synth.splicesites_text(genome, introns, decoys))
+    with open(os.path.join(tmp, "snps.txt"), "w") as f:
+        f.write(synth.snps_text(genome, spos, salt))
     t0 = time.time()
-    iit_text.iit_from_text(synth.splicesites_text(
-        genome, introns, decoys)).write(sites_path)
+    _tool("iit_store", "-o", os.path.join(maps, "sites"),
+          os.path.join(tmp, "sites.txt"))
     t_sites = time.time() - t0
     t0 = time.time()
-    snps_iit = iit_text.iit_from_text(synth.snps_text(genome, spos, salt))
-    snps_iit.write(os.path.join(tmp, "snps.iit"))
+    _tool("iit_store", "-o", os.path.join(maps, "snps"),
+          os.path.join(tmp, "snps.txt"))
     t_snps = time.time() - t0
     t0 = time.time()
-    codes, flags = genome.codes_flags
-    alt_codes = transforms.alt_genome_from_snps(codes, snps_iit, db.chr_names,
-                                                db.chr_starts)
-    transforms.write_snp_index(tmp, db.dbname, "snps", codes, flags,
-                               db.chr_ends, alt_codes, k=db.k,
-                               basesize=db.k, interval=db.interval,
-                               ref_index=(db.offsets, db.positions))
+    _tool("snpindex", "-D", tmp, "-d", "syn", "-v", "snps",
+          os.path.join(maps, "snps.iit"))
     t_index = time.time() - t0
     t0 = time.time()
     sites = splicesites.load_splicesites(IIT.read(sites_path), db.chr_names,
@@ -1130,12 +1266,12 @@ def main(argv=None) -> int:
     t0 = time.time()
     runner_sv = runner_mod.GsnapRunner(
         db, params, lmax=100, novelsplicing=True, splicesdb=sites_path,
-        snpsdb="snps", snps_dir=tmp, device=dev)
+        snpsdb="snps", device=dev)
     torch.cuda.synchronize()
     t_runner = time.time() - t0
-    print(f"setup -s/-v times: splicesites IIT write {t_sites:.2f} s "
-          f"({sites.nsites} sites), SNP IIT write {t_snps:.2f} s, alt genome "
-          f"+ write_snp_index {t_index:.2f} s "
+    print(f"setup -s/-v times: iit_store of the splicesites map "
+          f"{t_sites:.2f} s ({sites.nsites} sites), iit_store of the SNP map "
+          f"{t_snps:.2f} s, snpindex {t_index:.2f} s "
           f"({len(runner_sv.index.positions)} positions), load_splicesites "
           f"{t_load:.2f} s, bitmask upload {t_bits:.3f} s, runner set-up "
           f"(splice sites again, SNP index read and upload) {t_runner:.2f} s",
@@ -1148,11 +1284,11 @@ def main(argv=None) -> int:
         c = torch.from_numpy(codes).to(dev)
         f = torch.from_numpy(nflags).to(dev)
         ln = torch.from_numpy(lengths).to(dev)
-        crc, frc = se._revcomp_batch(c, f, ln)
+        crc, frc = se._revcomp_batch_plain(c, f, ln)
         return torch.cat([c, crc]), torch.cat([f, frc]), torch.cat([ln, ln])
 
     c2, f2, l2 = strands(records)
-    q2 = se._pack_device(c2, f2, l2, 100)
+    q2 = se._pack_device_plain(c2, f2, l2, 100)
     budget = se.auto_budget(l2, db.k, db.interval, -1)
     checks = []   # (name, shape, kernel call, plain call), checked now, timed last
     # per kernel, at its first shape: (bytes, operations) of the work from
@@ -1213,7 +1349,7 @@ def main(argv=None) -> int:
                                    q2, top_d, l2, conv, a)))
     # the splice kernels on the RNA reads (the -N 1 runner's seed budget)
     r2, rf2, rl2 = strands(rna)
-    rq2 = se._pack_device(r2, rf2, rl2, 100)
+    rq2 = se._pack_device_plain(r2, rf2, rl2, 100)
     rbudget = se.auto_budget(rl2, db.k, db.interval, -1)
     sdist = params.shortsplicedist
     for st, nc in ((runner_n1.params.seed_total, 32), (4096, 128)):
@@ -1269,6 +1405,61 @@ def main(argv=None) -> int:
     h5, h3 = ({k: v[sl] for k, v in hand.items()}
               for sl in (slice(0, args.batch), slice(args.batch, None)))
     hlens = [torch.from_numpy(x).to(dev) for x in hlens]
+    # K8 with its overflow-gate epilogue, first on the PE -N 1 runner's
+    # own inputs of that batch (the ends' candidates before the gate, as
+    # align_batch_pe makes them), then on hand-built rows where each term
+    # of the gate flips (synth.pair_gate_cases, overflow_trunc set on some
+    # safe rows, bounds of 2^31 - 2 that wrap the int32 sums) at -N 0 and
+    # -N 1, and without the gate (known sites)
+    enc5 = runner_mod.encode_batch(rp1[:b], 100)
+    enc3 = runner_mod.encode_batch(inv2, 100)
+    ggp = runner_n1._gp_uniform(runner_n1.gapped_params, enc5[2], enc3[2])
+    out2, cands2 = gg.gather_candidates(
+        genome_dev, index, None,
+        *(torch.from_numpy(np.concatenate([x, y])).to(dev)
+          for x, y in zip(enc5, enc3)), ggp)
+    g5, g3 = (gg.rank_hits({k: v[sl] for k, v in out2.items()}, ggp.base,
+                           apply_optimal=False, maxout=16)
+              for sl in (slice(0, b), slice(b, None)))
+    gc5, gc3 = ({k: v[sl] for k, v in cands2.items()}
+                for sl in (slice(0, b), slice(b, None)))
+    ipm = ggp.base.indel_penalty_middle
+    gargs = (g5, g3, *plens, genome_dev.chr_offsets, runner_n1._pairmax(),
+             params.subopt_levels, 100)
+    checks.append(("pair_grid", f"{b} runner pairs + gate",
+                   partial(_grid_gate, pe, True, gargs, gc5, gc3, ipm, True),
+                   partial(_grid_gate, pe, False, gargs, gc5, gc3, ipm,
+                           True)))
+    costs["pair_grid"] = lambda out, a=gargs, c=(gc5, gc3): (
+        _nbytes(a, c, out), 0)
+    print(f"K8 gate inputs: runner batch {int(gc5['overflow'].sum())} / "
+          f"{int(gc3['overflow'].sum())} ends overflowing before the gate",
+          flush=True)
+    hc = synth.pair_gate_cases(rng, args.batch)
+    hc = {k: torch.from_numpy(v).to(dev) for k, v in hc.items()}
+    hc5, hc3 = ({k: v[sl] for k, v in hc.items()}
+                for sl in (slice(0, args.batch), slice(args.batch, None)))
+    he5 = gg.rank_hits(h5, params, apply_optimal=False, maxout=16)
+    he3 = gg.rank_hits(h3, params, apply_optimal=False, maxout=16)
+    hargs = (he5, he3, *hlens, genome_dev.chr_offsets, 200_000,
+             params.subopt_levels, 100)
+    for label, novel, gate in (("novel=0", False, True),
+                               ("novel=1", True, True),
+                               ("known sites, no gate", True, False)):
+        checks.append((f"pair_grid/gate hand-built {label}",
+                       f"{args.batch} hand-built pairs",
+                       partial(_grid_gate, pe, True, hargs, hc5, hc3, ipm,
+                               novel, gate),
+                       partial(_grid_gate, pe, False, hargs, hc5, hc3, ipm,
+                               novel, gate)))
+        costs[f"pair_grid/gate hand-built {label}"] = (
+            lambda out, a=hargs: (_nbytes(a, hc, out), 0))
+        want = _grid_gate(pe, False, hargs, hc5, hc3, ipm, novel, gate)
+        print(f"K8 gate hand-built {label}: "
+              f"{int(hc5['overflow'].sum() + hc3['overflow'].sum())} "
+              f"overflow flags in, {int(want[-2].sum() + want[-1].sum())} "
+              f"out ({int((hc5['overflow_trunc'] & hc5['overflow']).sum())}"
+              f" read-1 flags truncated)", flush=True)
     for what, e5, e3, (ln5, ln3) in (
             ("runner", res["end5_pairing"], res["end3_pairing"], plens),
             ("hand-built",
@@ -1308,6 +1499,28 @@ def main(argv=None) -> int:
     stage("SE -N 1", rna, runner_n1.gapped_params)
     stage("SE -N 1 wide", rna, wide(runner_n1.gapped_params))
     stage("PE -N 1", rp1, runner_n1.gapped_params, rp2)
+    # K17 on each path's batch (PE: read 1s and inverted read 2s stacked,
+    # as align_batch_pe hands them over): as the path gives it (every read
+    # 100 nt, so the uniform flip) and in the mixed-length form (lengths
+    # 1, 15, 16, 17, 100 and others, N runs)
+    for label, recs, mates in (
+            ("SE -N 0", records, None), ("SE -N 1", rna, None),
+            ("PE -N 0", p1, p2), ("PE -N 1", rp1, rp2),
+            ("SE -N 1 -s -v", rna5, None), ("PE -N 1 -s -v", r61, r62),
+            ("SE cmet -N 0", bis, None), ("PE atoi -N 1", ep1, ep2)):
+        c, f, ln = batch1(recs, mates)
+        uni = bool((ln == 100).all())
+        for form, (cc, ff, ll), u in (
+                ("uniform" if uni else "as given", (c, f, ln), uni),
+                ("mixed", _mixed_lengths(torch, c, f, ln), False)):
+            name = ("pack_queries" if "pack_queries" not in costs
+                    else f"pack_queries/{label} {form}")
+            checks.append((name, f"{label} {form} {len(ll)} reads",
+                           partial(_packed, se._pack_batch_cuda, cc, ff, ll,
+                                   u),
+                           partial(_packed, se._pack_batch_plain, cc, ff, ll,
+                                   u)))
+            costs[name] = lambda out, a=(cc, ff, ll): (_nbytes(a, out), 0)
     for name, shape, fk, fp, cost in _stage_edges(torch, gg, se, synth, rng,
                                                   dev, params):
         checks.append((name, shape, fk, fp))
@@ -1320,7 +1533,7 @@ def main(argv=None) -> int:
     rkey = ((out1["score"].long() << 33) | (out1["left"] << 1)
             | (~out1["plusp"]).long())
     library["rank_hits"] = partial(torch.sort, rkey, dim=1, stable=True)
-    crc1, frc1 = se._revcomp_batch(c1, f1, l1)
+    crc1, frc1 = se._revcomp_batch_plain(c1, f1, l1)
     sdiag = se._seed_diagonals_plain(
         index, torch.cat([c1, crc1]), torch.cat([f1, frc1]),
         torch.cat([l1, l1]), runner.params, True)[0]
@@ -1338,7 +1551,7 @@ def main(argv=None) -> int:
     # masks with diagonals whose start is a multiple of 32, diagonals next
     # to the genome end and INVALID ones
     v2, vf2, vl2 = strands(rna5)
-    vq2 = se._pack_device(v2, vf2, vl2, 100)
+    vq2 = se._pack_device_plain(v2, vf2, vl2, 100)
     vbudget = se.auto_budget(vl2, db.k, db.interval, -1)
     sidx, alt, known = runner_sv.index, runner_sv.alt, runner_sv.known
     p = se.GsnapParams(seed_total=runner_sv.params.seed_total, ncand=32,
@@ -1571,7 +1784,7 @@ def main(argv=None) -> int:
     # which runner_sv always passes) and hold short-end and SNP-heavy reads
     cpu_sv = runner_mod.GsnapRunner(
         db, params, lmax=100, novelsplicing=True, splicesdb=sites_path,
-        snpsdb="snps", snps_dir=tmp, device="cpu")
+        snpsdb="snps", device="cpu")
     for label, recs, run in (
             ("SE -N 1 -s -v", rna5[:nsub],
              lambda r, out: r.run(rna5[:nsub], out, batch_size=256)),
@@ -1599,6 +1812,98 @@ def main(argv=None) -> int:
               f"inside-ambiguous; launches {spl})", flush=True)
     del cpu_sv
 
+    # 6b. the user's flow on the card: python -m
+    # gmap_gsnap_tpu_torch.cli.gsnap as a subprocess on the directory
+    # gmap_build wrote, over the first CLI_READS reads or pairs of a
+    # path's set, written as FASTQ; its SAM (header included) must equal
+    # what the runner writes for the same reads at the same batch size,
+    # and the kernels it launched (reported through
+    # GSNAP_TORCH_LAUNCHES_OUT) must be its path's
+    def write_inputs(tag, recs, mates, n):
+        files = [os.path.join(tmp, f"{tag}_1.fq")]
+        synth.write_fastq(files[0], recs[:n])
+        if mates is not None:
+            files.append(os.path.join(tmp, f"{tag}_2.fq"))
+            synth.write_fastq(files[1], mates[:n])
+        return files
+
+    def cli_run(label, want, recs, run_with, extra, mates=None, optional=()):
+        n = min(CLI_READS, len(recs))
+        files = write_inputs("cli", recs, mates, n)
+        reads = [list(fasta.read_seqfile(f)) for f in files]
+        ref = io.StringIO()
+        if mates is None:
+            run_with.run(reads[0], ref, batch_size=args.batch)
+        else:
+            run_with.run_pe(reads[0], reads[1], ref, batch_size=args.batch)
+        lfile = os.path.join(tmp, "launches.json")
+        t0 = time.time()
+        out, err = _tool("gsnap", "-D", tmp, "-d", "syn", "--batch-size",
+                         args.batch, *extra, *files,
+                         env={**os.environ, "GSNAP_TORCH_LAUNCHES_OUT": lfile})
+        wall = time.time() - t0
+        if out != ref.getvalue():
+            a, b = out.splitlines(), ref.getvalue().splitlines()
+            i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                     min(len(a), len(b)))
+            raise SystemExit(f"CLI {label}: SAM differs from the runner's at "
+                             f"line {i} of {len(a)} / {len(b)}")
+        with open(lfile) as f:
+            launches = json.load(f)
+        os.remove(lfile)
+        missing = [k for k in want if launches.get(k, 0) == 0]
+        extra_k = [k for k in ALL_KERNELS if k not in want + optional
+                   and launches.get(k, 0)]
+        if missing or extra_k:
+            raise SystemExit(f"CLI {label}: kernels not launched {missing}, "
+                             f"launched but not on the path {extra_k}")
+        unit = "pairs" if mates is not None else "reads"
+        print(f"CLI {label} (gsnap {' '.join(map(str, extra))}): {n} {unit}, "
+              f"SAM of {len(out)} B byte-equal to the runner's, header "
+              f"included; wall {wall:.2f} s (process start, database open "
+              f"and upload included); its rate line: {_rate_line(err)}; "
+              f"launches {launches}", flush=True)
+
+    print(f"CLI runs at {time.time() - t_start:.1f} s", flush=True)
+    cli_run("SE -N 0", N0_KERNELS + STAGE_KERNELS + GMAP_KERNELS, records,
+            runner, [], optional=DYNPROG_KERNELS)
+    cli_run("PE -N 1", ALL_KERNELS, rp1, runner_n1, ["-N", 1], rp2)
+    cli_run("SE -N 1 -s -v", N0_KERNELS + SPLICE_KERNELS + STAGE_KERNELS,
+            rna5, runner_sv, ["-N", 1, "-s", "sites", "-v", "snps"],
+            optional=GMAP_KERNELS + DYNPROG_KERNELS)
+
+    # 6c. GSNAP's native output (-A gsnap) on the card: on NATIVE_READS
+    # reads or pairs of paths 1, 4 and 5 (this one with --print-snps),
+    # byte-equal to the same CLI with --device cpu.  The CPU runs go on
+    # beside the card's (two torch threads each)
+    native = []
+    for tag, recs, mates, extra in (
+            ("SE -N 0", records, None, []),
+            ("PE -N 1", rp1, rp2, ["-N", 1]),
+            ("SE -N 1 -s -v", rna5, None,
+             ["-N", 1, "-s", "sites", "-v", "snps", "--print-snps"])):
+        files = write_inputs(f"native{len(native)}", recs, mates,
+                             NATIVE_READS)
+        cmd = ["-D", tmp, "-d", "syn", "-A", "gsnap", "--batch-size",
+               NATIVE_READS, *extra, *files]
+        cpu = _start_tool("gsnap", *cmd, "--device", "cpu",
+                          env={**os.environ, "OMP_NUM_THREADS": "2"})
+        native.append((tag, extra, cmd, cpu, time.time()))
+    for tag, extra, cmd, cpu, t_cpu in native:
+        t0 = time.time()
+        out, err = _tool("gsnap", *cmd)
+        wall = time.time() - t0
+        ref, _ = _finish_tool(cpu, "gsnap --device cpu")
+        if out != ref or not out.startswith((">", "<")):
+            raise SystemExit(f"-A gsnap {tag}: the card's output differs "
+                             f"from --device cpu")
+        print(f"-A gsnap {tag} ({' '.join(map(str, extra))}): "
+              f"{len(out)} B byte-equal to --device cpu "
+              f"({out.count(chr(10) + '>') + 1} read blocks"
+              f"{', with snps: fields' if 'snps:' in out else ''}); card wall "
+              f"{wall:.2f} s, {_rate_line(err)}; cpu run finished "
+              f"{time.time() - t_cpu:.2f} s after its start", flush=True)
+
     # paths 7 and 8: the cmet / atoi modes (BASELINE config 5).  Each
     # writes its converted index pair (flat offsets) into the temporary
     # directory, loads it through the runner (--cmetdir / --atoidir),
@@ -1606,26 +1911,26 @@ def main(argv=None) -> int:
     # conversion and K13-K16 on the path's own strands, drives the path,
     # compares a CPU subset, then frees the pair and its files before the
     # next mode loads its own
-    def mode_path(mode, kind_, label, recs, mates, novel, want, bars):
+    def mode_path(mode, kind_, label, recs, mates, novel, want, bars,
+                  cli_extra=None):
+        before = set(os.listdir(dbdir))
         t0 = time.time()
-        mdir = os.path.join(tmp, kind_)
-        os.makedirs(mdir)
-        transforms.write_converted_indexes(
-            mdir, db.dbname, codes, flags, db.chr_ends, kind_, k=db.k,
-            basesize=db.k, interval=db.interval)
+        _tool(f"{kind_}index", "-D", tmp, "-d", "syn")
         t_write = time.time() - t0
+        made = sorted(set(os.listdir(dbdir)) - before)
         t0 = time.time()
         mparams = se.GsnapParams(mode=mode, size_threshold=(
             se.dynamic_size_threshold(int(db.offsets[-1]), db.k, mode)))
-        mkw = {f"{kind_}_dir": mdir}
+        mkw = {f"{kind_}_dir": dbdir}
         r = runner_mod.GsnapRunner(db, mparams, lmax=100,
                                    novelsplicing=novel, device=dev, **mkw)
         torch.cuda.synchronize()
         t_load = time.time() - t0
-        print(f"setup {label}: write_converted_indexes ({kind_}, two "
-              f"k={db.k} indexes) {t_write:.2f} s, runner set-up (read and upload of "
-              f"the pair) {t_load:.2f} s, {len(r.index.positions)} + "
-              f"{len(r.index_minus.positions)} positions", flush=True)
+        print(f"setup {label}: {kind_}index (two k={db.k} indexes, gamma "
+              f"offsets: {', '.join(made)}) {t_write:.2f} s, runner set-up "
+              f"(read, decode and upload of the pair) {t_load:.2f} s, "
+              f"{len(r.index.positions)} + {len(r.index_minus.positions)} "
+              f"positions", flush=True)
         print(f"resident index bytes: {_resident(db)}", flush=True)
         for name, shape, fk, fp, cost in _stage_checks(
                 torch, gg, se, mmo, genome_dev, r.index, r.index_minus,
@@ -1664,10 +1969,15 @@ def main(argv=None) -> int:
         print(f"{label} cpu plain path: SAM of {n} "
               f"{'reads' if mates is None else 'pairs'} byte-equal to the "
               f"CUDA run", flush=True)
-        del cpu_r, r
+        del cpu_r
+        if cli_extra is not None:
+            cli_run(label, want, recs, r, cli_extra, mates,
+                    optional=GMAP_KERNELS + DYNPROG_KERNELS)
+        del r
         datadir.release(db, "converted")
         torch.cuda.empty_cache()
-        shutil.rmtree(mdir)
+        for f in made:
+            os.remove(os.path.join(dbdir, f))
 
     def bars7(sam):
         bar("SE cmet -N 0", "planted non-repeat bisulfite reads placed at "
@@ -1686,7 +1996,8 @@ def main(argv=None) -> int:
             0.99)
 
     mode_path("cmet-stranded", "cmet", "SE cmet -N 0", bis, None, False,
-              N0_KERNELS + STAGE_KERNELS, bars7)
+              N0_KERNELS + STAGE_KERNELS, bars7,
+              cli_extra=["--mode", "cmet-stranded", "--cmetdir", dbdir])
     mode_path("atoi-stranded", "atoi", "PE atoi -N 1", ep1, ep2, True,
               N0_KERNELS + SPLICE_KERNELS + PAIR_KERNELS + STAGE_KERNELS,
               bars8)
@@ -1697,16 +2008,15 @@ def main(argv=None) -> int:
     # that the profiler cannot perturb the main paths' timing
     print(f"timing phase at {time.time() - t_start:.1f} s", flush=True)
     for name, shape, fk, fp in checks:
-        # K9-K12 are timed at their first shape only: their plain
-        # versions run thousands of small torch ops per call; K13-K16 at
-        # their first shape too (their variants are checked, not timed)
-        base_name = name.split("/")[0]
-        if name in times and name in GMAP_CHECKS:
+        # each kernel is timed at its first shape only: its other shapes
+        # and variants are checked, not timed (the profiler's runs
+        # would take minutes of the run's time limit)
+        if name in times or "/" in name:
             continue
-        if base_name in STAGE_NAMES and (name in times or "/" in name):
-            continue
-        ms, plain_ms = _device_ms(fk), _device_ms(fp)
-        call, plain_call = _call_ms(fk), _call_ms(fp)
+        # the plain versions (thousands of small torch ops for K9-K12)
+        # over three calls, the kernels over five
+        ms, plain_ms = _device_ms(fk), _device_ms(fp, reps=3)
+        call, plain_call = _call_ms(fk), _call_ms(fp, reps=3)
         print(f"kernel {name:20s} {shape:22s}: device time cuda {ms:.4f} ms, "
               f"plain torch {plain_ms:.4f} ms; per call (events) "
               f"{call:.4f} / {plain_call:.4f} ms", flush=True)
@@ -1737,7 +2047,7 @@ def main(argv=None) -> int:
         "solve_doublesplices": ("gsnap_solve_doublesplices",
                                 "solve_doublesplices.cu", f"{src}:706"),
         "pair_grid": ("gsnap_pair_grid", "pair_grid.cu",
-                      "gmap_gsnap_tpu/align/gsnap_pe.py:119"),
+                      "gmap_gsnap_tpu/align/gsnap_pe.py:119"),   # to :283
         "seed_segments": ("gmap_seed_segments", "gmap_seed_segments.cu",
                           "gmap_gsnap_tpu/align/gmap_engine.py:48"),
         "chain": ("gmap_chain", "gmap_chain.cu",
@@ -1753,6 +2063,8 @@ def main(argv=None) -> int:
                         "gmap_gsnap_tpu/align/gsnap_se.py:385"),
         "select_pairs": ("gsnap_select_pairs", "select_pairs.cu",
                          f"{src}:334"),
+        "pack_queries": ("gsnap_pack_queries", "pack_queries.cu",
+                         "gmap_gsnap_tpu/align/gsnap_se.py:547"),
     }
     kernels = []
     for name, (entry, cu, replaces) in sources.items():

@@ -17,19 +17,22 @@ Layer map:
   align/    GSNAP seed -> vote -> verify -> indels/splices -> rank ->
             pair, the GMAP engine and its rescue lanes, and the host
             runner (FASTQ -> SAM)
-  db/       database loader and device containers, the IIT reader and
-            writer, known splice sites, the SNP-tolerant index and the
-            cmet/atoi converted indexes
-  io/       FASTA/FASTQ input, SAM output
+  db/       database construction, loader and device containers, the IIT
+            reader and writer, known splice sites, the SNP-tolerant index
+            and the cmet/atoi converted indexes
+  io/       FASTA/FASTQ input, SAM and GSNAP native output
   native/   C host loops (gamma offsets, SAM lines), built with cc
-  cli/      ``python -m gmap_gsnap_tpu_torch.cli.gsnap``, ``cli.cmetindex``,
-            ``cli.atoiindex``
+  cli/      ``python -m gmap_gsnap_tpu_torch.cli.gsnap``, the database
+            tools ``cli.gmap_build``, ``gmapindex``, ``fa_coords``,
+            ``gmap_process``, ``iit_store``, ``snpindex``, ``cmetindex``,
+            ``atoiindex``
   convert   JAX-package state (as numpy arrays) -> port containers
 
 GSNAP single-end and paired-end, standard, cmet-stranded and
 atoi-stranded mode, ``-N 0`` / ``-N 1``, known splice sites (``-s``) and
-SNP-tolerant alignment (``-v``), with the default GMAP rescue lanes,
-exist so far; ROADMAP.md lists what is still to be ported.
+SNP-tolerant alignment (``-v``), with the default GMAP rescue lanes, SAM
+or native (``-A gsnap``) output, from a database the port's own tools
+build, exist so far; ROADMAP.md lists what is still to be ported.
 """
 
 __version__ = "0.1.0"

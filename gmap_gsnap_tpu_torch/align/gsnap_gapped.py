@@ -38,9 +38,8 @@ from .gsnap_se import (
     IndexArrays,
     _MODE_CONV,
     _convert_codes,
-    _pack_device,
-    _revcomp_batch,
     auto_budget,
+    pack_batch,
     qpos_ranges,
     seed_diagonals,
     top_diagonals,
@@ -1037,10 +1036,8 @@ def gather_candidates(genome, index, index_minus, codes, nflags, lengths,
     b, lmax = codes.shape
     lengths = lengths.int()
     conv_plus, conv_minus = _MODE_CONV[base.mode]
-    queries_fwd = _pack_device(codes, nflags, lengths, lmax)
-    codes_rc, nflags_rc = _revcomp_batch(codes, nflags, lengths,
-                                         base.uniform_len)
-    queries_rev = _pack_device(codes_rc, nflags_rc, lengths, lmax)
+    queries_fwd, codes_rc, nflags_rc, queries_rev = pack_batch(
+        codes, nflags, lengths, base.uniform_len)
     budget = auto_budget(lengths, index.k, index.interval,
                          base.max_mismatches)
 

@@ -4,11 +4,11 @@ gathering, the [B, NP, NP] pairing grid with Stage3_determine_pairtype's
 rules, concordant-dominates selection, the pair optimal-score filter and
 the (score, left5, left3) pair ranking.
 
-Holds kernel K8 (:func:`pair_grid`, the JAX function's :119-239) with
-its plain torch version beside it; CPU tensors take the plain version,
-CUDA tensors launch ``csrc/pair_grid.cu`` or raise.  The per-end ranking
-(``rank_hits``) and the pair form of the candidate-budget overflow gate
-are plain torch on the device.  The JAX package's ``compact_pe`` is a
+Holds kernel K8 (:func:`pair_grid`, the JAX function's :119-283: the
+pairing grid, the pair ranking and, as its epilogue, the pair form of the
+candidate-budget overflow gate) with its plain torch versions beside it;
+CPU tensors take the plain versions, CUDA tensors launch
+``csrc/pair_grid.cu`` or raise.  The JAX package's ``compact_pe`` is a
 TPU transfer workaround and is not ported: the runner copies the whole
 result tree to the host once.
 
@@ -212,6 +212,37 @@ def _pair_grid_plain(h5, h3, lengths5, lengths3, chr_offsets, pairmax: int,
     }
 
 
+def _pair_gate_plain(grid, h5, h3, cands5, cands3, subopt: int,
+                     indel_penalty_middle: int, novelsplicing: bool):
+    """The candidate-budget overflow gate, pair form (JAX gsnap_pe.py
+    :241-283): a concordant row clears its ends' flags when no dropped
+    diagonal can reach the best pair score, as a SUB end or as an indel
+    (or, with -N 1, splice) piece.  pscore[:, 0] is the best pair score
+    (BIG when there is no pair: end scores are < BIG_NMM).  The sums are
+    int32 and wrap, as in JAX.  Returns the ends' new overflow flags."""
+    conc_ok = grid["pair_concordant"] & (grid["npairs"] > 0)
+    so = subopt
+    pbest = grid["pscore"][:, 0]
+    s5b = h5["score"][:, 0]
+    s3b = h3["score"][:, 0]
+    b5 = cands5["ovf_bound"]
+    b3 = cands3["ovf_bound"]
+    sub_ok = ((b5 + s3b > pbest + so) & (b3 + s5b > pbest + so)
+              & (b5 + b3 > pbest + so))
+    alloc5 = pbest + so - s3b
+    alloc3 = pbest + so - s5b
+    hb5 = cands5["hbound"]
+    hb3 = cands3["hbound"]
+    ind_ok = (((alloc5 < indel_penalty_middle) | (hb5 > alloc5))
+              & ((alloc3 < indel_penalty_middle) | (hb3 > alloc3)))
+    if novelsplicing:
+        ind_ok = ind_ok & (hb5 > alloc5) & (hb3 > alloc3)
+    safe = conc_ok & sub_ok & ind_ok
+    # the floor bound covers top-ncand drops only, not truncation
+    return tuple(c["overflow"] & ~(safe & ~c["overflow_trunc"])
+                 for c in (cands5, cands3))
+
+
 _HIT_FIELDS = (("left", torch.int64), ("right", torch.int64),
                ("mid", torch.int64), ("kind", torch.int32),
                ("split", torch.int32), ("split2", torch.int32),
@@ -220,7 +251,7 @@ _HIT_FIELDS = (("left", torch.int64), ("right", torch.int64),
 
 
 def _pair_grid_cuda(h5, h3, lengths5, lengths3, chr_offsets, pairmax: int,
-                    subopt: int, maxpairs: int):
+                    subopt: int, maxpairs: int, gate=None):
     b, np_ = h5["left"].shape
     if h3["left"].shape != (b, np_) or not 1 <= np_ <= 16:
         raise ValueError(f"pair_grid: end hit shapes {tuple(h5['left'].shape)}"
@@ -233,15 +264,28 @@ def _pair_grid_cuda(h5, h3, lengths5, lengths3, chr_offsets, pairmax: int,
     out["pair_concordant"] = torch.empty(b, dtype=torch.bool, device=dev)
     ends = [h[f].to(dt).contiguous() for h in (h5, h3) for f, dt in _HIT_FIELDS]
     offs = chr_offsets.long().contiguous()
+    gate_args, novel, ipm = [None] * 10, 0, 0
+    if gate is not None:
+        cands5, cands3, ipm, novel = gate
+        gate_args = [c[f].to(dt).contiguous() for c in (cands5, cands3)
+                     for f, dt in (("overflow", torch.bool),
+                                   ("overflow_trunc", torch.bool),
+                                   ("ovf_bound", torch.int32),
+                                   ("hbound", torch.int32))]
+        gate_args += [torch.empty(b, dtype=torch.bool, device=dev)
+                      for _ in range(2)]
     kbuild.launch("gsnap_pair_grid", dev, *ends,
                   lengths5.int().contiguous(), lengths3.int().contiguous(),
-                  offs, *(out[key] for key in PAIR_GRID_KEYS),
-                  b, np_, k, offs.shape[0], pairmax, subopt)
+                  offs, *(out[key] for key in PAIR_GRID_KEYS), *gate_args,
+                  b, np_, k, offs.shape[0], pairmax, subopt,
+                  int(gate is not None), ipm, int(novel))
+    if gate is not None:
+        cands5["overflow"], cands3["overflow"] = gate_args[8:]
     return out
 
 
 def pair_grid(h5, h3, lengths5, lengths3, chr_offsets, pairmax: int,
-              subopt: int, maxpairs: int):
+              subopt: int, maxpairs: int, gate=None):
     """The pairing grid and pair ranking (kernel K8; Stage3_pair_up_
     concordant + Stage3_determine_pairtype + Stage3pair_optimal_score).
 
@@ -258,15 +302,24 @@ def pair_grid(h5, h3, lengths5, lengths3, chr_offsets, pairmax: int,
 
     Returns PAIR_GRID_KEYS: i5, i3, pairtype, insert, pscore int32
     [B, min(maxpairs, NP^2)] (unfilled slots 0, 0, PT_UNPAIRED, 0, BIG),
-    npairs int32 [B] and pair_concordant bool [B]."""
+    npairs int32 [B] and pair_concordant bool [B].
+
+    ``gate``: None, or (cands5, cands3, indel_penalty_middle,
+    novelsplicing) to run the pair overflow gate (:func:`_pair_gate_plain`)
+    after the ranking; it replaces each cands dict's "overflow"."""
     args = (h5, h3, lengths5, lengths3, chr_offsets, pairmax, subopt,
             maxpairs)
     dev = h5["left"].device
-    if dev.type == "cpu":
-        return _pair_grid_plain(*args)
     if dev.type == "cuda":
-        return _pair_grid_cuda(*args)
-    raise ValueError(f"unsupported device {dev}")
+        return _pair_grid_cuda(*args, gate)
+    if dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    grid = _pair_grid_plain(*args)
+    if gate is not None:
+        cands5, cands3 = gate[:2]
+        cands5["overflow"], cands3["overflow"] = _pair_gate_plain(
+            grid, h5, h3, *gate[:2], subopt, *gate[2:])
+    return grid
 
 
 def align_batch_pe(genome, index, codes5, nflags5, lengths5,
@@ -301,39 +354,13 @@ def align_batch_pe(genome, index, codes5, nflags5, lengths5,
     # suboptimal end can form the optimal pair
     h5 = gsnap_gapped.rank_hits(out5, base, apply_optimal=False, maxout=np_)
     h3 = gsnap_gapped.rank_hits(out3, base, apply_optimal=False, maxout=np_)
+    # the pair overflow gate rides K8's epilogue; known-site runs keep
+    # the rescue unconditionally
+    gate = (None if known is not None else
+            (cands5, cands3, base.indel_penalty_middle, gp.novelsplicing))
     grid = pair_grid(h5, h3, lengths5, lengths3, genome.chr_offsets,
-                     params.pairmax, base.subopt_levels, params.maxpairs)
-
-    # candidate-budget overflow gate, pair form (see the JAX function):
-    # a concordant row clears its ends' flags when no dropped diagonal
-    # can reach the best pair score, as a SUB end or as an indel (or,
-    # with -N 1, splice) piece.  pscore[:, 0] is the best pair score
-    # (BIG when there is no pair: end scores are < BIG_NMM).  Known-site
-    # runs keep the rescue unconditionally.
-    if known is None:
-        npairs = grid["npairs"]
-        conc_ok = grid["pair_concordant"] & (npairs > 0)
-        so = base.subopt_levels
-        pbest = grid["pscore"][:, 0]
-        s5b = h5["score"][:, 0]
-        s3b = h3["score"][:, 0]
-        b5 = cands5["ovf_bound"]
-        b3 = cands3["ovf_bound"]
-        sub_ok = ((b5 + s3b > pbest + so) & (b3 + s5b > pbest + so)
-                  & (b5 + b3 > pbest + so))
-        alloc5 = pbest + so - s3b
-        alloc3 = pbest + so - s5b
-        hb5 = cands5["hbound"]
-        hb3 = cands3["hbound"]
-        ind_ok = (((alloc5 < base.indel_penalty_middle) | (hb5 > alloc5))
-                  & ((alloc3 < base.indel_penalty_middle)
-                     | (hb3 > alloc3)))
-        if gp.novelsplicing:
-            ind_ok = ind_ok & (hb5 > alloc5) & (hb3 > alloc3)
-        safe = conc_ok & sub_ok & ind_ok
-        for c in (cands5, cands3):
-            # the floor bound covers top-ncand drops only, not truncation
-            c["overflow"] = c["overflow"] & ~(safe & ~c["overflow_trunc"])
+                     params.pairmax, base.subopt_levels, params.maxpairs,
+                     gate)
     for c in (cands5, cands3):
         c.pop("ovf_bound")
         c.pop("hbound")

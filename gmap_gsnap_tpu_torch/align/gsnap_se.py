@@ -3,9 +3,10 @@ gmap_gsnap_tpu/align/gsnap_se.py).
 
 Holds kernels K1 (:func:`seed_diagonals`, the JAX package's
 _extract_oligos + _seed_rank_map + _seed_diagonals), K2
-(:func:`top_diagonals`, its _top_diagonals) and K15
-(:func:`qpos_ranges`, its _qpos_ranges), each with its plain torch
-version beside it.  CPU tensors take the plain version; CUDA tensors
+(:func:`top_diagonals`, its _top_diagonals), K15
+(:func:`qpos_ranges`, its _qpos_ranges) and K17 (:func:`pack_batch`, its
+_pack_device + _revcomp_batch), each with its plain torch version beside
+it.  CPU tensors take the plain version; CUDA tensors
 launch the kernel in ``csrc/`` or raise.
 
 Coordinates and diagonals are int64 tensors holding uint32 values
@@ -386,10 +387,8 @@ def align_batch(genome, index: IndexArrays, codes, nflags, lengths,
     if index_minus is None:
         index_minus = index
 
-    queries_fwd = _pack_device(codes, nflags, lengths, lmax)
-    codes_rc, nflags_rc = _revcomp_batch(codes, nflags, lengths,
-                                         params.uniform_len)
-    queries_rev = _pack_device(codes_rc, nflags_rc, lengths, lmax)
+    queries_fwd, codes_rc, nflags_rc, queries_rev = pack_batch(
+        codes, nflags, lengths, params.uniform_len)
 
     diag_f = seed_diagonals(index, _convert_codes(codes, conv_plus), nflags,
                             lengths, params, half=False)[0]
@@ -439,8 +438,9 @@ def align_batch(genome, index: IndexArrays, codes, nflags, lengths,
     }
 
 
-def _pack_device(codes, nflags, lengths, lmax: int) -> mm_ops.PackedQueries:
-    """Device-side pack_queries."""
+def _pack_device_plain(codes, nflags, lengths,
+                      lmax: int) -> mm_ops.PackedQueries:
+    """Device-side pack_queries (JAX gsnap_se.py:547)."""
     b = codes.shape[0]
     w = (lmax + 15) // 16
     pad = w * 16 - lmax
@@ -456,9 +456,9 @@ def _pack_device(codes, nflags, lengths, lmax: int) -> mm_ops.PackedQueries:
     return mm_ops.PackedQueries(codes16, nflags16, lengths, lmax)
 
 
-def _revcomp_batch(codes, nflags, lengths, uniform: bool = False):
-    """Per-read reverse complement honoring individual lengths; with
-    ``uniform`` (every length == lmax) a flip."""
+def _revcomp_batch_plain(codes, nflags, lengths, uniform: bool = False):
+    """Per-read reverse complement honoring individual lengths (JAX
+    gsnap_se.py:565); with ``uniform`` (every length == lmax) a flip."""
     if uniform:
         return codes.flip(1) ^ 3, nflags.flip(1)
     b, lmax = codes.shape
@@ -469,3 +469,45 @@ def _revcomp_batch(codes, nflags, lengths, uniform: bool = False):
     rc = torch.gather(codes, 1, src) ^ 3
     rn = torch.gather(nflags, 1, src)
     return torch.where(ok, rc, 0).to(codes.dtype), rn | ~ok
+
+
+def _pack_batch_plain(codes, nflags, lengths, uniform: bool = False):
+    lmax = codes.shape[1]
+    codes_rc, nflags_rc = _revcomp_batch_plain(codes, nflags, lengths,
+                                               uniform)
+    return (_pack_device_plain(codes, nflags, lengths, lmax), codes_rc,
+            nflags_rc, _pack_device_plain(codes_rc, nflags_rc, lengths, lmax))
+
+
+def _pack_batch_cuda(codes, nflags, lengths, uniform: bool = False):
+    b, lmax = codes.shape
+    if codes.dtype != torch.uint8 or nflags.dtype != torch.bool:
+        raise TypeError(f"pack_batch: codes {codes.dtype} / nflags "
+                        f"{nflags.dtype}, expected uint8 / bool")
+    dev = codes.device
+    w = (lmax + 15) // 16
+    words = [torch.empty((b, w), dtype=torch.int64, device=dev)
+             for _ in range(4)]
+    codes_rc = torch.empty_like(codes)
+    nflags_rc = torch.empty_like(nflags)
+    lengths = lengths.int().contiguous()
+    kbuild.launch("gsnap_pack_queries", dev, codes.contiguous(),
+                  nflags.contiguous(), lengths, words[0], words[1], codes_rc,
+                  nflags_rc, words[2], words[3], b, lmax, w, int(uniform))
+    return (mm_ops.PackedQueries(words[0], words[1], lengths, lmax),
+            codes_rc, nflags_rc,
+            mm_ops.PackedQueries(words[2], words[3], lengths, lmax))
+
+
+def pack_batch(codes, nflags, lengths, uniform: bool = False):
+    """A read batch packed 16 bases a word, its per-read reverse
+    complement and that packed too (kernel K17; JAX _pack_device :547 and
+    _revcomp_batch :565): codes uint8 [B, L], nflags bool [B, L], lengths
+    int32 [B] -> (queries_fwd, codes_rc, nflags_rc, queries_rev).
+    ``uniform`` asserts every length == L: the reverse complement is then
+    a flip."""
+    if codes.device.type == "cpu":
+        return _pack_batch_plain(codes, nflags, lengths, uniform)
+    if codes.device.type == "cuda":
+        return _pack_batch_cuda(codes, nflags, lengths, uniform)
+    raise ValueError(f"unsupported device {codes.device}")

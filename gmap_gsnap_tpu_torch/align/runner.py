@@ -45,9 +45,8 @@ from .. import native as native_mod
 from ..db import datadir, splicesites
 from ..db.datadir import GenomeDB
 from ..db.iit import IIT
-from ..io import sam
+from ..io import gsnap_native, sam
 from ..io.fasta import Record
-from ..io.gsnap_native import _align_score
 from ..utils import dna
 from ..utils.device import resolve_device
 from . import distant as distant_mod
@@ -497,6 +496,12 @@ class GsnapRunner:
         self._alt_str = None
         self._alt_bytes = None
         self._snpsdb = snpsdb
+        self._snps_dir = snps_dir
+        # -A gsnap's --show-refdiff / --print-snps (the CLI sets them)
+        self.show_refdiff = False
+        self.print_snps = False
+        self._snp_display = None
+        self._fmt = "sam"   # run / run_pe set it: "sam" or "gsnap"
         self.index_minus = None
         mode = self.params.mode
         if snpsdb is not None:
@@ -1988,6 +1993,65 @@ class GsnapRunner:
         # tally / runlength maps (not ported)
         return final[:maxpaths]
 
+    def _native_snp(self):
+        """SnpDisplay for native output in SNP-tolerant mode; the
+        reference turns on print_nsnpdiffs_p whenever a snps IIT is
+        loaded (gsnap.c Substring_setup call)."""
+        if self._alt_str is None:
+            return None
+        if self._snp_display is None:
+            labels = self._load_snp_labels() if self.print_snps else None
+            self._snp_display = gsnap_native.SnpDisplay(
+                self._alt_str, labels=labels,
+                show_refdiff=self.show_refdiff,
+                print_labels=self.print_snps)
+        return self._snp_display
+
+    def _load_snp_labels(self) -> dict:
+        """Universal-position -> SNP label from the snps IIT
+        (print_snp_labels, substring.c:3712)."""
+        name = self._snpsdb
+        cands = []
+        if self._snps_dir:
+            cands += [os.path.join(self._snps_dir, f"{name}.iit")]
+        cands += [os.path.join(self.db.dbdir, f"{self.db.dbname}.maps",
+                                f"{name}.iit"), name]
+        if not name.endswith(".iit"):
+            cands.append(name + ".iit")
+        starts = {n: int(s) for n, s in
+                  zip(self.db.chr_names, self.db.chr_starts)}
+        for p in cands:
+            if os.path.exists(p):
+                iit = IIT.read(p)
+                labels = {}
+                for div, ivs in iit.intervals.items():
+                    off = starts.get(div)
+                    if off is None:
+                        continue
+                    for i, iv in enumerate(ivs):
+                        labels[off + iv.low - 1] = iit.labels[div][i]
+                return labels
+        return {}
+
+    def native_records(self, rec: Record, hits, row: int, npaths,
+                       maxpaths: int = 100) -> str:
+        """GSNAP native (default) output for one read."""
+        qual = rec.quality if rec.quality else None
+        final = self._rescued_hits(rec, hits, row, npaths, maxpaths)
+        self._categories[self._cat_key(row)] = self._se_category(final)
+        mapqs = []
+        if final:
+            mapqs, _, _ = self._end_mapqs([h.d for h in final], qual)
+
+        def chr_lookup(left):
+            chrnum = int(np.searchsorted(self.db.chr_ends, left, side="right"))
+            return self.db.chr_names[chrnum], int(self.db.chr_starts[chrnum])
+
+        return gsnap_native.read_block(
+            rec, final, self._genome_str, self.db.codes, chr_lookup, mapqs,
+            splice_labels=self._splice_labels, snp=self._native_snp(),
+        )
+
     def _se_category(self, final) -> str:
         """Resulttype classification (resulthr.h:7-12 SINGLEEND_*)."""
         if not final:
@@ -2569,7 +2633,8 @@ class GsnapRunner:
             if pt == gsnap_pe.PT_UNPAIRED:
                 return
             seen.add(k)
-            ps = _align_score(h5) + _align_score(h3)
+            ps = (gsnap_native._align_score(h5)
+                  + gsnap_native._align_score(h3))
             ins = reference_pairlength(
                 h5.d, h3.d, len(rec5.seq), len(rec3_inv.seq))
             if pt == gsnap_pe.PT_CONCORDANT and ins <= 0:
@@ -3067,9 +3132,10 @@ class GsnapRunner:
     # ------------------------------------------------------------------ main
     def _emit(self, rec: Record, res, row: int, j: int) -> str:
         self._cat_row(j)
+        emit = self.sam_records if self._fmt == "sam" else self.native_records
         try:
-            return self.sam_records(rec, res, row, int(res["npaths"][row]),
-                                    self.params.maxpaths)
+            return emit(rec, res, row, int(res["npaths"][row]),
+                        self.params.maxpaths)
         except Exception:
             _offending_read(rec)
             raise
@@ -3078,8 +3144,11 @@ class GsnapRunner:
         """Rows whose emission takes the rescue lanes (or has more than
         one hit): no hit, more than PAIR_KTOP hits, a done level that
         opens the lanes without a device lane-noop verdict, or any row
-        when known sites open the short-end lane."""
+        when known sites open the short-end lane; every row under native
+        output, which has no fast path."""
         r = np.arange(len(recs)) if rows is None else np.asarray(rows, np.int64)
+        if self._fmt != "sam":
+            return np.ones(len(r), bool)
         np_a = np.asarray(res["npaths"])[r]
         done = self._se_done_level(recs, res, rows)
         noop = np.asarray(res["lane_noop"])[r]
@@ -3088,11 +3157,13 @@ class GsnapRunner:
                 | (self._known_sites is not None))
 
     def run(self, records: list[Record], out, batch_size: int = 256,
-            emit_header: bool = True) -> int:
-        """Align ``records`` and write SAM to ``out``; returns the count.
-        Chunk i+1's device work is queued before chunk i's host
-        emission, so the two overlap."""
-        if emit_header:
+            emit_header: bool = True, fmt: str = "sam") -> int:
+        """Align ``records`` and write SAM (``fmt`` "sam") or GSNAP's
+        native format ("gsnap") to ``out``; returns the count.  Chunk
+        i+1's device work is queued before chunk i's host emission, so
+        the two overlap."""
+        self._fmt = fmt
+        if emit_header and fmt == "sam":
             out.write(sam.header(
                 self.db.chr_names,
                 (self.db.chr_ends - self.db.chr_starts).tolist()))
@@ -3452,22 +3523,185 @@ class GsnapRunner:
                 ))
         return "".join(out)
 
+    def native_pe_records(self, rec5: Record, rec3_inv: Record,
+                          rec3_orig: Record, res, row: int) -> str:
+        """GSNAP native paired-end blocks: '>' header for end 1, '<' for
+        end 2, result word concordant/paired/unpaired, and pair_score/
+        insert_length[,pairtype:...] on each hit's first line."""
+        def chr_lookup(left):
+            chrnum = int(np.searchsorted(self.db.chr_ends, left, side="right"))
+            return self.db.chr_names[chrnum], int(self.db.chr_starts[chrnum])
+
+        npairs = int(res["npairs"][row])
+        out = []
+        qual5 = rec5.quality or ""
+        qual3 = rec3_orig.quality or ""
+
+        conc_dev = bool(res["pair_concordant"][row])
+        rpairs = rconc = f5 = f3 = None
+        if npairs == 0 or not conc_dev:
+            rpairs, rconc, f5, f3 = self._pe_rescue(rec5, rec3_inv, res, row)
+        if rpairs and (rconc or npairs == 0):
+            return self._native_pe_rescued(
+                rec5, rec3_orig, rpairs, rconc, qual5, qual3, chr_lookup)
+
+        if npairs > 0:
+            n = min(npairs, self.params.maxpaths)
+            conc = bool(res["pair_concordant"][row])
+            word = "concordant" if conc else "paired"
+            h5p, h3p = res["end5_pairing"], res["end3_pairing"]
+            pairs = []
+            for k in range(n):
+                d5 = self._end_hit(rec5, h5p, row, int(res["i5"][row, k]))
+                d3 = self._end_hit(rec3_inv, h3p, row, int(res["i3"][row, k]))
+                pairs.append((k, d5, d3))
+            # Stage3pair_resolve_multimapping is the identity without
+            # genes / tally / runlength maps (not ported)
+            pairs.sort(key=lambda t: (-(t[1].nmatches + t[2].nmatches),
+                                      -(t[1].loglik + t[2].loglik)))
+            mapqs = [40] * n if n == 1 else None
+            if mapqs is None:
+                dets = [type("X", (), {"loglik": d5.loglik + d3.loglik})
+                        for _, d5, d3 in pairs]
+                mapqs, _, _ = self._end_mapqs(dets, qual5 or None)
+
+            ptword = {gsnap_pe.PT_INVERSION: "inversion",
+                      gsnap_pe.PT_SCRAMBLE: "scramble",
+                      gsnap_pe.PT_TOOLONG: "toolong"}
+
+            for endno, (rec, hhs) in enumerate((
+                (rec5, [d5 for _, d5, _ in pairs]),
+                (rec3_orig, [dataclasses.replace(d3, plusp=not d3.plusp)
+                             for _, _, d3 in pairs]),
+            )):
+                qual = qual5 if endno == 0 else qual3
+                mark = ">" if endno == 0 else "<"
+                out.append(f"{mark}{rec.seq.upper()}\t{n} {word}\t{qual}\t{rec.label}")
+                for i, d in enumerate(hhs):
+                    k = pairs[i][0]
+                    suffix = (f"pair_score:{int(res['pscore'][row, k])},"
+                              f"insert_length:{int(res['insert'][row, k])}")
+                    pt = int(res["pairtype"][row, k])
+                    if not conc and pt in ptword:
+                        suffix += f",pairtype:{ptword[pt]}"
+                    hh = self._hosthit_for(d)
+                    chrname, chr_start = chr_lookup(d.left)
+                    segs = gsnap_native.hit_lines(
+                        hh, rec, self._genome_str, self.db.codes, chrname,
+                        chr_start, mapqs[i] if i < len(mapqs) else 0,
+                        pair_suffix=suffix, splice_labels=self._splice_labels,
+                        snp=self._native_snp())
+                    for j, s in enumerate(segs):
+                        out.append((" " if j == 0 else ",") + s)
+                out.append("")
+            return "\n".join(out) + "\n"
+
+        # unpaired / halfmapping / nomapping: rescued per-end hit lists
+        for endno, (rec, hits) in enumerate(((rec5, f5), (rec3_orig, f3))):
+            qual = qual5 if endno == 0 else qual3
+            mark = ">" if endno == 0 else "<"
+            n = min(len(hits), self.params.maxpaths)
+            out.append(f"{mark}{rec.seq.upper()}\t{n} unpaired\t{qual}\t{rec.label}")
+            hhs = hits[:n]
+            if endno == 1:
+                hhs = [self._flip_hosthit(h) for h in hhs]
+            mapqs, _, _ = (self._end_mapqs([h.d for h in hhs], qual or None)
+                           if hhs else ([], [], 0))
+            for i, h in enumerate(hhs):
+                chrname, chr_start = chr_lookup(h.d.left)
+                segs = gsnap_native.hit_lines(
+                    h, rec, self._genome_str, self.db.codes, chrname,
+                    chr_start, mapqs[i] if i < len(mapqs) else 0,
+                    splice_labels=self._splice_labels,
+                    snp=self._native_snp())
+                for j, s in enumerate(segs):
+                    out.append((" " if j == 0 else ",") + s)
+            out.append("")
+        return "\n".join(out) + "\n"
+
+    def _flip_hosthit(self, h):
+        """End-2 hits print in the ORIGINAL read orientation (the input
+        was reverse-complemented by invert_second_p)."""
+        return rescue.HostHit(dataclasses.replace(h.d, plusp=not h.d.plusp), h.hittype,
+                              h.nmatches, h.mm_positions, h.loglik)
+
+    def _native_pe_rescued(self, rec5: Record, rec3_orig: Record, rpairs,
+                           rconc: bool, qual5: str, qual3: str,
+                           chr_lookup) -> str:
+        """Native PE blocks for host-rescued (terminal/GMAP) pairs."""
+        n = min(len(rpairs), self.params.maxpaths)
+        rpairs = rpairs[:n]
+        word = "concordant" if rconc else "paired"
+        order = sorted(range(n), key=lambda k: (
+            -(rpairs[k][0].nmatches + rpairs[k][1].nmatches),
+            -(rpairs[k][0].loglik + rpairs[k][1].loglik)))
+        rpairs = [rpairs[k] for k in order]
+        if n == 1:
+            mapqs = [40]
+        else:
+            dets = [type("X", (), {"loglik": p[0].loglik + p[1].loglik})
+                    for p in rpairs]
+            mapqs, _, _ = self._end_mapqs(dets, qual5 or None)
+        ptword = {gsnap_pe.PT_INVERSION: "inversion",
+                  gsnap_pe.PT_SCRAMBLE: "scramble",
+                  gsnap_pe.PT_TOOLONG: "toolong"}
+        out = []
+        for endno, (rec, hhs) in enumerate((
+            (rec5, [p[0] for p in rpairs]),
+            (rec3_orig, [self._flip_hosthit(p[1]) for p in rpairs]),
+        )):
+            qual = qual5 if endno == 0 else qual3
+            mark = ">" if endno == 0 else "<"
+            out.append(f"{mark}{rec.seq.upper()}\t{n} {word}\t{qual}\t{rec.label}")
+            for i, h in enumerate(hhs):
+                _, _, pt, ps, ins = rpairs[i]
+                suffix = f"pair_score:{ps},insert_length:{ins}"
+                if not rconc and pt in ptword:
+                    suffix += f",pairtype:{ptword[pt]}"
+                chrname, chr_start = chr_lookup(h.d.left)
+                segs = gsnap_native.hit_lines(
+                    h, rec, self._genome_str, self.db.codes, chrname,
+                    chr_start, mapqs[i] if i < len(mapqs) else 0,
+                    pair_suffix=suffix, splice_labels=self._splice_labels,
+                        snp=self._native_snp())
+                for j, s in enumerate(segs):
+                    out.append((" " if j == 0 else ",") + s)
+            out.append("")
+        return "\n".join(out) + "\n"
+
+    def _hosthit_for(self, d: PostHit):
+        kind = "sub"
+        if "I" in d.cigar_core:
+            kind = "ins"
+        elif "D" in d.cigar_core:
+            kind = "del"
+        elif "N" in d.cigar_core:
+            kind = "splice"
+        return rescue.HostHit(d, kind, d.nmatches_whole,
+                              np.array(d.mmpos, int), d.loglik)
+
     def _emit_pe(self, recs, res, row: int, j: int) -> str:
-        """sam_pe_records for chunk row j (recs: rec5, rec3_inv,
-        rec3_orig) at ``row`` of ``res``, under the crash guard."""
+        """sam_pe_records (native_pe_records under -A gsnap) for chunk
+        row j (recs: rec5, rec3_inv, rec3_orig) at ``row`` of ``res``,
+        under the crash guard."""
         self._cat_row(j)
+        emit = (self.sam_pe_records if self._fmt == "sam"
+                else self.native_pe_records)
         try:
-            return self.sam_pe_records(*recs, res, row)
+            return emit(*recs, res, row)
         except Exception:
             _offending_read(recs[0], recs[2])
             raise
 
     def run_pe(self, records5: list[Record], records3: list[Record], out,
-               batch_size: int = 256, emit_header: bool = True) -> int:
+               batch_size: int = 256, emit_header: bool = True,
+               fmt: str = "sam") -> int:
         """Paired-end alignment: read 2 is reverse-complemented at input
-        (invert_second_p) so concordant mates share a strand.  Chunk
-        i+1's device work is queued before chunk i's host emission."""
-        if emit_header:
+        (invert_second_p) so concordant mates share a strand; SAM or, with
+        ``fmt`` "gsnap", GSNAP's native format.  Chunk i+1's device work
+        is queued before chunk i's host emission."""
+        self._fmt = fmt
+        if emit_header and fmt == "sam":
             out.write(sam.header(
                 self.db.chr_names,
                 (self.db.chr_ends - self.db.chr_starts).tolist()))
@@ -3494,7 +3728,7 @@ class GsnapRunner:
             procs5[0] = mk_first(pairs_in[0][0])
             disp = self.dispatch_pairs(procs5[0], invs[0])
         fast_ok = (self.params.maxpaths >= 1 and self.pe_fast
-                   and not self.clip_overlap)
+                   and not self.clip_overlap and fmt == "sam")
         for ci, (_, chunk3) in enumerate(pairs_in):
             chunk3_inv = invs[ci]
             chunk5 = procs5[ci]
@@ -3543,7 +3777,8 @@ class GsnapRunner:
             # candidate masks in one batch
             npair_a = np.asarray(res["npairs"])
             conc_a = np.asarray(res["pair_concordant"], bool)
-            need_full = (npair_a == 0) | ~conc_a | (npair_a > PAIR_KTOP)
+            need_full = ((npair_a == 0) | ~conc_a | (npair_a > PAIR_KTOP)
+                         | (fmt != "sam"))
             self._lane_masks.clear()
             self._lane_trims.clear()
             self._prime_rows(
@@ -3587,7 +3822,7 @@ class GsnapRunner:
                             del lane_rows[j]
                 wn = np.asarray(wide_res["npairs"])
                 wc = np.asarray(wide_res["pair_concordant"], bool)
-                wneed = (wn == 0) | ~wc | (wn > PAIR_KTOP)
+                wneed = (wn == 0) | ~wc | (wn > PAIR_KTOP) | (fmt != "sam")
                 self._prime_rows(
                     (r, wide_res[end], wi)
                     for j, wi in lane_rows.items() if wneed[wi]

@@ -2,7 +2,8 @@
 cmet-stranded or atoi-stranded mode (--mode, with --cmetdir /
 --atoidir), -N 0 or -N 1 (novel splicing), known splice sites (-s) and
 SNP-tolerant alignment (-v), the GMAP rescue lanes of --gmap-mode (all
-of them by default), SAM output, on one CUDA device.
+of them by default), SAM or GSNAP's native output (-A gsnap, with
+--print-snps and --show-refdiff), on one CUDA device.
 
 Usage:  python -m gmap_gsnap_tpu_torch.cli.gsnap -D <dir> -d <db> \\
             [-N 1] [-s <sites> [--splicingdir D]] [-v <snps> [-V D]] \\
@@ -12,7 +13,7 @@ Paired-end input is two files (read 1, read 2) or one FASTA whose
 records carry two sequence lines.  The flags keep the names and
 defaults of gmap_gsnap_tpu/cli/gsnap.py (whose parser cannot be
 imported: it sets up JAX).  Flags of paths the port does not have yet —
--A gsnap, three or more input files, and
+three or more input files, and
 values of --trigger-score-for-gmap or --max-gmap-improvement that no
 lane reads — exit with an error naming the ROADMAP.md item instead of
 running a reduced path.
@@ -56,8 +57,8 @@ def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="gsnap", add_help=True)
     p.add_argument("-D", "--dir", required=True, help="genome directory")
     p.add_argument("-d", "--db", required=True, help="genome database")
-    p.add_argument("-A", "--format", default="sam",
-                   help="output format (sam only in this port)")
+    p.add_argument("-A", "--format", default="sam", choices=["sam", "gsnap"],
+                   help="output format (sam, or the gsnap native format)")
     p.add_argument("-m", "--max-mismatches", type=float, default=-1)
     p.add_argument("-i", "--indel-penalty", type=int, default=2)
     p.add_argument("--indel-penalty-middle", type=int, default=None)
@@ -148,6 +149,13 @@ def _parser() -> argparse.ArgumentParser:
                         "it yet, so only 5 is accepted)")
     p.add_argument("--query-unk-mismatch", type=int, default=0, choices=[0, 1])
     p.add_argument("--genome-unk-mismatch", type=int, default=1, choices=[0, 1])
+    p.add_argument("--print-snps", action="store_true",
+                   help="print detailed information about SNPs in reads "
+                        "(works with -v; gsnap.c:460)")
+    p.add_argument("--show-refdiff", action="store_true",
+                   help="show differences from the reference genome "
+                        "rather than from both genomes in SNP mode "
+                        "(gsnap.c:459)")
     p.add_argument("-V", "--snpsdir", default=None,
                    help="directory holding the snpindex files (default: "
                         "the genome directory)")
@@ -177,7 +185,6 @@ def main(argv=None) -> int:
     p = _parser()
     args = p.parse_args(argv)
     unsupported = [
-        (args.format != "sam", f"-A {args.format} is {_ROADMAP} (item 3)"),
         (len(args.input) > 2,
          "three or more input files (read as one single-end stream) are "
          f"{_ROADMAP} (item 7)"),
@@ -278,6 +285,8 @@ def main(argv=None) -> int:
     r.invert_second = args.orientation == "FR"
     # the reference enables chopping for BOTH 'paired' and 'off'
     r.chop_primers = args.adapter_strip is not None
+    r.show_refdiff = args.show_refdiff
+    r.print_snps = args.print_snps
     sam_mod.INSERT_0M = args.sam_use_0M
     sam_mod.MULTIPLE_PRIMARIES = args.sam_multiple_primaries
 
@@ -285,10 +294,10 @@ def main(argv=None) -> int:
     if paired:
         n = r.run_pe(records, records3, sys.stdout,
                      batch_size=args.batch_size,
-                     emit_header=not args.no_sam_headers)
+                     emit_header=not args.no_sam_headers, fmt=args.format)
     else:
         n = r.run(records, sys.stdout, batch_size=args.batch_size,
-                  emit_header=not args.no_sam_headers)
+                  emit_header=not args.no_sam_headers, fmt=args.format)
     dt = time.time() - t0
     if args.timing:
         for cat in sorted(r.category_counts):

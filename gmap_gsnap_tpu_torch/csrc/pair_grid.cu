@@ -22,7 +22,14 @@
 //     (eff, rounded left5, left3, cell index); eff < 2^21;
 //   * the first K keys give i5, i3, pairtype, the insert (rounded through
 //     float32 and back, saturating, as take_cols returns it) and the pair
-//     score; unfilled slots are 0, 0, PT_UNPAIRED, 0, BIG.
+//     score; unfilled slots are 0, 0, PT_UNPAIRED, 0, BIG;
+//   * with `gate` set (no known splice sites), the epilogue is the
+//     candidate-budget overflow gate, pair form (gsnap_pe.py :241-283):
+//     thread 0 takes the row's concordance, npairs, best pair score and
+//     the ends' best scores and bounds, and clears each end's overflow
+//     flag when the pair is safe and that end did not truncate.  Its sums
+//     are int32 in JAX and wrap there; here they are taken as uint32 and
+//     reinterpreted, so any bound value gives the same answer.
 //
 // Bound: tiny work — one CTA of NP^2 = 256 threads per pair, 2048 CTAs per
 // batch, 32 hit rows in, 5 x K int32 out.  Launch- and latency-bound: the
@@ -58,6 +65,20 @@ struct HitRows {  // one end's ranked pairing hits, [B, NP] each
   const int32_t* nindels;
   const int32_t* score;
   const bool* plusp;
+};
+
+struct PairGate {  // the ends' overflow state, [B] each, and the settings
+  const bool* ovf5;
+  const bool* trunc5;
+  const int32_t* bound5;
+  const int32_t* hb5;
+  const bool* ovf3;
+  const bool* trunc3;
+  const int32_t* bound3;
+  const int32_t* hb3;
+  bool* ovf5_o;
+  bool* ovf3_o;
+  int on, indel_penalty_middle, novel;
 };
 
 struct EndShared {  // the same hits staged in shared memory, derived form
@@ -119,7 +140,8 @@ pair_grid_kernel(HitRows h5, HitRows h3, const int32_t* __restrict__ len5,
                  const int64_t* __restrict__ chr_offsets, int32_t* i5_o,
                  int32_t* i3_o, int32_t* pairtype_o, int32_t* insert_o,
                  int32_t* pscore_o, int32_t* npairs_o, bool* concordant_o,
-                 int np, int K, int nchr1, int32_t pairmax, int32_t subopt) {
+                 PairGate g, int np, int K, int nchr1, int32_t pairmax,
+                 int32_t subopt) {
   __shared__ EndShared s5, s3;
   __shared__ uint64_t keys[kCells];
   __shared__ int32_t s_insert[kCells];
@@ -215,6 +237,23 @@ pair_grid_kernel(HitRows h5, HitRows h3, const int32_t* __restrict__ len5,
     npairs_o[row] = npairs;
     concordant_o[row] = have_conc;
   }
+  if (t == 0 && g.on) {
+    const int32_t pbest = ok ? eff2 : GSNAP_BIG_SCORE;
+    const int32_t s5b = s5.score[0], s3b = s3.score[0];
+    const int32_t b5 = g.bound5[row], b3 = g.bound3[row];
+    const int32_t hb5 = g.hb5[row], hb3 = g.hb3[row];
+    const int32_t top = add32(pbest, subopt);
+    const bool conc_ok = have_conc && npairs > 0;
+    const bool sub_ok = add32(b5, s3b) > top && add32(b3, s5b) > top &&
+                        add32(b5, b3) > top;
+    const int32_t alloc5 = sub32(top, s3b), alloc3 = sub32(top, s5b);
+    bool ind_ok = (alloc5 < g.indel_penalty_middle || hb5 > alloc5) &&
+                  (alloc3 < g.indel_penalty_middle || hb3 > alloc3);
+    if (g.novel) ind_ok = ind_ok && hb5 > alloc5 && hb3 > alloc3;
+    const bool safe = conc_ok && sub_ok && ind_ok;
+    g.ovf5_o[row] = g.ovf5[row] && !(safe && !g.trunc5[row]);
+    g.ovf3_o[row] = g.ovf3[row] && !(safe && !g.trunc3[row]);
+  }
 }
 
 }  // namespace
@@ -227,9 +266,15 @@ extern "C" int gsnap_pair_grid(
     const void* split3, const void* split23, const void* nind3,
     const void* score3, const void* plus3, const void* len5, const void* len3,
     const void* chr_offsets, void* i5, void* i3, void* pairtype, void* insert,
-    void* pscore, void* npairs, void* concordant, int B, int np, int K,
-    int nchr1, int pairmax, int subopt, void* stream) {
+    void* pscore, void* npairs, void* concordant, const void* ovf5,
+    const void* trunc5, const void* bound5, const void* hb5, const void* ovf3,
+    const void* trunc3, const void* bound3, const void* hb3, void* ovf5_o,
+    void* ovf3_o, int B, int np, int K, int nchr1, int pairmax, int subopt,
+    int gate, int indel_penalty_middle, int novel, void* stream) {
   if (np < 1 || np > kNP || K < 1 || K > np * np || nchr1 < 1 || subopt < 0)
+    return (int)cudaErrorInvalidValue;
+  if (gate && !(ovf5 && trunc5 && bound5 && hb5 && ovf3 && trunc3 && bound3 &&
+                hb3 && ovf5_o && ovf3_o))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   const HitRows h5{(const int64_t*)left5, (const int64_t*)right5,
@@ -242,10 +287,17 @@ extern "C" int gsnap_pair_grid(
                    (const int32_t*)split3, (const int32_t*)split23,
                    (const int32_t*)nind3, (const int32_t*)score3,
                    (const bool*)plus3};
+  const PairGate g{(const bool*)ovf5,    (const bool*)trunc5,
+                   (const int32_t*)bound5, (const int32_t*)hb5,
+                   (const bool*)ovf3,    (const bool*)trunc3,
+                   (const int32_t*)bound3, (const int32_t*)hb3,
+                   (bool*)ovf5_o,        (bool*)ovf3_o,
+                   gate,                 indel_penalty_middle,
+                   novel};
   pair_grid_kernel<<<B, kCells, 0, (cudaStream_t)stream>>>(
       h5, h3, (const int32_t*)len5, (const int32_t*)len3,
       (const int64_t*)chr_offsets, (int32_t*)i5, (int32_t*)i3,
       (int32_t*)pairtype, (int32_t*)insert, (int32_t*)pscore,
-      (int32_t*)npairs, (bool*)concordant, np, K, nchr1, pairmax, subopt);
+      (int32_t*)npairs, (bool*)concordant, g, np, K, nchr1, pairmax, subopt);
   return (int)cudaGetLastError();
 }

@@ -1,10 +1,12 @@
 """K-mer positional index ("indexdb"): in-memory build and file reading.
 
 A copy of gmap_gsnap_tpu/db/indexdb.py.  Its writers serve the port's
-SNP-tolerant index builder (db/transforms.write_snp_index); the
-Elias-gamma writer keeps only the JAX module's Python loop (the JAX
-module runs the same loop in C when its native library is built; the
-bytes are the same).
+database construction (db/build.py) and index transforms (db/transforms.py).
+The Elias-gamma offsets are coded in C (native/hostops.c, as the JAX
+module does when its native library is built); the Python loops stay as
+the plain versions the C coder is held to, and run alone only on toy
+oligospaces: beyond 4^12 oligos they would take hours, so a missing
+native library raises there.
 
 Semantics match the reference builder (src/indexdb.c:2041-2310
 Indexdb_write_offsets, :2527-2741 compute_positions_in_memory):
@@ -99,17 +101,26 @@ def read_positions(path: str) -> np.ndarray:
 
 # ------------------------------------------------------------ gamma offsets IO
 
-def write_offsets_gamma(
-    gammaptrs_path: str, offsetscomp_path: str, offsets: np.ndarray, basesize: int, k: int
-) -> None:
-    """Write blocked Elias-gamma offsets, byte-identical to the reference
-    writer (src/indexdb.c:1979-2039)."""
-    blocksize = 4 ** (k - basesize)
-    oligospace = len(offsets) - 1
-    if blocksize == 1:
-        offsets.astype("<u4").tofile(offsetscomp_path)
-        return
+# above this oligospace the Python loops take minutes to hours
+PLAIN_GAMMA_MAX_OLIGOS = 4 ** 12
 
+
+def _native_gamma_lib(oligospace: int):
+    from ..native import get_lib
+
+    lib = get_lib()
+    if lib is None and oligospace > PLAIN_GAMMA_MAX_OLIGOS:
+        raise RuntimeError(
+            f"the native gamma offset coder (native/hostops.c) could not be "
+            f"built, and the Python loop over {oligospace} oligos would take "
+            f"hours: install a C compiler (cc)")
+    return lib
+
+
+def _write_offsets_gamma_plain(offsets: np.ndarray, blocksize: int):
+    """(gammaptrs, words) uint32 arrays, the reference writer's bit layout
+    (src/indexdb.c:1979-2039), as one Python loop."""
+    oligospace = len(offsets) - 1
     gammaptrs = []
     words: list[int] = []
     off = offsets.astype(np.uint64)
@@ -133,43 +144,50 @@ def write_offsets_gamma(
         words.append(buffer & 0xFFFFFFFF)
     gammaptrs.append(len(words))
     words.append(int(off[oligospace]))
-    np.asarray(gammaptrs, dtype="<u4").tofile(gammaptrs_path)
-    np.asarray(words, dtype="<u4").tofile(offsetscomp_path)
+    return np.asarray(gammaptrs, np.uint32), np.asarray(words, np.uint32)
 
 
-def read_offsets_gamma(
-    gammaptrs_path: str, offsetscomp_path: str, basesize: int, k: int
-) -> np.ndarray:
-    """Expand blocked Elias-gamma offsets to a flat uint32 array
-    (replaces the missing-genome_hr Genome_offsetptr_from_gammas decode;
-    contract per src/genome_hr.h:22-29 and Indexdb_offsets_from_gammas,
-    src/indexdb.c:1327-1445).  Uses the native decoder when available
-    (pure-Python fallback is too slow beyond toy oligospaces)."""
+def _write_offsets_gamma_native(lib, offsets: np.ndarray, blocksize: int):
+    """The same (gammaptrs, words) from native/hostops.c
+    gamma_pack_offsets."""
+    import ctypes
+
+    oligospace = len(offsets) - 1
+    off32 = np.ascontiguousarray(offsets, dtype=np.uint32)
+    nblocks = oligospace // blocksize
+    gp = np.empty(nblocks + 1, np.uint32)
+    cap = nblocks * (2 + ((blocksize - 1) * 65 + 31) // 32) + 2
+    words = np.empty(cap, np.uint32)
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    nw = lib.gamma_pack_offsets(
+        off32.ctypes.data_as(u32p), ctypes.c_uint64(oligospace),
+        ctypes.c_uint32(blocksize), gp.ctypes.data_as(u32p),
+        words.ctypes.data_as(u32p))
+    return gp, words[:nw]
+
+
+def write_offsets_gamma(
+    gammaptrs_path: str, offsetscomp_path: str, offsets: np.ndarray, basesize: int, k: int
+) -> None:
+    """Write blocked Elias-gamma offsets, byte-identical to the reference
+    writer (src/indexdb.c:1979-2039)."""
     blocksize = 4 ** (k - basesize)
-    comp = np.fromfile(offsetscomp_path, dtype="<u4")
-    oligospace = 4 ** k
     if blocksize == 1:
-        return comp.astype(np.uint32)
-    gammaptrs = np.fromfile(gammaptrs_path, dtype="<u4")
-
-    from ..native import get_lib
-
-    lib = get_lib()
+        offsets.astype("<u4").tofile(offsetscomp_path)
+        return
+    lib = _native_gamma_lib(len(offsets) - 1)
     if lib is not None:
-        import ctypes
+        gp, words = _write_offsets_gamma_native(lib, offsets, blocksize)
+    else:
+        gp, words = _write_offsets_gamma_plain(offsets, blocksize)
+    gp.astype("<u4").tofile(gammaptrs_path)
+    words.astype("<u4").tofile(offsetscomp_path)
 
-        gp = np.ascontiguousarray(gammaptrs, dtype=np.uint32)
-        cp = np.ascontiguousarray(comp, dtype=np.uint32)
-        out = np.empty(oligospace + 1, dtype=np.uint32)
-        u32p = ctypes.POINTER(ctypes.c_uint32)
-        rc = lib.gamma_expand_offsets(
-            gp.ctypes.data_as(u32p), cp.ctypes.data_as(u32p),
-            out.ctypes.data_as(u32p),
-            ctypes.c_uint64(oligospace), ctypes.c_uint32(blocksize),
-        )
-        if rc == 0:
-            return out
 
+def _read_offsets_gamma_plain(gammaptrs: np.ndarray, comp: np.ndarray,
+                              oligospace: int, blocksize: int) -> np.ndarray:
+    """The flat offsets of blocked Elias-gamma (gammaptrs, comp), as one
+    Python loop."""
     comp = comp.astype(np.uint64)
     offsets = np.empty(oligospace + 1, dtype=np.uint32)
     oligok = 0
@@ -204,6 +222,45 @@ def read_offsets_gamma(
             oligok += 1
     offsets[oligok] = int(comp[int(gammaptrs[-1])])
     return offsets
+
+
+def _read_offsets_gamma_native(lib, gammaptrs: np.ndarray, comp: np.ndarray,
+                               oligospace: int, blocksize: int) -> np.ndarray:
+    """The same flat offsets from native/hostops.c gamma_expand_offsets."""
+    import ctypes
+
+    gp = np.ascontiguousarray(gammaptrs, dtype=np.uint32)
+    cp = np.ascontiguousarray(comp, dtype=np.uint32)
+    out = np.empty(oligospace + 1, dtype=np.uint32)
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    rc = lib.gamma_expand_offsets(
+        gp.ctypes.data_as(u32p), cp.ctypes.data_as(u32p),
+        out.ctypes.data_as(u32p),
+        ctypes.c_uint64(oligospace), ctypes.c_uint32(blocksize),
+    )
+    if rc != 0:
+        raise RuntimeError(f"gamma_expand_offsets failed ({rc})")
+    return out
+
+
+def read_offsets_gamma(
+    gammaptrs_path: str, offsetscomp_path: str, basesize: int, k: int
+) -> np.ndarray:
+    """Expand blocked Elias-gamma offsets to a flat uint32 array
+    (replaces the missing-genome_hr Genome_offsetptr_from_gammas decode;
+    contract per src/genome_hr.h:22-29 and Indexdb_offsets_from_gammas,
+    src/indexdb.c:1327-1445), with the native decoder."""
+    blocksize = 4 ** (k - basesize)
+    comp = np.fromfile(offsetscomp_path, dtype="<u4")
+    oligospace = 4 ** k
+    if blocksize == 1:
+        return comp.astype(np.uint32)
+    gammaptrs = np.fromfile(gammaptrs_path, dtype="<u4")
+    lib = _native_gamma_lib(oligospace)
+    if lib is not None:
+        return _read_offsets_gamma_native(lib, gammaptrs, comp, oligospace,
+                                          blocksize)
+    return _read_offsets_gamma_plain(gammaptrs, comp, oligospace, blocksize)
 
 
 def write_offsets_flat(path: str, offsets: np.ndarray) -> None:

@@ -17,8 +17,10 @@ launch raises: there is no fallback to the plain torch versions.
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -37,6 +39,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # launches per kernel in this process (reset with LAUNCHES.clear())
 LAUNCHES: Counter = Counter()
 
+# A process whose environment names a file in GSNAP_TORCH_LAUNCHES_OUT
+# writes LAUNCHES there as JSON when it exits, so that a caller running
+# a CLI (python -m gmap_gsnap_tpu_torch.cli.gsnap) as a subprocess can
+# see which kernels it launched.
+_LAUNCHES_OUT = os.environ.get("GSNAP_TORCH_LAUNCHES_OUT")
+if _LAUNCHES_OUT:
+    def _write_launches(path=_LAUNCHES_OUT):
+        with open(path, "w") as f:
+            json.dump(dict(LAUNCHES), f)
+
+    atexit.register(_write_launches)
+
 # argument kinds of each C entry point: p = device pointer (or None),
 # i = int32, l = int64.  The stream is appended to every call.
 _SIGNATURES = {
@@ -47,7 +61,7 @@ _SIGNATURES = {
     "gsnap_solve_splices": "p" * 22 + "ll" + "i" * 5,
     "gsnap_select_triples": "p" * 6 + "i" * 3 + "l",
     "gsnap_solve_doublesplices": "p" * 28 + "ll" + "i" * 5,
-    "gsnap_pair_grid": "p" * 28 + "i" * 6,
+    "gsnap_pair_grid": "p" * 38 + "i" * 9,
     "gmap_seed_segments": "p" * 11 + "i" * 6 + "ll" + "ii",
     "gmap_chain": "p" * 10 + "i" * 5,
     "gmap_banded_gotoh": "p" * 12 + "i" * 6,
@@ -56,6 +70,7 @@ _SIGNATURES = {
     "gsnap_rank_hits": "p" * 34 + "i" * 14,
     "gsnap_qpos_ranges": "p" * 5 + "i" * 3,
     "gsnap_select_pairs": "p" * 5 + "i" * 4 + "li",
+    "gsnap_pack_queries": "p" * 9 + "i" * 4,
 }
 
 _lib = None

@@ -2,8 +2,9 @@
 
 A copy of gmap_gsnap_tpu/native/__init__.py for the port's own
 ``hostops.c``.  Compiled on first use (cc -O3 -shared) into
-``native/_build/`` (listed in .gitignore); falls back to None when no
-compiler is available — callers must keep a Python fallback.
+``native/_build/`` (listed in .gitignore); None when no compiler is
+available.  The SAM assembly keeps a Python path for that case; the gamma
+offset coder raises beyond toy oligospaces instead (db/indexdb.py).
 """
 
 from __future__ import annotations
@@ -43,6 +44,14 @@ def get_lib():
             ctypes.POINTER(ctypes.c_uint32),
             ctypes.c_uint64,
             ctypes.c_uint32,
+        ]
+        lib.gamma_pack_offsets.restype = ctypes.c_int64
+        lib.gamma_pack_offsets.argtypes = [
+            ctypes.POINTER(ctypes.c_uint32),
+            ctypes.c_uint64,
+            ctypes.c_uint32,
+            ctypes.POINTER(ctypes.c_uint32),
+            ctypes.POINTER(ctypes.c_uint32),
         ]
         u32p = ctypes.POINTER(ctypes.c_uint32)
         i32p = ctypes.POINTER(ctypes.c_int32)

@@ -1,11 +1,12 @@
 /* hostops.c — native host-side runtime kernels (ctypes).
  *
  * Host-side hot loops of the port (a copy of the JAX package's
- * native/hostops.c, without its gamma writer and read encoder, which the
- * port never calls): Elias-gamma offset expansion for the compressed
+ * native/hostops.c, without its read encoder, which the port never
+ * calls): Elias-gamma offset expansion and packing for the compressed
  * k-mer index (the equivalent of the reference's gamma decode,
  * genome_hr.h:22-29, needed when opening databases built with basesize
- * < kmer) and SAM line assembly for gapless substitution hits.
+ * < kmer, and of its writer, indexdb.c:1979-2039, when building them)
+ * and SAM line assembly for gapless substitution hits.
  *
  * Build: cc -O3 -shared -fPIC -o libhostops.so hostops.c
  */
@@ -45,6 +46,48 @@ gamma_expand_offsets(const uint32_t *gammaptrs, const uint32_t *comp,
     }
     out[oligok] = comp[gammaptrs[nblocks]];
     return 0;
+}
+
+/* Pack blocked Elias-gamma offsets (Indexdb_write_offsets,
+ * indexdb.c:1979-2039 bit layout; the JAX package's gamma_write_offsets,
+ * and the same bytes as db/indexdb.py's Python writer).  gammaptrs:
+ * nblocks+1 entries; words: caller-allocated worst case (per block 1 +
+ * ceil((blocksize-1)*65/32) + 1 slack, + 1 final total).  Returns the
+ * word count written. */
+int64_t
+gamma_pack_offsets(const uint32_t *offsets, uint64_t n_oligos,
+                   uint32_t blocksize, uint32_t *gammaptrs, uint32_t *words)
+{
+    uint64_t nblocks = n_oligos / blocksize;
+    int64_t w = 0;
+    for (uint64_t b = 0; b < nblocks; b++) {
+        uint64_t blk = b * blocksize;
+        gammaptrs[b] = (uint32_t) w;
+        words[w++] = offsets[blk];
+        uint64_t buffer = 0;
+        int ctr = 32;
+        for (uint32_t j = 1; j < blocksize; j++) {
+            uint64_t gamma =
+                (uint64_t) (offsets[blk + j] - offsets[blk + j - 1]) + 1u;
+            int nbits = 0;
+            for (uint64_t g = gamma; g > 1; g >>= 1) nbits++;
+            int length = 2 * nbits + 1;
+            while (length > ctr) {
+                if (length - ctr < 32)
+                    buffer |= gamma >> (length - ctr);
+                words[w++] = (uint32_t) (buffer & 0xFFFFFFFFu);
+                length -= ctr;
+                ctr = 32;
+                buffer = 0;
+            }
+            buffer |= (gamma << (ctr - length)) & 0xFFFFFFFFu;
+            ctr -= length;
+        }
+        words[w++] = (uint32_t) (buffer & 0xFFFFFFFFu);
+    }
+    gammaptrs[nblocks] = (uint32_t) w;
+    words[w++] = offsets[n_oligos];
+    return w;
 }
 
 /* ---------------------------------------------------------------------

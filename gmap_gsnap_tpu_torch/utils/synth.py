@@ -675,6 +675,26 @@ def pair_hit_cases(rng: np.random.Generator, b: int, chr_ends, nc: int = 24,
     return out, lengths5, lengths3
 
 
+def pair_gate_cases(rng: np.random.Generator, b: int):
+    """The candidate-budget state of ``b`` read pairs for the pair
+    overflow gate, in ``gather_candidates``' layout ([2b] rows: :b read 1,
+    b: read 2): overflow (80%) and overflow_trunc (25%) bool, and the
+    floor bounds ovf_bound / hbound int32 from 0-8 (around the best pair
+    score + subopt of ``pair_hit_cases``' scores 0-2), BIG_NMM, and 2^31 -
+    2 (whose sum with an end score wraps in int32), so that each of the
+    gate's terms flips across the rows; plus cand_left, which the gate
+    passes through."""
+    n2 = 2 * b
+    vals = np.asarray([0, 1, 2, 3, 4, 5, 6, 8, 10**6, 2**31 - 2], np.int64)
+    return {
+        "overflow": rng.random(n2) < 0.8,
+        "overflow_trunc": rng.random(n2) < 0.25,
+        "ovf_bound": rng.choice(vals, n2).astype(np.int32),
+        "hbound": rng.choice(vals, n2).astype(np.int32),
+        "cand_left": rng.integers(0, 2**31, (n2, 4)).astype(np.int64),
+    }
+
+
 # ------------------------------------------------ known sites (-s) and SNPs (-v)
 
 @dataclass

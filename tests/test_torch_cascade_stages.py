@@ -92,7 +92,7 @@ def test_pref_is_cumsum_of_mm():
     diag = tse._seed_diagonals_plain(ti, ct, ft, lt, tse.GsnapParams(),
                                      True)[0]
     top_d = tse._top_diagonals_plain(diag, 32)[0]
-    q = tse._pack_device(ct, ft, lt, 100)
+    q = tse._pack_device_plain(ct, ft, lt, 100)
     saved = tmm.QUERY_UNK_MISMATCH
     try:
         for unk in (False, True):

@@ -117,7 +117,7 @@ def test_solve_indels_direct(world):
     uint32 wraparound of the diagonal differences."""
     jg, ji, tg, ti, c, f, l = world
     tc, tf, tl = torch.from_numpy(c), torch.from_numpy(f), torch.from_numpy(l)
-    q = tse._pack_device(tc, tf, tl, 100)
+    q = tse._pack_device_plain(tc, tf, tl, 100)
     diag, qg = tse.seed_diagonals(ti, tc, tf, tl, tse.GsnapParams())[:2]
     top_d, votes, _ = tse.top_diagonals(diag, 32)
     top_d[:, 3] = 0xFFFFFFFF

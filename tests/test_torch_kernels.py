@@ -45,7 +45,7 @@ def batch(cuda):
     tg = convert.genome_from_host(db.codes, db.flags, db.chr_ends, cuda)
     ti = convert.index_from_arrays(db.offsets, db.positions, 12, 3, cuda)
     ct, ft, lt = (torch.from_numpy(x).to(cuda) for x in (c, f, l))
-    crc, frc = se._revcomp_batch(ct, ft, lt)
+    crc, frc = se._revcomp_batch_plain(ct, ft, lt)
     return (tg, ti, torch.cat([ct, crc]), torch.cat([ft, frc]),
             torch.cat([lt, lt]), (ct, ft, lt))
 
@@ -72,7 +72,7 @@ def spliced(cuda):
     tg = convert.genome_from_host(db.codes, db.flags, db.chr_ends, cuda)
     ti = convert.index_from_arrays(db.offsets, db.positions, 12, 3, cuda)
     ct, ft, lt = (torch.from_numpy(x).to(cuda) for x in (c, f, l))
-    crc, frc = se._revcomp_batch(ct, ft, lt)
+    crc, frc = se._revcomp_batch_plain(ct, ft, lt)
     return (tg, ti, torch.cat([ct, crc]), torch.cat([ft, frc]),
             torch.cat([lt, lt]), (ct, ft, lt))
 
@@ -90,7 +90,7 @@ def test_splice_kernels_match_plain(spliced, seed_total, ncand):
     top_d, votes, _ = se._top_diagonals_plain(seed[0], ncand)
     top_d[:, 3] = 0xFFFFFFFF
     top_d[:, 4] = 2
-    q = se._pack_device(c, f, l, 100)
+    q = se._pack_device_plain(c, f, l, 100)
     _, pref = mmo._prefix_mismatches_plain(tg, q, top_d, l, None, None)
     budget = se.auto_budget(l, 12, 3, -1)
     g = torch.Generator(device="cpu").manual_seed(3)
@@ -148,7 +148,7 @@ def test_splice_kernels_known_match_plain(spliced, novel, density):
     top_d[1::4, 6] = tg.length - 40 - torch.arange(
         top_d[1::4].shape[0], device=top_d.device) % 30
     top_d[2::4, 7] = 0xFFFFFFFF
-    q = se._pack_device(c, f, l, 100)
+    q = se._pack_device_plain(c, f, l, 100)
     _, pref = mmo._prefix_mismatches_plain(tg, q, top_d, l, None, None)
     budget = se.auto_budget(l, 12, 3, -1)
     rng = np.random.default_rng(5)
@@ -219,7 +219,7 @@ def test_kernels_match_plain(batch, seed_total, ncand):
     _equal(se._seed_diagonals_cuda(ti, c, f, l, p, True), seed)
     top = se._top_diagonals_plain(seed[0], ncand)
     _equal(se._top_diagonals_cuda(seed[0], ncand), top)
-    q = se._pack_device(c, f, l, 100)
+    q = se._pack_device_plain(c, f, l, 100)
     mm, pref = mmo._prefix_mismatches_plain(tg, q, top[0], l, None, None)
     _equal(mmo._prefix_mismatches_cuda(tg, q, top[0], l, None, None),
            (mm, pref))
@@ -237,7 +237,7 @@ def test_kernels_match_plain(batch, seed_total, ncand):
 @pytest.mark.parametrize("conversion", [None, "ct", "ga", "ag", "tc"])
 def test_prefix_mismatches_conversions_and_alt(batch, conversion):
     tg, ti, c, f, l, _ = batch
-    q = se._pack_device(c, f, l, 100)
+    q = se._pack_device_plain(c, f, l, 100)
     diag = se._seed_diagonals_plain(ti, c, f, l, se.GsnapParams(), True)[0]
     top_d = se._top_diagonals_plain(diag, 32)[0]
     top_d[:, -1] = tg.length - 60                 # runs past the genome end
@@ -527,7 +527,7 @@ def test_lane_features_matches_plain(batch, cuda, ncand):
     p = se.GsnapParams(seed_total=512 if ncand == 32 else 4096, ncand=ncand)
     seed = se._seed_diagonals_plain(ti, c, f, l, p, True)
     top_d = se._top_diagonals_plain(seed[0], ncand)[0]
-    q = se._pack_device(c, f, l, 100)
+    q = se._pack_device_plain(c, f, l, 100)
     mm, pref = mmo._prefix_mismatches_plain(tg, q, top_d, l, None, None)
     hm, hp, hl = synth.mismatch_rows(np.random.default_rng(5), 64, ncand)
     cases = [(mm, pref, l)] + [(torch.from_numpy(x).to(cuda) for x in
@@ -608,3 +608,106 @@ def test_select_pairs_matches_plain(batch, cuda, nc):
             rule, a, b_ = ((1, kw["maxdist"], 0) if "maxdist" in kw
                            else (0, 30, 9))
             _equal(gg._select_pairs_cuda(td, vt, 16, rule, a, b_), want)
+
+
+# ------------------------------- K17 and K8's overflow-gate epilogue
+
+def _pack_inputs(rng, b, lmax, cuda):
+    """Reads with the edge lengths 1, 15, 16, 17 and lmax, random ones,
+    N runs and random codes past each length."""
+    c = rng.integers(0, 4, (b, lmax)).astype(np.uint8)
+    f = rng.random((b, lmax)) < 0.03
+    f[::7, lmax // 3 : lmax // 3 + 9] = True
+    ln = rng.integers(1, lmax + 1, b).astype(np.int32)
+    edges = [x for x in (1, 15, 16, 17) if x <= lmax] + [lmax]
+    ln[: len(edges)] = edges
+    return tuple(torch.from_numpy(x).to(cuda) for x in (c, f, ln))
+
+
+def _packed_equal(got, want):
+    for g, w in zip(got, want):
+        if isinstance(w, mmo.PackedQueries):
+            _equal([g.codes16, g.nflags16, g.length], [w.codes16, w.nflags16,
+                                                        w.length.int()])
+            assert g.lmax == w.lmax
+        else:
+            _equal([g], [w])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lmax", [100, 17, 16, 151])
+def test_pack_batch_matches_plain(cuda, lmax):
+    """K17 against _pack_batch_plain, mixed lengths and (on the reads of
+    length lmax) the uniform flip."""
+    c, f, ln = _pack_inputs(np.random.default_rng(lmax), 1024, lmax, cuda)
+    _packed_equal(se._pack_batch_cuda(c, f, ln), se._pack_batch_plain(c, f, ln))
+    full = ln == lmax
+    args = (c[full].contiguous(), f[full].contiguous(), ln[full], True)
+    _packed_equal(se._pack_batch_cuda(*args), se._pack_batch_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("novel", [False, True])
+def test_pair_grid_gate_matches_plain(cuda, novel):
+    """K8 with its gate epilogue against _pair_grid_plain +
+    _pair_gate_plain on hand-built rows where each gate term flips
+    (synth.pair_gate_cases; bounds of 2^31 - 2 wrap the int32 sums), and
+    without the gate (known sites): the overflow flags stay as given."""
+    rng = np.random.default_rng(43 + novel)
+    b = 512
+    hand, len5, len3 = synth.pair_hit_cases(rng, b, [500_000, 2**32])
+    cands = synth.pair_gate_cases(rng, b)
+    hand = {k: torch.from_numpy(v.astype(np.int64) if v.dtype == np.uint32
+                                else v).to(cuda) for k, v in hand.items()}
+    base = se.GsnapParams()
+    h5, h3 = _ranked_ends(hand, b, base, 16)
+    offs = torch.tensor([0, 500_000, 2**32], dtype=torch.int64, device=cuda)
+    lens = (torch.from_numpy(len5).to(cuda), torch.from_numpy(len3).to(cuda))
+    for ipm, gate_on in ((2, True), (0, True), (2, False)):
+        c5, c3 = ({k: torch.from_numpy(v[s]).to(cuda) for k, v in cands.items()}
+                  for s in (slice(0, b), slice(b, None)))
+        w5, w3 = dict(c5), dict(c3)
+        args = (h5, h3, *lens, offs, 200_000, 0, 100)
+        want = pe._pair_grid_plain(*args)
+        got = pe._pair_grid_cuda(*args, (c5, c3, ipm, novel) if gate_on
+                                 else None)
+        _equal([got[k] for k in pe.PAIR_GRID_KEYS],
+               [want[k] for k in pe.PAIR_GRID_KEYS])
+        if gate_on:
+            o5, o3 = pe._pair_gate_plain(want, h5, h3, w5, w3, 0, ipm, novel)
+            _equal([c5["overflow"], c3["overflow"]], [o5, o3])
+            assert (o5 != w5["overflow"]).any() and o5.any()
+        else:
+            _equal([c5["overflow"], c3["overflow"]],
+                   [w5["overflow"], w3["overflow"]])
+
+
+def test_pack_and_gate_wrappers_argument_order(monkeypatch):
+    """K17's and K8's wrappers hand the C entry points as many arguments
+    as they declare (checked on the CPU with the launch captured), the
+    gate's ten pointers null and its flag 0 without a gate."""
+    seen = {}
+    monkeypatch.setattr(kbuild, "launch",
+                        lambda name, dev, *a: seen.setdefault(name, []).append(a))
+    c = torch.zeros((3, 40), dtype=torch.uint8)
+    se._pack_batch_cuda(c, c.bool(), torch.full((3,), 40, dtype=torch.int32))
+    a = seen["gsnap_pack_queries"][0]
+    assert len(a) == len(kbuild._SIGNATURES["gsnap_pack_queries"])
+    assert a[9:] == (3, 40, 3, 0)
+    rng = np.random.default_rng(5)
+    hand, len5, len3 = synth.pair_hit_cases(rng, 4, [500_000])
+    hand = {k: torch.from_numpy(v.astype(np.int64) if v.dtype == np.uint32
+                                else v) for k, v in hand.items()}
+    h5, h3 = _ranked_ends(hand, 4, se.GsnapParams(), 16)
+    cands = synth.pair_gate_cases(rng, 4)
+    c5, c3 = ({k: torch.from_numpy(v[s]) for k, v in cands.items()}
+              for s in (slice(0, 4), slice(4, None)))
+    offs = torch.tensor([0, 500_000], dtype=torch.int64)
+    for gate in (None, (c5, c3, 2, True)):
+        pe._pair_grid_cuda(h5, h3, torch.from_numpy(len5),
+                           torch.from_numpy(len3), offs, 1000, 0, 100, gate)
+    sig = kbuild._SIGNATURES["gsnap_pair_grid"]
+    for a, on in zip(seen["gsnap_pair_grid"], (0, 1)):
+        assert len(a) == len(sig)
+        assert all((x is None) != bool(on) for x in a[28:38])
+        assert a[38:] == (4, 16, 100, 2, 1000, 0, on, 2 * on, on)

@@ -163,7 +163,7 @@ def _cascade(world, recs, ncand=32):
     tg, ti = world["torch"]
     c, f, l = trun.encode_batch(recs, 100)
     tc, tf, tl = (torch.from_numpy(x) for x in (c, f, l))
-    crc, frc = tse._revcomp_batch(tc, tf, tl)
+    crc, frc = tse._revcomp_batch_plain(tc, tf, tl)
     c2, f2, l2 = torch.cat([tc, crc]), torch.cat([tf, frc]), torch.cat([tl, tl])
     p = tse.GsnapParams(seed_total=512, ncand=ncand)
     diag = tse.seed_diagonals(ti, c2, f2, l2, p)[0]
@@ -171,7 +171,7 @@ def _cascade(world, recs, ncand=32):
     top_d[0::3, 5] &= ~31
     top_d[1::3, 6] = tg.length - 45
     top_d[2::3, 7] = 0xFFFFFFFF
-    _, pref = tgg._prefix_mm(tg, tse._pack_device(c2, f2, l2, 100), top_d, l2,
+    _, pref = tgg._prefix_mm(tg, tse._pack_device_plain(c2, f2, l2, 100), top_d, l2,
                              None, None)
     return top_d, votes, pref, l2, tse.auto_budget(l2, 12, 3, -1)
 

@@ -112,8 +112,10 @@ def test_cli_byte_equal(disk_db, capsys):
 
 
 @pytest.mark.parametrize("extra", [
-    ["-s", "sites", "-A", "gsnap"], ["-A", "gsnap"],
-    ["-A", "gsnap", "SECOND_FILE"], ["SECOND_FILE", "SECOND_FILE"],
+    ["-s", "sites", "-A", "gsnap", "--max-gmap-improvement", "2"],
+    ["-A", "gsnap", "--trigger-score-for-gmap", "3"],
+    ["-A", "gsnap", "SECOND_FILE", "SECOND_FILE"],
+    ["SECOND_FILE", "SECOND_FILE"],
     ["--trigger-score-for-gmap", "3"], ["--max-gmap-improvement", "2"]])
 def test_cli_rejects_unported(disk_db, capsys, extra):
     fq = str(disk_db / "reads.fq")

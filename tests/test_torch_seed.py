@@ -112,18 +112,18 @@ def test_top_diagonals_ties():
 def test_revcomp_and_pack(world):
     ji, ti, c, f, l = world
     jc, jf = jse._revcomp_batch(jnp.asarray(c), jnp.asarray(f), jnp.asarray(l))
-    tc, tf = tse._revcomp_batch(torch.from_numpy(c), torch.from_numpy(f),
+    tc, tf = tse._revcomp_batch_plain(torch.from_numpy(c), torch.from_numpy(f),
                                 torch.from_numpy(l))
     _eq(jc, tc)
     _eq(jf, tf)
     full = l == 100
     ju = jse._revcomp_batch(jnp.asarray(c[full]), jnp.asarray(f[full]),
                             jnp.asarray(l[full]), True)
-    tu = tse._revcomp_batch(torch.from_numpy(c[full]), torch.from_numpy(f[full]),
+    tu = tse._revcomp_batch_plain(torch.from_numpy(c[full]), torch.from_numpy(f[full]),
                             torch.from_numpy(l[full]), True)
     _eq(ju[0], tu[0])
     jq = jse._pack_device(jnp.asarray(c), jnp.asarray(f), jnp.asarray(l), 100)
-    tq = tse._pack_device(torch.from_numpy(c), torch.from_numpy(f),
+    tq = tse._pack_device_plain(torch.from_numpy(c), torch.from_numpy(f),
                           torch.from_numpy(l), 100)
     _eq(jq.codes16, tq.codes16)
     _eq(jq.nflags16, tq.nflags16)

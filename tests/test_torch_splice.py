@@ -63,14 +63,14 @@ def _cascade(world, ncand=32, seed_total=512):
     _, _, recs, _, _, _, tg, ti = world
     c, f, l = trun.encode_batch(recs, 100)
     tc, tf, tl = (torch.from_numpy(x) for x in (c, f, l))
-    crc, frc = tse._revcomp_batch(tc, tf, tl)
+    crc, frc = tse._revcomp_batch_plain(tc, tf, tl)
     c2, f2, l2 = torch.cat([tc, crc]), torch.cat([tf, frc]), torch.cat([tl, tl])
     p = tse.GsnapParams(seed_total=seed_total, ncand=ncand)
     diag = tse.seed_diagonals(ti, c2, f2, l2, p)[0]
     top_d, votes, _ = tse.top_diagonals(diag, ncand)
     top_d[:, 3] = 0xFFFFFFFF
     top_d[:, 4] = 2
-    _, pref = tgg._prefix_mm(tg, tse._pack_device(c2, f2, l2, 100), top_d, l2,
+    _, pref = tgg._prefix_mm(tg, tse._pack_device_plain(c2, f2, l2, 100), top_d, l2,
                              None, None)
     return top_d, votes, pref, l2, tse.auto_budget(l2, 12, 3, -1)
 
