@@ -145,20 +145,25 @@ and ends the run with a nonzero exit):
      sites -v snps) and path 7 (--mode cmet-stranded --cmetdir, during
      5b): SAM byte-equal to the runner's for the same reads at the same
      batch size, header included, and the kernels the process launched
-     (GSNAP_TORCH_LAUNCHES_OUT) those of its path; its wall time and its
-     own rate line printed;
+     (written at its exit by a shim that runs the CLI module as
+     __main__) those of its path; its wall time and its own rate line
+     printed;
   6c. -A gsnap (GSNAP's native output) on the card on 256 reads or pairs
      of paths 1, 4 and 5 (with --print-snps), byte-equal to the same CLI
      with --device cpu;
   7. each kernel's device time (torch.profiler) and per-call time beside
-     its plain version's at its first shape, and profiles of the SE -N 1 and PE -N 1 runs
-     (device busy share, top device ops), measured last so that the
-     profiler cannot perturb step 5's timing.
+     its plain version's (and its library call's) on the same clock: K1-K8
+     at every shape and variant, K9-K17 at their first shape; then
+     profiles of the SE -N 1 and PE -N 1 runs (device busy share, top
+     device ops), measured last so that the profiler cannot perturb step
+     5's timing.
 
 Prints one JSON line with every kernel's launches (on the PE -N 1 path,
 which runs all seventeen; per path under launches_by_path; the checks of
 other inputs, such as K5 with known masks, under variants), error, device
-time (ms, plain_ms at the first shape checked), its bound (bound_ms: the
+time (ms, plain_ms at the first shape checked; clock says whether both
+are torch.profiler device times or, where a profile recorded none, CUDA
+event times with the host's launch gaps), its bound (bound_ms: the
 larger of the bytes it must move over 3.35 TB/s and its operations over
 67 T/s, the H100's float32 rate outside the tensor cores: its int32 rate
 is lower (64 int32 lanes per SM against 128 float32), so the operations
@@ -191,6 +196,10 @@ SPLICE_KERNELS = ("gsnap_solve_splices", "gsnap_select_triples",
 PAIR_KERNELS = ("gsnap_pair_grid",)
 GMAP_KERNELS = ("gmap_seed_segments", "gmap_chain")
 DYNPROG_KERNELS = ("gmap_banded_gotoh", "gmap_bridge_traceback")
+# checks timed at their first shape only (K9-K17)
+FIRST_SHAPE_ONLY = ("seed_segments", "chain", "banded_gotoh",
+                    "bridge_traceback", "lane_features", "rank_hits",
+                    "qpos_ranges", "select_pairs", "pack_queries")
 # K13-K16: trims and lane features, ranking (+ the SE gates), seed qpos
 # ranges, pair selection — every path runs them
 # K17 the read packing and reverse complement at the head of the cascade
@@ -247,20 +256,23 @@ def _call_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_ms(fn, reps: int = 5) -> float:
+def _device_ms(fn, reps: int = 5, tries: int = 4) -> float | None:
     """Mean device time per call of fn: the summed time of the CUDA
-    kernels and copies it ran, from torch.profiler.  A profile that
-    recorded no device time is taken again; if the second one records
-    none either, the time between CUDA events stands in and is said so."""
+    kernels, copies and fills it ran, from torch.profiler tracing CUDA
+    activity alone; None when ``tries`` profiles recorded none.
+
+    A profile now and then holds no device activity at all (its raw
+    trace is empty, not only its summary), most often late in a long
+    run and with the host's activity traced too: such a profile is
+    taken again."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -268,9 +280,20 @@ def _device_ms(fn, reps: int = 5) -> float:
                  if e.device_type == DeviceType.CUDA)
         if us > 0:
             return us / 1e3 / reps
-    print("  (torch.profiler recorded no device time twice: CUDA event "
-          "time instead)", flush=True)
-    return _call_ms(fn, reps)
+    return None
+
+
+def _timed(*fns, reps: int = 5) -> tuple:
+    """(times, clock, call times): each fn's device time from the
+    profiler, or, when any fn's profile recorded none, each fn's time
+    between CUDA events for all of them, so that the times compared are
+    on one clock ("profiler" or "events"); and each fn's time between
+    CUDA events (device time plus the host's launch gaps)."""
+    dev = [_device_ms(fn, reps) for fn in fns]
+    calls = [_call_ms(fn, reps) for fn in fns]
+    if any(ms is None for ms in dev):
+        return calls, "events", calls
+    return dev, "profiler", calls
 
 
 def _start_tool(name: str, *args, env=None) -> subprocess.Popen:
@@ -292,6 +315,27 @@ def _finish_tool(proc: subprocess.Popen, name: str) -> tuple:
 
 def _tool(name: str, *args, env=None) -> tuple:
     return _finish_tool(_start_tool(name, *args, env=env), name)
+
+
+# python -c program: ``<launches.json> <gsnap args>`` runs the gsnap CLI
+# module as __main__ and, at the process's exit, writes the kernel
+# launches it counted (kernels.build.LAUNCHES) to launches.json
+_GSNAP_COUNTING = (
+    "import atexit, json, runpy, sys\n"
+    "from gmap_gsnap_tpu_torch.kernels import build\n"
+    "out = sys.argv.pop(1)\n"
+    "atexit.register(lambda: json.dump(dict(build.LAUNCHES), open(out, 'w')))\n"
+    "runpy.run_module('gmap_gsnap_tpu_torch.cli.gsnap', run_name='__main__',"
+    " alter_sys=True)\n")
+
+
+def _gsnap_counting(lfile: str, *args) -> tuple:
+    """(stdout, stderr) of the gsnap CLI run with args; the kernels it
+    launched are written to lfile as JSON."""
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _GSNAP_COUNTING, lfile, *map(str, args)],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return _finish_tool(proc, "gsnap")
 
 
 def _rate_line(stderr: str) -> str:
@@ -336,6 +380,14 @@ def _grid_gate(pe, cuda: bool, gargs, c5, c3, ipm: int, novel: bool,
                 grid, gargs[0], gargs[1], d5, d3, gargs[6], ipm, novel)
     return (tuple(grid[k] for k in pe.PAIR_GRID_KEYS)
             + (d5["overflow"], d3["overflow"]))
+
+
+def _gate_reads(ends) -> list:
+    """The candidate arrays K8's gate epilogue reads of each end: the
+    overflow flags it clears and what decides them (the grid's own
+    inputs and outputs are counted apart)."""
+    return [c[k] for c in ends
+            for k in ("overflow", "overflow_trunc", "ovf_bound", "hbound")]
 
 
 def _fields(fn, args, keys) -> tuple:
@@ -1431,7 +1483,7 @@ def main(argv=None) -> int:
                    partial(_grid_gate, pe, False, gargs, gc5, gc3, ipm,
                            True)))
     costs["pair_grid"] = lambda out, a=gargs, c=(gc5, gc3): (
-        _nbytes(a, c, out), 0)
+        _nbytes(a, _gate_reads(c), out), 0)
     print(f"K8 gate inputs: runner batch {int(gc5['overflow'].sum())} / "
           f"{int(gc3['overflow'].sum())} ends overflowing before the gate",
           flush=True)
@@ -1453,7 +1505,8 @@ def main(argv=None) -> int:
                        partial(_grid_gate, pe, False, hargs, hc5, hc3, ipm,
                                novel, gate)))
         costs[f"pair_grid/gate hand-built {label}"] = (
-            lambda out, a=hargs: (_nbytes(a, hc, out), 0))
+            lambda out, a=hargs, c=(hc5, hc3): (
+                _nbytes(a, _gate_reads(c), out), 0))
         want = _grid_gate(pe, False, hargs, hc5, hc3, ipm, novel, gate)
         print(f"K8 gate hand-built {label}: "
               f"{int(hc5['overflow'].sum() + hc3['overflow'].sum())} "
@@ -1817,8 +1870,8 @@ def main(argv=None) -> int:
     # gmap_build wrote, over the first CLI_READS reads or pairs of a
     # path's set, written as FASTQ; its SAM (header included) must equal
     # what the runner writes for the same reads at the same batch size,
-    # and the kernels it launched (reported through
-    # GSNAP_TORCH_LAUNCHES_OUT) must be its path's
+    # and the kernels it launched (written by _GSNAP_COUNTING) must be its
+    # path's
     def write_inputs(tag, recs, mates, n):
         files = [os.path.join(tmp, f"{tag}_1.fq")]
         synth.write_fastq(files[0], recs[:n])
@@ -1838,9 +1891,8 @@ def main(argv=None) -> int:
             run_with.run_pe(reads[0], reads[1], ref, batch_size=args.batch)
         lfile = os.path.join(tmp, "launches.json")
         t0 = time.time()
-        out, err = _tool("gsnap", "-D", tmp, "-d", "syn", "--batch-size",
-                         args.batch, *extra, *files,
-                         env={**os.environ, "GSNAP_TORCH_LAUNCHES_OUT": lfile})
+        out, err = _gsnap_counting(lfile, "-D", tmp, "-d", "syn",
+                                   "--batch-size", args.batch, *extra, *files)
         wall = time.time() - t0
         if out != ref.getvalue():
             a, b = out.splitlines(), ref.getvalue().splitlines()
@@ -1947,7 +1999,8 @@ def main(argv=None) -> int:
             if (name.startswith(("seed_diagonals/", "prefix_mismatches/"))
                     or name in (f"rank_hits/{label}",
                                 f"lane_features/{label}")):
-                times[name] = (_device_ms(fk), _device_ms(fp))
+                (ms, plain_ms), clock, _ = _timed(fk, fp)
+                times[name] = (ms, plain_ms, clock)
         sam = path(label, want, recs, r, mates,
                    optional=GMAP_KERNELS + DYNPROG_KERNELS)
         gl = {k: paths[label].get(k, 0) for k in GMAP_KERNELS
@@ -2007,23 +2060,33 @@ def main(argv=None) -> int:
     # 7. kernel and plain-version times, and the -N 1 profiles, last, so
     # that the profiler cannot perturb the main paths' timing
     print(f"timing phase at {time.time() - t_start:.1f} s", flush=True)
+    library_ms = {}
+    n_events = 0
     for name, shape, fk, fp in checks:
-        # each kernel is timed at its first shape only: its other shapes
-        # and variants are checked, not timed (the profiler's runs
-        # would take minutes of the run's time limit)
-        if name in times or "/" in name:
+        # K1-K8 are timed at every shape and variant (a name's line keeps
+        # its first shape's times; the mode paths timed their own
+        # variants); K9-K17 at their first shape only: K9-K12's plain
+        # versions run thousands of small torch ops a call, and K13-K17's
+        # other shapes and variants are checked, not timed.  A kernel's
+        # first shape is timed with its library call, on one clock
+        once, variant = name.split("/")[0] in FIRST_SHAPE_ONLY, "/" in name
+        if (once and (variant or name in times)) or (variant
+                                                     and name in times):
             continue
-        # the plain versions (thousands of small torch ops for K9-K12)
-        # over three calls, the kernels over five
-        ms, plain_ms = _device_ms(fk), _device_ms(fp, reps=3)
-        call, plain_call = _call_ms(fk), _call_ms(fp, reps=3)
-        print(f"kernel {name:20s} {shape:22s}: device time cuda {ms:.4f} ms, "
-              f"plain torch {plain_ms:.4f} ms; per call (events) "
-              f"{call:.4f} / {plain_call:.4f} ms", flush=True)
-        times.setdefault(name, (ms, plain_ms))
-    library_ms = {name: _device_ms(fn) for name, fn in library.items()}
-    for name, ms in library_ms.items():
-        print(f"library call for {name}: {ms:.4f} ms", flush=True)
+        lib = library.get(name) if name not in times else None
+        ms, clock, calls = _timed(fk, fp, *([lib] if lib else []))
+        n_events += clock == "events"
+        print(f"kernel {name:20s} {shape:22s}: {clock} time cuda "
+              f"{ms[0]:.4f} ms, plain torch {ms[1]:.4f} ms"
+              + (f", library {ms[2]:.4f} ms" if lib else "")
+              + f"; per call (events) {calls[0]:.4f} / {calls[1]:.4f} ms",
+              flush=True)
+        times.setdefault(name, (ms[0], ms[1], clock))
+        if lib:
+            library_ms[name] = ms[2]
+    print(f"timing phase: {n_events} of the timed shapes on CUDA-event "
+          f"time (a profile recorded no device time), the rest on "
+          f"torch.profiler device time", flush=True)
     _profile_run(torch, lambda: runner_n1.run(rna, io.StringIO(),
                                               batch_size=args.batch),
                  "SE -N 1")
@@ -2068,10 +2131,11 @@ def main(argv=None) -> int:
     }
     kernels = []
     for name, (entry, cu, replaces) in sources.items():
-        ms, plain_ms = times[name]
+        ms, plain_ms, clock = times[name]
         variants = {v.split("/", 1)[1]: {
-            "ms": times.get(v, (None, None))[0],
-            "plain_ms": times.get(v, (None, None))[1],
+            "ms": times.get(v, (None, None, None))[0],
+            "plain_ms": times.get(v, (None, None, None))[1],
+            "clock": times.get(v, (None, None, None))[2],
             "max_abs_err": errs[v], "bound_ms": bounds[v][0],
             "bound_by": bounds[v][1]}
             for v in errs if v.startswith(name + "/")}
@@ -2083,7 +2147,8 @@ def main(argv=None) -> int:
                             label: launches.get(entry, 0)
                             for label, launches in paths.items()},
                         "max_abs_err": errs[name], "ms": ms,
-                        "plain_ms": plain_ms, "bound_ms": bounds[name][0],
+                        "plain_ms": plain_ms, "clock": clock,
+                        "bound_ms": bounds[name][0],
                         "bound_by": bounds[name][1],
                         "library_ms": library_ms.get(name),
                         "variants": variants})

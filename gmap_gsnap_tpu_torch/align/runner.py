@@ -35,6 +35,7 @@ import math
 import os
 import sys as _sys
 import time as _time
+import types
 from collections import Counter
 from dataclasses import dataclass
 
@@ -70,6 +71,12 @@ EXCEPTION_GUARD = True
 
 # rows with more hits than this take the full emission path
 PAIR_KTOP = 2
+
+# the pairtype word of a non-concordant pair in native output
+# (JAX runner.py:3063)
+_PAIRTYPE_WORDS = {gsnap_pe.PT_INVERSION: "inversion",
+                   gsnap_pe.PT_SCRAMBLE: "scramble",
+                   gsnap_pe.PT_TOOLONG: "toolong"}
 
 # genome base and read base of each cmet/atoi conversion: the read
 # shows the second where the genome has the first
@@ -501,7 +508,6 @@ class GsnapRunner:
         self.show_refdiff = False
         self.print_snps = False
         self._snp_display = None
-        self._fmt = "sam"   # run / run_pe set it: "sam" or "gsnap"
         self.index_minus = None
         mode = self.params.mode
         if snpsdb is not None:
@@ -2033,6 +2039,19 @@ class GsnapRunner:
                 return labels
         return {}
 
+    def _chr_lookup(self, left):
+        """(chromosome name, its first genome position) of ``left``."""
+        chrnum = int(np.searchsorted(self.db.chr_ends, left, side="right"))
+        return self.db.chr_names[chrnum], int(self.db.chr_starts[chrnum])
+
+    def _pair_mapqs(self, logliks, qual):
+        """MAPQs of a pair list ranked by summed loglik: 40 for one pair,
+        else _end_mapqs over the pairs' summed logliks."""
+        if len(logliks) == 1:
+            return [40]
+        dets = [types.SimpleNamespace(loglik=x) for x in logliks]
+        return self._end_mapqs(dets, qual)[0]
+
     def native_records(self, rec: Record, hits, row: int, npaths,
                        maxpaths: int = 100) -> str:
         """GSNAP native (default) output for one read."""
@@ -2043,12 +2062,9 @@ class GsnapRunner:
         if final:
             mapqs, _, _ = self._end_mapqs([h.d for h in final], qual)
 
-        def chr_lookup(left):
-            chrnum = int(np.searchsorted(self.db.chr_ends, left, side="right"))
-            return self.db.chr_names[chrnum], int(self.db.chr_starts[chrnum])
-
         return gsnap_native.read_block(
-            rec, final, self._genome_str, self.db.codes, chr_lookup, mapqs,
+            rec, final, self._genome_str, self.db.codes, self._chr_lookup,
+            mapqs,
             splice_labels=self._splice_labels, snp=self._native_snp(),
         )
 
@@ -3130,9 +3146,9 @@ class GsnapRunner:
         return c.endswith("M") and c[:-1].isdigit()
 
     # ------------------------------------------------------------------ main
-    def _emit(self, rec: Record, res, row: int, j: int) -> str:
+    def _emit(self, rec: Record, res, row: int, j: int, fmt: str) -> str:
         self._cat_row(j)
-        emit = self.sam_records if self._fmt == "sam" else self.native_records
+        emit = self.sam_records if fmt == "sam" else self.native_records
         try:
             return emit(rec, res, row, int(res["npaths"][row]),
                         self.params.maxpaths)
@@ -3140,14 +3156,14 @@ class GsnapRunner:
             _offending_read(rec)
             raise
 
-    def _need_full(self, recs, res, rows=None) -> np.ndarray:
+    def _need_full(self, recs, res, fmt: str, rows=None) -> np.ndarray:
         """Rows whose emission takes the rescue lanes (or has more than
         one hit): no hit, more than PAIR_KTOP hits, a done level that
         opens the lanes without a device lane-noop verdict, or any row
         when known sites open the short-end lane; every row under native
         output, which has no fast path."""
         r = np.arange(len(recs)) if rows is None else np.asarray(rows, np.int64)
-        if self._fmt != "sam":
+        if fmt != "sam":
             return np.ones(len(r), bool)
         np_a = np.asarray(res["npaths"])[r]
         done = self._se_done_level(recs, res, rows)
@@ -3162,7 +3178,6 @@ class GsnapRunner:
         native format ("gsnap") to ``out``; returns the count.  Chunk
         i+1's device work is queued before chunk i's host emission, so
         the two overlap."""
-        self._fmt = fmt
         if emit_header and fmt == "sam":
             out.write(sam.header(
                 self.db.chr_names,
@@ -3198,7 +3213,7 @@ class GsnapRunner:
             self._gmap_rows = set()
             self._categories = {}
             texts = [None] * len(chunk)
-            need_full = self._need_full(chunk, res)
+            need_full = self._need_full(chunk, res, fmt)
             self._lane_masks.clear()
             self._lane_trims.clear()
             self._prime_rows((chunk[j], res, j) for j in np.flatnonzero(need_full)
@@ -3214,7 +3229,7 @@ class GsnapRunner:
                     self._categories[j] = "unpaired_uniq"
             for j, rec in enumerate(chunk):
                 if j not in wide_row and texts[j] is None:
-                    texts[j] = self._emit(rec, res, j, j)
+                    texts[j] = self._emit(rec, res, j, j, fmt)
             wide_ctx = {}   # chunk row -> (tree, row) for re-emission
             for wdisp, lane_rows, is_final in wide_lanes:
                 wide_res = self.fetch_records(wdisp)
@@ -3235,7 +3250,7 @@ class GsnapRunner:
                 wrows = [lane_rows[j] for j in wjs]
                 wn = np.asarray(wide_res["npaths"])
                 wneed = self._need_full([chunk[j] for j in wjs], wide_res,
-                                        wrows)
+                                        fmt, wrows)
                 self._prime_rows((chunk[j], wide_res, lane_rows[j])
                                  for t, j in enumerate(wjs) if wneed[t])
                 if self.params.maxpaths >= 1:
@@ -3252,7 +3267,8 @@ class GsnapRunner:
                 for j, wi in lane_rows.items():
                     wide_ctx[j] = (wide_res, wi)
                     if texts[j] is None:
-                        texts[j] = self._emit(chunk[j], wide_res, wi, j)
+                        texts[j] = self._emit(chunk[j], wide_res, wi, j,
+                                              fmt)
             pending = self._gmap_collect
             rows = self._gmap_rows
             self._gmap_collect = None
@@ -3262,7 +3278,7 @@ class GsnapRunner:
                 self.prefetch_gmap(pending)
                 for j in sorted(rows):
                     rres, rrow = wide_ctx.get(j, (res, j))
-                    texts[j] = self._emit(chunk[j], rres, rrow, j)
+                    texts[j] = self._emit(chunk[j], rres, rrow, j, fmt)
             for j in range(len(chunk)):
                 self.category_counts[
                     self._categories.get(j, "unpaired_uniq")] += 1
@@ -3528,10 +3544,6 @@ class GsnapRunner:
         """GSNAP native paired-end blocks: '>' header for end 1, '<' for
         end 2, result word concordant/paired/unpaired, and pair_score/
         insert_length[,pairtype:...] on each hit's first line."""
-        def chr_lookup(left):
-            chrnum = int(np.searchsorted(self.db.chr_ends, left, side="right"))
-            return self.db.chr_names[chrnum], int(self.db.chr_starts[chrnum])
-
         npairs = int(res["npairs"][row])
         out = []
         qual5 = rec5.quality or ""
@@ -3543,7 +3555,7 @@ class GsnapRunner:
             rpairs, rconc, f5, f3 = self._pe_rescue(rec5, rec3_inv, res, row)
         if rpairs and (rconc or npairs == 0):
             return self._native_pe_rescued(
-                rec5, rec3_orig, rpairs, rconc, qual5, qual3, chr_lookup)
+                rec5, rec3_orig, rpairs, rconc, qual5, qual3)
 
         if npairs > 0:
             n = min(npairs, self.params.maxpaths)
@@ -3559,15 +3571,8 @@ class GsnapRunner:
             # genes / tally / runlength maps (not ported)
             pairs.sort(key=lambda t: (-(t[1].nmatches + t[2].nmatches),
                                       -(t[1].loglik + t[2].loglik)))
-            mapqs = [40] * n if n == 1 else None
-            if mapqs is None:
-                dets = [type("X", (), {"loglik": d5.loglik + d3.loglik})
-                        for _, d5, d3 in pairs]
-                mapqs, _, _ = self._end_mapqs(dets, qual5 or None)
-
-            ptword = {gsnap_pe.PT_INVERSION: "inversion",
-                      gsnap_pe.PT_SCRAMBLE: "scramble",
-                      gsnap_pe.PT_TOOLONG: "toolong"}
+            mapqs = self._pair_mapqs(
+                [d5.loglik + d3.loglik for _, d5, d3 in pairs], qual5 or None)
 
             for endno, (rec, hhs) in enumerate((
                 (rec5, [d5 for _, d5, _ in pairs]),
@@ -3582,10 +3587,10 @@ class GsnapRunner:
                     suffix = (f"pair_score:{int(res['pscore'][row, k])},"
                               f"insert_length:{int(res['insert'][row, k])}")
                     pt = int(res["pairtype"][row, k])
-                    if not conc and pt in ptword:
-                        suffix += f",pairtype:{ptword[pt]}"
+                    if not conc and pt in _PAIRTYPE_WORDS:
+                        suffix += f",pairtype:{_PAIRTYPE_WORDS[pt]}"
                     hh = self._hosthit_for(d)
-                    chrname, chr_start = chr_lookup(d.left)
+                    chrname, chr_start = self._chr_lookup(d.left)
                     segs = gsnap_native.hit_lines(
                         hh, rec, self._genome_str, self.db.codes, chrname,
                         chr_start, mapqs[i] if i < len(mapqs) else 0,
@@ -3608,7 +3613,7 @@ class GsnapRunner:
             mapqs, _, _ = (self._end_mapqs([h.d for h in hhs], qual or None)
                            if hhs else ([], [], 0))
             for i, h in enumerate(hhs):
-                chrname, chr_start = chr_lookup(h.d.left)
+                chrname, chr_start = self._chr_lookup(h.d.left)
                 segs = gsnap_native.hit_lines(
                     h, rec, self._genome_str, self.db.codes, chrname,
                     chr_start, mapqs[i] if i < len(mapqs) else 0,
@@ -3626,8 +3631,7 @@ class GsnapRunner:
                               h.nmatches, h.mm_positions, h.loglik)
 
     def _native_pe_rescued(self, rec5: Record, rec3_orig: Record, rpairs,
-                           rconc: bool, qual5: str, qual3: str,
-                           chr_lookup) -> str:
+                           rconc: bool, qual5: str, qual3: str) -> str:
         """Native PE blocks for host-rescued (terminal/GMAP) pairs."""
         n = min(len(rpairs), self.params.maxpaths)
         rpairs = rpairs[:n]
@@ -3636,15 +3640,8 @@ class GsnapRunner:
             -(rpairs[k][0].nmatches + rpairs[k][1].nmatches),
             -(rpairs[k][0].loglik + rpairs[k][1].loglik)))
         rpairs = [rpairs[k] for k in order]
-        if n == 1:
-            mapqs = [40]
-        else:
-            dets = [type("X", (), {"loglik": p[0].loglik + p[1].loglik})
-                    for p in rpairs]
-            mapqs, _, _ = self._end_mapqs(dets, qual5 or None)
-        ptword = {gsnap_pe.PT_INVERSION: "inversion",
-                  gsnap_pe.PT_SCRAMBLE: "scramble",
-                  gsnap_pe.PT_TOOLONG: "toolong"}
+        mapqs = self._pair_mapqs(
+            [p[0].loglik + p[1].loglik for p in rpairs], qual5 or None)
         out = []
         for endno, (rec, hhs) in enumerate((
             (rec5, [p[0] for p in rpairs]),
@@ -3656,14 +3653,14 @@ class GsnapRunner:
             for i, h in enumerate(hhs):
                 _, _, pt, ps, ins = rpairs[i]
                 suffix = f"pair_score:{ps},insert_length:{ins}"
-                if not rconc and pt in ptword:
-                    suffix += f",pairtype:{ptword[pt]}"
-                chrname, chr_start = chr_lookup(h.d.left)
+                if not rconc and pt in _PAIRTYPE_WORDS:
+                    suffix += f",pairtype:{_PAIRTYPE_WORDS[pt]}"
+                chrname, chr_start = self._chr_lookup(h.d.left)
                 segs = gsnap_native.hit_lines(
                     h, rec, self._genome_str, self.db.codes, chrname,
                     chr_start, mapqs[i] if i < len(mapqs) else 0,
                     pair_suffix=suffix, splice_labels=self._splice_labels,
-                        snp=self._native_snp())
+                    snp=self._native_snp())
                 for j, s in enumerate(segs):
                     out.append((" " if j == 0 else ",") + s)
             out.append("")
@@ -3680,12 +3677,12 @@ class GsnapRunner:
         return rescue.HostHit(d, kind, d.nmatches_whole,
                               np.array(d.mmpos, int), d.loglik)
 
-    def _emit_pe(self, recs, res, row: int, j: int) -> str:
+    def _emit_pe(self, recs, res, row: int, j: int, fmt: str) -> str:
         """sam_pe_records (native_pe_records under -A gsnap) for chunk
         row j (recs: rec5, rec3_inv, rec3_orig) at ``row`` of ``res``,
         under the crash guard."""
         self._cat_row(j)
-        emit = (self.sam_pe_records if self._fmt == "sam"
+        emit = (self.sam_pe_records if fmt == "sam"
                 else self.native_pe_records)
         try:
             return emit(*recs, res, row)
@@ -3700,7 +3697,6 @@ class GsnapRunner:
         (invert_second_p) so concordant mates share a strand; SAM or, with
         ``fmt`` "gsnap", GSNAP's native format.  Chunk i+1's device work
         is queued before chunk i's host emission."""
-        self._fmt = fmt
         if emit_header and fmt == "sam":
             out.write(sam.header(
                 self.db.chr_names,
@@ -3800,7 +3796,7 @@ class GsnapRunner:
 
             for j in range(len(chunk5)):
                 if j not in wide_row and texts[j] is None:
-                    texts[j] = self._emit_pe(recs_of(j), res, j, j)
+                    texts[j] = self._emit_pe(recs_of(j), res, j, j, fmt)
             wide_ctx = {}   # chunk row -> (tree, row) for re-emission
             for wdisp, lane_rows, is_final in wide_lanes:
                 wide_res = self.fetch_pairs(wdisp)
@@ -3843,7 +3839,8 @@ class GsnapRunner:
                 for j, wi in lane_rows.items():
                     wide_ctx[j] = (wide_res, wi)
                     if texts[j] is None:
-                        texts[j] = self._emit_pe(recs_of(j), wide_res, wi, j)
+                        texts[j] = self._emit_pe(recs_of(j), wide_res, wi, j,
+                                                 fmt)
             pending = self._gmap_collect
             rows = self._gmap_rows
             self._gmap_collect = None
@@ -3851,7 +3848,7 @@ class GsnapRunner:
                 self.prefetch_gmap(pending)
                 for j in sorted(rows):
                     rres, rrow = wide_ctx.get(j, (res, j))
-                    texts[j] = self._emit_pe(recs_of(j), rres, rrow, j)
+                    texts[j] = self._emit_pe(recs_of(j), rres, rrow, j, fmt)
             # -a/--adapter-strip: pairs with no concordant/paired
             # result retry with detected primer readthrough chopped
             # (gsnap.c:621-665 + Shortread_chop_primers); both the
@@ -3887,7 +3884,7 @@ class GsnapRunner:
                     rres = self.align_pairs(c5c, c3ic)
                     for t, (j, ch) in enumerate(retries):
                         texts[j] = self._emit_pe((c5c[t], c3ic[t], c3c[t]),
-                                                 rres, t, j)
+                                                 rres, t, j, fmt)
             for j in range(len(chunk5)):
                 self.category_counts[
                     self._categories.get(j, "concordant_uniq")] += 1

@@ -17,10 +17,8 @@ launch raises: there is no fallback to the plain torch versions.
 
 from __future__ import annotations
 
-import atexit
 import ctypes
 import hashlib
-import json
 import os
 import shutil
 import subprocess
@@ -38,18 +36,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # launches per kernel in this process (reset with LAUNCHES.clear())
 LAUNCHES: Counter = Counter()
-
-# A process whose environment names a file in GSNAP_TORCH_LAUNCHES_OUT
-# writes LAUNCHES there as JSON when it exits, so that a caller running
-# a CLI (python -m gmap_gsnap_tpu_torch.cli.gsnap) as a subprocess can
-# see which kernels it launched.
-_LAUNCHES_OUT = os.environ.get("GSNAP_TORCH_LAUNCHES_OUT")
-if _LAUNCHES_OUT:
-    def _write_launches(path=_LAUNCHES_OUT):
-        with open(path, "w") as f:
-            json.dump(dict(LAUNCHES), f)
-
-    atexit.register(_write_launches)
 
 # argument kinds of each C entry point: p = device pointer (or None),
 # i = int32, l = int64.  The stream is appended to every call.
