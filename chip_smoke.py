@@ -153,10 +153,12 @@ and ends the run with a nonzero exit):
      with --device cpu;
   7. each kernel's device time (torch.profiler) and per-call time beside
      its plain version's (and its library call's) on the same clock: K1-K8
-     at every shape and variant, K9-K17 at their first shape; then
-     profiles of the SE -N 1 and PE -N 1 runs (device busy share, top
-     device ops), measured last so that the profiler cannot perturb step
-     5's timing.
+     at every shape and variant, K2 and K14 at every shape each with its
+     own library sort and bound, K9-K13 and K15-K17 at their first shape;
+     the number of device ops one K14 call runs (1: its fields are
+     gathered inside it); then profiles of the SE -N 1 and PE -N 1 runs
+     (device busy share, top device ops), measured last so that the
+     profiler cannot perturb step 5's timing.
 
 Prints one JSON line with every kernel's launches (on the PE -N 1 path,
 which runs all seventeen; per path under launches_by_path; the checks of
@@ -169,8 +171,9 @@ larger of the bytes it must move over 3.35 TB/s and its operations over
 is lower (64 int32 lanes per SM against 128 float32), so the operations
 term is an underestimate; bound_by says which) and the time of one PyTorch
 call computing the same function where there is one (library_ms, else
-null), then the nvidia-smi line, then {"ok": true, "device": {...}}
-last.
+null); K2 and K14 also list every timed shape under "shapes" with its
+own times, library time and bound; then the nvidia-smi line, then
+{"ok": true, "device": {...}} last.
 """
 
 from __future__ import annotations
@@ -196,10 +199,12 @@ SPLICE_KERNELS = ("gsnap_solve_splices", "gsnap_select_triples",
 PAIR_KERNELS = ("gsnap_pair_grid",)
 GMAP_KERNELS = ("gmap_seed_segments", "gmap_chain")
 DYNPROG_KERNELS = ("gmap_banded_gotoh", "gmap_bridge_traceback")
-# checks timed at their first shape only (K9-K17)
+# checks timed at their first shape only (K9-K13, K15-K17)
 FIRST_SHAPE_ONLY = ("seed_segments", "chain", "banded_gotoh",
-                    "bridge_traceback", "lane_features", "rank_hits",
-                    "qpos_ranges", "select_pairs", "pack_queries")
+                    "bridge_traceback", "lane_features", "qpos_ranges",
+                    "select_pairs", "pack_queries")
+# kernels timed at every shape with their own library call and bound
+PER_SHAPE = ("top_diagonals", "rank_hits")
 # K13-K16: trims and lane features, ranking (+ the SE gates), seed qpos
 # ranges, pair selection — every path runs them
 # K17 the read packing and reverse complement at the head of the cascade
@@ -280,6 +285,29 @@ def _device_ms(fn, reps: int = 5, tries: int = 4) -> float | None:
                  if e.device_type == DeviceType.CUDA)
         if us > 0:
             return us / 1e3 / reps
+    return None
+
+
+def _device_ops(fn, reps: int = 5, tries: int = 4) -> float | None:
+    """The number of CUDA device ops (kernels, copies, fills) per call of
+    fn that torch.profiler records (CUDA activity alone) over ``reps``
+    calls, after a warm-up call; None when ``tries`` profiles recorded
+    none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+        if n > 0:
+            return n / reps
     return None
 
 
@@ -732,14 +760,17 @@ def _gmap_checks(torch, eng, dp, lanes, rng, dev, costs):
 
 def _stage_checks(torch, gg, se, mmo, genome_dev, index, index_minus, c, f,
                   ln, gp, label, rank=True):
-    """K13-K16 checks (name, shape, kernel call, plain call, cost) on one
+    """K13-K16 checks (name, shape, kernel call, plain call, cost,
+    library call or None) on one
     batch (codes c, flags f, lengths ln of read 1s) under GappedParams
     ``gp``: per strand batch as _strand_hits runs it (both strands
     stacked in standard mode; under a cmet/atoi conversion each strand on
     its own index, with K1 on that index and K3 with that conversion
     checked too), and K14 (with ``rank``) on the batch's candidates:
     the SE ranking with its gates, and the PE pairing call (no optimal
-    filter, maxout 16) and maxout above the candidate count."""
+    filter, maxout 16) and maxout above the candidate count, each with
+    one stable torch.sort of the batch's packed (score, left, !plusp)
+    key as its library call."""
     base = gp.base
     conv_plus, conv_minus = se._MODE_CONV[base.mode]
     crc, frc = se._revcomp_batch_plain(c, f, ln)
@@ -769,7 +800,7 @@ def _stage_checks(torch, gg, se, mmo, genome_dev, index, index_minus, c, f,
                  partial(se._seed_diagonals_plain, *sargs),
                  lambda out, a=sargs, n=kmers: (
                      _nbytes(a[1:4], out) + n * 8
-                     + int((out[0] != se.INVALID_DIAG).sum()) * 4, 0)),
+                     + int((out[0] != se.INVALID_DIAG).sum()) * 4, 0), None),
                 (f"prefix_mismatches/{conv}", shape,
                  partial(mmo._prefix_mismatches_cuda, genome_dev, q, top_d,
                          ll, conv, None),
@@ -777,7 +808,7 @@ def _stage_checks(torch, gg, se, mmo, genome_dev, index, index_minus, c, f,
                          ll, conv, None),
                  lambda out, q=q, t=top_d, ll=ll: (
                      _nbytes(q, t, ll, out) + t.numel() * (100 // 16 + 2) * 8,
-                     0))]
+                     0), None)]
         largs = (mm, ll, idx.k, idx.interval, base.trim_mismatch_score)
 
         def lane_plain(mm=mm, pref=pref, ll=ll, idx=idx):
@@ -790,12 +821,13 @@ def _stage_checks(torch, gg, se, mmo, genome_dev, index, index_minus, c, f,
         checks += [
             ("lane_features", shape,
              partial(_fields, gg._lane_features_cuda, largs, lf_keys),
-             lane_plain, lambda out, a=largs: (_nbytes(a[:2], out), 0)),
+             lane_plain, lambda out, a=largs: (_nbytes(a[:2], out), 0),
+             None),
             ("qpos_ranges", shape,
              partial(se._qpos_ranges_cuda, diag, qgrid, top_d),
              partial(se._qpos_ranges_plain, diag, qgrid, top_d),
              lambda out, a=(diag, qgrid, top_d): (_nbytes(a, out),
-                                                  a[0].numel()))]
+                                                  a[0].numel()), None)]
         for rule, dist, fn, npairs in (
                 ("indel", None, gg._indel_pairs_eligible(
                     base.max_middle_deletions, base.max_middle_insertions),
@@ -812,18 +844,28 @@ def _stage_checks(torch, gg, se, mmo, genome_dev, index, index_minus, c, f,
                 partial(gg._select_pairs_cuda, top_d, votes, npairs, *kargs),
                 partial(gg._select_pairs_plain, top_d, votes, fn, npairs),
                 lambda out, t=top_d, v=votes: (
-                    _nbytes(t, v, out), 8 * t.numel() * t.shape[1])))
+                    _nbytes(t, v, out), 8 * t.numel() * t.shape[1]), None))
     if not rank:
         return checks
     out, cands = gg.gather_candidates(genome_dev, index, index_minus, c, f,
                                       ln, gp)
     keys = sorted(out) + ["npaths"]
     shape = f"{label} n={out['score'].shape[1]}"
-    key_bytes = _nbytes([out[k] for k, _ in gg._RANK_KEY_FIELDS])
+    key_bytes = _nbytes([out[k] for k in gg._RANK_KEYS])
     b, n = out["score"].shape
+    # the library yardstick: one stable sort of the packed key per read
+    rkey = ((out["score"].long() << 33) | (out["left"] << 1)
+            | (~out["plusp"]).long())
+    lib = partial(torch.sort, rkey, dim=1, stable=True)
 
-    def rank_cost(nout):
-        return lambda res: (key_bytes + b * nout * 12 + b * 4,
+    def rank_cost(nout, extra=0):
+        # the key fields read in full; of every other field the nout
+        # ranked entries read; every field's nout entries and npaths
+        # written
+        ranked = sum(v.element_size() for v in out.values()) * b * nout
+        other = sum(v.element_size() for k, v in out.items()
+                    if k not in gg._RANK_KEYS) * b * nout
+        return lambda res: (key_bytes + other + ranked + b * 4 + extra,
                             b * n * math.log2(n))
 
     for suffix, opt, maxout in (("", True, None), ("/pairing", False, 16),
@@ -834,23 +876,31 @@ def _stage_checks(torch, gg, se, mmo, genome_dev, index, index_minus, c, f,
             "rank_hits" + suffix, shape,
             partial(_first, gg._rank_hits_cuda, rargs, keys),
             partial(_fields, gg._rank_hits_plain, rargs, keys),
-            rank_cost(nout)))
+            rank_cost(nout), lib))
     gargs = (out, cands, ln.int(), index.k, index.interval, gp, True)
     gkeys = sorted(gg._rank_gate_se_plain(*gargs))
+    # the epilogue reads each candidate's lane features and the row's
+    # overflow inputs, and writes two flags a candidate and two a row
+    nc2 = cands["cand_nmm"].shape[1]
+    se_bytes = _nbytes([cands[k] for k in (
+        "cand_nmm", *gg._LANE_FEATURE_KEYS, "overflow", "overflow_trunc",
+        "ovf_bound", "hbound")], ln) + 2 * b * nc2 + 2 * b
     checks.append((
         "rank_hits/se gates", shape,
         partial(_fields, gg._rank_gate_se_cuda, gargs, gkeys),
         partial(_fields, gg._rank_gate_se_plain, gargs, gkeys),
-        rank_cost(min(base.maxpaths, n))))
+        rank_cost(min(base.maxpaths, n), se_bytes), lib))
     return checks
 
 
 def _stage_edges(torch, gg, se, synth, rng, dev, base):
-    """K13-K16 checks on hand-built edges: masks with all / no
+    """K2 and K13-K16 checks on hand-built edges: masks with all / no
     mismatches and reads shorter than lmax (K13), exact duplicate
     candidates and equal (score, left) on both strands with maxout above
-    the candidate count (K14), INVALID diagonals and seed slots (K15),
-    diagonals near 2^31 and 2^32 under both rules (K16)."""
+    the candidate count, and synth.rank_hit_edges' rows (K14), INVALID
+    diagonals and seed slots (K15), diagonals near 2^31 and 2^32 under
+    both rules (K16), and synth.diag_vote_rows at W off a power of two
+    and ncand equal to W (K2)."""
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     mm, pref, ln = (t(x) for x in synth.mismatch_rows(rng, 512, 32))
     lf_keys = ("cand_mm",) + gg._LANE_FEATURE_KEYS
@@ -876,6 +926,23 @@ def _stage_edges(torch, gg, se, synth, rng, dev, base):
             partial(_first, gg._rank_hits_cuda, rargs, keys),
             partial(_fields, gg._rank_hits_plain, rargs, keys),
             lambda res: (_nbytes(list(out.values()), res), 0)))
+    for edge in synth.RANK_EDGE_KINDS:
+        eout = {k: t(v) for k, v in synth.rank_hit_edges(rng, 1024, 144,
+                                                         edge).items()}
+        rargs = (eout, base, True, None)
+        checks.append((
+            f"rank_hits/{edge}", "1024 rows n=144",
+            partial(_first, gg._rank_hits_cuda, rargs, keys),
+            partial(_fields, gg._rank_hits_plain, rargs, keys),
+            lambda res, o=eout: (_nbytes(list(o.values()), res), 0)))
+    for w, nc in ((383, 32), (385, 32), (4096, 128), (4096, 4096)):
+        d = t(synth.diag_vote_rows(rng, 1024 if w < 512 else 256, w, nc))
+        checks.append((
+            "top_diagonals/edges", f"W={w} NC={nc} {d.shape[0]} rows",
+            partial(se._top_diagonals_cuda, d, nc),
+            partial(se._top_diagonals_plain, d, nc),
+            lambda out, d=d: (_nbytes(d, out),
+                              d.numel() * math.log2(d.shape[1]))))
     top, votes = (t(x) for x in synth.diag_pair_cases(rng, 1024, 32))
     grid = top.repeat(1, 12)
     qgrid = torch.arange(grid.shape[1], device=dev, dtype=torch.int32
@@ -1344,8 +1411,9 @@ def main(argv=None) -> int:
     budget = se.auto_budget(l2, db.k, db.interval, -1)
     checks = []   # (name, shape, kernel call, plain call), checked now, timed last
     # per kernel, at its first shape: (bytes, operations) of the work from
-    # its plain output, and one PyTorch call computing the same function
-    costs, library = {}, {}
+    # its plain output, and one PyTorch call computing the same function;
+    # for PER_SHAPE's kernels both also per (name, shape)
+    costs, library, shape_costs = {}, {}, {}
     gwords = lambda nt: (nt // 16 + 2) * 8     # ref + flag words of a span
     for st, nc in ((384, 32), (4096, 128)):
         p = se.GsnapParams(seed_total=st, ncand=nc,
@@ -1383,10 +1451,12 @@ def main(argv=None) -> int:
         costs.setdefault("seed_diagonals", lambda out: (
             _nbytes(c2, f2, l2, out) + kmers * 8
             + int((out[0] != se.INVALID_DIAG).sum()) * 4, 0))
-        costs.setdefault("top_diagonals", lambda out, d=diag: (
-            _nbytes(d, out), d.numel() * math.log2(d.shape[1])))
-        library.setdefault("top_diagonals", partial(
-            torch.sort, diag, dim=1, stable=True))
+        k2_cost = lambda out, d=diag: (
+            _nbytes(d, out), d.numel() * math.log2(d.shape[1]))
+        costs.setdefault("top_diagonals", k2_cost)
+        shape_costs[("top_diagonals", shape)] = k2_cost
+        library[("top_diagonals", shape)] = partial(
+            torch.sort, diag, dim=1, stable=True)
         costs.setdefault("prefix_mismatches", lambda out, t=top_d: (
             _nbytes(q2, t, l2, out) + t.numel() * gwords(100), 0))
         costs.setdefault("solve_indels", lambda out, a=kargs: (
@@ -1539,11 +1609,14 @@ def main(argv=None) -> int:
         return [torch.from_numpy(x).to(dev) for x in enc]
 
     def stage(label, recs, gp, mates=None, rank=True):
-        for name, shape, fk, fp, cost in _stage_checks(
+        for name, shape, fk, fp, cost, lib in _stage_checks(
                 torch, gg, se, mmo, genome_dev, index, None,
                 *batch1(recs, mates), gp, label, rank):
             checks.append((name, shape, fk, fp))
             costs.setdefault(name, cost)
+            shape_costs[(name, shape)] = cost
+            if lib is not None:
+                library[(name, shape)] = lib
 
     wide = lambda gp: dataclasses.replace(gp, base=dataclasses.replace(
         gp.base, seed_total=4096, ncand=128))
@@ -1578,14 +1651,12 @@ def main(argv=None) -> int:
                                                   dev, params):
         checks.append((name, shape, fk, fp))
         costs.setdefault(name, cost)
-    # library yardsticks: one stable sort of the packed (score, left,
-    # !plusp) key per read (K14), one of the negated pair scores (K16)
+    # library yardstick of K16: one stable sort of the negated pair
+    # scores (K2's and K14's are per shape, above); SE -N 0's candidates
+    # for counting K14's device ops
     c1, f1, l1 = batch1(records)
-    out1, _ = gg.gather_candidates(genome_dev, index, None, c1, f1, l1,
-                                   runner.gapped_params)
-    rkey = ((out1["score"].long() << 33) | (out1["left"] << 1)
-            | (~out1["plusp"]).long())
-    library["rank_hits"] = partial(torch.sort, rkey, dim=1, stable=True)
+    out1, cands1 = gg.gather_candidates(genome_dev, index, None, c1, f1, l1,
+                                        runner.gapped_params)
     crc1, frc1 = se._revcomp_batch_plain(c1, f1, l1)
     sdiag = se._seed_diagonals_plain(
         index, torch.cat([c1, crc1]), torch.cat([f1, frc1]),
@@ -1630,6 +1701,10 @@ def main(argv=None) -> int:
         + int((out[0] != se.INVALID_DIAG).sum()) * 4, 0)
     costs["top_diagonals/snp index"] = lambda out, d=seed[0]: (
         _nbytes(d, out), d.numel() * math.log2(d.shape[1]))
+    shape_costs[("top_diagonals/snp index", shape)] = costs[
+        "top_diagonals/snp index"]
+    library[("top_diagonals/snp index", shape)] = partial(
+        torch.sort, seed[0], dim=1, stable=True)
     # K3 with alt reads the alt words of each span too
     costs["prefix_mismatches/alt"] = lambda out, t=top_d: (
         _nbytes(vq2, t, vl2, out) + t.numel() * gwords(100) * 3 // 2, 0)
@@ -1693,6 +1768,27 @@ def main(argv=None) -> int:
                                       "SE -N 0"))]
     checks += _gmap_checks(torch, eng, dp, lanes, rng, dev, costs)
     errs, bounds, times = {}, {}, {}
+    # library call times (first shape), and PER_SHAPE's kernels' rows:
+    # every timed shape with its library call and bound
+    library_ms, per_shape = {}, {}
+
+    def shape_time(name, shape, fk, fp, lib, bound):
+        ms, clock, calls = _timed(fk, fp, *([lib] if lib else []))
+        lib_ms = ms[2] if lib else None
+        print(f"kernel {name:20s} {shape:22s}: {clock} time cuda "
+              f"{ms[0]:.4f} ms, plain torch {ms[1]:.4f} ms"
+              + (f", library {lib_ms:.4f} ms" if lib else "")
+              + f", bound {bound[0]:.5f} ms ({bound[1]})"
+              + f"; per call (events) {calls[0]:.4f} / {calls[1]:.4f} ms",
+              flush=True)
+        times.setdefault(name, (ms[0], ms[1], clock))
+        if lib:
+            library_ms.setdefault(name, lib_ms)
+        per_shape.setdefault(name.split("/")[0], []).append({
+            "check": name, "shape": shape, "ms": ms[0], "plain_ms": ms[1],
+            "library_ms": lib_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "clock": clock})
+        return clock
     print(f"kernel checks at {time.time() - t_start:.1f} s", flush=True)
     for name, shape, fk, fp in checks:
         want = fp()
@@ -1984,7 +2080,7 @@ def main(argv=None) -> int:
               f"{len(r.index.positions)} + {len(r.index_minus.positions)} "
               f"positions", flush=True)
         print(f"resident index bytes: {_resident(db)}", flush=True)
-        for name, shape, fk, fp, cost in _stage_checks(
+        for name, shape, fk, fp, cost, lib in _stage_checks(
                 torch, gg, se, mmo, genome_dev, r.index, r.index_minus,
                 *batch1(recs, mates), r.gapped_params, label):
             name = f"{name} {label}" if "/" in name else f"{name}/{label}"
@@ -1996,9 +2092,10 @@ def main(argv=None) -> int:
                                  f"version (max_abs_err={err})")
             errs[name] = err
             bounds[name] = _bound(*cost(fp()))
-            if (name.startswith(("seed_diagonals/", "prefix_mismatches/"))
-                    or name in (f"rank_hits/{label}",
-                                f"lane_features/{label}")):
+            if name == f"rank_hits/{label}":
+                shape_time(name, shape, fk, fp, lib, bounds[name])
+            elif (name.startswith(("seed_diagonals/", "prefix_mismatches/"))
+                    or name == f"lane_features/{label}"):
                 (ms, plain_ms), clock, _ = _timed(fk, fp)
                 times[name] = (ms, plain_ms, clock)
         sam = path(label, want, recs, r, mates,
@@ -2060,7 +2157,6 @@ def main(argv=None) -> int:
     # 7. kernel and plain-version times, and the -N 1 profiles, last, so
     # that the profiler cannot perturb the main paths' timing
     print(f"timing phase at {time.time() - t_start:.1f} s", flush=True)
-    library_ms = {}
     n_events = 0
     for name, shape, fk, fp in checks:
         # K1-K8 are timed at every shape and variant (a name's line keeps
@@ -2072,6 +2168,13 @@ def main(argv=None) -> int:
         once, variant = name.split("/")[0] in FIRST_SHAPE_ONLY, "/" in name
         if (once and (variant or name in times)) or (variant
                                                      and name in times):
+            continue
+        if name.split("/")[0] in PER_SHAPE:
+            cost = shape_costs.get((name, shape))
+            bound = _bound(*cost(fp())) if cost else bounds[name]
+            n_events += shape_time(name, shape, fk, fp,
+                                   library.get((name, shape)),
+                                   bound) == "events"
             continue
         lib = library.get(name) if name not in times else None
         ms, clock, calls = _timed(fk, fp, *([lib] if lib else []))
@@ -2087,6 +2190,19 @@ def main(argv=None) -> int:
     print(f"timing phase: {n_events} of the timed shapes on CUDA-event "
           f"time (a profile recorded no device time), the rest on "
           f"torch.profiler device time", flush=True)
+    # K14 is one launch a call, its fields gathered inside it
+    gargs1 = (out1, cands1, l1.int(), index.k, index.interval,
+              runner.gapped_params, True)
+    for what, fn in (("alone", partial(gg._rank_hits_cuda, out1,
+                                        runner.gapped_params.base)),
+                     ("with the SE epilogue",
+                      partial(gg._rank_gate_se_cuda, *gargs1))):
+        nops = _device_ops(fn)
+        print(f"rank_hits: {nops} CUDA device ops per _rank_hits_cuda call "
+              f"({what}, SE -N 0 batch)", flush=True)
+        if nops is not None and nops != 1:
+            raise SystemExit(f"_rank_hits_cuda ({what}) ran {nops} device "
+                             f"ops, expected its one kernel")
     _profile_run(torch, lambda: runner_n1.run(rna, io.StringIO(),
                                               batch_size=args.batch),
                  "SE -N 1")
@@ -2151,7 +2267,9 @@ def main(argv=None) -> int:
                         "bound_ms": bounds[name][0],
                         "bound_by": bounds[name][1],
                         "library_ms": library_ms.get(name),
-                        "variants": variants})
+                        "variants": variants,
+                        **({"shapes": per_shape[name]}
+                           if name in per_shape else {})})
     print(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

@@ -1126,34 +1126,57 @@ def _rank_hits_plain(out, base: GsnapParams, apply_optimal: bool = True,
     return final
 
 
-# K14's key fields with the dtypes it reads
-_RANK_KEY_FIELDS = (("kind", torch.int32), ("split", torch.int32),
-                    ("split2", torch.int32), ("mid", torch.int64),
-                    ("right", torch.int64), ("plusp", torch.bool),
-                    ("left", torch.int64), ("score", torch.int32))
+# K14's dedup and ranking keys, in the kernel's order
+_RANK_KEYS = ("kind", "split", "split2", "mid", "right", "plusp", "left",
+              "score")
+# fields that are 0 where a rank holds no hit (score not below BIG_NMM)
+_RANK_ZEROED = ("left", "right", "mid", "kind", "split", "split2",
+                "nindels", "nmm")
+RANK_MAX_CAND = 512
+
+
+def _rank_desc(t: torch.Tensor, dev, dst=None, mode: int = 0) -> list:
+    """K14's descriptor of one [B, n] column of the hit table: source
+    and destination pointers, the source's strides (a broadcast row has
+    stride 0), element size and mode (0 copy, 1 copy or 0 where no hit,
+    2 the ranked score)."""
+    if t.device != dev or t.dim() != 2 or t.element_size() not in (1, 4, 8):
+        raise ValueError(f"rank_hits kernel: a [B, n] field of 1, 4 or 8 "
+                         f"byte elements on {dev}, got {tuple(t.shape)} "
+                         f"{t.dtype} on {t.device}")
+    return [t.data_ptr(), 0 if dst is None else dst.data_ptr(), t.stride(0),
+            t.stride(1), t.element_size(), mode]
 
 
 def _rank_hits_cuda(out, base: GsnapParams, apply_optimal: bool = True,
                     maxout: int | None = None, se=None):
-    """K14 on ``out``; with ``se`` (a dict of the SE epilogue's inputs,
-    see :func:`_rank_gate_se_cuda`) also the overflow gate and the lane
+    """K14 on ``out``, one launch that also writes every ranked field;
+    with ``se`` (a dict of the SE epilogue's inputs, see
+    :func:`_rank_gate_se_cuda`) also the overflow gate and the lane
     gate.  Returns (final, epilogue outputs or None)."""
     score = out["score"]
     b, ncand = score.shape
     dev = score.device
+    if ncand > RANK_MAX_CAND:
+        raise ValueError(f"rank_hits kernel: {ncand} candidates, at most "
+                         f"{RANK_MAX_CAND}")
+    if any(out[k].is_floating_point() for k in _RANK_KEYS):
+        raise ValueError("rank_hits kernel: the key fields are integers")
     nout = min(base.maxpaths if maxout is None else maxout, ncand)
-    perm = torch.empty((b, nout), dtype=torch.int64, device=dev)
-    fscore = torch.empty((b, nout), dtype=torch.int32, device=dev)
+    final = {k: torch.empty((b, nout), dtype=v.dtype, device=dev)
+             for k, v in out.items()}
     npaths = torch.empty(b, dtype=torch.int32, device=dev)
-    keys = [out[k].to(dt).contiguous() for k, dt in _RANK_KEY_FIELDS]
+    keys = [x for k in _RANK_KEYS for x in _rank_desc(out[k], dev)]
+    fields = [x for k, v in out.items() for x in _rank_desc(
+        v, dev, final[k], 2 if k == "score" else int(k in _RANK_ZEROED))]
     ep = None
     if se is None:
         ep_args = [None] * 23
-        ep_ints = [0, 0, 0, 0, 0, 1, 1, 0, 0]
+        ep_ints = [0, 0, 0, 0, 0, 0, 1, 1, 0, 0]
     else:
         ep = {"overflow": torch.empty(b, dtype=torch.bool, device=dev)
               if se["gate"] else se["overflow"],
-              "lane_noop": torch.zeros(b, dtype=torch.bool, device=dev)}
+              "lane_noop": torch.empty(b, dtype=torch.bool, device=dev)}
         cands = se["cands"]
         nc2 = cands["cand_nmm"].shape[1]
         if se["noop"]:
@@ -1168,21 +1191,14 @@ def _rank_hits_cuda(out, base: GsnapParams, apply_optimal: bool = True,
                    ep["overflow"] if se["gate"] else None,
                    cands["cand_nmm"].contiguous(),
                    *(cands[k].contiguous() for k in _LANE_FEATURE_KEYS),
-                   ep["lane_noop"] if se["noop"] else None,
-                   ep.get("lane_ind"), ep.get("lane_term")]
-        ep_ints = [int(se["gate"]), se["lane_gate"], base.max_mismatches,
+                   ep["lane_noop"], ep.get("lane_ind"), ep.get("lane_term")]
+        ep_ints = [1, int(se["gate"]), se["lane_gate"], base.max_mismatches,
                    int(se["noop"]), nc2, se["k"], se["interval"],
                    base.indel_penalty_end, base.terminal_threshold]
-    kbuild.launch("gsnap_rank_hits", dev, *keys, perm, fscore, npaths,
+    kbuild.launch("gsnap_rank_hits", dev, keys, fields, len(out), npaths,
                   *ep_args, b, ncand, nout, base.subopt_levels,
                   int(apply_optimal), *ep_ints)
-    final = {k: torch.gather(v, 1, perm) for k, v in out.items()}
-    ok = fscore < BIG_NMM
-    final["score"] = fscore
     final["npaths"] = npaths
-    for k in ("left", "right", "mid", "kind", "split", "split2", "nindels",
-              "nmm"):
-        final[k] = torch.where(ok, final[k], 0)
     return final, ep
 
 

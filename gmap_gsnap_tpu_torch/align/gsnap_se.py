@@ -263,21 +263,22 @@ def _top_diagonals_plain(diag: torch.Tensor, ncand: int):
 
 
 TOP_DIAG_MAX_W = 32768
+# the kernel's shared memory holds the sorted row and the selected keys
+TOP_DIAG_MAX_NC = 16384
 
 
 def _top_diagonals_cuda(diag: torch.Tensor, ncand: int):
     b, w = diag.shape
-    if w > TOP_DIAG_MAX_W or ncand > w:
+    if w > TOP_DIAG_MAX_W or ncand > min(w, TOP_DIAG_MAX_NC):
         raise ValueError(f"top_diagonals kernel: W={w} must be <= "
-                         f"{TOP_DIAG_MAX_W} and >= ncand={ncand}")
+                         f"{TOP_DIAG_MAX_W} and >= ncand={ncand}, and "
+                         f"ncand <= {TOP_DIAG_MAX_NC}")
     dev = diag.device
-    n = 1 << max(w - 1, 1).bit_length()     # sort width: next power of 2
-    scratch = torch.empty((b, n), dtype=torch.int32, device=dev)
     top_d = torch.empty((b, ncand), dtype=torch.int64, device=dev)
     votes = torch.empty((b, ncand), dtype=torch.int32, device=dev)
     ndistinct = torch.empty(b, dtype=torch.int32, device=dev)
     kbuild.launch("gsnap_top_diagonals", dev, diag.contiguous(), top_d, votes,
-                  ndistinct, scratch, b, w, n, ncand)
+                  ndistinct, b, w, ncand)
     return top_d, votes, ndistinct
 
 

@@ -38,10 +38,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES: Counter = Counter()
 
 # argument kinds of each C entry point: p = device pointer (or None),
-# i = int32, l = int64.  The stream is appended to every call.
+# h = a host table of int64 (a sequence of ints, read by the C function
+# before it launches), i = int32, l = int64.  The stream is appended to
+# every call.
 _SIGNATURES = {
     "gsnap_seed_diagonals": "p" * 10 + "i" * 7 + "ll",
-    "gsnap_top_diagonals": "p" * 5 + "i" * 4,
+    "gsnap_top_diagonals": "p" * 4 + "i" * 3,
     "gsnap_prefix_mismatches": "p" * 10 + "ll" + "i" * 7,
     "gsnap_solve_indels": "p" * 18 + "i" * 8,
     "gsnap_solve_splices": "p" * 22 + "ll" + "i" * 5,
@@ -53,7 +55,7 @@ _SIGNATURES = {
     "gmap_banded_gotoh": "p" * 12 + "i" * 6,
     "gmap_bridge_traceback": "p" * 21 + "i" * 8,
     "gsnap_lane_features": "p" * 16 + "i" * 6,
-    "gsnap_rank_hits": "p" * 34 + "i" * 14,
+    "gsnap_rank_hits": "hhi" + "p" * 24 + "i" * 15,
     "gsnap_qpos_ranges": "p" * 5 + "i" * 3,
     "gsnap_select_pairs": "p" * 5 + "i" * 4 + "li",
     "gsnap_pack_queries": "p" * 9 + "i" * 4,
@@ -119,7 +121,8 @@ def library() -> ctypes.CDLL:
         os.replace(tmp, so)
         shutil.rmtree(objdir, ignore_errors=True)
     lib = ctypes.CDLL(so)
-    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int32, "l": ctypes.c_int64}
+    kinds = {"p": ctypes.c_void_p, "h": ctypes.c_void_p, "i": ctypes.c_int32,
+             "l": ctypes.c_int64}
     for name, sig in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = [kinds[c] for c in sig] + [ctypes.c_void_p]
@@ -135,13 +138,17 @@ def launch(name: str, device: torch.device, *args) -> None:
     """Call C entry point ``name`` on ``device``'s current stream.
 
     Tensors pass as their data pointers (they must stay alive until the
-    kernel has run; the caller holds them), None as a null pointer."""
+    kernel has run; the caller holds them), None as a null pointer, a
+    host table as a pointer to a copy in an int64 array."""
     sig = _SIGNATURES[name]
     if len(args) != len(sig):
         raise TypeError(f"{name}: {len(args)} arguments, expected {len(sig)}")
-    conv = []
+    conv, tables = [], []
     for kind, a in zip(sig, args):
-        if kind == "p":
+        if kind == "h":
+            tables.append((ctypes.c_int64 * len(a))(*a))
+            conv.append(ctypes.addressof(tables[-1]))
+        elif kind == "p":
             if a is None:
                 conv.append(None)
             else:

@@ -1261,3 +1261,82 @@ def rank_hit_cases(rng: np.random.Generator, b: int, n: int):
         "plusp": np.broadcast_to(np.arange(n) < n // 2, (b, n)).copy(),
     }
     return out
+
+
+RANK_EDGE_KINDS = ("near duplicates", "left 0 and 2^32-1", "BIG-1, BIG, 0")
+
+
+def rank_hit_edges(rng: np.random.Generator, b: int, n: int, edge: str):
+    """rank_hit_cases rows with one of RANK_EDGE_KINDS in every row:
+    "near duplicates": pairs of candidates equal in six of the seven
+    dedup fields (which one differs cycles over the seven) beside exact
+    duplicates; "left 0 and 2^32-1": candidates at left 0 and 2^32 - 1 on
+    both strands with equal scores; "BIG-1, BIG, 0": those three scores
+    in one row."""
+    out = rank_hit_cases(rng, b, n)
+    big = 10**6
+    fields = ("kind", "split", "split2", "mid", "right", "plusp", "left")
+    for row in range(b):
+        if edge == "near duplicates":
+            for c in range(0, n - 1, 3):
+                j = int(rng.integers(c + 1, n))
+                for k in fields + ("score",):
+                    out[k][row, j] = out[k][row, c]
+                f = fields[(row + c) % len(fields)]
+                if f == "plusp":
+                    out[f][row, j] = ~out[f][row, c]
+                else:
+                    v = int(out[f][row, c]) + 1
+                    out[f][row, j] = v % 2**32 if f in ("mid", "right",
+                                                        "left") else v
+        elif edge == "left 0 and 2^32-1":
+            for c in rng.choice(n, min(n, 8), replace=False):
+                edge_left = 0 if c % 2 else 2**32 - 1
+                out["left"][row, c] = out["mid"][row, c] = edge_left
+                out["right"][row, c] = edge_left
+                out["score"][row, c] = 1
+        elif edge == "BIG-1, BIG, 0":
+            cols = rng.choice(n, min(n, 3), replace=False)
+            out["score"][row, cols] = [big - 1, big, 0][:len(cols)]
+        else:
+            raise ValueError(f"unknown rank edge {edge!r}")
+    return out
+
+
+DIAG_ROW_KINDS = ("ties at the cut", "fewer heads than ncand", "all INVALID",
+                  "one diagonal", "few values", "all distinct")
+
+
+def diag_vote_rows(rng: np.random.Generator, b: int, w: int, nc: int):
+    """int64[b, w] seed diagonals (uint32 values, 0xFFFFFFFF INVALID) for
+    top_diagonals, the rows cycling over DIAG_ROW_KINDS: "ties at the
+    cut": nc / 2 diagonals with 5 votes and 3 nc / 2 with 3, so the
+    ncand-th vote is tied across the cut, the rest INVALID; "fewer heads
+    than ncand": nc / 2 diagonals; "all INVALID"; "one diagonal": one
+    value w times; "few values": a dozen values and some INVALID; "all
+    distinct": every vote 1.  Values include 0 and 2^32 - 2, and each
+    row is shuffled."""
+    out = np.full((b, w), 0xFFFFFFFF, np.int64)
+    for row in range(b):
+        kind = DIAG_ROW_KINDS[row % len(DIAG_ROW_KINDS)]
+        vals = rng.choice(2**32 - 3, max(2 * nc, 16), replace=False) + 1
+        vals[:2] = (0, 2**32 - 2)
+        if kind == "ties at the cut":
+            hi, lo = max(nc // 2, 1), max(3 * nc // 2, 1)
+            seq = np.concatenate([np.repeat(vals[:hi], 5),
+                                  np.repeat(vals[hi:hi + lo], 3)])[:w]
+        elif kind == "fewer heads than ncand":
+            h = max(nc // 2, 1)
+            seq = np.repeat(vals[:h], rng.integers(1, 4, h))[:w]
+        elif kind == "all INVALID":
+            seq = np.zeros(0, np.int64)
+        elif kind == "one diagonal":
+            seq = np.full(w, vals[1])
+        elif kind == "few values":
+            seq = rng.choice(vals[:12], w)
+            seq = np.where(rng.random(w) < 0.2, 0xFFFFFFFF, seq)
+        else:
+            seq = rng.choice(2**32 - 1, w, replace=False)
+        out[row, :len(seq)] = seq
+        rng.shuffle(out[row])
+    return out

@@ -459,7 +459,7 @@ def test_launch_checks_arguments_before_building(monkeypatch):
         kbuild.launch("gsnap_top_diagonals", dev, None)
     t = torch.zeros(4)
     with pytest.raises(ValueError, match="expected contiguous on cuda"):
-        kbuild.launch("gsnap_top_diagonals", dev, t, t, t, t, t, 1, 4, 4, 2)
+        kbuild.launch("gsnap_top_diagonals", dev, t, t, t, t, 1, 4, 2)
     assert kbuild.LAUNCHES["gsnap_top_diagonals"] == before
 
 
@@ -568,6 +568,56 @@ def test_rank_hits_matches_plain(batch, spliced, cuda):
             want = gg._rank_hits_plain(out, base, opt, maxout)
             got = gg._rank_hits_cuda(out, base, opt, maxout)[0]
             _dict_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,ncand", [(384, 32), (383, 32), (385, 32),
+                                     (4096, 128), (4096, 4096), (64, 64),
+                                     (20000, 128), (32768, 16384)])
+def test_top_diagonals_edges_match_plain(cuda, w, ncand):
+    """K2 on synth.diag_vote_rows: votes tied across the cut, fewer heads
+    than ncand, all-INVALID rows, one diagonal W times, W off a power of
+    two, ncand equal to W, and the block sort's widths up to 32768."""
+    rng = np.random.default_rng(w + ncand)
+    d = torch.from_numpy(synth.diag_vote_rows(
+        rng, 4 * len(synth.DIAG_ROW_KINDS), w, ncand)).to(cuda)
+    _equal(se._top_diagonals_cuda(d, ncand), se._top_diagonals_plain(d, ncand))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", synth.RANK_EDGE_KINDS)
+def test_rank_hits_edges_match_plain(cuda, edge):
+    """K14 on synth.rank_hit_edges rows at 1, 144, 336 and 512
+    candidates, the optimal filter on and off, maxout above n."""
+    rng = np.random.default_rng(29)
+    base = se.GsnapParams(subopt_levels=1)
+    for n in (1, 144, 336, 512):
+        out = {k: torch.from_numpy(v).to(cuda)
+               for k, v in synth.rank_hit_edges(rng, 64, n, edge).items()}
+        for opt, maxout in ((True, None), (False, 16), (True, n + 9)):
+            _dict_equal(gg._rank_hits_cuda(out, base, opt, maxout)[0],
+                        gg._rank_hits_plain(out, base, opt, maxout))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_se", [False, True])
+def test_rank_hits_is_one_launch(batch, cuda, with_se):
+    """One _rank_hits_cuda call, with and without the SE epilogue, is one
+    launch of K14 and returns every key of the plain version's dict with
+    its dtype."""
+    tg, ti, _, _, _, (c, f, l) = batch
+    gp = gg.GappedParams(base=se.GsnapParams())
+    out, cands = gg.gather_candidates(tg, ti, None, c, f, l, gp)
+    before = kbuild.LAUNCHES["gsnap_rank_hits"]
+    if with_se:
+        args = (out, cands, l.int(), 12, 3, gp, True)
+        got, want = gg._rank_gate_se_cuda(*args), gg._rank_gate_se_plain(*args)
+    else:
+        got = gg._rank_hits_cuda(out, gp.base)[0]
+        want = gg._rank_hits_plain(out, gp.base)
+    assert kbuild.LAUNCHES["gsnap_rank_hits"] == before + 1
+    assert list(got) == list(want)
+    _dict_equal(got, want)
 
 
 @pytest.mark.cuda
@@ -711,3 +761,70 @@ def test_pack_and_gate_wrappers_argument_order(monkeypatch):
         assert len(a) == len(sig)
         assert all((x is None) != bool(on) for x in a[28:38])
         assert a[38:] == (4, 16, 100, 2, 1000, 0, on, 2 * on, on)
+
+
+def test_rank_hits_wrapper_tables(monkeypatch):
+    """K14's wrapper hands the C entry point its key and field tables
+    (checked on the CPU with the launch captured): the eight keys in the
+    kernel's order, the broadcast plusp with row stride 0, every field of
+    the hit table with its destination, the score in mode 2 and the
+    zeroed fields in mode 1; the SE flag and the epilogue's outputs."""
+    seen = []
+    monkeypatch.setattr(kbuild, "launch",
+                        lambda name, dev, *a: seen.append((name, a)))
+    b, n = 3, 40
+    out = {k: torch.from_numpy(v) for k, v in
+           synth.rank_hit_cases(np.random.default_rng(4), b, n).items()}
+    out["plusp"] = (torch.arange(n) < n // 2).expand(b, n)
+    final, ep = gg._rank_hits_cuda(out, se.GsnapParams(maxpaths=7))
+    name, a = seen[0]
+    sig = kbuild._SIGNATURES[name]
+    assert name == "gsnap_rank_hits" and len(a) == len(sig) and ep is None
+    keys, fields, nf = a[0], a[1], a[2]
+    assert len(keys) == 6 * len(gg._RANK_KEYS) and nf == len(out)
+    for i, k in enumerate(gg._RANK_KEYS):
+        t = out[k]
+        assert keys[6 * i : 6 * i + 6] == [t.data_ptr(), 0, t.stride(0),
+                                           t.stride(1), t.element_size(), 0]
+    assert keys[6 * gg._RANK_KEYS.index("plusp") + 2] == 0
+    for i, k in enumerate(out):
+        mode = 2 if k == "score" else int(k in gg._RANK_ZEROED)
+        assert fields[6 * i + 1] == final[k].data_ptr()
+        assert fields[6 * i + 4 :6 * i + 6] == [out[k].element_size(), mode]
+        assert final[k].shape == (b, 7) and final[k].dtype == out[k].dtype
+    assert a[3] is final["npaths"] and all(x is None for x in a[4:27])
+    assert a[27:] == (b, n, 7, 0, 1, 0, 0, 0, 0, 0, 0, 1, 1, 0, 0)
+
+
+def test_rank_and_top_wrappers_refuse(monkeypatch):
+    """What the kernels' widths cannot hold raises before any launch:
+    K14 beyond 512 candidates or with a floating-point key, K2 beyond
+    W=32768 or ncand 16384, or ncand above W."""
+    monkeypatch.setattr(kbuild, "launch", lambda *a: pytest.fail("launched"))
+    out = {k: torch.from_numpy(v) for k, v in
+           synth.rank_hit_cases(np.random.default_rng(4), 2, 513).items()}
+    with pytest.raises(ValueError, match="at most 512"):
+        gg._rank_hits_cuda(out, se.GsnapParams())
+    out = {k: v[:, :40] for k, v in out.items()}
+    out["split"] = out["split"].float()
+    with pytest.raises(ValueError, match="key fields are integers"):
+        gg._rank_hits_cuda(out, se.GsnapParams())
+    for w, nc in ((32769, 32), (32768, 16385), (100, 101)):
+        with pytest.raises(ValueError, match="top_diagonals kernel"):
+            se._top_diagonals_cuda(torch.zeros((1, w), dtype=torch.int64), nc)
+
+
+def test_top_diagonals_wrapper_passes_no_scratch(monkeypatch):
+    """K2's wrapper passes the row, its three outputs and (B, W, ncand):
+    the kernel keeps the sorted row on chip."""
+    seen = []
+    monkeypatch.setattr(kbuild, "launch",
+                        lambda name, dev, *a: seen.append((name, a)))
+    d = torch.zeros((5, 383), dtype=torch.int64)
+    top_d, votes, nd = se._top_diagonals_cuda(d, 32)
+    name, a = seen[0]
+    assert name == "gsnap_top_diagonals"
+    assert len(a) == len(kbuild._SIGNATURES[name]) == 7
+    assert a[0] is d and a[1] is top_d and a[2] is votes and a[3] is nd
+    assert a[4:] == (5, 383, 32)
+    assert top_d.shape == (5, 32) and votes.dtype == torch.int32

@@ -1,0 +1,128 @@
+// CPU emulation of the CUDA subset that the port's kernels use, for
+// rehearsing a kernel's logic with g++ where there is no nvcc or card:
+// one std::thread per CUDA thread, blocks run one after another, a
+// std::barrier for __syncthreads and a per-warp exchange buffer and
+// barrier for the warp collectives.  See tools/cuda_emu/emu_build.py.
+#pragma once
+#include <algorithm>
+#include <barrier>
+#include <climits>
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+#include <functional>
+#include <memory>
+#include <mutex>
+#include <thread>
+#include <vector>
+
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __restrict__
+#define __shared__ static
+#define __align__(n) alignas(n)
+
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+inline thread_local dim3 threadIdx, blockIdx;
+inline dim3 blockDim, gridDim;
+inline cudaError_t cudaGetLastError() { return 0; }
+inline const char* cudaGetErrorString(cudaError_t) { return "emu"; }
+template <class F>
+inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
+
+struct EmuWarp {
+  std::barrier<> bar{32};
+  uint64_t buf[32];
+};
+struct EmuBlock {
+  std::unique_ptr<std::barrier<>> bar;
+  std::vector<std::unique_ptr<EmuWarp>> warps;
+};
+inline EmuBlock* emu_block = nullptr;
+inline std::vector<unsigned char> emu_dyn;
+inline std::mutex emu_mu;
+
+inline int emu_lane() { return threadIdx.x & 31; }
+inline EmuWarp& emu_warp() { return *emu_block->warps[threadIdx.x >> 5]; }
+
+inline void __syncthreads() { emu_block->bar->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xFFFFFFFFu) { emu_warp().bar.arrive_and_wait(); }
+inline void __trap() { std::fprintf(stderr, "emu: __trap\n"); std::abort(); }
+
+template <class T> inline uint64_t emu_bits(T v) { uint64_t b = 0; std::memcpy(&b, &v, sizeof(T)); return b; }
+template <class T> inline T emu_from(uint64_t b) { T v; std::memcpy(&v, &b, sizeof(T)); return v; }
+
+template <class T> inline T emu_shfl(T v, int src) {
+  EmuWarp& w = emu_warp();
+  w.buf[emu_lane()] = emu_bits(v);
+  w.bar.arrive_and_wait();
+  T r = (src >= 0 && src < 32) ? emu_from<T>(w.buf[src]) : v;
+  w.bar.arrive_and_wait();
+  return r;
+}
+template <class T> inline T __shfl_xor_sync(unsigned, T v, int m) { return emu_shfl(v, emu_lane() ^ m); }
+template <class T> inline T __shfl_sync(unsigned, T v, int s) { return emu_shfl(v, s); }
+template <class T> inline T __shfl_up_sync(unsigned, T v, int d) {
+  int s = emu_lane() - d; return emu_shfl(v, s < 0 ? emu_lane() : s); }
+template <class T> inline T __shfl_down_sync(unsigned, T v, int d) {
+  int s = emu_lane() + d; return emu_shfl(v, s > 31 ? emu_lane() : s); }
+
+template <class T, class F> inline T emu_reduce(T v, F f) {
+  EmuWarp& w = emu_warp();
+  w.buf[emu_lane()] = emu_bits(v);
+  w.bar.arrive_and_wait();
+  T r = emu_from<T>(w.buf[0]);
+  for (int i = 1; i < 32; ++i) r = f(r, emu_from<T>(w.buf[i]));
+  w.bar.arrive_and_wait();
+  return r;
+}
+template <class T> inline T __reduce_add_sync(unsigned, T v) { return emu_reduce(v, [](T a, T b) { return (T)(a + b); }); }
+template <class T> inline T __reduce_min_sync(unsigned, T v) { return emu_reduce(v, [](T a, T b) { return a < b ? a : b; }); }
+template <class T> inline T __reduce_max_sync(unsigned, T v) { return emu_reduce(v, [](T a, T b) { return a < b ? b : a; }); }
+inline unsigned __ballot_sync(unsigned, int p) {
+  EmuWarp& w = emu_warp();
+  w.buf[emu_lane()] = p != 0;
+  w.bar.arrive_and_wait();
+  unsigned r = 0;
+  for (int i = 0; i < 32; ++i) r |= (unsigned)w.buf[i] << i;
+  w.bar.arrive_and_wait();
+  return r;
+}
+inline int __any_sync(unsigned m, int p) { return __ballot_sync(m, p) != 0; }
+inline int __all_sync(unsigned m, int p) { return __ballot_sync(m, p) == 0xFFFFFFFFu; }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __popcll(unsigned long long x) { return __builtin_popcountll(x); }
+template <class T> inline T atomicAdd(T* p, T v) { std::lock_guard<std::mutex> g(emu_mu); T o = *p; *p = o + v; return o; }
+template <class T> inline T atomicMin(T* p, T v) { std::lock_guard<std::mutex> g(emu_mu); T o = *p; if (v < o) *p = v; return o; }
+template <class T> inline T atomicMax(T* p, T v) { std::lock_guard<std::mutex> g(emu_mu); T o = *p; if (v > o) *p = v; return o; }
+using std::max;
+using std::min;
+inline long long min(long long a, int b) { return a < b ? a : b; }
+
+template <class F>
+inline void emu_launch(dim3 grid, dim3 block, size_t smem, F body) {
+  gridDim = grid;
+  blockDim = block;
+  emu_dyn.assign(smem + 64, 0xCD);
+  for (unsigned bx = 0; bx < grid.x; ++bx) {
+    EmuBlock blk;
+    blk.bar = std::make_unique<std::barrier<>>(block.x);
+    for (unsigned w = 0; w < (block.x + 31) / 32; ++w) blk.warps.push_back(std::make_unique<EmuWarp>());
+    emu_block = &blk;
+    std::vector<std::thread> th;
+    for (unsigned tx = 0; tx < block.x; ++tx)
+      th.emplace_back([&, tx, bx] { threadIdx = dim3(tx); blockIdx = dim3(bx); body(); });
+    for (auto& t : th) t.join();
+  }
+}
