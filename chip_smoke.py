@@ -76,7 +76,13 @@ and ends the run with a nonzero exit):
      no-mismatch masks and reads shorter than lmax, exact duplicate
      candidates and equal (score, left) on both strands, INVALID
      diagonals and seed slots, diagonals near 2^31 and 2^32 under both
-     pair rules); K17 on each path's batch as the path gives it (the
+     pair rules and synth.diag_pair_rows (no or few eligible pairs, equal
+     vote sums, sums at K16's key width; NC 3 to 128, maxpairs up to
+     NC^2)); K7 on synth.doublesplice_cases (more than 8 candidates a
+     junction, sites at s = 2 and len - 2, diagonals 63 and 64, at the
+     genome end and INVALID, short reads, equal keys on both strands;
+     NC 32 and 128, with and without known sites and novel splicing);
+     K17 on each path's batch as the path gives it (the
      uniform flip) and in a mixed-length form (lengths 1, 15, 16, 17, 100,
      N runs); K8 with its overflow-gate epilogue on the PE -N 1 runner's
      own candidates of one batch and on hand-built rows where each term of
@@ -153,8 +159,9 @@ and ends the run with a nonzero exit):
      with --device cpu;
   7. each kernel's device time (torch.profiler) and per-call time beside
      its plain version's (and its library call's) on the same clock: K1-K8
-     at every shape and variant, K2 and K14 at every shape each with its
-     own library sort and bound, K9-K13 and K15-K17 at their first shape;
+     at every shape and variant, K2 and K14 at every shape and K16 at
+     every check (both rules, every strand batch, the edges) each with its
+     own library sort and bound, K9-K13, K15 and K17 at their first shape;
      the number of device ops one K14 call runs (1: its fields are
      gathered inside it); then profiles of the SE -N 1 and PE -N 1 runs
      (device busy share, top device ops), measured last so that the
@@ -171,7 +178,7 @@ larger of the bytes it must move over 3.35 TB/s and its operations over
 is lower (64 int32 lanes per SM against 128 float32), so the operations
 term is an underestimate; bound_by says which) and the time of one PyTorch
 call computing the same function where there is one (library_ms, else
-null); K2 and K14 also list every timed shape under "shapes" with its
+null); K2, K14 and K16 also list every timed shape under "shapes" with its
 own times, library time and bound; then the nvidia-smi line, then
 {"ok": true, "device": {...}} last.
 """
@@ -199,12 +206,15 @@ SPLICE_KERNELS = ("gsnap_solve_splices", "gsnap_select_triples",
 PAIR_KERNELS = ("gsnap_pair_grid",)
 GMAP_KERNELS = ("gmap_seed_segments", "gmap_chain")
 DYNPROG_KERNELS = ("gmap_banded_gotoh", "gmap_bridge_traceback")
-# checks timed at their first shape only (K9-K13, K15-K17)
+# checks timed at their first shape only (K9-K13, K15, K17)
 FIRST_SHAPE_ONLY = ("seed_segments", "chain", "banded_gotoh",
                     "bridge_traceback", "lane_features", "qpos_ranges",
-                    "select_pairs", "pack_queries")
+                    "pack_queries")
 # kernels timed at every shape with their own library call and bound
-PER_SHAPE = ("top_diagonals", "rank_hits")
+PER_SHAPE = ("top_diagonals", "rank_hits", "select_pairs")
+# of those, the kernels whose every check is timed, variants and edges
+# too (K16: both rules, every strand batch and edge row)
+EVERY_CHECK = ("select_pairs",)
 # K13-K16: trims and lane features, ranking (+ the SE gates), seed qpos
 # ranges, pair selection — every path runs them
 # K17 the read packing and reverse complement at the head of the cascade
@@ -245,6 +255,59 @@ def _bound(nbytes: float, ops: float) -> tuple:
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def _pair_sort(torch, se, top_d, votes, eligible):
+    """K16's library call: one stable torch.sort of the negated pair
+    scores of these inputs (the plain version's scores).  The scores are
+    made at the first call, the warm-up of every timing, so that the
+    paths' peaks do not hold them (up to 268 MB a check at NC=128)."""
+    neg = []
+
+    def sort():
+        if not neg:
+            okd = top_d != se.INVALID_DIAG
+            elig = (eligible(top_d[:, :, None], top_d[:, None, :])
+                    & okd[:, :, None] & okd[:, None, :])
+            score = torch.where(elig, votes[:, :, None] + votes[:, None, :],
+                                -1)
+            neg.append(-score.reshape(len(top_d), -1))
+        return torch.sort(neg[0], dim=1, stable=True)
+
+    return sort
+
+
+def _doublesplice_ops(torch, top_d, ti, tm, tj, L: int) -> int:
+    """Operations K7 does on these inputs: for each triple whose three
+    diagonals are >= 64 (the others stop there), 8 site-mask words per 32
+    scan positions (two 2-bit compares of a 64-bit window and the even-bit
+    compaction, ~64 operations a word), the candidate search (~8 a word
+    and slot), 32 scored slots (~80 each: two windows, 8 table reads, 8
+    float operations) and 128 grid cells (~20 each)."""
+    d = [torch.gather(top_d, 1, t) for t in (ti, tm, tj)]
+    active = int(((d[0] >= 64) & (d[1] >= 64) & (d[2] >= 64)).sum())
+    words = (L + 32) // 32
+    return active * (8 * words * 64 + 32 * words * 8 + 32 * 80 + 128 * 20)
+
+
+def _doublesplice_cost(torch, dargs):
+    """K7's cost function on dargs = (genome, top_d, pref, ti, tm, tj,
+    tvalid, lengths, budget, L[, novel, known]): (bytes, operations).
+    Bytes: the triples, lengths and budgets read once and the outputs
+    written, and of the candidate rows only those the triples name (each
+    once a read): its diagonal, its pref row (L + 1 int32), its genome
+    span (L + 41 bases) and, with known sites, the words of four site
+    kinds over L + 1 positions.  Operations: _doublesplice_ops."""
+    top_d, ti, tm, tj, L = dargs[1], dargs[3], dargs[4], dargs[5], dargs[9]
+    known = dargs[11] if len(dargs) > 11 else None
+    words = (L + 32) // 32
+    base = torch.arange(len(ti), device=ti.device)[:, None] * top_d.shape[1]
+    nrows = int(torch.unique(torch.cat([ti, tm, tj], 1) + base).numel())
+    per_row = 8 + (L + 1) * 4 + ((L + 41 + 15) // 16 + 1) * 4
+    if known is not None:
+        per_row += 4 * (words + 1) * 4
+    return lambda out: (_nbytes(dargs[3:9], out) + nrows * per_row,
+                        _doublesplice_ops(torch, top_d, ti, tm, tj, L))
+
+
 def _call_ms(fn, reps: int = 5) -> float:
     """Mean ms per call of fn between CUDA events, after one warm-up
     call: device time plus whatever launch gaps the host leaves."""
@@ -261,54 +324,50 @@ def _call_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_ms(fn, reps: int = 5, tries: int = 4) -> float | None:
-    """Mean device time per call of fn: the summed time of the CUDA
-    kernels, copies and fills it ran, from torch.profiler tracing CUDA
-    activity alone; None when ``tries`` profiles recorded none.
+def _cuda_profile(fn, reps: int, tries: int, whole: bool) -> tuple:
+    """(device ms, device ops) per call of fn: the summed time and the
+    number of the CUDA kernels, copies and fills it ran, from
+    torch.profiler tracing CUDA activity alone over ``reps`` calls after
+    a warm-up call; (None, None) when ``tries`` profiles recorded none.
 
     A profile now and then holds no device activity at all (its raw
     trace is empty, not only its summary), most often late in a long
-    run and with the host's activity traced too: such a profile is
-    taken again."""
+    run and with the host's activity traced too, and now and then loses
+    some of it: such a profile is taken again, and with ``whole`` also
+    one whose op count is no multiple of ``reps`` (every call runs the
+    same ops), the last one's figures standing if none is whole."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    last = (None, None)
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
-        if us > 0:
-            return us / 1e3 / reps
-    return None
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        n = sum(e.count for e in events)
+        if n > 0:
+            us = sum(e.self_device_time_total for e in events)
+            last = (us / 1e3 / reps, n / reps)
+            if not whole or n % reps == 0:
+                break
+    return last
+
+
+def _device_ms(fn, reps: int = 5, tries: int = 4) -> float | None:
+    """Mean device time per call of fn (_cuda_profile)."""
+    return _cuda_profile(fn, reps, tries, whole=False)[0]
 
 
 def _device_ops(fn, reps: int = 5, tries: int = 4) -> float | None:
-    """The number of CUDA device ops (kernels, copies, fills) per call of
-    fn that torch.profiler records (CUDA activity alone) over ``reps``
-    calls, after a warm-up call; None when ``tries`` profiles recorded
-    none."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        n = sum(e.count for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA)
-        if n > 0:
-            return n / reps
-    return None
+    """The number of CUDA device ops per call of fn (_cuda_profile, from
+    a profile that recorded every call's ops)."""
+    return _cuda_profile(fn, reps, tries, whole=True)[1]
 
 
 def _timed(*fns, reps: int = 5) -> tuple:
@@ -844,7 +903,8 @@ def _stage_checks(torch, gg, se, mmo, genome_dev, index, index_minus, c, f,
                 partial(gg._select_pairs_cuda, top_d, votes, npairs, *kargs),
                 partial(gg._select_pairs_plain, top_d, votes, fn, npairs),
                 lambda out, t=top_d, v=votes: (
-                    _nbytes(t, v, out), 8 * t.numel() * t.shape[1]), None))
+                    _nbytes(t, v, out), 8 * t.numel() * t.shape[1]),
+                _pair_sort(torch, se, top_d, votes, fn)))
     if not rank:
         return checks
     out, cands = gg.gather_candidates(genome_dev, index, index_minus, c, f,
@@ -894,13 +954,18 @@ def _stage_checks(torch, gg, se, mmo, genome_dev, index, index_minus, c, f,
 
 
 def _stage_edges(torch, gg, se, synth, rng, dev, base):
-    """K2 and K13-K16 checks on hand-built edges: masks with all / no
+    """K2, K7 and K13-K16 checks (name, shape, kernel call, plain call,
+    cost, library call or None) on hand-built edges: masks with all / no
     mismatches and reads shorter than lmax (K13), exact duplicate
     candidates and equal (score, left) on both strands with maxout above
     the candidate count, and synth.rank_hit_edges' rows (K14), INVALID
     diagonals and seed slots (K15), diagonals near 2^31 and 2^32 under
-    both rules (K16), and synth.diag_vote_rows at W off a power of two
-    and ncand equal to W (K2)."""
+    both rules and synth.diag_pair_rows at NC 3 to 128, maxpairs up to
+    NC^2 (K16), synth.diag_vote_rows at W off a power of two and ncand
+    equal to W (K2), and synth.doublesplice_cases at NC 32 and 128, with
+    and without known sites and novel splicing (K7)."""
+    from gmap_gsnap_tpu_torch import convert
+
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     mm, pref, ln = (t(x) for x in synth.mismatch_rows(rng, 512, 32))
     lf_keys = ("cand_mm",) + gg._LANE_FEATURE_KEYS
@@ -916,7 +981,7 @@ def _stage_edges(torch, gg, se, synth, rng, dev, base):
             "lane_features/edges", f"score {score}",
             partial(_fields, gg._lane_features_cuda, a, lf_keys),
             partial(lane_plain, score),
-            lambda out, a=a: (_nbytes(a[:2], out), 0)))
+            lambda out, a=a: (_nbytes(a[:2], out), 0), None))
     out = {k: t(v) for k, v in synth.rank_hit_cases(rng, 1024, 144).items()}
     keys = sorted(out) + ["npaths"]
     for opt, maxout in ((True, None), (False, 151)):
@@ -925,7 +990,7 @@ def _stage_edges(torch, gg, se, synth, rng, dev, base):
             "rank_hits/edges", f"optimal={opt} maxout={maxout}",
             partial(_first, gg._rank_hits_cuda, rargs, keys),
             partial(_fields, gg._rank_hits_plain, rargs, keys),
-            lambda res: (_nbytes(list(out.values()), res), 0)))
+            lambda res: (_nbytes(list(out.values()), res), 0), None))
     for edge in synth.RANK_EDGE_KINDS:
         eout = {k: t(v) for k, v in synth.rank_hit_edges(rng, 1024, 144,
                                                          edge).items()}
@@ -934,7 +999,7 @@ def _stage_edges(torch, gg, se, synth, rng, dev, base):
             f"rank_hits/{edge}", "1024 rows n=144",
             partial(_first, gg._rank_hits_cuda, rargs, keys),
             partial(_fields, gg._rank_hits_plain, rargs, keys),
-            lambda res, o=eout: (_nbytes(list(o.values()), res), 0)))
+            lambda res, o=eout: (_nbytes(list(o.values()), res), 0), None))
     for w, nc in ((383, 32), (385, 32), (4096, 128), (4096, 4096)):
         d = t(synth.diag_vote_rows(rng, 1024 if w < 512 else 256, w, nc))
         checks.append((
@@ -942,7 +1007,7 @@ def _stage_edges(torch, gg, se, synth, rng, dev, base):
             partial(se._top_diagonals_cuda, d, nc),
             partial(se._top_diagonals_plain, d, nc),
             lambda out, d=d: (_nbytes(d, out),
-                              d.numel() * math.log2(d.shape[1]))))
+                              d.numel() * math.log2(d.shape[1])), None))
     top, votes = (t(x) for x in synth.diag_pair_cases(rng, 1024, 32))
     grid = top.repeat(1, 12)
     qgrid = torch.arange(grid.shape[1], device=dev, dtype=torch.int32
@@ -950,17 +1015,50 @@ def _stage_edges(torch, gg, se, synth, rng, dev, base):
     checks.append(("qpos_ranges/edges", "INVALID and repeated slots",
                    partial(se._qpos_ranges_cuda, grid, qgrid, top),
                    partial(se._qpos_ranges_plain, grid, qgrid, top),
-                   lambda out: (_nbytes(grid, qgrid, top, out), grid.numel())))
-    for label, kargs, fn in (
-            ("indel", (0, 30, 9), gg._indel_pairs_eligible(30, 9)),
-            ("splice", (1, 200_000, 0), gg._splice_pairs_eligible(200_000)),
-            ("splice 2^31+5", (1, 2**31 + 5, 0),
-             gg._splice_pairs_eligible(2**31 + 5))):
+                   lambda out: (_nbytes(grid, qgrid, top, out), grid.numel()),
+                   None))
+    rules = (("indel", (0, 30, 9), gg._indel_pairs_eligible(30, 9)),
+             ("splice", (1, 200_000, 0), gg._splice_pairs_eligible(200_000)),
+             ("splice 2^31+5", (1, 2**31 + 5, 0),
+              gg._splice_pairs_eligible(2**31 + 5)))
+    for label, kargs, fn in rules:
         checks.append((
             "select_pairs/edges", f"{label} near 2^31 / 2^32",
             partial(gg._select_pairs_cuda, top, votes, 16, *kargs),
             partial(gg._select_pairs_plain, top, votes, fn, 16),
-            lambda out: (_nbytes(top, votes, out), 8 * top.numel() * 32)))
+            lambda out: (_nbytes(top, votes, out), 8 * top.numel() * 32),
+            _pair_sort(torch, se, top, votes, fn)))
+    for nc, npairs in ((3, 16), (24, 16), (32, 16), (32, 1024), (128, 16),
+                       (128, 16384)):
+        pt, pv = (t(x) for x in synth.diag_pair_rows(rng, 1024, nc))
+        for label, kargs, fn in rules[:2]:
+            checks.append((
+                "select_pairs/edges", f"{label} NC={nc} P={npairs} "
+                f"{len(pt)} rows",
+                partial(gg._select_pairs_cuda, pt, pv, npairs, *kargs),
+                partial(gg._select_pairs_plain, pt, pv, fn, npairs),
+                lambda out, pt=pt, pv=pv: (_nbytes(pt, pv, out),
+                                           8 * pt.numel() * pt.shape[1]),
+                _pair_sort(torch, se, pt, pv, fn)))
+    for nc in (32, 128):
+        case = synth.doublesplice_cases(rng, 1024, nc)
+        codes = case["codes"]
+        g = convert.genome_from_host(codes, np.zeros(len(codes), np.uint8),
+                                     [len(codes)], dev)
+        d = {k: t(v) for k, v in case.items() if k != "known"}
+        kn = tuple(t(k.view(np.int32)) for k in case["known"])
+        for novel, known in ((True, None), (True, kn), (False, kn)):
+            dargs = (g, d["top_d"], d["pref"], d["ti"], d["tm"], d["tj"],
+                     d["tvalid"], d["lengths"], d["budget"], 100, novel,
+                     known)
+            checks.append((
+                "solve_doublesplices/edges",
+                f"NC={nc} novel={int(novel)} known={int(known is not None)}",
+                partial(_fields, gg._solve_doublesplices_cuda, dargs,
+                        gg._SHORTEXON_KEYS),
+                partial(_fields, gg._solve_doublesplices_plain, dargs,
+                        gg._SHORTEXON_KEYS),
+                _doublesplice_cost(torch, dargs), None))
     return checks
 
 
@@ -1505,8 +1603,8 @@ def main(argv=None) -> int:
             _nbytes(a[1:], out) + a[3].numel() * 2 * gwords(164), 0))
         costs.setdefault("select_triples", lambda out, t=top_d, v=votes: (
             _nbytes(t, v, out), 0))
-        costs.setdefault("solve_doublesplices", lambda out, a=dargs: (
-            _nbytes(a[1:], out) + a[3].numel() * 3 * gwords(164), 0))
+        costs.setdefault("solve_doublesplices",
+                         _doublesplice_cost(torch, dargs))
         if nc == 32:
             sp = gg._solve_splices_plain(*sargs)
             sx = gg._solve_doublesplices_plain(*dargs)
@@ -1647,27 +1745,17 @@ def main(argv=None) -> int:
                            partial(_packed, se._pack_batch_plain, cc, ff, ll,
                                    u)))
             costs[name] = lambda out, a=(cc, ff, ll): (_nbytes(a, out), 0)
-    for name, shape, fk, fp, cost in _stage_edges(torch, gg, se, synth, rng,
-                                                  dev, params):
+    for name, shape, fk, fp, cost, lib in _stage_edges(
+            torch, gg, se, synth, rng, dev, params):
         checks.append((name, shape, fk, fp))
         costs.setdefault(name, cost)
-    # library yardstick of K16: one stable sort of the negated pair
-    # scores (K2's and K14's are per shape, above); SE -N 0's candidates
-    # for counting K14's device ops
+        shape_costs[(name, shape)] = cost
+        if lib is not None:
+            library[(name, shape)] = lib
+    # SE -N 0's candidates, for counting K14's device ops
     c1, f1, l1 = batch1(records)
     out1, cands1 = gg.gather_candidates(genome_dev, index, None, c1, f1, l1,
                                         runner.gapped_params)
-    crc1, frc1 = se._revcomp_batch_plain(c1, f1, l1)
-    sdiag = se._seed_diagonals_plain(
-        index, torch.cat([c1, crc1]), torch.cat([f1, frc1]),
-        torch.cat([l1, l1]), runner.params, True)[0]
-    std, svt, _ = se._top_diagonals_plain(sdiag, 32)
-    elig = (gg._indel_pairs_eligible(30, 9)(std[:, :, None], std[:, None, :])
-            & (std != se.INVALID_DIAG)[:, :, None]
-            & (std != se.INVALID_DIAG)[:, None, :])
-    pscore = torch.where(elig, svt[:, :, None] + svt[:, None, :], -1
-                         ).reshape(std.shape[0], -1)
-    library["select_pairs"] = partial(torch.sort, -pscore, dim=1, stable=True)
 
     # the -s / -v inputs: path 5's reads, seeded on the SNP index (K1, K2),
     # verified against the alt genome (K3), spliced with the known-site
@@ -1747,15 +1835,14 @@ def main(argv=None) -> int:
                      gg._SHORTEXON_KEYS),
              partial(_fields, gg._solve_doublesplices_plain, dargs,
                      gg._SHORTEXON_KEYS))]
-        # the splice kernels' bytes plus the bitvector words they read: per
-        # pair (triple), 2 (3) segments, 2 classes, the words of L + 1 bits
+        # K5's bytes plus the bitvector words it reads: per pair, 2
+        # segments, 2 classes, the words of L + 1 bits (K7: its own cost)
         nk = 0 if kn is None else 1
         costs[f"solve_splices/{label}"] = lambda out, a=sargs, nk=nk: (
             _nbytes(a[1:9], out) + a[3].numel() * 2 * gwords(164)
             + nk * kwords(a[3].numel() * 2), 0)
-        costs[f"solve_doublesplices/{label}"] = lambda out, a=dargs, nk=nk: (
-            _nbytes(a[1:10], out) + a[3].numel() * 3 * gwords(164)
-            + nk * kwords(a[3].numel() * 3), 0)
+        costs[f"solve_doublesplices/{label}"] = _doublesplice_cost(torch,
+                                                                   dargs)
         if label.startswith("known"):
             sp = gg._solve_splices_plain(*sargs)
             sx = gg._solve_doublesplices_plain(*dargs)
@@ -2092,7 +2179,8 @@ def main(argv=None) -> int:
                                  f"version (max_abs_err={err})")
             errs[name] = err
             bounds[name] = _bound(*cost(fp()))
-            if name == f"rank_hits/{label}":
+            if name == f"rank_hits/{label}" or name.startswith(
+                    "select_pairs"):
                 shape_time(name, shape, fk, fp, lib, bounds[name])
             elif (name.startswith(("seed_diagonals/", "prefix_mismatches/"))
                     or name == f"lane_features/{label}"):
@@ -2161,15 +2249,18 @@ def main(argv=None) -> int:
     for name, shape, fk, fp in checks:
         # K1-K8 are timed at every shape and variant (a name's line keeps
         # its first shape's times; the mode paths timed their own
-        # variants); K9-K17 at their first shape only: K9-K12's plain
-        # versions run thousands of small torch ops a call, and K13-K17's
-        # other shapes and variants are checked, not timed.  A kernel's
-        # first shape is timed with its library call, on one clock
-        once, variant = name.split("/")[0] in FIRST_SHAPE_ONLY, "/" in name
-        if (once and (variant or name in times)) or (variant
-                                                     and name in times):
+        # variants); K16 at every check; K9-K13, K15 and K17 at their
+        # first shape only: K9-K12's plain versions run thousands of small
+        # torch ops a call, and the others' other shapes and variants are
+        # checked, not timed.  A kernel's first shape is timed with its
+        # library call, on one clock
+        base = name.split("/")[0]
+        once, variant = base in FIRST_SHAPE_ONLY, "/" in name
+        if base not in EVERY_CHECK and (
+                (once and (variant or name in times))
+                or (variant and name in times)):
             continue
-        if name.split("/")[0] in PER_SHAPE:
+        if base in PER_SHAPE:
             cost = shape_costs.get((name, shape))
             bound = _bound(*cost(fp())) if cost else bounds[name]
             n_events += shape_time(name, shape, fk, fp,

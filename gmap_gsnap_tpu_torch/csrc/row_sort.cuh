@@ -1,5 +1,6 @@
-// Sorting and reductions over one row held in registers, shared by K2
-// (top_diagonals.cu) and K14 (rank_hits.cu).
+// Sorting, selection and reductions over one row held in registers,
+// shared by K2 (top_diagonals.cu), K14 (rank_hits.cu) and K16
+// (select_pairs.cu).
 //
 // A row is handled by NW warps.  NW == 1: one warp per row, and a CTA may
 // hold several rows, one per warp; nothing here then touches another warp
@@ -168,4 +169,56 @@ __device__ __forceinline__ int row_later_min(int v, int none, int* red) {
   for (int u = w + 1; u < NW; ++u) after = row_lesser(after, red[u]);
   __syncthreads();
   return after;
+}
+
+// Number of the row's keys at or below x, where a key is compared in
+// full (shift 0) or by its high bits (key >> shift; x below 2^(32 -
+// shift), so that key >> shift <= x is key <= x << shift | low ones).
+template <int KPL, int NW>
+__device__ __forceinline__ int row_count_at_most(const uint32_t (&key)[KPL],
+                                                 uint32_t x, int shift,
+                                                 int* red) {
+  const uint32_t top = x << shift | ((1u << shift) - 1u);
+  int c = 0;
+#pragma unroll
+  for (int r = 0; r < KPL; ++r) c += key[r] <= top;
+  return row_sum<NW>(c, red);
+}
+
+// Smallest x in [lo, hi] with row_count_at_most(x) >= m (hi satisfies
+// it): a bisection whose every step is one count over the row.
+template <int KPL, int NW>
+__device__ __forceinline__ uint32_t row_lowest_reaching(
+    const uint32_t (&key)[KPL], uint32_t lo, uint32_t hi, int shift, int m,
+    int* red) {
+  while (lo < hi) {
+    const uint32_t mid = lo + (hi - lo) / 2;
+    if (row_count_at_most<KPL, NW>(key, mid, shift, red) >= m)
+      hi = mid;
+    else
+      lo = mid + 1;
+  }
+  return lo;
+}
+
+// Ascending bitonic sort of the s (a power of two) keys at sel, in the
+// row's shared memory, by its T threads (t the row thread).
+template <int NW>
+__device__ __forceinline__ void row_sort_shared(uint32_t* sel, int s, int t,
+                                                int T) {
+  for (int kk = 2; kk <= s; kk <<= 1) {
+    for (int j = kk >> 1; j > 0; j >>= 1) {
+      for (int i = t; i < s; i += T) {
+        const int ixj = i ^ j;
+        if (ixj > i) {
+          const uint32_t x = sel[i], y = sel[ixj];
+          if ((y < x) == ((i & kk) == 0)) {
+            sel[i] = y;
+            sel[ixj] = x;
+          }
+        }
+      }
+      row_sync<NW>();
+    }
+  }
 }

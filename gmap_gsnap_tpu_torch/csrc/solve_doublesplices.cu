@@ -2,41 +2,67 @@
 //
 // Replaces gmap_gsnap_tpu/align/gsnap_gapped.py _solve_doublesplices
 // (:706, with _fetch_span :502 and the maxent lookups of ops/maxent
-// :160 / ops/select :49) — solve_doublesplice, stage1hr.c:6612.  One warp
-// per (read, triple i -> m -> j), for each sense class in turn:
-//   * lanes walk s = 0..L; junction 1 is a candidate at s when 2 <= s <=
-//     len - 2, all three diagonals are >= 64 and each side is a site of
-//     the class's first junction: with `novel`, by its dinucleotides
-//     (sense: donor GT on i at s, acceptor AG on m at s - 2; antisense:
+// :160 / ops/select :49) — solve_doublesplice, stage1hr.c:6612.  Per
+// (read, triple i -> m -> j) and per sense class:
+//   * junction 1 is a candidate at scan position s when 2 <= s <= len - 2,
+//     all three diagonals are >= 64 and each side is a site of the
+//     class's first junction: with `novel`, by its dinucleotides (sense:
+//     donor GT on i at s, acceptor AG on m at s - 2; antisense:
 //     antiacceptor CT on i, antidonor AC on m), or by its known-site bit
-//     at d + s (gsnap -s, `known_bit` in maxent.cuh, JAX :753-764);
-//     junction 2 likewise on (m, j).  A ballot and a popc prefix keep
-//     the first K = 8 of each in ascending s (JAX: top_k of the negated
-//     key) in shared memory;
-//   * lanes 0-7 score junction-1 slot k (maxent on i and m, 1.0 on a
-//     known site, as JAX :808-811; mismatches
-//     before s on i and on m), lanes 8-15 junction-2 slot k (maxent on m
-//     and j, mismatches before s on m and from s on j);
-//   * the 8 x 8 grid is 64 cells, two per lane, read from those lanes by
-//     shuffles: a cell needs s2 > s1, the mismatch total within the
-//     budget and all four probabilities sufficient; its key is
-//     -total * 8 + (((p1i + p1m) + p2m) + p2j) in float32 (-1e9 when not
-//     valid), and a warp reduction takes the first maximum in s1-major
-//     cell order;
+//     at d + s (gsnap -s, JAX :753-764); junction 2 likewise on (m, j).
+//     The first K = 8 of each in ascending s are kept (JAX: top_k of the
+//     negated key);
+//   * each kept position is scored (maxent on both sides, 1.0 on a known
+//     site, as JAX :808-811; mismatches before s on i and on m for
+//     junction 1, before s on m and from s on j for junction 2);
+//   * the 8 x 8 grid: a cell needs s2 > s1, the mismatch total within the
+//     budget and all four probabilities sufficient; its key is -total * 8
+//     + (((p1i + p1m) + p2m) + p2j) in float32 (-1e9 when not valid), and
+//     the first maximum in s1-major cell order wins;
 //   * antisense wins only when its key is strictly greater.  Outputs of
 //     invalid triples are the JAX ones: sense = !(anti > sense), left /
 //     mid / right = the diagonals, the rest 0.
 //
-// Bound: latency of the dependent genome and table reads of at most 32
-// maxent evaluations per triple and class; device memory traffic is three
-// pref rows (~1.2 KB, in L2 after K3) per triple, plus with known sites
-// at most 4 bitvector words per lane pass.
+// Bound: operations and bytes alike (~0.004 ms each at 4096 reads x 8
+// triples): per triple ~8,000 operations (site-mask words, 32 scored
+// slots, 128 grid cells); of each candidate row a read's triples name,
+// its pref row (~400 bytes, in L2 after K3), its genome span (~40 bytes)
+// and with known sites its mask words, and at most 64 reads a triple of
+// the 786 KB maxent tables (L2).  The design this one replaces (a
+// global load per base for every site test and maxent window, the two
+// classes one after the other, half the warp idle while scoring) took
+// 0.1842 ms at 4096 rows, NC=32, T=8 on the H100 (700 W).
+//
+// Design: one warp per triple, both classes at once.
+//   1. Each segment's genome span, the 2-bit codes of d - 20 .. d + L +
+//      ~40, is read once (a word a lane) into the warp's shared memory.
+//   2. The eight (segment, site kind) masks over s = 0..L are built with
+//      word operations, 32 positions a lane: a dinucleotide test is two
+//      2-bit compares over a 64-bit window of 32 codes and a compaction
+//      of the even bits (the bit-parallel scan of genome_hr.h); a known
+//      mask word is one funnel shift of two bitvector words.  Mask ids:
+//      0 / 1 donor on i / m, 2 / 3 antiacceptor on i / m, 4 / 5 acceptor
+//      on m / j, 6 / 7 antidonor on m / j.
+//   3. Candidate list q (0 / 1: junction 1 / 2 sense, 2 / 3 antisense) is
+//      mask q AND mask 4 + q AND the inb window; lane 8q + r takes the
+//      list's r-th set bit (popc over the words, then the lowest bits
+//      cleared).
+//   4. Every lane scores its slot: one short (9-base, 2 factors) and one
+//      long (23-base, 6 factors) maxent window read from the span, the
+//      table offsets and index fields chosen by class, so the two halves
+//      of the warp run the same instructions.  The arithmetic is
+//      maxent.cuh's: factors multiplied in _MODELS order with
+//      __fmul_rn, then __fdiv_rn(o, __fadd_rn(1, o)).
+//   5. Each lane takes two cells of each class's grid, reading the slots
+//      by shuffles, and a warp reduction takes each class's first
+//      maximum.
 #include "maxent.cuh"
 
 namespace {
 
 constexpr int kK = 8;
 constexpr int kWarpsPerBlock = 8;
+constexpr int kSmemMax = 232448;  // a CTA's opt-in shared memory
 
 struct Cell {
   float key;
@@ -50,134 +76,57 @@ __device__ __forceinline__ void better(Cell& a, float key, int cell) {
   }
 }
 
-struct Result {
-  float score, p1i, p1m, p2m, p2j;
-  int sp1, sp2, nmm1, nmm2, nmm3;
-};
-
-// first kK candidates of `cand` for this warp, ascending s, into sel;
-// returns how many there are (warp-uniform)
-template <typename Pred>
-__device__ __forceinline__ int first_cands(int L, int lane, int* sel,
-                                           Pred cand_at) {
-  const uint32_t lt_mask = (1u << lane) - 1u;
-  int count = 0;
-  for (int base = 0; base <= L && count < kK; base += 32) {
-    const int s = base + lane;
-    const bool c = s <= L && cand_at(s);
-    const uint32_t m = __ballot_sync(GSNAP_FULL_MASK, c);
-    const int rank = count + __popc(m & lt_mask);
-    if (c && rank < kK) sel[rank] = s;
-    count += __popc(m);
-  }
-  __syncwarp();
-  return count < kK ? count : kK;
+// mask words over s = 0..L, and span words of a segment (see span_at)
+__host__ __device__ inline int mask_words(int L) { return (L + 32) / 32; }
+__host__ __device__ inline int span_words(int L) {
+  return 2 * mask_words(L) + 4;
+}
+// 32-bit words of one warp's shared memory: three spans, the known and
+// the site masks
+__host__ __device__ inline int warp_words(int L) {
+  return 3 * span_words(L) + 16 * mask_words(L);
 }
 
-__device__ Result solve_class(const uint32_t* __restrict__ ref16,
-                              int64_t nwords, const float* __restrict__ tab,
-                              const gsnap_maxent::Known& known, int novel,
-                              int cls, int64_t di, int64_t dm, int64_t dj,
-                              const int32_t* pi, const int32_t* pm,
-                              const int32_t* pj, int len, int tot_j, int bud,
-                              int L, int lane, int* sel1, int* sel2) {
-  using namespace gsnap_maxent;
-  const int k1i = cls == 0 ? kDonor : kAntiacceptor;   // junction 1 on i
-  const int k1m = cls == 0 ? kAcceptor : kAntidonor;   // junction 1 on m
-  const int k2m = k1i;                                 // junction 2 on m
-  const int k2j = k1m;                                 // junction 2 on j
-  const bool margins = di >= 64 && dm >= 64 && dj >= 64;
-  auto inb = [&](int s) { return margins && s >= 2 && s <= len - 2; };
-  // a site of class `kind` on the segment at diagonal d, scan position s
-  auto site = [&](int kind, int64_t d, int s) {
-    return known_bit(known, kind, (uint64_t)d + s) ||
-           (novel && site_at(ref16, nwords, kind, (uint64_t)d + s));
-  };
-  // maxent probability there, 1.0 at a known site
-  auto p_at = [&](int kind, int64_t d, int s) {
-    return known_bit(known, kind, (uint64_t)d + s)
-               ? 1.0f
-               : prob(ref16, nwords, tab, kind, (uint64_t)d + s);
-  };
-  const int n1 = first_cands(L, lane, sel1, [&](int s) {
-    return inb(s) && site(k1i, di, s) && site(k1m, dm, s);
-  });
-  const int n2 = first_cands(L, lane, sel2, [&](int s) {
-    return inb(s) && site(k2m, dm, s) && site(k2j, dj, s);
-  });
+// The 32 codes at span index rel .. rel + 31 (2 bits each, the first in
+// the low bits); a span's index 0 is the first base of genome word
+// (d - 20) >> 4, so d + x lies at index x + 20 + ((d - 20) & 15).
+__device__ __forceinline__ uint64_t span_at(const uint32_t* span, int rel) {
+  const int q = rel >> 4, r = 2 * (rel & 15);
+  const uint32_t lo = __funnelshift_r(span[q], span[q + 1], r);
+  const uint32_t hi = __funnelshift_r(span[q + 1], span[q + 2], r);
+  return (uint64_t)hi << 32 | lo;
+}
 
-  // per-slot values: lanes 0-7 junction 1, lanes 8-15 junction 2
-  float pa = 0.0f, pb = 0.0f;  // (p1i, p1m) or (p2m, p2j)
-  int s = 0, ma = 0, mb = 0;   // (nmm_i, cum_m) or (cum_m, suffix on j)
-  if (lane < kK && lane < n1) {
-    s = sel1[lane];
-    pa = p_at(k1i, di, s);
-    pb = p_at(k1m, dm, s);
-    ma = pi[s];
-    mb = pm[s];
-  } else if (lane >= kK && lane < 2 * kK && lane - kK < n2) {
-    s = sel2[lane - kK];
-    pa = p_at(k2m, dm, s);
-    pb = p_at(k2j, dj, s);
-    ma = pm[s];
-    mb = tot_j - pj[s];
-  }
+constexpr uint64_t kEven = 0x5555555555555555ull;
 
-  Cell best{-1e9f, 0x7FFFFFFF};
-  for (int h = 0; h < 2; ++h) {
-    const int cell = lane + 32 * h;
-    const int a = cell / kK, c = cell % kK;  // slot of junction 1 / 2
-    const int s1 = __shfl_sync(GSNAP_FULL_MASK, s, a);
-    const float p1i = __shfl_sync(GSNAP_FULL_MASK, pa, a);
-    const float p1m = __shfl_sync(GSNAP_FULL_MASK, pb, a);
-    const int mi1 = __shfl_sync(GSNAP_FULL_MASK, ma, a);
-    const int cm1 = __shfl_sync(GSNAP_FULL_MASK, mb, a);
-    const int s2 = __shfl_sync(GSNAP_FULL_MASK, s, kK + c);
-    const float p2m = __shfl_sync(GSNAP_FULL_MASK, pa, kK + c);
-    const float p2j = __shfl_sync(GSNAP_FULL_MASK, pb, kK + c);
-    const int cm2 = __shfl_sync(GSNAP_FULL_MASK, ma, kK + c);
-    const int mj2 = __shfl_sync(GSNAP_FULL_MASK, mb, kK + c);
-    float key = -1e9f;
-    if (a < n1 && c < n2 && s2 > s1) {
-      const int nmm2 = cm2 - cm1;
-      const int total = mi1 + nmm2 + mj2;
-      if (total <= bud && nmm2 >= 0 && suff_local(s1, mi1, p1i) &&
-          suff_local(s2 - s1, nmm2, p1m) && suff_local(s2 - s1, nmm2, p2m) &&
-          suff_local(len - s2, mj2, p2j)) {
-        const float p = __fadd_rn(__fadd_rn(__fadd_rn(p1i, p1m), p2m), p2j);
-        key = __fadd_rn(__fmul_rn(-(float)total, 8.0f), p);
-      }
-    }
-    better(best, key, cell);
-  }
-  for (int o = 16; o > 0; o >>= 1) {
-    const float k = __shfl_xor_sync(GSNAP_FULL_MASK, best.key, o);
-    const int c = __shfl_xor_sync(GSNAP_FULL_MASK, best.cell, o);
-    better(best, k, c);
-  }
+// bit 2b set where code b of x equals c
+__device__ __forceinline__ uint64_t codes_equal(uint64_t x, uint32_t c) {
+  const uint64_t t = x ^ (kEven * c);
+  return ~(t | (t >> 1)) & kEven;
+}
 
-  // the winning cell's slots (cell 0 when none is valid: masked later)
-  const int a = best.cell / kK, c = best.cell % kK;
-  Result r;
-  r.score = best.key;
-  r.sp1 = __shfl_sync(GSNAP_FULL_MASK, s, a);
-  r.p1i = __shfl_sync(GSNAP_FULL_MASK, pa, a);
-  r.p1m = __shfl_sync(GSNAP_FULL_MASK, pb, a);
-  const int mi1 = __shfl_sync(GSNAP_FULL_MASK, ma, a);
-  const int cm1 = __shfl_sync(GSNAP_FULL_MASK, mb, a);
-  r.sp2 = __shfl_sync(GSNAP_FULL_MASK, s, kK + c);
-  r.p2m = __shfl_sync(GSNAP_FULL_MASK, pa, kK + c);
-  r.p2j = __shfl_sync(GSNAP_FULL_MASK, pb, kK + c);
-  const int cm2 = __shfl_sync(GSNAP_FULL_MASK, ma, kK + c);
-  r.nmm3 = __shfl_sync(GSNAP_FULL_MASK, mb, kK + c);
-  r.nmm1 = mi1;
-  r.nmm2 = cm2 - cm1;
-  __syncwarp();  // sel1/sel2 are reused by the next class
-  return r;
+// bits 0, 2, .., 62 of x as bits 0 .. 31
+__device__ __forceinline__ uint32_t even_bits(uint64_t x) {
+  x &= kEven;
+  x = (x | (x >> 1)) & 0x3333333333333333ull;
+  x = (x | (x >> 2)) & 0x0F0F0F0F0F0F0F0Full;
+  x = (x | (x >> 4)) & 0x00FF00FF00FF00FFull;
+  x = (x | (x >> 8)) & 0x0000FFFF0000FFFFull;
+  x = (x | (x >> 16)) & 0x00000000FFFFFFFFull;
+  return (uint32_t)x;
+}
+
+// field of n codes from code a of a window
+__device__ __forceinline__ uint32_t field(uint64_t w, int a, int n) {
+  return (uint32_t)(w >> (2 * a)) & ((1u << (2 * n)) - 1u);
+}
+
+__device__ __forceinline__ float odds_prob(float o) {
+  return __fdiv_rn(o, __fadd_rn(1.0f, o));
 }
 
 __global__ void solve_doublesplices_kernel(
-    const uint32_t* __restrict__ ref16, const float* __restrict__ tables,
+    const uint32_t* __restrict__ ref16, const float* __restrict__ tab,
     const int64_t* __restrict__ top_d, const int32_t* __restrict__ pref,
     const int64_t* __restrict__ ti, const int64_t* __restrict__ tm,
     const int64_t* __restrict__ tj, const uint8_t* __restrict__ tvalid,
@@ -189,9 +138,10 @@ __global__ void solve_doublesplices_kernel(
     int32_t* __restrict__ nmm1_o, int32_t* __restrict__ nmm2_o,
     int32_t* __restrict__ nmm3_o, int64_t* __restrict__ left_o,
     int64_t* __restrict__ mid_o, int64_t* __restrict__ right_o,
-    const gsnap_maxent::Known known, int64_t nwords, int B, int T, int NC, int L,
-    int novel) {
-  __shared__ int s_sel[kWarpsPerBlock][2 * kK];
+    const gsnap_maxent::Known known, int64_t nwords, int B, int T, int NC,
+    int L, int novel) {
+  using namespace gsnap_maxent;
+  extern __shared__ __align__(16) uint32_t smem[];
   const int wib = threadIdx.x >> 5;
   const int64_t warp = (int64_t)blockIdx.x * kWarpsPerBlock + wib;
   const int lane = threadIdx.x & 31;
@@ -201,37 +151,205 @@ __global__ void solve_doublesplices_kernel(
   const int64_t cm = b * NC + tm[warp];
   const int64_t cj = b * NC + tj[warp];
   const int64_t di = top_d[ci], dm = top_d[cm], dj = top_d[cj];
-  const int32_t* pi = pref + ci * (L + 1);
-  const int32_t* pm = pref + cm * (L + 1);
-  const int32_t* pj = pref + cj * (L + 1);
-  const int len = lengths[b];
-  const int tot_j = pj[len];
-  const int bud = budget[b];
-  int* sel1 = s_sel[wib];
-  int* sel2 = s_sel[wib] + kK;
+  const bool margins = di >= 64 && dm >= 64 && dj >= 64;
 
-  const Result sense = solve_class(ref16, nwords, tables, known, novel, 0,
-                                   di, dm, dj, pi, pm, pj, len, tot_j, bud,
-                                   L, lane, sel1, sel2);
-  const Result anti = solve_class(ref16, nwords, tables, known, novel, 1,
-                                  di, dm, dj, pi, pm, pj, len, tot_j, bud, L,
-                                  lane, sel1, sel2);
+  Cell best[2] = {{-1e9f, 0}, {-1e9f, 0}};
+  float pa = 0.0f, pb = 0.0f;  // (p1i, p1m) or (p2m, p2j) of the lane's slot
+  int s = -1, ma = 0, mb = 0;  // its position (-1: none) and mismatches
+  if (margins) {  // warp-uniform: below 64 nothing is a candidate
+    const int nmw = mask_words(L), nws = span_words(L);
+    uint32_t* span = smem + (int64_t)wib * warp_words(L);
+    uint32_t* kmask = span + 3 * nws;
+    uint32_t* smask = kmask + 8 * nmw;
+    // the diagonal of segment g (0 i, 1 m, 2 j)
+    auto dseg = [&](int g) {
+      return (uint64_t)(g == 0 ? di : g == 1 ? dm : dj);
+    };
+    // 1. the spans
+    for (int e = lane; e < 3 * nws; e += 32) {
+      const int g = e / nws;
+      uint64_t w = ((dseg(g) - 20) >> 4) + (uint64_t)(e - g * nws);
+      if (w > (uint64_t)(nwords - 1)) w = (uint64_t)(nwords - 1);
+      span[e] = __ldg(ref16 + w);
+    }
+    __syncwarp();
+    // 2. the site masks, word k of mask id a lane
+    for (int e = lane; e < 8 * nmw; e += 32) {
+      const int id = e / nmw, k = e - id * nmw;
+      const bool aside = id < 4;       // site at [p, p+1], else [p-2, p-1]
+      const int g = (id & 1) + !aside;  // segment: 0 i, 1 m, 2 j
+      const int kind = aside ? ((id & 2) ? kAntiacceptor : kDonor)
+                             : ((id & 2) ? kAntidonor : kAcceptor);
+      const uint64_t d = dseg(g);
+      uint32_t kw = 0;
+      if (known.nw > 0) {
+        const uint64_t last = (uint64_t)(known.nw - 1);
+        uint64_t w0 = (d >> 5) + k, w1 = w0 + 1;
+        w0 = w0 > last ? last : w0;
+        w1 = w1 > last ? last : w1;
+        const uint32_t* kv = kind == kDonor      ? known.w[kDonor]
+                             : kind == kAcceptor ? known.w[kAcceptor]
+                             : kind == kAntidonor ? known.w[kAntidonor]
+                                                  : known.w[kAntiacceptor];
+        kw = __funnelshift_r(__ldg(kv + w0), __ldg(kv + w1),
+                             (uint32_t)(d & 31));
+      }
+      uint32_t nw = 0;
+      if (novel) {
+        // codes of the dinucleotide's first and second base for p = d +
+        // 32 k + b, b = 0..31
+        const int rel = 32 * k + 20 + (int)((d - 20) & 15) - (aside ? 0 : 2);
+        const uint32_t c1 = aside ? ((id & 2) ? 1u : 2u) : 0u;
+        const uint32_t c2 = aside ? 3u : ((id & 2) ? 1u : 2u);
+        nw = even_bits(codes_equal(span_at(span + g * nws, rel), c1) &
+                       codes_equal(span_at(span + g * nws, rel + 1), c2));
+      }
+      kmask[e] = kw;
+      smask[e] = kw | nw;
+    }
+    __syncwarp();
+
+    // 3. lane 8 q + r: the r-th candidate of list q
+    const int len = lengths[b];
+    const int q = lane >> 3;
+    const int hi = min(len - 2, L);
+    int r = lane & 7;
+    for (int k = 0; k < nmw; ++k) {
+      const int a0 = max(2 - 32 * k, 0), e0 = min(hi - 32 * k, 31);
+      const uint32_t inb = a0 > e0 ? 0u
+                                   : (0xFFFFFFFFu >> (31 - e0)) &
+                                         (0xFFFFFFFFu << a0);
+      uint32_t w = smask[q * nmw + k] & smask[(4 + q) * nmw + k] & inb;
+      const int c = __popc(w);
+      if (r < c) {
+        for (int x = 0; x < r; ++x) w &= w - 1;
+        s = 32 * k + __ffs(w) - 1;
+        break;
+      }
+      r -= c;
+    }
+
+    // 4. the slot's probabilities and mismatches
+    if (s >= 0) {
+      const bool sense = q < 2, j2 = q & 1;
+      const int ga = j2 ? 1 : 0, gb = j2 ? 2 : 1;  // segments of the sides
+      const int off_a = 20 + (int)((dseg(ga) - 20) & 15);
+      const int off_b = 20 + (int)((dseg(gb) - 20) & 15);
+      // sense: donor (short) on side a, acceptor (long) on side b;
+      // antisense: antiacceptor (long) on a, antidonor (short) on b
+      const uint64_t ws = sense ? span_at(span + ga * nws, off_a + s - 3)
+                                : span_at(span + gb * nws, off_b + s - 6);
+      const uint64_t wl = sense ? span_at(span + gb * nws, off_b + s - 20)
+                                : span_at(span + ga * nws, off_a + s - 3);
+      float os = __ldg(tab + (sense ? kDonorScore : kAntiDonorScore) +
+                       (sense ? field(ws, 0, 3) | field(ws, 5, 4) << 6
+                              : field(ws, 0, 4) | field(ws, 6, 3) << 8));
+      os = __fmul_rn(os, __ldg(tab + (sense ? kDonorDi : kAntiDonorDi) +
+                               field(ws, sense ? 3 : 4, 2)));
+      float ol = __ldg(tab + (sense ? kAcc1 : kAnti1) +
+                       field(wl, sense ? 0 : 16, 7));
+      ol = __fmul_rn(ol, __ldg(tab + (sense ? kAcc2 : kAnti2) +
+                               field(wl, sense ? 7 : 9, 7)));
+      ol = __fmul_rn(ol, __ldg(tab + (sense ? kAcc3 : kAnti3) +
+                               (sense ? field(wl, 14, 4) | field(wl, 20, 3) << 8
+                                      : field(wl, 0, 3) | field(wl, 5, 4) << 6)));
+      ol = __fmul_rn(ol, __ldg(tab + (sense ? kAccDi : kAntiDi) +
+                               field(wl, sense ? 18 : 3, 2)));
+      ol = __fmul_rn(ol, __ldg(tab + (sense ? kAcc467 : kAnti467) +
+                               field(wl, sense ? 4 : 12, 7)));
+      ol = __fmul_rn(ol, __ldg(tab + (sense ? kAcc589 : kAnti589) +
+                               field(wl, sense ? 11 : 5, 7)));
+      const float p_short = odds_prob(os), p_long = odds_prob(ol);
+      const int kw = s >> 5, kb = s & 31;
+      pa = (kmask[q * nmw + kw] >> kb) & 1 ? 1.0f
+                                           : (sense ? p_short : p_long);
+      pb = (kmask[(4 + q) * nmw + kw] >> kb) & 1 ? 1.0f
+                                                 : (sense ? p_long : p_short);
+      const int64_t row_a = j2 ? cm : ci;
+      ma = pref[row_a * (L + 1) + s];
+      if (j2) {
+        const int32_t* pj = pref + cj * (L + 1);
+        mb = pj[len] - pj[s];
+      } else {
+        mb = pref[cm * (L + 1) + s];
+      }
+    }
+
+    // 5. the grids: cells lane and lane + 32 of each class
+    const int bud = budget[b];
+#pragma unroll
+    for (int cls = 0; cls < 2; ++cls) {
+      const int l2 = 16 * cls + 8 + (lane & 7);  // junction-2 slot's lane
+      const int s2 = __shfl_sync(GSNAP_FULL_MASK, s, l2);
+      const float p2m = __shfl_sync(GSNAP_FULL_MASK, pa, l2);
+      const float p2j = __shfl_sync(GSNAP_FULL_MASK, pb, l2);
+      const int cm2 = __shfl_sync(GSNAP_FULL_MASK, ma, l2);
+      const int mj2 = __shfl_sync(GSNAP_FULL_MASK, mb, l2);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int cell = lane + 32 * h;
+        const int l1 = 16 * cls + cell / kK;  // junction-1 slot's lane
+        const int s1 = __shfl_sync(GSNAP_FULL_MASK, s, l1);
+        const float p1i = __shfl_sync(GSNAP_FULL_MASK, pa, l1);
+        const float p1m = __shfl_sync(GSNAP_FULL_MASK, pb, l1);
+        const int mi1 = __shfl_sync(GSNAP_FULL_MASK, ma, l1);
+        const int cm1 = __shfl_sync(GSNAP_FULL_MASK, mb, l1);
+        float key = -1e9f;
+        if (s1 >= 0 && s2 >= 0 && s2 > s1) {
+          const int nmm2 = cm2 - cm1;
+          const int total = mi1 + nmm2 + mj2;
+          if (total <= bud && nmm2 >= 0 && suff_local(s1, mi1, p1i) &&
+              suff_local(s2 - s1, nmm2, p1m) &&
+              suff_local(s2 - s1, nmm2, p2m) &&
+              suff_local(len - s2, mj2, p2j)) {
+            const float p =
+                __fadd_rn(__fadd_rn(__fadd_rn(p1i, p1m), p2m), p2j);
+            key = __fadd_rn(__fmul_rn(-(float)total, 8.0f), p);
+          }
+        }
+        better(best[cls], key, cell);
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+      for (int cls = 0; cls < 2; ++cls) {
+        const float k = __shfl_xor_sync(GSNAP_FULL_MASK, best[cls].key, o);
+        const int c = __shfl_xor_sync(GSNAP_FULL_MASK, best[cls].cell, o);
+        better(best[cls], k, c);
+      }
+    }
+  }
+
+  // the winning cell's slots (cell 0 when none is valid: masked below)
+  const bool use_anti = best[1].key > best[0].key;
+  const Cell w = use_anti ? best[1] : best[0];
+  const int l1 = 16 * use_anti + w.cell / kK;
+  const int l2 = 16 * use_anti + kK + w.cell % kK;
+  const int sp1 = __shfl_sync(GSNAP_FULL_MASK, s, l1);
+  const float p1i = __shfl_sync(GSNAP_FULL_MASK, pa, l1);
+  const float p1m = __shfl_sync(GSNAP_FULL_MASK, pb, l1);
+  const int mi1 = __shfl_sync(GSNAP_FULL_MASK, ma, l1);
+  const int cm1 = __shfl_sync(GSNAP_FULL_MASK, mb, l1);
+  const int sp2 = __shfl_sync(GSNAP_FULL_MASK, s, l2);
+  const float p2m = __shfl_sync(GSNAP_FULL_MASK, pa, l2);
+  const float p2j = __shfl_sync(GSNAP_FULL_MASK, pb, l2);
+  const int cm2 = __shfl_sync(GSNAP_FULL_MASK, ma, l2);
+  const int mj2 = __shfl_sync(GSNAP_FULL_MASK, mb, l2);
   if (lane == 0) {
-    const bool use_anti = anti.score > sense.score;
-    const Result& w = use_anti ? anti : sense;
-    const bool v = tvalid[warp] && w.score > -1e8f;
+    const bool v = tvalid[warp] && w.key > -1e8f;
     valid_o[warp] = v;
-    split_o[warp] = v ? w.sp1 : 0;
-    split2_o[warp] = v ? w.sp2 : 0;
+    split_o[warp] = v ? sp1 : 0;
+    split2_o[warp] = v ? sp2 : 0;
     sense_o[warp] = !use_anti;
     // junction probabilities in donor/acceptor display order
-    prob_d_o[warp] = v ? (use_anti ? anti.p2j : sense.p1i) : 0.0f;
-    prob_a_o[warp] = v ? (use_anti ? anti.p2m : sense.p1m) : 0.0f;
-    prob_d2_o[warp] = v ? (use_anti ? anti.p1m : sense.p2m) : 0.0f;
-    prob_a2_o[warp] = v ? (use_anti ? anti.p1i : sense.p2j) : 0.0f;
-    nmm1_o[warp] = v ? w.nmm1 : 0;
-    nmm2_o[warp] = v ? w.nmm2 : 0;
-    nmm3_o[warp] = v ? w.nmm3 : 0;
+    prob_d_o[warp] = v ? (use_anti ? p2j : p1i) : 0.0f;
+    prob_a_o[warp] = v ? (use_anti ? p2m : p1m) : 0.0f;
+    prob_d2_o[warp] = v ? (use_anti ? p1m : p2m) : 0.0f;
+    prob_a2_o[warp] = v ? (use_anti ? p1i : p2j) : 0.0f;
+    nmm1_o[warp] = v ? mi1 : 0;
+    nmm2_o[warp] = v ? cm2 - cm1 : 0;
+    nmm3_o[warp] = v ? mj2 : 0;
     left_o[warp] = di;
     mid_o[warp] = dm;
     right_o[warp] = dj;
@@ -252,12 +370,20 @@ extern "C" int gsnap_solve_doublesplices(
   if (nwords < 1 || L < 1 || kwords < 0) return (int)cudaErrorInvalidValue;
   if (kwords > 0 && !(kd && ka && kad && kaa))
     return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)kWarpsPerBlock * warp_words(L) * 4;
+  if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
   const gsnap_maxent::Known known{{(const uint32_t*)kd, (const uint32_t*)ka,
                      (const uint32_t*)kad, (const uint32_t*)kaa},
                     kwords};
   if ((int64_t)B * T == 0) return 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        solve_doublesplices_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
   const int64_t blocks = ((int64_t)B * T + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  solve_doublesplices_kernel<<<(unsigned)blocks, 32 * kWarpsPerBlock, 0,
+  solve_doublesplices_kernel<<<(unsigned)blocks, 32 * kWarpsPerBlock, smem,
                                (cudaStream_t)stream>>>(
       (const uint32_t*)ref16, (const float*)tables, (const int64_t*)top_d,
       (const int32_t*)pref, (const int64_t*)ti, (const int64_t*)tm,

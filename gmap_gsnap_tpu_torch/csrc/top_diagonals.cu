@@ -44,33 +44,6 @@ constexpr int kRowsPerWarpBlock = 4;  // rows of a CTA when a warp is a row
 constexpr int kRedInts = 32;
 constexpr int kSmemMax = 232448;      // a CTA's opt-in shared memory
 
-// Number of the row's keys at or below x, where a key is compared in
-// full (shift 0) or by its high half (shift 16).
-template <int KPL, int NW>
-__device__ __forceinline__ int count_at_most(const uint32_t (&key)[KPL],
-                                             uint32_t x, int shift,
-                                             int* red) {
-  int c = 0;
-#pragma unroll
-  for (int r = 0; r < KPL; ++r) c += (key[r] >> shift) <= x;
-  return row_sum<NW>(c, red);
-}
-
-// Smallest x in [lo, hi] with count_at_most(x) >= m (hi satisfies it).
-template <int KPL, int NW>
-__device__ __forceinline__ uint32_t lowest_reaching(
-    const uint32_t (&key)[KPL], uint32_t lo, uint32_t hi, int shift, int m,
-    int* red) {
-  while (lo < hi) {
-    const uint32_t mid = lo + (hi - lo) / 2;
-    if (count_at_most<KPL, NW>(key, mid, shift, red) >= m)
-      hi = mid;
-    else
-      lo = mid + 1;
-  }
-  return lo;
-}
-
 template <int KPL, int NW>
 __global__ void __launch_bounds__(NW == 1 ? 32 * kRowsPerWarpBlock : 32 * NW)
     top_diagonals_kernel(const int64_t* __restrict__ diag,
@@ -145,10 +118,10 @@ __global__ void __launch_bounds__(NW == 1 ? 32 * kRowsPerWarpBlock : 32 * NW)
       }
     lo = row_extreme<NW>(lo, false, red);
     hi = row_extreme<NW>(hi, true, red);
-    const uint32_t high = lowest_reaching<KPL, NW>(key, lo, hi, 16, m, red);
-    cut = lowest_reaching<KPL, NW>(key, high << 16,
-                                   high << 16 | (uint32_t)(N - 1), 0, m,
-                                   red);
+    const uint32_t high =
+        row_lowest_reaching<KPL, NW>(key, lo, hi, 16, m, red);
+    cut = row_lowest_reaching<KPL, NW>(
+        key, high << 16, high << 16 | (uint32_t)(N - 1), 0, m, red);
   }
   int nsel = 0;
 #pragma unroll
@@ -163,21 +136,7 @@ __global__ void __launch_bounds__(NW == 1 ? 32 * kRowsPerWarpBlock : 32 * NW)
   row_sync<NW>();
 
   // the m selected keys, sorted in shared memory
-  for (int kk = 2; kk <= s; kk <<= 1) {
-    for (int j = kk >> 1; j > 0; j >>= 1) {
-      for (int i = t; i < s; i += T) {
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          const uint32_t x = sel[i], y = sel[ixj];
-          if ((y < x) == ((i & kk) == 0)) {
-            sel[i] = y;
-            sel[ixj] = x;
-          }
-        }
-      }
-      row_sync<NW>();
-    }
-  }
+  row_sort_shared<NW>(sel, s, t, T);
 
   // 4. outputs
   for (int j = t; j < NC; j += T) {

@@ -1340,3 +1340,123 @@ def diag_vote_rows(rng: np.random.Generator, b: int, w: int, nc: int):
         out[row, :len(seq)] = seq
         rng.shuffle(out[row])
     return out
+
+
+PAIR_ROW_KINDS = ("none eligible", "few eligible", "equal sums",
+                  "width limit")
+
+
+def diag_pair_rows(rng: np.random.Generator, b: int, nc: int):
+    """(top_d int64[b, nc] holding uint32, votes int32[b, nc]) for the
+    pair selector (K16), the rows cycling over PAIR_ROW_KINDS: "none
+    eligible": one value repeated (a difference of 0 is no pair) or
+    INVALID; "few eligible": diagonals 2^32 / nc apart but for two or three
+    close ones, so fewer pairs than maxpairs are eligible and the -1
+    entries fill the rest in flat order; "equal sums": a cluster within
+    20 of one base, every vote 4; "width limit": a cluster with votes of
+    2^17 - 1, whose sum 2^18 - 2 is the largest the kernel's key
+    holds, beside small ones.  Bases near 2^31 and 2^32 make the
+    differences wrap."""
+    top = np.zeros((b, nc), np.int64)
+    votes = np.zeros((b, nc), np.int32)
+    for row in range(b):
+        kind = PAIR_ROW_KINDS[row % len(PAIR_ROW_KINDS)]
+        base = int(rng.choice([100, 2**31 - 20, 2**32 - 60]))
+        if kind == "none eligible":
+            top[row] = base if row % 8 < 4 else 0xFFFFFFFF
+            votes[row] = rng.integers(0, 50, nc)
+        elif kind == "few eligible":
+            top[row] = (base + np.arange(nc) * (2**32 // nc)) % 2**32
+            close = rng.choice(nc, min(nc, 3), replace=False)
+            top[row, close] = (base + np.arange(len(close)) * 7) % 2**32
+            votes[row] = rng.integers(1, 50, nc)
+        elif kind == "equal sums":
+            top[row] = (base + rng.integers(0, 20, nc)) % 2**32
+            votes[row] = 4
+        else:
+            top[row] = (base + rng.integers(0, 40, nc)) % 2**32
+            votes[row] = np.where(rng.random(nc) < 0.5, 2**17 - 1,
+                                  rng.integers(0, 9, nc))
+        top[row, rng.random(nc) < 0.05] = 0xFFFFFFFF
+    return top, votes
+
+
+def doublesplice_cases(rng: np.random.Generator, b: int, nc: int = 32,
+                       nt: int = 8, L: int = 100, genome_len: int = 40_000):
+    """Inputs of the short-exon solver (K7) with its edges, as numpy
+    arrays in a dict: ``codes`` (uint8[genome_len] 2-bit codes; no N),
+    ``top_d`` int64[b, nc] (uint32 values), ``pref`` int32[b, nc, L+1],
+    ``ti`` / ``tm`` / ``tj`` int64[b, nt], ``tvalid`` bool[b, nt],
+    ``lengths`` and ``budget`` int32[b] and ``known``, four uint32
+    bitvectors (donor, acceptor, antidonor, antiacceptor) of
+    device_bitmasks' length.
+
+    The genome's first 400 bp and [4000, 12000) repeat CCAGGTGCTT (an
+    AG|GT of maxent probabilities 0.945 / 0.966 at every p = 4 mod 10)
+    and [12000, 16000) its reverse complement (the antisense pair), so a
+    triple of diagonals of one phase there has about ten candidates per
+    junction, many of them sufficient, and the first-8 rule decides;
+    mismatches are sparse (budget 2-6).  Every row holds diagonals 63
+    and 64 (near the dense start), diagonals at the genome's end and
+    INVALID ones, and its triples mix those with dense ones.  Reads are
+    L long but for some of 30-99 nt and of 3-5 nt.  The known sites are
+    sparse random bits plus, per row, sites of both classes at s = 2 on
+    i and m and at s = len - 2 on m and j of the row's first triple (a
+    short exon of probability 1.0 on both strands: equal keys, sense
+    wins), with that triple's i, m and j outside the dense stretches.
+    nc >= 12."""
+    g = rng.integers(0, 4, genome_len).astype(np.uint8)
+    unit = np.array([1, 1, 0, 2, 2, 3, 2, 1, 3, 3], np.uint8)  # CCAGGTGCTT
+    g[:400] = np.tile(unit, 40)
+    g[4000:12000] = np.tile(unit, 800)
+    g[12000:16000] = np.tile(3 - unit[::-1], 400)
+    lengths = np.full(b, L, np.int32)
+    short = rng.random(b) < 0.2
+    lengths[short] = rng.integers(30, L, int(short.sum()))
+    lengths[5::17] = rng.integers(3, 6, len(lengths[5::17]))
+    budget = rng.integers(2, 7, b).astype(np.int32)
+    top = np.zeros((b, nc), np.int64)
+    for row in range(b):
+        sense_dense = rng.random() < 0.5
+        lo, hi = (4100, 11800) if sense_dense else (12100, 15800)
+        phase = int(rng.integers(0, 10))
+        top[row] = rng.integers(lo // 10, hi // 10, nc) * 10 + phase
+        top[row, 1:4] = rng.integers(20_000, genome_len - 300, 3)
+        top[row, 4], top[row, 5] = 63, 64
+        top[row, 6] = genome_len - int(rng.integers(1, 60))
+        top[row, 7] = 0xFFFFFFFF
+        top[row, 8] = genome_len + 200
+    mm = rng.random((b, nc, L)) < 0.02
+    pref = np.concatenate([np.zeros((b, nc, 1), np.int32),
+                           np.cumsum(mm, 2, dtype=np.int32)], 2)
+    ti = rng.integers(0, nc, (b, nt))
+    tm = rng.integers(0, nc, (b, nt))
+    tj = rng.integers(0, nc, (b, nt))
+    dense = np.arange(9, nc) if nc > 12 else np.arange(nc)
+    ti[:, 1:4] = rng.choice(dense, (b, 3))
+    tm[:, 1:4] = rng.choice(dense, (b, 3))
+    tj[:, 1:4] = rng.choice(dense, (b, 3))
+    ti[:, 0], tm[:, 0], tj[:, 0] = 1, 2, 3
+    ti[:, 4], tm[:, 4], tj[:, 4] = 5, 5, 5           # diagonal 64, thrice
+    tm[:, 5] = 4                                     # diagonal 63 in the middle
+    tj[:, 6] = 6                                     # at the genome end
+    ti[:, 7 % nt] = 7                                # INVALID
+    tvalid = rng.random((b, nt)) < 0.85
+    nwords = (genome_len + 31) // 32 + 2
+    known = [np.zeros(nwords, np.uint32) for _ in range(4)]
+    for k in range(4):
+        pos = rng.choice(genome_len, genome_len // 200, replace=False)
+        np.bitwise_or.at(known[k], pos >> 5, np.uint32(1) << (pos & 31))
+    for row in range(b):
+        di, dm, dj = (int(top[row, x]) for x in (ti[row, 0], tm[row, 0],
+                                                 tj[row, 0]))
+        s2 = int(lengths[row]) - 2
+        # (kind, position): donor 0, acceptor 1, antidonor 2, antiacceptor 3
+        for kind, pos in ((0, di + 2), (1, dm + 2), (0, dm + s2),
+                          (1, dj + s2), (3, di + 2), (2, dm + 2),
+                          (3, dm + s2), (2, dj + s2)):
+            if 0 <= pos < genome_len:
+                known[kind][pos >> 5] |= np.uint32(1) << np.uint32(pos & 31)
+    return {"codes": g, "top_d": top, "pref": pref, "ti": ti, "tm": tm,
+            "tj": tj, "tvalid": tvalid, "lengths": lengths, "budget": budget,
+            "known": tuple(known)}

@@ -660,6 +660,82 @@ def test_select_pairs_matches_plain(batch, cuda, nc):
             _equal(gg._select_pairs_cuda(td, vt, 16, rule, a, b_), want)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("nc,maxpairs", [(3, 16), (24, 16), (32, 16),
+                                         (32, 1024), (128, 16),
+                                         (128, 16384)])
+def test_select_pairs_edges_match_plain(cuda, nc, maxpairs):
+    """K16 on synth.diag_pair_rows (no eligible pair, fewer than
+    maxpairs, equal vote sums, sums at the key's width limit) under both
+    rules, NC off a power of two, maxpairs above NC^2 and equal to it at
+    NC = 128 (every entry selected and sorted)."""
+    top, votes = (torch.from_numpy(x).to(cuda) for x in synth.diag_pair_rows(
+        np.random.default_rng(nc + maxpairs), 64, nc))
+    for rule, a, b_, fn in ((0, 30, 9, gg._indel_pairs_eligible(30, 9)),
+                            (1, 200_000, 0,
+                             gg._splice_pairs_eligible(200_000)),
+                            (1, 2**31 + 5, 0,
+                             gg._splice_pairs_eligible(2**31 + 5))):
+        _equal(gg._select_pairs_cuda(top, votes, maxpairs, rule, a, b_),
+               gg._select_pairs_plain(top, votes, fn, maxpairs))
+
+
+_TRAP_SCRIPT = """
+import sys, torch
+from gmap_gsnap_tpu_torch.align import gsnap_gapped as gg
+v = int(sys.argv[1])
+top = torch.tensor([[100, 105, 110]], dtype=torch.int64, device="cuda")
+votes = torch.tensor([[v, v, 1]], dtype=torch.int32, device="cuda")
+out = gg._select_pairs_cuda(top, votes, 4, 1, 200_000, 0)
+torch.cuda.synchronize()
+print("no trap", out[0].tolist(), out[2].tolist())
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vote", [2**17, -2])
+def test_select_pairs_key_out_of_range_traps(cuda, vote):
+    """An eligible vote sum the key cannot hold (2^18 - 1 and above, or
+    below 0) stops K16 with a trap, and the launch fails: it is never
+    clamped into the key.  In a process of its own, since a trap ends
+    the CUDA context."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", _TRAP_SCRIPT, str(vote)],
+                          cwd=repo, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode != 0, proc.stdout
+    assert "no trap" not in proc.stdout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nc,novel,with_known", [
+    (32, True, False), (32, True, True), (32, False, True),
+    (128, True, False), (128, True, True), (128, False, True)])
+def test_solve_doublesplices_edges_match_plain(cuda, nc, novel, with_known):
+    """K7 on synth.doublesplice_cases: more than 8 candidates per
+    junction, sites at s = 2 and s = len - 2, diagonals 63 and 64, at the
+    genome end and INVALID, reads shorter than L, equal keys on both
+    strands; the known-site masks with novel splicing on and off."""
+    case = synth.doublesplice_cases(np.random.default_rng(nc), 64, nc)
+    codes = case["codes"]
+    tg = convert.genome_from_host(codes, np.zeros(len(codes), np.uint8),
+                                  [len(codes)], cuda)
+    t = {k: torch.from_numpy(v).to(cuda) for k, v in case.items()
+         if k != "known"}
+    known = (tuple(torch.from_numpy(k.view(np.int32).copy()).to(cuda)
+                   for k in case["known"]) if with_known else None)
+    args = (tg, t["top_d"], t["pref"], t["ti"], t["tm"], t["tj"],
+            t["tvalid"], t["lengths"], t["budget"], 100, novel, known)
+    want = gg._solve_doublesplices_plain(*args)
+    _equal([gg._solve_doublesplices_cuda(*args)[k] for k in gg._SHORTEXON_KEYS],
+           [want[k] for k in gg._SHORTEXON_KEYS])
+    assert want["valid"].any()
+
+
 # ------------------------------- K17 and K8's overflow-gate epilogue
 
 def _pack_inputs(rng, b, lmax, cuda):

@@ -103,6 +103,15 @@ inline int __any_sync(unsigned m, int p) { return __ballot_sync(m, p) != 0; }
 inline int __all_sync(unsigned m, int p) { return __ballot_sync(m, p) == 0xFFFFFFFFu; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __popcll(unsigned long long x) { return __builtin_popcountll(x); }
+inline int __ffs(unsigned x) { return x ? __builtin_ctz(x) + 1 : 0; }
+inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned sh) {
+  sh &= 31; return sh ? (lo >> sh) | (hi << (32 - sh)) : lo; }
+template <class T> inline T __ldg(const T* p) { return *p; }
+// float32 with one rounding each (emu_build.py compiles with
+// -ffp-contract=off, so no product is fused into a sum)
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
 template <class T> inline T atomicAdd(T* p, T v) { std::lock_guard<std::mutex> g(emu_mu); T o = *p; *p = o + v; return o; }
 template <class T> inline T atomicMin(T* p, T v) { std::lock_guard<std::mutex> g(emu_mu); T o = *p; if (v < o) *p = v; return o; }
 template <class T> inline T atomicMax(T* p, T v) { std::lock_guard<std::mutex> g(emu_mu); T o = *p; if (v > o) *p = v; return o; }

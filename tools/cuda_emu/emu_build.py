@@ -79,9 +79,10 @@ def build(names: list[str], outdir: str) -> str:
         g.write('extern "C" const char* gsnap_error_string(int) '
                 '{ return "emulated launch failed"; }\n')
     so = os.path.join(outdir, "libemu.so")
-    subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC",
-                    "-pthread", "-I", HERE, "-I", CSRC, *cpps, err, "-o",
-                    so], check=True)
+    # -ffp-contract=off: no product fused into a sum, as nvcc's __f*_rn
+    subprocess.run(["g++", "-std=c++20", "-O1", "-ffp-contract=off",
+                    "-shared", "-fPIC", "-pthread", "-I", HERE, "-I", CSRC,
+                    *cpps, err, "-o", so], check=True)
     return so
 
 
