@@ -72,8 +72,11 @@ and ends the run with a nonzero exit):
      and SE -N 1 at NC=32 and at the wide lane's W=4096 / NC=128 and of
      one PE -N 1 batch, with K14 also without the optimal filter at
      maxout 16, with maxout above the candidate count and with the SE
-     gates as its epilogue, and on hand-built edges: all- and
-     no-mismatch masks and reads shorter than lmax, exact duplicate
+     gates as its epilogue, and on hand-built edges:
+     synth.mismatch_edge_rows at L 75, 100 and 150 (untrimmed ends that
+     tie the trims, equal maxima, mismatches only past the read, all- and
+     no-mismatch masks, reads shorter than lmax, a trim score beyond the
+     read length), exact duplicate
      candidates and equal (score, left) on both strands, INVALID
      diagonals and seed slots, diagonals near 2^31 and 2^32 under both
      pair rules and synth.diag_pair_rows (no or few eligible pairs, equal
@@ -81,7 +84,11 @@ and ends the run with a nonzero exit):
      NC^2)); K7 on synth.doublesplice_cases (more than 8 candidates a
      junction, sites at s = 2 and len - 2, diagonals 63 and 64, at the
      genome end and INVALID, short reads, equal keys on both strands;
-     NC 32 and 128, with and without known sites and novel splicing);
+     NC 32 and 128, with and without known sites and novel splicing) and
+     K5 on synth.splice_pair_cases (more than 16 candidates a class, the
+     first-16 rule deciding; diagonals 63, 64, at the genome end, near
+     2^32 and INVALID; equal sums, antisense equal to sense, known bits at
+     word boundaries; budgets 0-6; the same variants);
      K17 on each path's batch as the path gives it (the
      uniform flip) and in a mixed-length form (lengths 1, 15, 16, 17, 100,
      N runs); K8 with its overflow-gate epilogue on the PE -N 1 runner's
@@ -123,10 +130,12 @@ and ends the run with a nonzero exit):
      ends' final hit lists and in rescued pairs (paired end), the GMAP
      candidate hits they came from, and the host seconds of its
      prefetch_gmap passes;
-  5b. paths 7 and 8, one at a time: the mode's converted index pair
-     written into the database directory by the port's cmetindex /
-     atoiindex (gamma offsets) and loaded by the runner (cmet_dir /
-     atoi_dir); K1 on
+  5b. paths 7 and 8, one at a time, after both modes' converted index
+     pairs are written side by side into the database directory by the
+     port's cmetindex and atoiindex (gamma offsets; they run while the
+     CPU plain paths of step 6 do, and end before its CLI runs): the
+     mode's pair
+     loaded by the runner (cmet_dir / atoi_dir); K1 on
      both converted indexes, K3 with each strand's conversion and
      K13-K16 checked on the path's own strands; then the path, its bars
      and a CPU-vs-CUDA SAM subset (512 reads, 256 pairs); then the pair
@@ -159,7 +168,7 @@ and ends the run with a nonzero exit):
      with --device cpu;
   7. each kernel's device time (torch.profiler) and per-call time beside
      its plain version's (and its library call's) on the same clock: K1-K8
-     at every shape and variant, K2 and K14 at every shape and K16 at
+     at every shape and variant, K2, K6 and K14 at every shape and K16 at
      every check (both rules, every strand batch, the edges) each with its
      own library sort and bound, K9-K13, K15 and K17 at their first shape;
      the number of device ops one K14 call runs (1: its fields are
@@ -178,7 +187,7 @@ larger of the bytes it must move over 3.35 TB/s and its operations over
 is lower (64 int32 lanes per SM against 128 float32), so the operations
 term is an underestimate; bound_by says which) and the time of one PyTorch
 call computing the same function where there is one (library_ms, else
-null); K2, K14 and K16 also list every timed shape under "shapes" with its
+null); K2, K6, K14 and K16 also list every timed shape under "shapes" with its
 own times, library time and bound; then the nvidia-smi line, then
 {"ok": true, "device": {...}} last.
 """
@@ -195,6 +204,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from functools import partial
 
 import numpy as np
@@ -211,7 +221,8 @@ FIRST_SHAPE_ONLY = ("seed_segments", "chain", "banded_gotoh",
                     "bridge_traceback", "lane_features", "qpos_ranges",
                     "pack_queries")
 # kernels timed at every shape with their own library call and bound
-PER_SHAPE = ("top_diagonals", "rank_hits", "select_pairs")
+PER_SHAPE = ("top_diagonals", "select_triples", "rank_hits",
+             "select_pairs")
 # of those, the kernels whose every check is timed, variants and edges
 # too (K16: both rules, every strand batch and edge row)
 EVERY_CHECK = ("select_pairs",)
@@ -226,6 +237,7 @@ ALL_KERNELS = (N0_KERNELS + SPLICE_KERNELS + PAIR_KERNELS + GMAP_KERNELS
 REPO = os.path.dirname(os.path.abspath(__file__))
 CLI_READS = 2048     # reads or pairs of each path the gsnap CLI aligns
 NATIVE_READS = 256   # reads or pairs of each -A gsnap GPU-vs-CPU check
+CASCADE_PASSES = 5   # passes of a main path's device cascade alone
 MEM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 # the float32 rate outside the tensor cores, the nearest published rate
 # to the kernels' int32 work; the card's int32 rate is lower (64 int32
@@ -275,37 +287,100 @@ def _pair_sort(torch, se, top_d, votes, eligible):
     return sort
 
 
-def _doublesplice_ops(torch, top_d, ti, tm, tj, L: int) -> int:
-    """Operations K7 does on these inputs: for each triple whose three
-    diagonals are >= 64 (the others stop there), 8 site-mask words per 32
-    scan positions (two 2-bit compares of a 64-bit window and the even-bit
-    compaction, ~64 operations a word), the candidate search (~8 a word
+def _triple_sort(torch, se, top_d, votes, maxdist: int):
+    """K6's library call: one stable torch.sort of the negated vote sums
+    [B, 4 NC] of these inputs (the plain version's sums: each middle
+    diagonal with its two best predecessors and successors, -1 where one
+    is missing).  It times the final sort alone: the sums are made at the
+    first call, the warm-up of every timing, and no one PyTorch call
+    computes K6's whole function.  The first call prints the share of
+    the sums that are valid."""
+    neg = []
+
+    def sort():
+        if not neg:
+            okd = top_d != se.INVALID_DIAG
+            step = (top_d[:, None, :] - top_d[:, :, None]) & 0xFFFFFFFF
+            elig = ((step >= 1) & (step <= maxdist) & okd[:, :, None]
+                    & okd[:, None, :])
+            v = votes.long()
+            top2 = lambda x: torch.sort(x, dim=-1, descending=True,
+                                        stable=True).values[..., :2]
+            v2i = top2(torch.where(elig, v[:, :, None], -1).transpose(1, 2))
+            v2j = top2(torch.where(elig, v[:, None, :], -1))
+            vsum = (v[:, :, None, None] + v2i[:, :, :, None]
+                    + v2j[:, :, None, :])
+            ok = ((v2i[:, :, :, None] >= 0) & (v2j[:, :, None, :] >= 0)
+                  & okd[:, :, None, None])
+            neg.append(-torch.where(ok, vsum, -1).reshape(len(top_d), -1))
+            print(f"K6 library sort: {tuple(neg[0].shape)} int64 sums, "
+                  f"{float(ok.float().mean()):.4f} of them valid",
+                  flush=True)
+        return torch.sort(neg[0], dim=1, stable=True)
+
+    return sort
+
+
+def _segment_bytes(torch, top_d, segs, L: int, novel: bool, known) -> int:
+    """Bytes of the candidate rows that the pairs or triples name (segs:
+    their index tensors), each row once a read: its diagonal, its pref
+    row (L + 1 int32), with novel splicing its genome span (L + 41 bases:
+    without it every candidate is known on both sides and scores 1.0, so
+    the genome is not needed) and, with known sites, the words of four
+    site kinds over L + 1 positions."""
+    base = torch.arange(len(segs[0]), device=segs[0].device)[:, None]
+    nrows = int(torch.unique(torch.cat(segs, 1) + base * top_d.shape[1])
+                .numel())
+    per_row = 8 + (L + 1) * 4
+    if novel:
+        per_row += ((L + 41 + 15) // 16 + 1) * 4
+    if known is not None:
+        per_row += 4 * ((L + 32) // 32 + 1) * 4
+    return nrows * per_row
+
+
+def _splice_cost(torch, sargs):
+    """K5's cost function on sargs = (genome, top_d, pref, ii, jj, pvalid,
+    lengths, budget, L[, novel, known]): (bytes, operations).  Bytes: the
+    pairs, lengths and budgets read once and the outputs written, and of
+    the candidate rows only those the pairs name (_segment_bytes)."""
+    novel = sargs[9] if len(sargs) > 9 else True
+    known = sargs[10] if len(sargs) > 10 else None
+    rows = _segment_bytes(torch, sargs[1], [sargs[3], sargs[4]], sargs[8],
+                          novel, known)
+    return lambda out: (_nbytes(sargs[3:9], out) + rows, 0)
+
+
+def _doublesplice_ops(torch, top_d, ti, tm, tj, L: int, novel: bool) -> int:
+    """Operations K7's function needs on these inputs: for each triple
+    whose three diagonals are >= 64 (the others stop there), 8 site-mask
+    words per 32 scan positions (with novel splicing two 2-bit compares of
+    a 64-bit window and the even-bit compaction, ~64 operations a word;
+    without it only the known word, ~8), the candidate search (~8 a word
     and slot), 32 scored slots (~80 each: two windows, 8 table reads, 8
-    float operations) and 128 grid cells (~20 each)."""
+    float operations; ~20 without novel splicing, where every side is
+    known and scores 1.0) and 128 grid cells (~20 each)."""
     d = [torch.gather(top_d, 1, t) for t in (ti, tm, tj)]
     active = int(((d[0] >= 64) & (d[1] >= 64) & (d[2] >= 64)).sum())
     words = (L + 32) // 32
-    return active * (8 * words * 64 + 32 * words * 8 + 32 * 80 + 128 * 20)
+    site, slot = (64, 80) if novel else (8, 20)
+    return active * (8 * words * site + 32 * words * 8 + 32 * slot
+                     + 128 * 20)
 
 
 def _doublesplice_cost(torch, dargs):
     """K7's cost function on dargs = (genome, top_d, pref, ti, tm, tj,
     tvalid, lengths, budget, L[, novel, known]): (bytes, operations).
     Bytes: the triples, lengths and budgets read once and the outputs
-    written, and of the candidate rows only those the triples name (each
-    once a read): its diagonal, its pref row (L + 1 int32), its genome
-    span (L + 41 bases) and, with known sites, the words of four site
-    kinds over L + 1 positions.  Operations: _doublesplice_ops."""
+    written, and of the candidate rows only those the triples name
+    (_segment_bytes).  Operations: _doublesplice_ops."""
     top_d, ti, tm, tj, L = dargs[1], dargs[3], dargs[4], dargs[5], dargs[9]
+    novel = dargs[10] if len(dargs) > 10 else True
     known = dargs[11] if len(dargs) > 11 else None
-    words = (L + 32) // 32
-    base = torch.arange(len(ti), device=ti.device)[:, None] * top_d.shape[1]
-    nrows = int(torch.unique(torch.cat([ti, tm, tj], 1) + base).numel())
-    per_row = 8 + (L + 1) * 4 + ((L + 41 + 15) // 16 + 1) * 4
-    if known is not None:
-        per_row += 4 * (words + 1) * 4
-    return lambda out: (_nbytes(dargs[3:9], out) + nrows * per_row,
-                        _doublesplice_ops(torch, top_d, ti, tm, tj, L))
+    rows = _segment_bytes(torch, top_d, [ti, tm, tj], L, novel, known)
+    return lambda out: (_nbytes(dargs[3:9], out) + rows,
+                        _doublesplice_ops(torch, top_d, ti, tm, tj, L,
+                                          novel))
 
 
 def _call_ms(fn, reps: int = 5) -> float:
@@ -360,8 +435,10 @@ def _cuda_profile(fn, reps: int, tries: int, whole: bool) -> tuple:
 
 
 def _device_ms(fn, reps: int = 5, tries: int = 4) -> float | None:
-    """Mean device time per call of fn (_cuda_profile)."""
-    return _cuda_profile(fn, reps, tries, whole=False)[0]
+    """Mean device time per call of fn (_cuda_profile, from a profile
+    that recorded every call's ops where one of ``tries`` did: one that
+    lost some reads low)."""
+    return _cuda_profile(fn, reps, tries, whole=True)[0]
 
 
 def _device_ops(fn, reps: int = 5, tries: int = 4) -> float | None:
@@ -383,13 +460,27 @@ def _timed(*fns, reps: int = 5) -> tuple:
     return dev, "profiler", calls
 
 
+_STARTED: list = []  # every tool process started, stopped at exit
+
+
 def _start_tool(name: str, *args, env=None) -> subprocess.Popen:
     """Start ``python -m gmap_gsnap_tpu_torch.cli.<name> args`` from the
     checkout's root."""
-    return subprocess.Popen(
+    proc = subprocess.Popen(
         [sys.executable, "-m", f"gmap_gsnap_tpu_torch.cli.{name}",
          *map(str, args)], cwd=REPO, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True, env=env)
+    _STARTED.append(proc)
+    return proc
+
+
+def _stop_tools() -> None:
+    """Kill the tool processes still running (a phase failed while they
+    ran beside it)."""
+    for proc in _STARTED:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 def _finish_tool(proc: subprocess.Popen, name: str) -> tuple:
@@ -954,33 +1045,40 @@ def _stage_checks(torch, gg, se, mmo, genome_dev, index, index_minus, c, f,
 
 
 def _stage_edges(torch, gg, se, synth, rng, dev, base):
-    """K2, K7 and K13-K16 checks (name, shape, kernel call, plain call,
-    cost, library call or None) on hand-built edges: masks with all / no
-    mismatches and reads shorter than lmax (K13), exact duplicate
+    """K2, K5, K7 and K13-K16 checks (name, shape, kernel call, plain
+    call, cost, library call or None) on hand-built edges:
+    synth.mismatch_edge_rows at L 75, 100 and 150 (untrimmed ends tying
+    the trims, equal maxima, mismatches only past the read, all / no
+    mismatches, a trim score beyond the read; K13), exact duplicate
     candidates and equal (score, left) on both strands with maxout above
     the candidate count, and synth.rank_hit_edges' rows (K14), INVALID
     diagonals and seed slots (K15), diagonals near 2^31 and 2^32 under
     both rules and synth.diag_pair_rows at NC 3 to 128, maxpairs up to
     NC^2 (K16), synth.diag_vote_rows at W off a power of two and ncand
-    equal to W (K2), and synth.doublesplice_cases at NC 32 and 128, with
-    and without known sites and novel splicing (K7)."""
+    equal to W (K2), and synth.splice_pair_cases (K5) and
+    synth.doublesplice_cases (K7) at NC 32 and 128, with and without
+    known sites and novel splicing."""
     from gmap_gsnap_tpu_torch import convert
 
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    mm, pref, ln = (t(x) for x in synth.mismatch_rows(rng, 512, 32))
     lf_keys = ("cand_mm",) + gg._LANE_FEATURE_KEYS
     checks = []
-    def lane_plain(score):
-        out = {"cand_mm": gg._bitpack_mask(mm),
-               **gg._lane_features_plain(mm, pref, ln, 12, 3, score)}
-        return tuple(out[k] for k in lf_keys)
 
-    for score in (-3, -1):
-        a = (mm, ln, 12, 3, score)
+    def lane_plain(mm, pref, ln, k, score):
+        out = {"cand_mm": gg._bitpack_mask(mm),
+               **gg._lane_features_plain(mm, pref, ln, k, 3, score)}
+        return tuple(out[x] for x in lf_keys)
+
+    # one (k, score) a length: -200 lies beyond the read, where the C
+    # entry clamps the score
+    for L, k, score in ((75, 12, -3), (100, 15, -1), (150, 12, -200)):
+        mm, pref, ln = (t(x) for x in synth.mismatch_edge_rows(rng, 512, 32,
+                                                               L))
+        a = (mm, ln, k, 3, score)
         checks.append((
-            "lane_features/edges", f"score {score}",
+            "lane_features/edges", f"L={L} k={k} score {score}",
             partial(_fields, gg._lane_features_cuda, a, lf_keys),
-            partial(lane_plain, score),
+            partial(lane_plain, mm, pref, ln, k, score),
             lambda out, a=a: (_nbytes(a[:2], out), 0), None))
     out = {k: t(v) for k, v in synth.rank_hit_cases(rng, 1024, 144).items()}
     keys = sorted(out) + ["npaths"]
@@ -1040,6 +1138,24 @@ def _stage_edges(torch, gg, se, synth, rng, dev, base):
                 lambda out, pt=pt, pv=pv: (_nbytes(pt, pv, out),
                                            8 * pt.numel() * pt.shape[1]),
                 _pair_sort(torch, se, pt, pv, fn)))
+    for nc in (32, 128):
+        case = synth.splice_pair_cases(rng, 1024, nc)
+        codes = case["codes"]
+        g = convert.genome_from_host(codes, np.zeros(len(codes), np.uint8),
+                                     [len(codes)], dev)
+        d = {k: t(v) for k, v in case.items() if k != "known"}
+        kn = tuple(t(k.view(np.int32)) for k in case["known"])
+        for novel, known in ((True, None), (True, kn), (False, kn)):
+            sargs = (g, d["top_d"], d["pref"], d["ii"], d["jj"], d["pvalid"],
+                     d["lengths"], d["budget"], 100, novel, known)
+            checks.append((
+                "solve_splices/edges",
+                f"NC={nc} novel={int(novel)} known={int(known is not None)}",
+                partial(_fields, gg._solve_splices_cuda, sargs,
+                        gg._SPLICE_KEYS),
+                partial(_fields, gg._solve_splices_plain, sargs,
+                        gg._SPLICE_KEYS),
+                _splice_cost(torch, sargs), None))
     for nc in (32, 128):
         case = synth.doublesplice_cases(rng, 1024, nc)
         codes = case["codes"]
@@ -1156,9 +1272,10 @@ def _uncount_gmap_hits(runner) -> None:
 
 def _drive(torch, kbuild, runner, records, batch: int, label: str,
            pairs=None) -> dict:
-    """One main path: a warm-up run, the device cascade alone, then the
-    timed run with every kernel's launch count set to 0 just before it
-    and read just after.  ``pairs`` (the read-2 records) makes it a PE
+    """One main path: a warm-up run, the device cascade alone (the median
+    of CASCADE_PASSES passes over the records), then the timed run with
+    every kernel's launch count set to 0 just before it and read just
+    after.  ``pairs`` (the read-2 records) makes it a PE
     path through run_pe / dispatch_pairs."""
     if pairs is None:
         run = lambda recs, out, **kw: runner.run(recs, out, **kw)
@@ -1173,12 +1290,18 @@ def _drive(torch, kbuild, runner, records, batch: int, label: str,
     t0 = time.time()
     run(records[:batch], io.StringIO(), batch_size=batch)
     print(f"{label} warm-up run: {time.time() - t0:.2f} s", flush=True)
-    torch.cuda.synchronize()
-    t0 = time.time()
-    for i in range(0, len(records), batch):
-        dispatch(i)
-    torch.cuda.synchronize()
-    cascade_s = time.time() - t0
+    # the cascade's host wall is a few ms a batch and moves with the
+    # host's load: the median of CASCADE_PASSES passes, with their range
+    passes = []
+    for _ in range(CASCADE_PASSES):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for i in range(0, len(records), batch):
+            dispatch(i)
+        torch.cuda.synchronize()
+        passes.append(time.time() - t0)
+    passes.sort()
+    cascade_s = passes[len(passes) // 2]
     torch.cuda.reset_peak_memory_stats()
     runner.category_counts.clear()
     runner.gmap_seconds = 0.0
@@ -1196,7 +1319,9 @@ def _drive(torch, kbuild, runner, records, batch: int, label: str,
     if n != len(records):
         raise SystemExit(f"{label}: run returned {n} of {len(records)} {unit}")
     print(f"{label} main path: {n} {unit}; device cascade "
-          f"{n / cascade_s:.1f} {unit}/s ({cascade_s:.3f} s); end to end "
+          f"{n / cascade_s:.1f} {unit}/s ({cascade_s:.3f} s, the median of "
+          f"{len(passes)} passes of {passes[0]:.3f}-{passes[-1]:.3f} s); "
+          f"end to end "
           f"{n / e2e_s:.1f} {unit}/s ({e2e_s:.3f} s); max_memory_allocated "
           f"{peak} B ({peak / 2**30:.2f} GiB); categories "
           f"{dict(runner.category_counts)}; launches {launches}", flush=True)
@@ -1313,9 +1438,19 @@ def main(argv=None) -> int:
     fasta_path = os.path.join(tmp, "genome.fa")
     genome.write_fasta(fasta_path)
     t_fa = time.time() - t1
-    t1 = time.time()
-    _tool("gmap_build", "-d", "syn", "-D", tmp, "-k", 15, "-q", 3, fasta_path)
-    t_build = time.time() - t1
+    # the in-memory database, which the directory must equal, is built
+    # on a thread while gmap_build (a process of its own) runs
+    def mem_db():
+        t = time.time()
+        return synth.genome_db(genome, k=15, interval=3), time.time() - t
+
+    with ThreadPoolExecutor(1) as pool:
+        mem_job = pool.submit(mem_db)
+        t1 = time.time()
+        _tool("gmap_build", "-d", "syn", "-D", tmp, "-k", 15, "-q", 3,
+              fasta_path)
+        t_build = time.time() - t1
+        mem, t_mem = mem_job.result()
     dbdir = os.path.join(tmp, "syn")
     maps = os.path.join(dbdir, "syn.maps")
     t1 = time.time()
@@ -1323,9 +1458,6 @@ def main(argv=None) -> int:
     _ = db.offsets, db.positions     # read lazily: count them in the open
     t_open = time.time() - t1
     gamma = sorted(f for f in os.listdir(dbdir) if "gammaptrs" in f)
-    t1 = time.time()
-    mem = synth.genome_db(genome, k=15, interval=3)
-    t_mem = time.time() - t1
     diff = [f for f in ("codes", "flags", "chr_starts", "chr_ends", "offsets",
                         "positions") if not np.array_equal(getattr(db, f),
                                                            getattr(mem, f))]
@@ -1344,7 +1476,7 @@ def main(argv=None) -> int:
           f" B on disk), GenomeDB.open with the offsets decoded and "
           f"positions read {t_open:.2f} s; codes, flags, chromosome bounds "
           f"and names, offsets and positions equal to synth.genome_db "
-          f"(built in {t_mem:.2f} s)", flush=True)
+          f"(built in {t_mem:.2f} s beside gmap_build)", flush=True)
     t0 = time.time()
     # 1% of the DNA reads are messy junctions, for the GMAP lanes
     nmessy = args.reads // 100
@@ -1599,10 +1731,12 @@ def main(argv=None) -> int:
              partial(_fields, gg._solve_doublesplices_plain, dargs,
                      gg._SHORTEXON_KEYS)),
         ]
-        costs.setdefault("solve_splices", lambda out, a=sargs: (
-            _nbytes(a[1:], out) + a[3].numel() * 2 * gwords(164), 0))
-        costs.setdefault("select_triples", lambda out, t=top_d, v=votes: (
-            _nbytes(t, v, out), 0))
+        costs.setdefault("solve_splices", _splice_cost(torch, sargs))
+        k6_cost = lambda out, t=top_d, v=votes: (_nbytes(t, v, out), 0)
+        costs.setdefault("select_triples", k6_cost)
+        shape_costs[("select_triples", shape)] = k6_cost
+        library[("select_triples", shape)] = _triple_sort(torch, se, top_d,
+                                                          votes, sdist)
         costs.setdefault("solve_doublesplices",
                          _doublesplice_cost(torch, dargs))
         if nc == 32:
@@ -1814,7 +1948,6 @@ def main(argv=None) -> int:
     etr = [x.clone() for x in tr]
     etr[0][:, 4], etr[1][:, 5], etr[2][:, 6] = 5, 6, 7
     rnd_known = _known_masks(torch, rng, known[0].shape[0], dev, 0.15)
-    kwords = lambda n_seg: n_seg * 2 * ((100 + 1 + 31) // 32 + 1) * 4
     for label, td, pr, pairs, trip, kn, novel in (
             ("no masks novel=1", top_d, vpref, (si, sj, sv), tr, None, True),
             ("known novel=1", top_d, vpref, (si, sj, sv), tr, known, True),
@@ -1835,12 +1968,7 @@ def main(argv=None) -> int:
                      gg._SHORTEXON_KEYS),
              partial(_fields, gg._solve_doublesplices_plain, dargs,
                      gg._SHORTEXON_KEYS))]
-        # K5's bytes plus the bitvector words it reads: per pair, 2
-        # segments, 2 classes, the words of L + 1 bits (K7: its own cost)
-        nk = 0 if kn is None else 1
-        costs[f"solve_splices/{label}"] = lambda out, a=sargs, nk=nk: (
-            _nbytes(a[1:9], out) + a[3].numel() * 2 * gwords(164)
-            + nk * kwords(a[3].numel() * 2), 0)
+        costs[f"solve_splices/{label}"] = _splice_cost(torch, sargs)
         costs[f"solve_doublesplices/{label}"] = _doublesplice_cost(torch,
                                                                    dargs)
         if label.startswith("known"):
@@ -1983,6 +2111,13 @@ def main(argv=None) -> int:
                   for i, t in enumerate(nc6_t)], genome, mate=0), 0.90)
 
     # 6. the plain torch path on the CPU gives the same SAM
+    # both modes' converted index pairs for paths 7-8, built side by side
+    # (each tool is one host process of ~80 s) while the CPU plain paths
+    # run, and both done before the CLI runs, whose walls they would load
+    before = set(os.listdir(dbdir))
+    t_modes = time.time()
+    builds = {k: _start_tool(f"{k}index", "-D", tmp, "-d", "syn")
+              for k in ("cmet", "atoi")}
     print(f"CPU plain paths at {time.time() - t_start:.1f} s", flush=True)
     nsub, npairs = min(512, len(records)), min(256, len(p1))
     for label, novel, run_cuda, run in (
@@ -2099,6 +2234,12 @@ def main(argv=None) -> int:
               f"and upload included); its rate line: {_rate_line(err)}; "
               f"launches {launches}", flush=True)
 
+    t_write, made_by = {}, {}
+    for k, tag in (("cmet", ".met"), ("atoi", ".a2i")):
+        _finish_tool(builds[k], f"{k}index")
+        t_write[k] = time.time() - t_modes
+        made_by[k] = sorted(f for f in set(os.listdir(dbdir)) - before
+                            if tag in f)
     print(f"CLI runs at {time.time() - t_start:.1f} s", flush=True)
     cli_run("SE -N 0", N0_KERNELS + STAGE_KERNELS + GMAP_KERNELS, records,
             runner, [], optional=DYNPROG_KERNELS)
@@ -2148,11 +2289,7 @@ def main(argv=None) -> int:
     # next mode loads its own
     def mode_path(mode, kind_, label, recs, mates, novel, want, bars,
                   cli_extra=None):
-        before = set(os.listdir(dbdir))
-        t0 = time.time()
-        _tool(f"{kind_}index", "-D", tmp, "-d", "syn")
-        t_write = time.time() - t0
-        made = sorted(set(os.listdir(dbdir)) - before)
+        made = made_by[kind_]
         t0 = time.time()
         mparams = se.GsnapParams(mode=mode, size_threshold=(
             se.dynamic_size_threshold(int(db.offsets[-1]), db.k, mode)))
@@ -2162,7 +2299,9 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         t_load = time.time() - t0
         print(f"setup {label}: {kind_}index (two k={db.k} indexes, gamma "
-              f"offsets: {', '.join(made)}) {t_write:.2f} s, runner set-up "
+              f"offsets: {', '.join(made)}) {t_write[kind_]:.2f} s (both "
+              f"modes' tools side by side, beside the CPU plain paths), "
+              f"runner set-up "
               f"(read, decode and upload of the pair) {t_load:.2f} s, "
               f"{len(r.index.positions)} + {len(r.index_minus.positions)} "
               f"positions", flush=True)
@@ -2371,4 +2510,7 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        _stop_tools()

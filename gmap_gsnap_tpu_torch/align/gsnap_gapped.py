@@ -185,9 +185,19 @@ _LANE_FEATURE_KEYS = (
     "lane_nmm_tt", "lane_nmm_0t3", "lane_nmm_t50")
 
 
+# the longest read K13 takes (its trim keys hold a position in 10 bits);
+# K3, which runs before it on every path, takes up to 512
+# (ops/mismatch.CUDA_MAX_READ_LENGTH)
+LANE_FEATURES_MAX_L = 1024
+
+
 def _lane_features_cuda(mm, lengths, k: int, interval: int,
                         trim_mm_score: int):
     r, kc, L = mm.shape
+    if k > 32 or L > LANE_FEATURES_MAX_L:
+        raise ValueError(f"the lane_features kernel takes k <= 32 and reads "
+                         f"of at most {LANE_FEATURES_MAX_L} bases, got k={k}, "
+                         f"L={L}")
     dev = mm.device
     feats = {key: torch.empty((r, kc), dtype=torch.bool
                               if key == "lane_present" else torch.int32,

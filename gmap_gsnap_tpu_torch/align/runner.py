@@ -48,6 +48,7 @@ from ..db.datadir import GenomeDB
 from ..db.iit import IIT
 from ..io import gsnap_native, sam
 from ..io.fasta import Record
+from ..ops import mismatch as mismatch_mod
 from ..utils import dna
 from ..utils.device import resolve_device
 from . import distant as distant_mod
@@ -476,6 +477,11 @@ class GsnapRunner:
         self.splicing_on = novelsplicing
         self.merge_samechr = False  # gsnap --merge-distant-samechr
         self.device = resolve_device(device)
+        if (self.device.type == "cuda"
+                and lmax > mismatch_mod.CUDA_MAX_READ_LENGTH):
+            raise ValueError(f"reads of {lmax} bases are longer than the "
+                             f"CUDA kernels take "
+                             f"({mismatch_mod.CUDA_MAX_READ_LENGTH})")
         self.known = None
         self._known_sites = None
         self._splice_labels = None

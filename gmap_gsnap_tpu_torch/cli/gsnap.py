@@ -222,6 +222,11 @@ def main(argv=None) -> int:
             records = list(fasta.read_seqfile(args.input[0]))
     lmax = max((len(r.seq) for r in records + (records3 if paired else [])),
                default=100)
+    if args.device != "cpu" and lmax > mismatch_mod.CUDA_MAX_READ_LENGTH:
+        print(f"gsnap: reads of {lmax} bases are longer than the CUDA "
+              f"kernels take ({mismatch_mod.CUDA_MAX_READ_LENGTH}); run "
+              f"with --device cpu", file=sys.stderr)
+        return 2
 
     db = GenomeDB.open(
         args.dir if args.dir.endswith(args.db) else f"{args.dir}/{args.db}",

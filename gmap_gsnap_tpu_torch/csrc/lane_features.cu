@@ -12,38 +12,71 @@
 //     the trim is 0 where the untrimmed end scores at least as much
 //     (max(T[1], 0) and max(P[L] - Cm[L-1], 0));
 //   - the mismatch counts below the lane positions (the prefix counts of
-//     the mask, clamped to the padded width L as the JAX package does);
+//     the mask over the padded width L, as the JAX package clamps them);
 //   - the first and last clean k-mer windows at sampled starts and at
 //     lastpos;
 //   - the mismatches over the trimmed spans;
 //   - the little-endian bit-packed mask, uint8[R, K, ceil(L/8)].
 //
-// Design: one warp per (row, candidate).  The warp reads the row's mask
-// once, 32 positions a step: inclusive warp scans (shfl_up) give P and
-// the mismatch counts C, which stay in shared memory, and the running
-// prefix min of P; a second pass over P from the right end (shfl_down)
-// gives the suffix max.  The first / last maxima are warp reductions of
-// (value, index) keys; a ballot gives four packed bytes per step.
-//
 // Bound: bytes — the mask read once (R K L bytes), 13 int32/bool
-// features and ceil(L/8) packed bytes written per candidate.
+// features and ceil(L/8) packed bytes written per candidate (0.0063 ms
+// at 4096 rows x 32 candidates, L = 100).  The design this one replaces
+// (a warp a row: three 5-round shuffle scans per 32 positions, a second
+// pass through shared memory, lane 0 alone storing the features) took
+// 0.1675 ms there on the H100 (700 W): several hundred warp instructions
+// for a row of 100 bytes.
+//
+// Design: a thread per candidate row, on its bits.
+//   1. A warp stages its 32 consecutive rows' mask bytes (contiguous,
+//      32 L) in shared memory with 16-byte loads.
+//   2. Each thread packs its row into ceil(L/32) words (8 bytes at a time:
+//      a multiply gathers their low bits), kept in shared memory with the
+//      mismatch count below each word; every count below a position is
+//      then one popcount.  The words' bytes are the packed mask, which the
+//      warp writes out through the staging area, coalesced.
+//   3. The trims walk the row's active bits once forward (P, its prefix
+//      min, t3's last maximum) and once backward (P from its end, its
+//      suffix max, t5's first maximum), 8 unrolled positions a step, on
+//      registers; a mismatch's score and position are one key, so that a
+//      position costs about 8 instructions and no branch.
+//   4. A sampled start is clean when no bit lies in its window: the OR of
+//      the word's k shifts (log k steps of a 64-bit window) against the
+//      block's word of sampled starts; the first and last by __ffs / __clz.
+//   5. Each thread stores its 13 features: 32 consecutive values an array
+//      a warp.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kNeg = -(1 << 30);
+constexpr int kMaxWarps = 8;
+constexpr int kSmemMax = 232448;  // a CTA's opt-in shared memory
 constexpr int kBigPos = 1 << 30;
 
-__device__ __forceinline__ int64_t warp_max64(int64_t v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = gmap_max64(v, (int64_t)__shfl_xor_sync(GSNAP_FULL_MASK, (long long)v, o));
-  return v;
+__host__ __device__ inline int row_words(int L) { return (L + 31) / 32; }
+// the words of sampled starts, a 16-byte multiple
+__host__ __device__ inline int samp_words(int L) {
+  return (row_words(L) + 1 + 3) / 4 * 4;
+}
+// bytes of a warp's staging area: its rows' 32 L mask bytes, and 48 past
+// them that the packing's unaligned word reads may touch (masked off)
+__host__ __device__ inline int stage_bytes(int L) {
+  return (32 * L + 15) / 16 * 16 + 48;
+}
+// 32-bit words of a warp's shared memory: the staging area, then for
+// each word of a row and one past its last (0) the 32 rows' mask words
+// and their mismatch counts below the word
+__host__ __device__ inline int warp_words(int L) {
+  return stage_bytes(L) / 4 + 2 * 32 * (row_words(L) + 1);
 }
 
 __device__ __forceinline__ int floor_div(int a, int b) {
   const int q = a / b;
   return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
+}
+
+// bits 0 .. n - 1 (n clamped to [0, 32])
+__device__ __forceinline__ uint32_t low_bits(int n) {
+  return n >= 32 ? 0xFFFFFFFFu : n <= 0 ? 0u : (1u << n) - 1u;
 }
 
 __global__ void lane_features_kernel(
@@ -54,136 +87,193 @@ __global__ void lane_features_kernel(
     int32_t* __restrict__ o_clt, int32_t* __restrict__ o_pfirst,
     int32_t* __restrict__ o_plast, uint8_t* __restrict__ o_present,
     int32_t* __restrict__ o_nmm_tt, int32_t* __restrict__ o_nmm_0t3,
-    int32_t* __restrict__ o_nmm_t50, uint8_t* __restrict__ o_packed, int R,
-    int K, int L, int k, int interval, int score) {
-  extern __shared__ int32_t smem[];
-  const int wib = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int64_t row = (int64_t)blockIdx.x * kWarps + wib;
-  if (row >= (int64_t)R * K) return;  // warp-uniform exit
-  int32_t* P = smem + wib * 2 * (L + 1);  // P[0..L]
-  int32_t* C = P + (L + 1);               // mismatches in [0, j)
-  const int La = lengths[row / K];
-  const uint8_t* m = mm + row * L;
-  const int nby = (L + 7) / 8;
-  uint8_t* packed = o_packed + row * nby;
-
-  // forward pass: P, C, the prefix min of P, t3's last maximum, packing
-  if (lane == 0) {
-    P[0] = 0;
-    C[0] = 0;
-  }
-  int carry_p = 0, carry_c = 0, carry_min = kBigPos;
-  int64_t best3 = INT64_MIN;
-  for (int base = 0; base < L; base += 32) {
-    const int j = base + lane;
-    const bool in = j < L;
-    const int mj = in ? (m[j] != 0) : 0;
-    const bool act = j < La;
-    const int v = act ? (mj ? score : 1) : 0;
-    int s = v, c = mj;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int ys = __shfl_up_sync(GSNAP_FULL_MASK, s, o);
-      const int yc = __shfl_up_sync(GSNAP_FULL_MASK, c, o);
-      if (lane >= o) {
-        s += ys;
-        c += yc;
+    int32_t* __restrict__ o_nmm_t50, uint8_t* __restrict__ o_packed,
+    int64_t total, int K, int L, int k, int interval, int score) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int nw = row_words(L);
+  const int smax = max(1, floor_div(L - k, interval) + 1);
+  // the sampled starts s * interval, s < smax, as words (block-wide)
+  uint32_t* samp = smem;
+  for (int w = threadIdx.x; w <= nw; w += blockDim.x) {
+    uint32_t m = 0;
+    int r = (32 * w) % interval, q = (32 * w) / interval;  // p = q i + r
+    for (int b = 0; b < 32; ++b) {
+      if (r == 0 && q < smax) m |= 1u << b;
+      if (++r == interval) {
+        r = 0;
+        ++q;
       }
     }
-    s += carry_p;
-    c += carry_c;
-    const int pj = s - v;  // P[j]
-    if (in) {
-      P[j + 1] = s;
-      C[j + 1] = c;
-    }
-    int im = in ? pj : kBigPos;  // inclusive prefix min of P in the step
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(GSNAP_FULL_MASK, im, o);
-      if (lane >= o) im = min(im, y);
-    }
-    int ex = __shfl_up_sync(GSNAP_FULL_MASK, im, 1);
-    if (lane == 0) ex = kBigPos;
-    ex = min(ex, carry_min);  // Cm[j - 1] (2^30 at j = 0)
-    if (in && act && mj) {
-      const int sig3 = max(pj - ex, 0);
-      best3 = gmap_max64(best3, (int64_t)sig3 * 4294967296ll + (int64_t)j);
-    }
-    const unsigned bal = __ballot_sync(GSNAP_FULL_MASK, mj);
-    if (lane < 4 && base / 8 + lane < nby)
-      packed[base / 8 + lane] = (uint8_t)((bal >> (8 * lane)) & 0xFFu);
-    carry_p = __shfl_sync(GSNAP_FULL_MASK, s, 31);
-    carry_c = __shfl_sync(GSNAP_FULL_MASK, c, 31);
-    carry_min = min(carry_min, __shfl_sync(GSNAP_FULL_MASK, im, 31));
+    samp[w] = m;
   }
-  const int sfin3 = max(carry_p - carry_min, 0);  // P[L] - Cm[L-1]
+  __syncthreads();
+  const int wib = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t row0 = ((int64_t)blockIdx.x * (blockDim.x >> 5) + wib) * 32;
+  if (row0 >= total) return;  // warp-uniform exit
+  const int nrows = (int)min((int64_t)32, total - row0);
+  uint8_t* stage =
+      (uint8_t*)(smem + samp_words(L) + (int64_t)wib * warp_words(L));
+  uint32_t* words = (uint32_t*)(stage + stage_bytes(L));  // [nw + 1][32]
+  int32_t* cnt = (int32_t*)(words + 32 * (nw + 1));       // [nw + 1][32]
+
+  // 1. stage the rows' mask bytes
+  const uint8_t* src = mm + row0 * L;
+  const int nbytes = nrows * L;
+  int done = 0;
+  if (((uintptr_t)src & 15) == 0) {
+    done = nbytes & ~15;
+    for (int i = lane; i < (nbytes >> 4); i += 32)
+      ((uint4*)stage)[i] = __ldg((const uint4*)src + i);
+  }
+  for (int i = done + lane; i < nbytes; i += 32) stage[i] = src[i];
   __syncwarp();
 
-  // backward pass: suffix max of P, t5's first maximum
-  int carry_t = kNeg;  // max of P beyond the step (Tpad[L+1] = NEG)
-  int64_t best5 = INT64_MIN;
-  for (int base = ((L + 31) / 32 - 1) * 32; base >= 0; base -= 32) {
-    const int j = base + lane;
-    const bool in = j < L;
-    const int u = in ? P[j + 1] : kNeg;
-    int rmax = u;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_down_sync(GSNAP_FULL_MASK, rmax, o);
-      if (lane + o < 32) rmax = max(rmax, y);
+  // 2. pack the lane's row (bool bytes: bit 0), bits past L cleared
+  const bool has = lane < nrows;
+  const int64_t row = row0 + lane;
+  const int La = has ? lengths[row / K] : 0;
+  for (int w = 0; w < nw; ++w) {
+    uint32_t word = 0;
+    if (has) {
+      const int o = lane * L + 32 * w;
+      const uint32_t* sw = (const uint32_t*)stage + (o >> 2);
+      const uint32_t r = 8u * (uint32_t)(o & 3);
+      uint32_t x[9];
+#pragma unroll
+      for (int i = 0; i < 9; ++i) x[i] = sw[i];
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const uint64_t y =
+            ((uint64_t)__funnelshift_r(x[2 * h + 1], x[2 * h + 2], r) << 32 |
+             __funnelshift_r(x[2 * h], x[2 * h + 1], r)) &
+            0x0101010101010101ull;
+        word |= (uint32_t)((y * 0x0102040810204080ull) >> 56) << (8 * h);
+      }
+      word &= low_bits(L - 32 * w);
     }
-    rmax = max(rmax, carry_t);
-    int a = __shfl_down_sync(GSNAP_FULL_MASK, rmax, 1);
-    if (lane == 31) a = carry_t;  // max(P[j+2..L])
-    if (in && j < La && C[j + 1] != C[j]) {
-      const int sig5 = max(a - u, 0);
-      best5 = gmap_max64(best5, (int64_t)sig5 * 4294967296ll +
-                                    (int64_t)(0xFFFFFFFFu - (uint32_t)j));
-    }
-    carry_t = __shfl_sync(GSNAP_FULL_MASK, rmax, 0);
+    words[w * 32 + lane] = word;
   }
-  const int sfin5 = max(carry_t, 0);  // max(T[1], 0)
-  best5 = warp_max64(best5);
-  best3 = warp_max64(best3);
-  int t5 = 0, t3 = 0;
-  if (best5 != INT64_MIN && !(sfin5 >= gmap_key_value(best5)))
-    t5 = gmap_key_index(best5) + 1;
-  if (best3 != INT64_MIN) {
-    const int64_t low = best3 & 0xFFFFFFFFll;
-    const int val = (int)((best3 - low) / 4294967296ll);
-    if (!(sfin3 >= val)) t3 = La - (int)low;
+  words[nw * 32 + lane] = 0u;
+  __syncwarp();
+  // the packed bytes, written out through the staging area
+  const int nby = (L + 7) / 8;
+  if (has)
+    for (int i = 0; i < nby; ++i)
+      stage[lane * nby + i] =
+          (uint8_t)(words[(i >> 2) * 32 + lane] >> (8 * (i & 3)));
+  __syncwarp();
+  uint8_t* dst = o_packed + row0 * nby;
+  const int pbytes = nrows * nby;
+  done = 0;
+  if (((uintptr_t)dst & 3) == 0) {
+    done = pbytes & ~3;
+    for (int i = lane; i < (pbytes >> 2); i += 32)
+      ((uint32_t*)dst)[i] = ((const uint32_t*)stage)[i];
+  }
+  for (int i = done + lane; i < pbytes; i += 32) dst[i] = stage[i];
+
+  // mismatches below each word, and below any position
+  int npos = 0;
+  for (int w = 0; w <= nw; ++w) {
+    cnt[w * 32 + lane] = npos;
+    npos += __popc(words[w * 32 + lane]);
+  }
+  auto below = [&](int idx) {
+    idx = min(max(idx, 0), L);
+    const int w = (idx >> 5) * 32 + lane;
+    return cnt[w] + __popc(words[w] & low_bits(idx & 31));
+  };
+
+  // 3. the trims over the active positions j < Lx, 8 a step.  P and its
+  // running min / max are kept times 1024, so that a mismatch's score
+  // and position make one key, score * 1024 + j (t3: the last maximum)
+  // or + 1023 - j (t5: the first), and a step is one max without a
+  // branch (the C entry keeps L <= 1024 and |score| <= L + 1: |P| * 1024
+  // < 2^31).  The forward walk's last step may pass Lx: those positions
+  // count as matches, which raises neither the prefix min nor a key, and
+  // are taken off P after.  The backward walk's steps end at Lx and its
+  // last may pass 0: positions below 0 count as matches too, which adds
+  // nothing to max(T[1], 0).
+  const int Lx = min(max(La, 0), L);
+  const int nst = (Lx + 7) >> 3;
+  const int up = 1024, down = score * 1024;  // a match's and a mismatch's
+  int P = 0, Cm = 0, key3 = -1;              // (Cm[-1]: any value >= 0)
+  for (int g = 0; g < nst; ++g) {
+    const uint32_t bits = (words[(g >> 2) * 32 + lane] >> (8 * (g & 3))) &
+                          low_bits(Lx - 8 * g);
+#pragma unroll
+    for (int b = 0; b < 8; ++b) {
+      const bool m = bits & (1u << b);
+      const int key = max(P - Cm, 0) + 8 * g + b;
+      key3 = max(key3, m ? key : -1);
+      Cm = min(Cm, P);
+      P += m ? down : up;
+    }
+  }
+  P -= up * (8 * nst - Lx);                    // P[Lx] = P[L]
+  const int sfin3 = max(P - Cm, 0) >> 10;      // max(P[L] - Cm[L-1], 0)
+  int Pn = P, M = P;  // P[j + 1] and max(P[j + 2 ..]) (Tpad[L+1]: P[L])
+  int key5 = -1;
+  for (int g = 0; g < nst; ++g) {
+    const int p = Lx - 8 * (g + 1);            // the step's lowest position
+    const uint32_t bits =
+        p >= 0 ? __funnelshift_r(words[(p >> 5) * 32 + lane],
+                                 words[((p >> 5) + 1) * 32 + lane], p & 31)
+               : words[lane] << -p;
+#pragma unroll
+    for (int b = 7; b >= 0; --b) {
+      const bool m = bits & (1u << b);
+      const int key = max(M - Pn, 0) + 1023 - p - b;
+      key5 = max(key5, m ? key : -1);
+      M = max(M, Pn);
+      Pn -= m ? down : up;
+    }
+  }
+  const int sfin5 = max(M, 0) >> 10;  // max(T[1], 0)
+  const int t5 =
+      key5 < 0 || sfin5 >= (key5 >> 10) ? 0 : 1023 - (key5 & 1023) + 1;
+  const int t3 = key3 < 0 || sfin3 >= (key3 >> 10) ? 0 : La - (key3 & 1023);
+
+  // 4. clean k-mer windows at sampled starts sp <= lastpos
+  const int lastpos = La - k;
+  int pf = kBigPos, pl = -1;
+  for (int w = 0; w < nw && 32 * w <= lastpos; ++w) {
+    const uint64_t x =
+        (uint64_t)words[(w + 1) * 32 + lane] << 32 | words[w * 32 + lane];
+    // OR of x >> i, i < k: bit b set where [32 w + b, + k) has a mismatch
+    uint64_t t = x, dirty = 0;
+    int off = 0;
+    for (int e = 1; e <= 32; e <<= 1) {
+      if (k & e) {
+        dirty |= t >> off;
+        off += e;
+      }
+      t |= t >> e;
+    }
+    const uint32_t z =
+        ~(uint32_t)dirty & samp[w] & low_bits(lastpos - 32 * w + 1);
+    if (z) {
+      if (pf == kBigPos) pf = 32 * w + __ffs(z) - 1;
+      pl = 32 * w + 31 - __clz(z);
+    }
+  }
+  if (lastpos > 0 && below(lastpos + k) - below(lastpos) == 0) {
+    pf = min(pf, lastpos);
+    pl = max(pl, lastpos);
   }
 
-  // lane features from the mismatch counts
-  const int spansize = ((k + interval - 1) / interval) * interval;
-  const int firstbound = interval + (interval - 1) + k;
-  const int lastpos = La - k;
-  const int lastbound = lastpos - interval - 1;
-  const int mtl = min(floor_div(La, 2), spansize + interval - 1);
-  auto below = [&](int idx) { return C[min(max(idx, 0), L)]; };
-  const int smax = max(1, floor_div(L - k, interval) + 1);
-  int pf = kBigPos, pl = -1;
-  for (int s = lane; s < smax; s += 32) {
-    const int sp = s * interval;
-    if (C[min(sp + k, L)] - C[sp] == 0 && sp <= lastpos) {
-      pf = min(pf, sp);
-      pl = max(pl, sp);
-    }
-  }
-  for (int o = 16; o > 0; o >>= 1) {
-    pf = min(pf, __shfl_xor_sync(GSNAP_FULL_MASK, pf, o));
-    pl = max(pl, __shfl_xor_sync(GSNAP_FULL_MASK, pl, o));
-  }
-  if (lane == 0) {
-    if (below(lastpos + k) - below(lastpos) == 0 && lastpos > 0) {
-      pf = min(pf, lastpos);
-      pl = max(pl, lastpos);
-    }
-    const int npos = C[L];
+  // 5. the features
+  if (has) {
+    const int spansize = ((k + interval - 1) / interval) * interval;
+    const int firstbound = interval + (interval - 1) + k;
+    const int lastbound = lastpos - interval - 1;
+    const int mtl = min(floor_div(La, 2), spansize + interval - 1);
     const int nmm_0t3 = below(La - t3);
     const int cb_t5 = below(t5);
     o_npos[row] = npos;
     o_t5[row] = t5;
     o_t3[row] = t3;
-    o_lowc[row] = C[min(firstbound + 1, L)];
+    o_lowc[row] = below(firstbound + 1);
     o_lbc[row] = below(max(lastbound, 0));
     o_cle[row] = below(mtl + 1);
     o_clt[row] = below(La - mtl);
@@ -203,21 +293,37 @@ extern "C" int gsnap_lane_features(
     void* lowc, void* lbc, void* cle, void* clt, void* pfirst, void* plast,
     void* present, void* nmm_tt, void* nmm_0t3, void* nmm_t50, void* packed,
     int R, int K, int L, int k, int interval, int score, void* stream) {
-  if (L < 1 || k < 1 || interval < 1) return (int)cudaErrorInvalidValue;
-  if ((int64_t)R * K == 0) return 0;
-  const size_t smem = (size_t)kWarps * 2 * (L + 1) * sizeof(int32_t);
+  // the clean-window test ORs k shifts of a 64-bit window: k <= 32; the
+  // trims' keys hold a position in 10 bits
+  if (L < 1 || L > 1024 || k < 1 || k > 32 || interval < 1)
+    return (int)cudaErrorInvalidValue;
+  // Every trim compares sums m + score c over spans of the row (m matches,
+  // c mismatches, both <= L), with each other or with 0.  Beyond |score| >
+  // L such a comparison is decided by c first and m second, whatever the
+  // magnitude, so any score beyond L + 1 gives the trims of L + 1 (signed):
+  // then |P| * 1024 <= 1025 * 1024 * 1024 < 2^31
+  score = score < -(L + 1) ? -(L + 1) : score > L + 1 ? L + 1 : score;
+  const int64_t total = (int64_t)R * K;
+  if (total == 0) return 0;
+  const int64_t per_warp = (int64_t)warp_words(L) * 4;
+  const int64_t fixed = (int64_t)samp_words(L) * 4;
+  const int64_t fit = (kSmemMax - fixed) / per_warp;
+  const int warps = (int)(fit < kMaxWarps ? fit : kMaxWarps);
+  if (warps < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)(fixed + warps * per_warp);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         lane_features_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  lane_features_kernel<<<gsnap_blocks((int64_t)R * K, kWarps), kWarps * 32,
-                         smem, (cudaStream_t)stream>>>(
+  const int64_t blocks = (total + 32 * warps - 1) / (32 * warps);
+  lane_features_kernel<<<(unsigned)blocks, 32 * warps, smem,
+                         (cudaStream_t)stream>>>(
       (const uint8_t*)mm, (const int32_t*)lengths, (int32_t*)npos,
       (int32_t*)t5, (int32_t*)t3, (int32_t*)lowc, (int32_t*)lbc,
       (int32_t*)cle, (int32_t*)clt, (int32_t*)pfirst, (int32_t*)plast,
       (uint8_t*)present, (int32_t*)nmm_tt, (int32_t*)nmm_0t3,
-      (int32_t*)nmm_t50, (uint8_t*)packed, R, K, L, k, interval, score);
+      (int32_t*)nmm_t50, (uint8_t*)packed, total, K, L, k, interval, score);
   return (int)cudaGetLastError();
 }

@@ -33,7 +33,8 @@
 // classes one after the other, half the warp idle while scoring) took
 // 0.1842 ms at 4096 rows, NC=32, T=8 on the H100 (700 W).
 //
-// Design: one warp per triple, both classes at once.
+// Design: one warp per triple, both classes at once; the span, mask and
+// window helpers are splice_span.cuh's, shared with K5.
 //   1. Each segment's genome span, the 2-bit codes of d - 20 .. d + L +
 //      ~40, is read once (a word a lane) into the warp's shared memory.
 //   2. The eight (segment, site kind) masks over s = 0..L are built with
@@ -56,7 +57,7 @@
 //   5. Each lane takes two cells of each class's grid, reading the slots
 //      by shuffles, and a warp reduction takes each class's first
 //      maximum.
-#include "maxent.cuh"
+#include "splice_span.cuh"
 
 namespace {
 
@@ -76,53 +77,10 @@ __device__ __forceinline__ void better(Cell& a, float key, int cell) {
   }
 }
 
-// mask words over s = 0..L, and span words of a segment (see span_at)
-__host__ __device__ inline int mask_words(int L) { return (L + 32) / 32; }
-__host__ __device__ inline int span_words(int L) {
-  return 2 * mask_words(L) + 4;
-}
 // 32-bit words of one warp's shared memory: three spans, the known and
 // the site masks
 __host__ __device__ inline int warp_words(int L) {
-  return 3 * span_words(L) + 16 * mask_words(L);
-}
-
-// The 32 codes at span index rel .. rel + 31 (2 bits each, the first in
-// the low bits); a span's index 0 is the first base of genome word
-// (d - 20) >> 4, so d + x lies at index x + 20 + ((d - 20) & 15).
-__device__ __forceinline__ uint64_t span_at(const uint32_t* span, int rel) {
-  const int q = rel >> 4, r = 2 * (rel & 15);
-  const uint32_t lo = __funnelshift_r(span[q], span[q + 1], r);
-  const uint32_t hi = __funnelshift_r(span[q + 1], span[q + 2], r);
-  return (uint64_t)hi << 32 | lo;
-}
-
-constexpr uint64_t kEven = 0x5555555555555555ull;
-
-// bit 2b set where code b of x equals c
-__device__ __forceinline__ uint64_t codes_equal(uint64_t x, uint32_t c) {
-  const uint64_t t = x ^ (kEven * c);
-  return ~(t | (t >> 1)) & kEven;
-}
-
-// bits 0, 2, .., 62 of x as bits 0 .. 31
-__device__ __forceinline__ uint32_t even_bits(uint64_t x) {
-  x &= kEven;
-  x = (x | (x >> 1)) & 0x3333333333333333ull;
-  x = (x | (x >> 2)) & 0x0F0F0F0F0F0F0F0Full;
-  x = (x | (x >> 4)) & 0x00FF00FF00FF00FFull;
-  x = (x | (x >> 8)) & 0x0000FFFF0000FFFFull;
-  x = (x | (x >> 16)) & 0x00000000FFFFFFFFull;
-  return (uint32_t)x;
-}
-
-// field of n codes from code a of a window
-__device__ __forceinline__ uint32_t field(uint64_t w, int a, int n) {
-  return (uint32_t)(w >> (2 * a)) & ((1u << (2 * n)) - 1u);
-}
-
-__device__ __forceinline__ float odds_prob(float o) {
-  return __fdiv_rn(o, __fadd_rn(1.0f, o));
+  return 3 * gsnap_span::span_words(L) + 16 * gsnap_span::mask_words(L);
 }
 
 __global__ void solve_doublesplices_kernel(
@@ -140,7 +98,7 @@ __global__ void solve_doublesplices_kernel(
     int64_t* __restrict__ mid_o, int64_t* __restrict__ right_o,
     const gsnap_maxent::Known known, int64_t nwords, int B, int T, int NC,
     int L, int novel) {
-  using namespace gsnap_maxent;
+  using namespace gsnap_span;
   extern __shared__ __align__(16) uint32_t smem[];
   const int wib = threadIdx.x >> 5;
   const int64_t warp = (int64_t)blockIdx.x * kWarpsPerBlock + wib;
@@ -166,12 +124,8 @@ __global__ void solve_doublesplices_kernel(
       return (uint64_t)(g == 0 ? di : g == 1 ? dm : dj);
     };
     // 1. the spans
-    for (int e = lane; e < 3 * nws; e += 32) {
-      const int g = e / nws;
-      uint64_t w = ((dseg(g) - 20) >> 4) + (uint64_t)(e - g * nws);
-      if (w > (uint64_t)(nwords - 1)) w = (uint64_t)(nwords - 1);
-      span[e] = __ldg(ref16 + w);
-    }
+    for (int g = 0; g < 3; ++g)
+      load_span(span + g * nws, ref16, nwords, dseg(g), L, lane);
     __syncwarp();
     // 2. the site masks, word k of mask id a lane
     for (int e = lane; e < 8 * nmw; e += 32) {
@@ -180,32 +134,10 @@ __global__ void solve_doublesplices_kernel(
       const int g = (id & 1) + !aside;  // segment: 0 i, 1 m, 2 j
       const int kind = aside ? ((id & 2) ? kAntiacceptor : kDonor)
                              : ((id & 2) ? kAntidonor : kAcceptor);
-      const uint64_t d = dseg(g);
-      uint32_t kw = 0;
-      if (known.nw > 0) {
-        const uint64_t last = (uint64_t)(known.nw - 1);
-        uint64_t w0 = (d >> 5) + k, w1 = w0 + 1;
-        w0 = w0 > last ? last : w0;
-        w1 = w1 > last ? last : w1;
-        const uint32_t* kv = kind == kDonor      ? known.w[kDonor]
-                             : kind == kAcceptor ? known.w[kAcceptor]
-                             : kind == kAntidonor ? known.w[kAntidonor]
-                                                  : known.w[kAntiacceptor];
-        kw = __funnelshift_r(__ldg(kv + w0), __ldg(kv + w1),
-                             (uint32_t)(d & 31));
-      }
-      uint32_t nw = 0;
-      if (novel) {
-        // codes of the dinucleotide's first and second base for p = d +
-        // 32 k + b, b = 0..31
-        const int rel = 32 * k + 20 + (int)((d - 20) & 15) - (aside ? 0 : 2);
-        const uint32_t c1 = aside ? ((id & 2) ? 1u : 2u) : 0u;
-        const uint32_t c2 = aside ? 3u : ((id & 2) ? 1u : 2u);
-        nw = even_bits(codes_equal(span_at(span + g * nws, rel), c1) &
-                       codes_equal(span_at(span + g * nws, rel + 1), c2));
-      }
+      const uint32_t kw = known_word(known, kind, dseg(g), k);
       kmask[e] = kw;
-      smask[e] = kw | nw;
+      smask[e] =
+          kw | (novel ? site_word(span + g * nws, dseg(g), kind, k) : 0u);
     }
     __syncwarp();
 
@@ -233,33 +165,16 @@ __global__ void solve_doublesplices_kernel(
     if (s >= 0) {
       const bool sense = q < 2, j2 = q & 1;
       const int ga = j2 ? 1 : 0, gb = j2 ? 2 : 1;  // segments of the sides
-      const int off_a = 20 + (int)((dseg(ga) - 20) & 15);
-      const int off_b = 20 + (int)((dseg(gb) - 20) & 15);
+      const int off_a = span_origin(dseg(ga)), off_b = span_origin(dseg(gb));
       // sense: donor (short) on side a, acceptor (long) on side b;
       // antisense: antiacceptor (long) on a, antidonor (short) on b
-      const uint64_t ws = sense ? span_at(span + ga * nws, off_a + s - 3)
-                                : span_at(span + gb * nws, off_b + s - 6);
-      const uint64_t wl = sense ? span_at(span + gb * nws, off_b + s - 20)
-                                : span_at(span + ga * nws, off_a + s - 3);
-      float os = __ldg(tab + (sense ? kDonorScore : kAntiDonorScore) +
-                       (sense ? field(ws, 0, 3) | field(ws, 5, 4) << 6
-                              : field(ws, 0, 4) | field(ws, 6, 3) << 8));
-      os = __fmul_rn(os, __ldg(tab + (sense ? kDonorDi : kAntiDonorDi) +
-                               field(ws, sense ? 3 : 4, 2)));
-      float ol = __ldg(tab + (sense ? kAcc1 : kAnti1) +
-                       field(wl, sense ? 0 : 16, 7));
-      ol = __fmul_rn(ol, __ldg(tab + (sense ? kAcc2 : kAnti2) +
-                               field(wl, sense ? 7 : 9, 7)));
-      ol = __fmul_rn(ol, __ldg(tab + (sense ? kAcc3 : kAnti3) +
-                               (sense ? field(wl, 14, 4) | field(wl, 20, 3) << 8
-                                      : field(wl, 0, 3) | field(wl, 5, 4) << 6)));
-      ol = __fmul_rn(ol, __ldg(tab + (sense ? kAccDi : kAntiDi) +
-                               field(wl, sense ? 18 : 3, 2)));
-      ol = __fmul_rn(ol, __ldg(tab + (sense ? kAcc467 : kAnti467) +
-                               field(wl, sense ? 4 : 12, 7)));
-      ol = __fmul_rn(ol, __ldg(tab + (sense ? kAcc589 : kAnti589) +
-                               field(wl, sense ? 11 : 5, 7)));
-      const float p_short = odds_prob(os), p_long = odds_prob(ol);
+      float p_short, p_long;
+      window_probs(tab, sense,
+                   sense ? span_at(span + ga * nws, off_a + s - 3)
+                         : span_at(span + gb * nws, off_b + s - 6),
+                   sense ? span_at(span + gb * nws, off_b + s - 20)
+                         : span_at(span + ga * nws, off_a + s - 3),
+                   &p_short, &p_long);
       const int kw = s >> 5, kb = s & 31;
       pa = (kmask[q * nmw + kw] >> kb) & 1 ? 1.0f
                                            : (sense ? p_short : p_long);

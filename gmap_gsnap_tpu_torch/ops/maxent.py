@@ -13,7 +13,8 @@ probability is the float32 product of the table factors taken left to
 right in ``_MODELS`` order, then ``odds / (1 + odds)`` — the order of
 operations that makes the results bit-equal to the JAX package's.  The
 splice kernels (K5, K7 in ``align/gsnap_gapped.py``) compute the same
-product on the card (``csrc/maxent.cuh``).
+product on the card (``csrc/splice_span.cuh``, with
+``csrc/maxent.cuh``'s table offsets).
 
 Window decompositions (nt offsets into the model window, each a 2-bit
 code, LSB-first packing):

@@ -196,13 +196,18 @@ def _bits32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32).contiguous()
 
 
+# the longest read K3 takes (32 words of 16 bases a row), and so the
+# longest any CUDA path of the port takes: every path runs K3 first
+CUDA_MAX_READ_LENGTH = 512
+
+
 def _prefix_mismatches_cuda(genome, queries, diags, lengths, conversion, alt):
     b, nc = diags.shape
     lmax = queries.lmax
     nw = queries.codes16.shape[1]
-    if nw > 32:
-        raise ValueError(f"prefix_mismatches kernel takes reads up to 512 nt, "
-                         f"got lmax={lmax}")
+    if nw > CUDA_MAX_READ_LENGTH // 16:
+        raise ValueError(f"prefix_mismatches kernel takes reads up to "
+                         f"{CUDA_MAX_READ_LENGTH} nt, got lmax={lmax}")
     dev = diags.device
     mm = torch.empty((b, nc, lmax), dtype=torch.bool, device=dev)
     pref = torch.empty((b, nc, lmax + 1), dtype=torch.int32, device=dev)

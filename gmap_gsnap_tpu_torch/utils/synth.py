@@ -1223,6 +1223,46 @@ def mismatch_rows(rng: np.random.Generator, r: int, k: int, L: int = 100):
     return mm, pref, lengths
 
 
+MISMATCH_EDGE_KINDS = ("random", "tie", "equal maxima", "past the length")
+
+
+def mismatch_edge_rows(rng: np.random.Generator, r: int, k: int,
+                       L: int = 100):
+    """mismatch_rows with the trims' edges: after its four special rows,
+    row i has kind MISMATCH_EDGE_KINDS[(i - 4) % 4].  With period p = 1 +
+    c % 4 for candidate c, so that a mismatch brings P back to where it
+    was p positions before at trim score 1 - p:
+    "tie": one mismatch after p - 1 matches and one p positions before
+    the read's end, where the untrimmed ends score as much as the trims
+    (the '>=' rule);
+    "equal maxima": mismatches every p positions over the read's first
+    and last 4 p (the last at its end), several equal maxima for each
+    trim (first for t5, last for t3);
+    "past the length": a read of at most L - 5 nt whose mismatches all lie
+    past its length, densely."""
+    mm, _, lengths = mismatch_rows(rng, r, k, L)
+    for i in range(4, r):
+        kind = MISMATCH_EDGE_KINDS[(i - 4) % 4]
+        if kind == "random":
+            continue
+        if kind == "past the length":
+            lengths[i] = rng.integers(20, L - 4)
+        la = int(lengths[i])
+        mm[i] = False
+        for c in range(k):
+            p = 1 + c % 4
+            if kind == "tie":
+                mm[i, c, [p - 1, la - p]] = True
+            elif kind == "equal maxima":
+                mm[i, c, np.arange(0, 4 * p, p)] = True
+                mm[i, c, la - 1 - np.arange(0, 4 * p, p)] = True
+            else:
+                mm[i, c, la:] = rng.random(L - la) < 0.6
+    pref = np.concatenate([np.zeros((r, k, 1), np.int32),
+                           np.cumsum(mm, 2, dtype=np.int32)], 2)
+    return mm, pref, lengths
+
+
 def diag_pair_cases(rng: np.random.Generator, b: int, nc: int):
     """(top_d int64[b, nc] holding uint32, votes int32[b, nc]) for the
     pair selectors: diagonals in clusters within 40 of bases near 0,
@@ -1459,4 +1499,134 @@ def doublesplice_cases(rng: np.random.Generator, b: int, nc: int = 32,
                 known[kind][pos >> 5] |= np.uint32(1) << np.uint32(pos & 31)
     return {"codes": g, "top_d": top, "pref": pref, "ti": ti, "tm": tm,
             "tj": tj, "tvalid": tvalid, "lengths": lengths, "budget": budget,
+            "known": tuple(known)}
+
+
+def splice_pair_cases(rng: np.random.Generator, b: int, nc: int = 32,
+                      npairs: int = 16, L: int = 100,
+                      genome_len: int = 40_000):
+    """Inputs of the local splice solver (K5) with its edges, as numpy
+    arrays in a dict: ``codes`` (uint8[genome_len] 2-bit codes; no N),
+    ``top_d`` int64[b, nc] (uint32 values), ``pref`` int32[b, nc, L+1],
+    ``ii`` / ``jj`` int64[b, npairs], ``pvalid`` bool[b, npairs],
+    ``lengths`` and ``budget`` int32[b] and ``known``, four uint32
+    bitvectors (donor, acceptor, antidonor, antiacceptor) of
+    device_bitmasks' length.
+
+    The genome is random but for repeats: the first 400 bp and [4000,
+    12000) repeat CCAGGTGCTT (an AG|GT of maxent probabilities 0.945 /
+    0.966 at every p = 4 mod 10) and [12000, 16000) its reverse
+    complement; [16000, 20000) repeats AGGTA (a donor of probability
+    0.9993 at every p = 2 mod 5) and [20000, 24000) its reverse
+    complement TACCT (the antidonors).  The known acceptor bits are set
+    over all of [24000, 28000) and the known antiacceptor bits over
+    [28000, 32000), so a pair from the donor repeat to there (or from
+    there to the antidonor repeat) has 19 candidates of equal
+    probability sums in a read of 100 nt, and the first-16 rule decides
+    whether a known donor (antidonor) of probability 1.0 wins: pairs 9
+    and 10 (sense, antisense) have it at s = 53, the 11th candidate,
+    pairs 11 and 12 at s = 88, after the 16th; their diagonals are the
+    same in every row and carry no mismatches.  Every row
+    holds diagonals 63 and 64 (at the dense start), at the genome's end,
+    near 2^32, INVALID and at words' first and last bits (d & 31 of 0
+    and 31, with known bits at such positions), and its pairs mix those
+    with dense ones; its second pair carries known sites of both classes
+    at one split each (equal sums: sense wins) and its first pair two
+    known pairs of equal sums in one class, on diagonals without
+    mismatches.  The known vectors' last
+    words (past the genome, where INVALID diagonals and those near 2^32
+    read) hold random bits.  Reads are L long but for some of 30-99 nt
+    and of 3-5 nt; budgets are 0-6 over sparse mismatches, and some
+    pairs are not valid.  nc >= 24."""
+    g = rng.integers(0, 4, genome_len).astype(np.uint8)
+    unit = np.array([1, 1, 0, 2, 2, 3, 2, 1, 3, 3], np.uint8)  # CCAGGTGCTT
+    donor = np.array([0, 2, 2, 3, 0], np.uint8)                 # AGGTA
+    g[:400] = np.tile(unit, 40)
+    g[4000:12000] = np.tile(unit, 800)
+    g[12000:16000] = np.tile(3 - unit[::-1], 400)
+    g[16000:20000] = np.tile(donor, 800)
+    g[20000:24000] = np.tile(3 - donor[::-1], 800)
+    lengths = np.full(b, L, np.int32)
+    short = rng.random(b) < 0.2
+    lengths[short] = rng.integers(30, L, int(short.sum()))
+    lengths[5::17] = rng.integers(3, 6, len(lengths[5::17]))
+    budget = rng.integers(0, 7, b).astype(np.int32)
+    nwords = (genome_len + 31) // 32 + 2
+    known = [np.zeros(nwords, np.uint32) for _ in range(4)]
+
+    def set_known(kind, pos):
+        if 0 <= pos < 32 * nwords:
+            known[kind][pos >> 5] |= np.uint32(1) << np.uint32(pos & 31)
+
+    for kind in range(4):
+        pos = rng.choice(genome_len, genome_len // 200, replace=False)
+        np.bitwise_or.at(known[kind], pos >> 5, np.uint32(1) << (pos & 31))
+        known[kind][-2:] = rng.integers(0, 2**32, 2, dtype=np.uint64)
+    known[1][24000 // 32 : 28000 // 32] = 0xFFFFFFFF
+    known[3][28000 // 32 : 32000 // 32] = 0xFFFFFFFF
+    known[0][16000 // 32 : 20000 // 32] = 0     # no stray known donors
+    known[2][20000 // 32 : 24000 // 32] = 0     # nor antidonors
+    # a known donor (antidonor) of 1.0 among the first 16 candidates of
+    # the donor -> known-acceptor pairs (antisense alike) and after them
+    donors, antidonors = (17_002, 18_002), (21_003, 22_003)
+    for x, late in zip(donors, (53, 88)):
+        set_known(0, x + late)
+    for x, late in zip(antidonors, (53, 88)):
+        set_known(2, x + late)
+    top = np.zeros((b, nc), np.int64)
+    ii = rng.integers(0, nc, (b, npairs))
+    jj = rng.integers(0, nc, (b, npairs))
+    for row in range(b):
+        t = top[row]
+        t[0:4] = rng.integers(32_000, genome_len - 300, 4)
+        t[4], t[5] = 63, 64
+        t[6] = genome_len - int(rng.integers(1, 60))
+        t[7] = 2**32 - 2 - int(rng.integers(0, 200))
+        t[8] = 0xFFFFFFFF
+        t[9] = 4096 + 32 * int(rng.integers(0, 200))   # d & 31 == 0
+        t[10] = t[9] + 31 + 32 * int(rng.integers(0, 10))
+        phase = int(rng.integers(0, 10))
+        t[11:14] = rng.integers(410, 1180, 3) * 10 + phase      # sense
+        t[14:16] = rng.integers(1210, 1580, 2) * 10 + phase     # antisense
+        t[16:18] = donors
+        t[18:20] = rng.integers(4810, 5580, 2) * 5              # known acc
+        t[20:22] = rng.integers(5610, 6380, 2) * 5              # known aacc
+        t[22:24] = antidonors
+        t[24:] = rng.integers(410, 1180, nc - 24) * 10 + phase
+        la = int(lengths[row])
+        # pair 0: two known splits of equal sums in the sense class;
+        # pair 1: a known split of each class (sense wins the tie)
+        di, dj = int(t[0]), int(t[1])
+        s1, s2 = 2 + int(rng.integers(0, 20)), max(2, la - 2)
+        for s in (s1, s2):
+            set_known(0, di + s)
+            set_known(1, int(t[2]) + s)
+        set_known(1, dj + s1)
+        set_known(3, di + s2)
+        set_known(2, dj + s2)
+        # known bits at the word boundaries of diagonals 9 and 10
+        for x in (9, 10):
+            for s in (2, 31, 32, 63, 64):
+                set_known(int(rng.integers(0, 4)), int(t[x]) + s)
+    ii[:, 0], jj[:, 0] = 0, 2
+    ii[:, 1], jj[:, 1] = 0, 1
+    ii[:, 2], jj[:, 2] = 5, 11               # 64 -> dense
+    ii[:, 3], jj[:, 3] = 4, 12               # 63 -> dense
+    ii[:, 4], jj[:, 4] = 11, 6               # -> the genome end
+    ii[:, 5], jj[:, 5] = 7, 8                # near 2^32 -> INVALID
+    ii[:, 6], jj[:, 6] = 9, 10               # word boundaries
+    ii[:, 7], jj[:, 7] = 11, 12              # sense, equal sums
+    ii[:, 8], jj[:, 8] = 14, 15              # antisense
+    ii[:, 9], jj[:, 9] = 16, 18              # donors -> known acceptors
+    ii[:, 10], jj[:, 10] = 20, 22            # known antiacc. -> antidonors
+    ii[:, 11], jj[:, 11] = 17, 19
+    ii[:, 12], jj[:, 12] = 21, 23
+    mm = rng.random((b, nc, L)) < 0.02
+    mm[:, :3] = False                        # pairs 0, 1 and 9-12
+    mm[:, 16:24] = False                     # within any budget
+    pref = np.concatenate([np.zeros((b, nc, 1), np.int32),
+                           np.cumsum(mm, 2, dtype=np.int32)], 2)
+    pvalid = rng.random((b, npairs)) < 0.85
+    return {"codes": g, "top_d": top, "pref": pref, "ii": ii, "jj": jj,
+            "pvalid": pvalid, "lengths": lengths, "budget": budget,
             "known": tuple(known)}

@@ -72,3 +72,19 @@ def test_cli_flag_byte_equal(disk, capsys, extra):
     if "--time" in extra:
         for err in (jax.err, port.err):
             assert "batch 0: " in err and "ms/read" in err
+
+
+
+def test_cli_long_reads_on_the_card(tmp_path, capsys):
+    """Reads longer than the CUDA kernels take (K3: 512 bases) are refused
+    on the card before the database is opened, with the way out named;
+    with --device cpu the CLI goes on to open it (here one that does not
+    exist, so that it fails there)."""
+    fa = tmp_path / "long.fa"
+    fa.write_text(">r\n" + "ACGT" * 150 + "\n")
+    args = ["-D", str(tmp_path), "-d", "absent", str(fa)]
+    assert tcli.main(args) == 2
+    err = capsys.readouterr().err
+    assert "512" in err and "--device cpu" in err
+    with pytest.raises(OSError):
+        tcli.main(args + ["--device", "cpu"])

@@ -541,6 +541,26 @@ def test_lane_features_matches_plain(batch, cuda, ncand):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("L", [75, 100, 150])
+@pytest.mark.parametrize("ncand", [32, 128])
+def test_lane_features_edges_match_plain(cuda, L, ncand):
+    """K13 on synth.mismatch_edge_rows: untrimmed ends that tie the best
+    trims, equal maxima, mismatches only past the read's length, all- and
+    no-mismatch rows; rows of L bytes whatever their alignment, and a
+    last warp cut short (37 rows); trim scores beyond the read length
+    too, which the C entry clamps."""
+    hm, hp, hl = synth.mismatch_edge_rows(np.random.default_rng(L), 37,
+                                          ncand, L)
+    mm, pref, ln = (torch.from_numpy(x).to(cuda) for x in (hm, hp, hl))
+    for k, interval in ((12, 3), (15, 3)):
+        for score in (-3, -1, 0, -200, 1000):
+            want = gg.lane_features(mm.cpu(), pref.cpu(), ln.cpu(), k,
+                                    interval, score)
+            got = gg._lane_features_cuda(mm, ln, k, interval, score)
+            _dict_equal({key: v.cpu() for key, v in got.items()}, want)
+
+
+@pytest.mark.cuda
 def test_rank_hits_matches_plain(batch, spliced, cuda):
     """K14 against _rank_hits_plain on gather_candidates' output (DNA and
     spliced reads, both apply_optimal, maxout below and above ncand) and
@@ -733,6 +753,32 @@ def test_solve_doublesplices_edges_match_plain(cuda, nc, novel, with_known):
     want = gg._solve_doublesplices_plain(*args)
     _equal([gg._solve_doublesplices_cuda(*args)[k] for k in gg._SHORTEXON_KEYS],
            [want[k] for k in gg._SHORTEXON_KEYS])
+    assert want["valid"].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nc,novel,with_known", [
+    (32, True, False), (32, True, True), (32, False, True),
+    (128, True, False), (128, True, True), (128, False, True)])
+def test_solve_splices_edges_match_plain(cuda, nc, novel, with_known):
+    """K5 on synth.splice_pair_cases: more than 16 candidates a class
+    (the first-16 rule decides), diagonals 63 and 64, at the genome end,
+    near 2^32 and INVALID, equal sums and antisense equal to sense, known
+    bits at word boundaries and in the vectors' last words, budgets 0-6
+    and pairs that are not valid; novel splicing on and off."""
+    case = synth.splice_pair_cases(np.random.default_rng(nc), 64, nc)
+    codes = case["codes"]
+    tg = convert.genome_from_host(codes, np.zeros(len(codes), np.uint8),
+                                  [len(codes)], cuda)
+    t = {k: torch.from_numpy(v).to(cuda) for k, v in case.items()
+         if k != "known"}
+    known = (tuple(torch.from_numpy(k.view(np.int32).copy()).to(cuda)
+                   for k in case["known"]) if with_known else None)
+    args = (tg, t["top_d"], t["pref"], t["ii"], t["jj"], t["pvalid"],
+            t["lengths"], t["budget"], 100, novel, known)
+    want = gg._solve_splices_plain(*args)
+    _equal([gg._solve_splices_cuda(*args)[k] for k in gg._SPLICE_KEYS],
+           [want[k] for k in gg._SPLICE_KEYS])
     assert want["valid"].any()
 
 

@@ -26,6 +26,9 @@
 #define __shared__ static
 #define __align__(n) alignas(n)
 
+struct uint4 {
+  unsigned x, y, z, w;
+};
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
@@ -104,6 +107,7 @@ inline int __all_sync(unsigned m, int p) { return __ballot_sync(m, p) == 0xFFFFF
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __popcll(unsigned long long x) { return __builtin_popcountll(x); }
 inline int __ffs(unsigned x) { return x ? __builtin_ctz(x) + 1 : 0; }
+inline int __clz(unsigned x) { return x ? __builtin_clz(x) : 32; }
 inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned sh) {
   sh &= 31; return sh ? (lo >> sh) | (hi << (32 - sh)) : lo; }
 template <class T> inline T __ldg(const T* p) { return *p; }
