@@ -89,6 +89,15 @@ and ends the run with a nonzero exit):
      first-16 rule deciding; diagonals 63, 64, at the genome end, near
      2^32 and INVALID; equal sums, antisense equal to sense, known bits at
      word boundaries; budgets 0-6; the same variants);
+     K3 on synth.prefix_mismatch_cases (B x NC off K3's tile, INVALID
+     diagonals and diagonals at and past the genome end, N runs and
+     query Ns, reads of 1, 15, 16 and 17 nt; every conversion with and
+     without an alt genome, both N rules) and K4 on
+     synth.indel_pair_cases (insertions of every shift, deletions,
+     wrapping differences, rows named by several pairs, a candidate only
+     at s = L, ties, rows without mismatches; min_end 0, 4 and past half
+     the read, with and without the seed-order gate), both at L 75, 100,
+     150 and 1024;
      K17 on each path's batch as the path gives it (the
      uniform flip) and in a mixed-length form (lengths 1, 15, 16, 17, 100,
      N runs); K8 with its overflow-gate epilogue on the PE -N 1 runner's
@@ -153,7 +162,10 @@ and ends the run with a nonzero exit):
      byte-equal to the CUDA run's (first 512 reads, first 256 pairs),
      and the CUDA run of that subset must launch K9/K10 and convert at
      least one GMAP candidate hit (paths 5 and 6: launch K5-K7, with
-     SNP-heavy and short-end reads in the subset);
+     SNP-heavy and short-end reads in the subset); and 256 planted RNA
+     reads of 513 to 1024 nt (the longest the card takes) through
+     align_batch_gapped at -N 1: every output equal to the CPU plain
+     path's, K1-K7 and K13-K17 launched;
   6b. the gsnap CLI on the card: python -m gmap_gsnap_tpu_torch.cli.gsnap
      -D <dir> -d syn as a subprocess on the first 2048 reads or pairs of
      path 1 (SE -N 0), path 4 (PE -N 1, two FASTQ files), path 5 (-N 1 -s
@@ -167,11 +179,12 @@ and ends the run with a nonzero exit):
      of paths 1, 4 and 5 (with --print-snps), byte-equal to the same CLI
      with --device cpu;
   7. each kernel's device time (torch.profiler) and per-call time beside
-     its plain version's (and its library call's) on the same clock: K1-K8
-     at every shape and variant, K2, K6 and K14 at every shape and K16 at
-     every check (both rules, every strand batch, the edges) each with its
-     own library sort and bound, K9-K13, K15 and K17 at their first shape;
-     the number of device ops one K14 call runs (1: its fields are
+     its plain version's (and its library call's) on the same clock: K1-K4,
+     K6 and K8 at every shape and variant, K2, K6 and K14 at every shape
+     and K16 on every strand batch under both rules (its edge rows once),
+     each with its own library sort and bound, K5, K7, K9-K13, K15 and
+     K17 at their first shape; the number of device ops one K14 call runs
+     (1: its fields are
      gathered inside it); then profiles of the SE -N 1 and PE -N 1 runs
      (device busy share, top device ops), measured last so that the
      profiler cannot perturb step 5's timing.
@@ -216,16 +229,19 @@ SPLICE_KERNELS = ("gsnap_solve_splices", "gsnap_select_triples",
 PAIR_KERNELS = ("gsnap_pair_grid",)
 GMAP_KERNELS = ("gmap_seed_segments", "gmap_chain")
 DYNPROG_KERNELS = ("gmap_banded_gotoh", "gmap_bridge_traceback")
-# checks timed at their first shape only (K9-K13, K15, K17)
-FIRST_SHAPE_ONLY = ("seed_segments", "chain", "banded_gotoh",
-                    "bridge_traceback", "lane_features", "qpos_ranges",
-                    "pack_queries")
+# checks timed at their first shape only (K5, K7, K9-K13, K15, K17;
+# tools/time_kernels.py times K5 and K7 at both shapes, with and without
+# known-site masks)
+FIRST_SHAPE_ONLY = ("solve_splices", "solve_doublesplices", "seed_segments",
+                    "chain", "banded_gotoh", "bridge_traceback",
+                    "lane_features", "qpos_ranges", "pack_queries")
 # kernels timed at every shape with their own library call and bound
 PER_SHAPE = ("top_diagonals", "select_triples", "rank_hits",
              "select_pairs")
-# of those, the kernels whose every check is timed, variants and edges
-# too (K16: both rules, every strand batch and edge row)
-EVERY_CHECK = ("select_pairs",)
+# of those, the checks timed at every shape (K16: both rules on every
+# strand batch; its edge rows are timed once, as the other kernels' are,
+# and at every shape by tools/time_kernels.py)
+EVERY_CHECK = ("select_pairs", "select_pairs/splice")
 # K13-K16: trims and lane features, ranking (+ the SE gates), seed qpos
 # ranges, pair selection — every path runs them
 # K17 the read packing and reverse complement at the head of the cascade
@@ -237,6 +253,7 @@ ALL_KERNELS = (N0_KERNELS + SPLICE_KERNELS + PAIR_KERNELS + GMAP_KERNELS
 REPO = os.path.dirname(os.path.abspath(__file__))
 CLI_READS = 2048     # reads or pairs of each path the gsnap CLI aligns
 NATIVE_READS = 256   # reads or pairs of each -A gsnap GPU-vs-CPU check
+LONG_READS = 256     # reads of 513 nt and longer, card against CPU
 CASCADE_PASSES = 5   # passes of a main path's device cascade alone
 MEM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 # the float32 rate outside the tensor cores, the nearest published rate
@@ -321,6 +338,14 @@ def _triple_sort(torch, se, top_d, votes, maxdist: int):
     return sort
 
 
+def _named_rows(torch, top_d, segs) -> int:
+    """The candidate rows that the pairs or triples name (segs: their
+    index tensors [B, n]), each counted once a read."""
+    base = torch.arange(len(segs[0]), device=segs[0].device)[:, None]
+    return int(torch.unique(torch.cat(segs, 1) + base * top_d.shape[1])
+               .numel())
+
+
 def _segment_bytes(torch, top_d, segs, L: int, novel: bool, known) -> int:
     """Bytes of the candidate rows that the pairs or triples name (segs:
     their index tensors), each row once a read: its diagonal, its pref
@@ -328,9 +353,7 @@ def _segment_bytes(torch, top_d, segs, L: int, novel: bool, known) -> int:
     without it every candidate is known on both sides and scores 1.0, so
     the genome is not needed) and, with known sites, the words of four
     site kinds over L + 1 positions."""
-    base = torch.arange(len(segs[0]), device=segs[0].device)[:, None]
-    nrows = int(torch.unique(torch.cat(segs, 1) + base * top_d.shape[1])
-                .numel())
+    nrows = _named_rows(torch, top_d, segs)
     per_row = 8 + (L + 1) * 4
     if novel:
         per_row += ((L + 41 + 15) // 16 + 1) * 4
@@ -349,6 +372,28 @@ def _splice_cost(torch, sargs):
     rows = _segment_bytes(torch, sargs[1], [sargs[3], sargs[4]], sargs[8],
                           novel, known)
     return lambda out: (_nbytes(sargs[3:9], out) + rows, 0)
+
+
+def _prefix_cost(q, top_d, lengths, L: int, alt) -> callable:
+    """K3's cost function: (bytes, operations).  Bytes: the packed reads,
+    diagonals and lengths read once, the outputs written, and each
+    placement's genome span: its code and N-flag words (L // 16 + 2 of
+    each), and with an alt genome its alt code words too."""
+    words = top_d.numel() * (L // 16 + 2) * (3 if alt is not None else 2)
+    return lambda out: (_nbytes(q, top_d, lengths, out) + words * 4, 0)
+
+
+def _indel_cost(torch, kargs):
+    """K4's cost function on kargs = (top_d, mm, pref, ii, jj, pvalid,
+    lengths, budget, L, qp5, qp3, ...): (bytes, operations).  Bytes: the
+    mm rows that a read's pairs name, once a read (L bytes each; pref is
+    not needed: mm determines it), the diagonals, pairs, lengths, budgets
+    and seed ranges read once, and the outputs written.  (An earlier
+    formula counted every mm and pref row.)"""
+    top_d, ii, jj, L = kargs[0], kargs[3], kargs[4], kargs[8]
+    rows = _named_rows(torch, top_d, [ii, jj]) * L
+    return lambda out: (_nbytes(top_d, kargs[3:8], kargs[9:11], out) + rows,
+                        0)
 
 
 def _doublesplice_ops(torch, top_d, ti, tm, tj, L: int, novel: bool) -> int:
@@ -956,9 +1001,7 @@ def _stage_checks(torch, gg, se, mmo, genome_dev, index, index_minus, c, f,
                          ll, conv, None),
                  partial(mmo._prefix_mismatches_plain, genome_dev, q, top_d,
                          ll, conv, None),
-                 lambda out, q=q, t=top_d, ll=ll: (
-                     _nbytes(q, t, ll, out) + t.numel() * (100 // 16 + 2) * 8,
-                     0), None)]
+                 _prefix_cost(q, top_d, ll, 100, None), None)]
         largs = (mm, ll, idx.k, idx.interval, base.trim_mismatch_score)
 
         def lane_plain(mm=mm, pref=pref, ll=ll, idx=idx):
@@ -1045,8 +1088,8 @@ def _stage_checks(torch, gg, se, mmo, genome_dev, index, index_minus, c, f,
 
 
 def _stage_edges(torch, gg, se, synth, rng, dev, base):
-    """K2, K5, K7 and K13-K16 checks (name, shape, kernel call, plain
-    call, cost, library call or None) on hand-built edges:
+    """K2, K3, K4, K5, K7 and K13-K16 checks (name, shape, kernel call,
+    plain call, cost, library call or None) on hand-built edges:
     synth.mismatch_edge_rows at L 75, 100 and 150 (untrimmed ends tying
     the trims, equal maxima, mismatches only past the read, all / no
     mismatches, a trim score beyond the read; K13), exact duplicate
@@ -1055,10 +1098,12 @@ def _stage_edges(torch, gg, se, synth, rng, dev, base):
     diagonals and seed slots (K15), diagonals near 2^31 and 2^32 under
     both rules and synth.diag_pair_rows at NC 3 to 128, maxpairs up to
     NC^2 (K16), synth.diag_vote_rows at W off a power of two and ncand
-    equal to W (K2), and synth.splice_pair_cases (K5) and
-    synth.doublesplice_cases (K7) at NC 32 and 128, with and without
-    known sites and novel splicing."""
+    equal to W (K2), synth.prefix_mismatch_cases (K3) and
+    synth.indel_pair_cases (K4) at L 75, 100, 150 and 1024, and
+    synth.splice_pair_cases (K5) and synth.doublesplice_cases (K7) at NC
+    32 and 128, with and without known sites and novel splicing."""
     from gmap_gsnap_tpu_torch import convert
+    from gmap_gsnap_tpu_torch.ops import mismatch as mmo
 
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     lf_keys = ("cand_mm",) + gg._LANE_FEATURE_KEYS
@@ -1156,6 +1201,68 @@ def _stage_edges(torch, gg, se, synth, rng, dev, base):
                 partial(_fields, gg._solve_splices_plain, sargs,
                         gg._SPLICE_KEYS),
                 _splice_cost(torch, sargs), None))
+    # K3 on synth.prefix_mismatch_cases: 257 x 24 placements (the last
+    # tile cut short), INVALID diagonals and diagonals at and past the
+    # genome end, N runs and query Ns, reads of 1, 15, 16 and 17 nt; every
+    # conversion with and without an alt genome, and the other N rules
+    # (query N mismatches, genome N not) on two of them.  K4 on
+    # synth.indel_pair_cases (insertions of every shift, deletions,
+    # wrapping differences, rows named by several pairs, a candidate only
+    # at s = L, ties, rows without mismatches) at min_end 0, 4 and past
+    # half the read, with and without the seed-order gate.  Both at L 75,
+    # 100, 150 and the longest read the card takes.  Their own generator,
+    # so that the other checks' inputs stay as they were
+    krng = np.random.default_rng(11)
+
+    def under_rules(fn, qunk, gunk):
+        def call():
+            saved = mmo.QUERY_UNK_MISMATCH, mmo.GENOME_UNK_MISMATCH
+            mmo.QUERY_UNK_MISMATCH, mmo.GENOME_UNK_MISMATCH = qunk, gunk
+            try:
+                return fn()
+            finally:
+                mmo.QUERY_UNK_MISMATCH, mmo.GENOME_UNK_MISMATCH = saved
+        return call
+
+    for L in (75, 100, 150, mmo.CUDA_MAX_READ_LENGTH):
+        case = synth.prefix_mismatch_cases(krng, 257, 24, L)
+        g = convert.genome_from_host(case["gcodes"], case["gflags"],
+                                     [len(case["gcodes"])], dev)
+        d, ln = t(case["diags"]), t(case["lengths"])
+        q = se._pack_device_plain(t(case["codes"]), t(case["nflags"]), ln, L)
+        alt = (g.ref16.flip(0).contiguous(), g.flag16)
+        variants = [(conv, a, False, True) for conv in (None, "ct", "ga",
+                                                        "ag", "tc")
+                    for a in (None, alt)]
+        variants += [(None, None, True, False), ("ga", alt, True, False)]
+        for conv, a, qunk, gunk in variants:
+            pargs = (g, q, d, ln, conv, a)
+            checks.append((
+                "prefix_mismatches/edges",
+                f"L={L} {conv} alt={int(a is not None)} "
+                f"N rules {int(qunk)}{int(gunk)}",
+                under_rules(partial(mmo._prefix_mismatches_cuda, *pargs),
+                            qunk, gunk),
+                under_rules(partial(mmo._prefix_mismatches_plain, *pargs),
+                            qunk, gunk),
+                _prefix_cost(q, d, ln, L, a), None))
+        case = {k: t(v) for k, v in synth.indel_pair_cases(
+            krng, 1024, 32, 16, L).items()}
+        for min_end in (0, 4, L // 2 + 1):
+            for gate in (True, False):
+                kargs = (case["top_d"], case["mm"], case["pref"], case["ii"],
+                         case["jj"], case["pvalid"], case["lengths"],
+                         case["budget"], L,
+                         case["qp5"] if gate else None,
+                         case["qp3"] if gate else None, 9, 30, min_end)
+                checks.append((
+                    "solve_indels/edges",
+                    f"L={L} min_end={min_end} gate={int(gate)}",
+                    partial(_fields, gg._solve_indels_cuda, kargs,
+                            gg._INDEL_KEYS),
+                    partial(_fields, gg._solve_indels_plain, kargs,
+                            gg._INDEL_KEYS),
+                    _indel_cost(torch, kargs), None))
     for nc in (32, 128):
         case = synth.doublesplice_cases(rng, 1024, nc)
         codes = case["codes"]
@@ -1339,13 +1446,15 @@ def _drive(torch, kbuild, runner, records, batch: int, label: str,
 
 def _profile_run(torch, run, label: str) -> None:
     """torch.profiler over one call of run() (a GsnapRunner.run or
-    run_pe): device busy share of the wall and the top device ops."""
+    run_pe): device busy share of the wall and the top device ops.  It
+    traces the device's activity alone: tracing the host's too made
+    every host op an event (and the host slower) for no figure printed
+    here."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         run()
         torch.cuda.synchronize()
@@ -1644,7 +1753,6 @@ def main(argv=None) -> int:
     # its plain output, and one PyTorch call computing the same function;
     # for PER_SHAPE's kernels both also per (name, shape)
     costs, library, shape_costs = {}, {}, {}
-    gwords = lambda nt: (nt // 16 + 2) * 8     # ref + flag words of a span
     for st, nc in ((384, 32), (4096, 128)):
         p = se.GsnapParams(seed_total=st, ncand=nc,
                            size_threshold=params.size_threshold)
@@ -1687,10 +1795,9 @@ def main(argv=None) -> int:
         shape_costs[("top_diagonals", shape)] = k2_cost
         library[("top_diagonals", shape)] = partial(
             torch.sort, diag, dim=1, stable=True)
-        costs.setdefault("prefix_mismatches", lambda out, t=top_d: (
-            _nbytes(q2, t, l2, out) + t.numel() * gwords(100), 0))
-        costs.setdefault("solve_indels", lambda out, a=kargs: (
-            _nbytes(a, out), 0))
+        costs.setdefault("prefix_mismatches",
+                         _prefix_cost(q2, top_d, l2, 100, None))
+        costs.setdefault("solve_indels", _indel_cost(torch, kargs))
         # the conversion and SNP (alt genome) variants of K3
         alt = (genome_dev.ref16.flip(0).contiguous(), genome_dev.flag16)
         for conv, a in (("ct", None), ("ga", alt)):
@@ -1927,9 +2034,7 @@ def main(argv=None) -> int:
         "top_diagonals/snp index"]
     library[("top_diagonals/snp index", shape)] = partial(
         torch.sort, seed[0], dim=1, stable=True)
-    # K3 with alt reads the alt words of each span too
-    costs["prefix_mismatches/alt"] = lambda out, t=top_d: (
-        _nbytes(vq2, t, vl2, out) + t.numel() * gwords(100) * 3 // 2, 0)
+    costs["prefix_mismatches/alt"] = _prefix_cost(vq2, top_d, vl2, 100, alt)
     _, vpref = mmo._prefix_mismatches_plain(genome_dev, vq2, top_d, vl2, None,
                                             alt)
     si, sj, sv = gg._select_pairs_plain(top_d, votes,
@@ -2151,6 +2256,42 @@ def main(argv=None) -> int:
               f"candidate hits ({counts['final']} in final hit lists, "
               f"{counts['pairs']} in rescued pairs; launches {gmap})",
               flush=True)
+    # reads of 513 nt to the longest the card takes (K3 looping over a
+    # row's words, K1 and K13 near their limits): align_batch_gapped at -N
+    # 1 on the card against the CPU plain path, on the genome and index
+    # those CPU runners loaded; its own generator
+    lrng = np.random.default_rng(args.seed + 1)
+    lmax = mmo.CUDA_MAX_READ_LENGTH
+    long_recs, _ = synth.plant_spliced_reads(lrng, genome, LONG_READS,
+                                             L=lmax, prefix="long")
+    long_recs = [dataclasses.replace(r, seq=r.seq[:n], quality=r.quality[:n])
+                 for r, n in zip(long_recs, lrng.integers(513, lmax + 1,
+                                                          LONG_READS))]
+    enc = runner_mod.encode_batch(long_recs, lmax)
+    t0 = time.time()
+    kbuild.LAUNCHES.clear()
+    long_out = [gg.align_batch_gapped(
+        datadir.device_genome(db, d), datadir.device_index(db, d),
+        *(torch.from_numpy(x).to(d) for x in enc), runner_n1.gapped_params)
+        for d in (dev, torch.device("cpu"))]
+    keys = sorted(long_out[1])
+    err = _max_abs_err([long_out[0][k].cpu() for k in keys],
+                       [long_out[1][k] for k in keys])
+    long_launches = {k: kbuild.LAUNCHES.get(k, 0) for k in
+                     N0_KERNELS + SPLICE_KERNELS + STAGE_KERNELS}
+    placed = int((long_out[1]["npaths"] > 0).sum())
+    print(f"long reads ({LONG_READS} of {int(enc[2].min())}-"
+          f"{int(enc[2].max())} nt, lmax {lmax}): align_batch_gapped -N 1 "
+          f"on the card vs the CPU plain path max_abs_err={err}, {placed} "
+          f"reads with a hit, {time.time() - t0:.1f} s; launches "
+          f"{long_launches}", flush=True)
+    if err != 0 or 0 in long_launches.values() or placed < LONG_READS // 2:
+        raise SystemExit(f"long reads: the card disagrees with the CPU "
+                         f"plain path (max_abs_err={err}), a kernel did not "
+                         f"launch ({long_launches}) or few reads placed "
+                         f"({placed})")
+    del long_out
+
     # paths 5 and 6: the subset must launch K5/K7 (with the known masks,
     # which runner_sv always passes) and hold short-end and SNP-heavy reads
     cpu_sv = runner_mod.GsnapRunner(
@@ -2386,16 +2527,17 @@ def main(argv=None) -> int:
     print(f"timing phase at {time.time() - t_start:.1f} s", flush=True)
     n_events = 0
     for name, shape, fk, fp in checks:
-        # K1-K8 are timed at every shape and variant (a name's line keeps
-        # its first shape's times; the mode paths timed their own
-        # variants); K16 at every check; K9-K13, K15 and K17 at their
-        # first shape only: K9-K12's plain versions run thousands of small
-        # torch ops a call, and the others' other shapes and variants are
-        # checked, not timed.  A kernel's first shape is timed with its
-        # library call, on one clock
+        # K1-K4, K6 and K8 are timed at every shape and variant (a name's
+        # line keeps its first shape's times; the mode paths timed their
+        # own variants); EVERY_CHECK's names at every check;
+        # FIRST_SHAPE_ONLY's at their first shape only: K9-K12's plain
+        # versions run thousands of small torch ops a call, and the
+        # others' other shapes and variants are checked, not timed.  A
+        # kernel's first shape is timed with its library call, on one
+        # clock
         base = name.split("/")[0]
         once, variant = base in FIRST_SHAPE_ONLY, "/" in name
-        if base not in EVERY_CHECK and (
+        if name not in EVERY_CHECK and (
                 (once and (variant or name in times))
                 or (variant and name in times)):
             continue
@@ -2433,6 +2575,7 @@ def main(argv=None) -> int:
         if nops is not None and nops != 1:
             raise SystemExit(f"_rank_hits_cuda ({what}) ran {nops} device "
                              f"ops, expected its one kernel")
+    print(f"profiles at {time.time() - t_start:.1f} s", flush=True)
     _profile_run(torch, lambda: runner_n1.run(rna, io.StringIO(),
                                               batch_size=args.batch),
                  "SE -N 1")

@@ -185,9 +185,8 @@ _LANE_FEATURE_KEYS = (
     "lane_nmm_tt", "lane_nmm_0t3", "lane_nmm_t50")
 
 
-# the longest read K13 takes (its trim keys hold a position in 10 bits);
-# K3, which runs before it on every path, takes up to 512
-# (ops/mismatch.CUDA_MAX_READ_LENGTH)
+# the longest read K13 takes (its trim keys hold a position in 10 bits),
+# and so the longest any CUDA path takes (ops/mismatch.CUDA_MAX_READ_LENGTH)
 LANE_FEATURES_MAX_L = 1024
 
 
@@ -442,9 +441,14 @@ def _solve_indels_cuda(top_d, mm, pref, ii, jj, pvalid, lengths, budget,
         "right": torch.empty((b, p), dtype=torch.int64, device=dev),
     }
     qp = qp5 is not None
+    # pref is not read: the kernel counts mismatches on mm's bits; mm's
+    # rows are read in 16-byte chunks from a 16-byte aligned start
+    mm = mm.contiguous()
+    if mm.data_ptr() % 16:
+        raise ValueError("solve_indels: mm not 16-byte aligned")
     kbuild.launch(
         "gsnap_solve_indels", dev,
-        top_d.contiguous(), mm.contiguous(), pref.contiguous(),
+        top_d.contiguous(), mm,
         ii.contiguous(), jj.contiguous(), pvalid.contiguous(),
         lengths.int().contiguous(), budget.int().contiguous(),
         qp5.int().contiguous() if qp else None,

@@ -12,11 +12,12 @@ Usage:  python -m gmap_gsnap_tpu_torch.cli.gsnap -D <dir> -d <db> \\
 Paired-end input is two files (read 1, read 2) or one FASTA whose
 records carry two sequence lines.  The flags keep the names and
 defaults of gmap_gsnap_tpu/cli/gsnap.py (whose parser cannot be
-imported: it sets up JAX).  Flags of paths the port does not have yet —
-three or more input files, and
-values of --trigger-score-for-gmap or --max-gmap-improvement that no
-lane reads — exit with an error naming the ROADMAP.md item instead of
-running a reduced path.
+imported: it sets up JAX).  Three or more input files, a path the port
+does not have yet, exit with an error naming the ROADMAP.md item instead
+of running a reduced path.  The GMAP tuning flags --trigger-score-for-gmap,
+--max-gmap-improvement, --gmap-min-coverage, --microexon-spliceprob and
+--antistranded-penalty reach GsnapParams, as in the JAX CLI, where no
+lane reads them.
 """
 
 from __future__ import annotations
@@ -135,8 +136,7 @@ def _parser() -> argparse.ArgumentParser:
                         "terminal, improvement (gsnap.c:1188)")
     p.add_argument("--trigger-score-for-gmap", type=int, default=5,
                    help="try GMAP pairsearch on nearby genomic regions "
-                        "when best score is greater than this (gsnap.c:98; "
-                        "no lane reads it yet, so only 5 is accepted)")
+                        "when best score is greater than this (gsnap.c:98)")
     p.add_argument("--max-gmap-pairsearch", type=int, default=10,
                    help="perform GMAP pairsearch on nearby genomic regions "
                         "up to this many hits (gsnap.c:90)")
@@ -145,8 +145,17 @@ def _parser() -> argparse.ArgumentParser:
                         "to this many hits (gsnap.c:91)")
     p.add_argument("--max-gmap-improvement", type=int, default=5,
                    help="perform GMAP improvement on nearby genomic regions "
-                        "up to this many hits (gsnap.c:92; no lane reads "
-                        "it yet, so only 5 is accepted)")
+                        "up to this many hits (gsnap.c:92)")
+    p.add_argument("--gmap-min-coverage", type=float, default=0.50,
+                   help="keep GMAP hit only if it has this coverage "
+                        "(gsnap.c:84)")
+    p.add_argument("--microexon-spliceprob", type=float, default=0.95,
+                   help="allow microexons only if one of the splice-site "
+                        "probabilities is greater than this (gsnap.c:94)")
+    p.add_argument("--antistranded-penalty", type=int, default=0,
+                   help="penalty for antistranded splicing when using "
+                        "stranded RNA-Seq protocols (gsnap.c:202; the "
+                        "reference compiles out every application site)")
     p.add_argument("--query-unk-mismatch", type=int, default=0, choices=[0, 1])
     p.add_argument("--genome-unk-mismatch", type=int, default=1, choices=[0, 1])
     p.add_argument("--print-snps", action="store_true",
@@ -184,18 +193,9 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     p = _parser()
     args = p.parse_args(argv)
-    unsupported = [
-        (len(args.input) > 2,
-         "three or more input files (read as one single-end stream) are "
-         f"{_ROADMAP} (item 7)"),
-        (args.trigger_score_for_gmap != 5,
-         f"--trigger-score-for-gmap other than 5 is {_ROADMAP} (item 3)"),
-        (args.max_gmap_improvement != 5,
-         f"--max-gmap-improvement other than 5 is {_ROADMAP} (item 3)"),
-    ]
-    for bad, msg in unsupported:
-        if bad:
-            p.error(msg)
+    if len(args.input) > 2:
+        p.error("three or more input files (read as one single-end stream) "
+                f"are {_ROADMAP} (item 7)")
 
     from ..align import gsnap_se, runner as runner_mod
     from ..db.datadir import GenomeDB
@@ -265,6 +265,10 @@ def main(argv=None) -> int:
         trigger_score_for_gmap=args.trigger_score_for_gmap,
         max_gmap_pairsearch=args.max_gmap_pairsearch,
         max_gmap_terminal=args.max_gmap_terminal,
+        max_gmap_improvement=args.max_gmap_improvement,
+        gmap_min_coverage=args.gmap_min_coverage,
+        microexon_spliceprob=args.microexon_spliceprob,
+        antistranded_penalty=args.antistranded_penalty,
         expected_pairlength=args.pairexpect,
         pairlength_deviation=args.pairdev,
     )

@@ -45,7 +45,7 @@ _SIGNATURES = {
     "gsnap_seed_diagonals": "p" * 10 + "i" * 7 + "ll",
     "gsnap_top_diagonals": "p" * 4 + "i" * 3,
     "gsnap_prefix_mismatches": "p" * 10 + "ll" + "i" * 7,
-    "gsnap_solve_indels": "p" * 18 + "i" * 8,
+    "gsnap_solve_indels": "p" * 17 + "i" * 8,
     "gsnap_solve_splices": "p" * 22 + "ll" + "i" * 5,
     "gsnap_select_triples": "p" * 6 + "i" * 3 + "l",
     "gsnap_solve_doublesplices": "p" * 28 + "ll" + "i" * 5,

@@ -191,31 +191,31 @@ def _prefix_mismatches_plain(genome, queries, diags, lengths, conversion, alt):
     return mm, pref
 
 
-def _bits32(x: torch.Tensor) -> torch.Tensor:
-    """int64 tensor of uint32 values -> int32 tensor of the same bits."""
-    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32).contiguous()
-
-
-# the longest read K3 takes (32 words of 16 bases a row), and so the
-# longest any CUDA path of the port takes: every path runs K3 first
-CUDA_MAX_READ_LENGTH = 512
+# the longest read every CUDA path takes: K13's trim keys hold a position
+# in 10 bits (align/gsnap_gapped.LANE_FEATURES_MAX_L); K3 takes any
+# length, and K1 up to 1024 k-mers a read (L - k + 1 <= 1024)
+CUDA_MAX_READ_LENGTH = 1024
 
 
 def _prefix_mismatches_cuda(genome, queries, diags, lengths, conversion, alt):
     b, nc = diags.shape
     lmax = queries.lmax
     nw = queries.codes16.shape[1]
-    if nw > CUDA_MAX_READ_LENGTH // 16:
-        raise ValueError(f"prefix_mismatches kernel takes reads up to "
-                         f"{CUDA_MAX_READ_LENGTH} nt, got lmax={lmax}")
     dev = diags.device
     mm = torch.empty((b, nc, lmax), dtype=torch.bool, device=dev)
     pref = torch.empty((b, nc, lmax + 1), dtype=torch.int32, device=dev)
+    # the kernel reads the query words as int64 and writes its tiles with
+    # 16-byte stores
+    if queries.codes16.dtype != torch.int64 or (
+            queries.nflags16.dtype != torch.int64):
+        raise ValueError("prefix_mismatches: query words must be int64")
+    if mm.data_ptr() % 16 or pref.data_ptr() % 16:
+        raise ValueError("prefix_mismatches: outputs not 16-byte aligned")
     kbuild.launch(
         "gsnap_prefix_mismatches", dev,
         genome.ref16, genome.flag16,
         None if alt is None else alt[0], None if alt is None else alt[1],
-        _bits32(queries.codes16), _bits32(queries.nflags16),
+        queries.codes16.contiguous(), queries.nflags16.contiguous(),
         diags.contiguous(), lengths.int().contiguous(), mm, pref,
         genome.ref16.shape[0], genome.length,
         b, nc, lmax, nw, _CONVERSIONS.index(conversion),

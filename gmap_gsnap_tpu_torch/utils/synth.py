@@ -1630,3 +1630,121 @@ def splice_pair_cases(rng: np.random.Generator, b: int, nc: int = 32,
     return {"codes": g, "top_d": top, "pref": pref, "ii": ii, "jj": jj,
             "pvalid": pvalid, "lengths": lengths, "budget": budget,
             "known": tuple(known)}
+
+
+def prefix_mismatch_cases(rng: np.random.Generator, b: int, nc: int,
+                          L: int = 100, genome_len: int = 40_000):
+    """Inputs of the mismatch stage (K3) with its edges, as numpy arrays
+    in a dict: the genome's ``gcodes`` (uint8[genome_len] 2-bit codes)
+    and ``gflags`` (uint8, 1 at an N), reads ``codes`` uint8[b, L],
+    ``nflags`` bool[b, L] and ``lengths`` int32[b], and ``diags``
+    int64[b, nc] (uint32 values).
+
+    The genome carries five N runs of 20-200 nt.  Each read is copied
+    from the genome (a tenth from an N run's edge) with 0-6 substitutions
+    and, in a fifth of the reads, 1-3 query Ns; lengths are L, some
+    shorter, and 1, 15, 16 and 17 in four reads.  Every row holds its
+    read's own diagonal and that diagonal shifted by 1-3 (indels), the
+    diagonals 0, 15 and 16, INVALID (0xFFFFFFFF), one where the read ends
+    at the genome's end, one running past it by 1-20 and one past it
+    altogether; the rest are random."""
+    g = rng.integers(0, 4, genome_len).astype(np.uint8)
+    nflag = np.zeros(genome_len, np.uint8)
+    runs = rng.integers(L + 50, genome_len - 300, 5)
+    for s, n in zip(runs, rng.integers(20, 201, 5)):
+        nflag[s : s + n] = 1
+    lengths = np.full(b, L, np.int32)
+    short = rng.random(b) < 0.25
+    lengths[short] = rng.integers(max(1, L // 3), L, int(short.sum()))
+    lengths[1:5] = np.minimum([1, 15, 16, 17], L)
+    codes = np.zeros((b, L), np.uint8)
+    nflags = np.zeros((b, L), bool)
+    diags = np.zeros((b, nc), np.int64)
+    for row in range(b):
+        la = int(lengths[row])
+        d = (int(runs[row % 5]) - la // 2 if row % 10 == 3
+             else int(rng.integers(0, genome_len - L)))
+        read = g[d : d + la].copy()
+        sub = rng.choice(la, int(rng.integers(0, min(6, la) + 1)),
+                         replace=False)
+        read[sub] = (read[sub] + rng.integers(1, 4, len(sub))) % 4
+        codes[row, :la] = read
+        if row % 5 == 2:
+            nflags[row, rng.choice(la, min(la, int(rng.integers(1, 4))),
+                                   replace=False)] = True
+        t = diags[row]
+        t[:] = rng.integers(0, genome_len - L, nc)
+        t[:10] = [d, d + 1, d - 2 if d >= 2 else d + 3, d + 3, 0, 15, 16,
+                  0xFFFFFFFF, genome_len - la,
+                  genome_len - la + int(rng.integers(1, 21))]
+        if nc > 10:
+            t[10] = genome_len + int(rng.integers(0, 50))
+    return {"gcodes": g, "gflags": nflag, "codes": codes, "nflags": nflags,
+            "lengths": lengths, "diags": diags}
+
+
+def indel_pair_cases(rng: np.random.Generator, b: int, nc: int = 32,
+                     npairs: int = 16, L: int = 100, max_ins: int = 9,
+                     max_del: int = 30):
+    """Inputs of the middle indel solver (K4) with its edges, as numpy
+    arrays in a dict: ``top_d`` int64[b, nc] (uint32 values), ``mm``
+    bool[b, nc, L] and ``pref`` int32[b, nc, L+1] as K3 writes them (no
+    mismatch past a read's length), ``ii`` / ``jj`` int64[b, npairs],
+    ``pvalid`` bool[b, npairs], ``lengths`` and ``budget`` int32[b] and
+    ``qp5`` / ``qp3`` int32[b, nc].  nc >= max_ins + 9.
+
+    Each row's diagonal 0 is a base D (within 8 of 2^32 in every eighth
+    row, so that D + k wraps in uint32); diagonals 1..max_ins lie 1 to
+    max_ins below it (insertions of every shift), then deletions of 1, 2,
+    max_del and max_del + 1, an insertion of max_ins + 1, D itself again,
+    INVALID and D + 2^31 (differences of -2^31 in int32); the rest are
+    random within 40 of D.  Mismatch rows are sparse (0-6 inside the
+    read), but row 0 has none except one in every third read, row 1 none
+    at all, and row max_ins + 1 (the deletion of 1) one at the read's
+    last position: the pair (0, max_ins + 1) then has its only candidate
+    at s = L (for min_end 0 and a read of L), or with row 0's mismatch at
+    a, totals that tie at s = a and s = L.  Most pairs are (0, k) for
+    each k above, (0, 0) among them, rotated by the row; the last four
+    are random (some naming one row twice).  Lengths are L but for some
+    of L / 3 to L - 1; budgets 0-6; a seventh of the pairs are not
+    valid; qp5 / qp3 random, so the seed-order gate falls either way."""
+    assert nc >= max_ins + 9
+    lengths = np.full(b, L, np.int32)
+    short = rng.random(b) < 0.3
+    lengths[short] = rng.integers(max(1, L // 3), L, int(short.sum()))
+    lengths[0] = L
+    mm = np.zeros((b, nc, L), bool)
+    top = np.zeros((b, nc), np.int64)
+    ii = rng.integers(0, nc, (b, npairs))
+    jj = rng.integers(0, nc, (b, npairs))
+    fixed = [(0, k) for k in range(max_ins + 9)]
+    for row in range(b):
+        la = int(lengths[row])
+        d = (2**32 - 1 - int(rng.integers(1, 9)) if row % 8 == 7
+             else int(rng.integers(2**20, 2**30)))
+        t = top[row]
+        t[: max_ins + 1] = d - np.arange(max_ins + 1)
+        t[max_ins + 1 : max_ins + 9] = [
+            d + 1, d + 2, d + max_del, d + max_del + 1, d - max_ins - 1, d,
+            0xFFFFFFFF, d + 2**31]
+        t[max_ins + 9 :] = d + rng.integers(-40, 41, nc - max_ins - 9)
+        t[:] &= 0xFFFFFFFF
+        dens = rng.integers(0, 7, nc)
+        for c in range(nc):
+            mm[row, c, rng.choice(la, min(la, int(dens[c])),
+                                  replace=False)] = True
+        mm[row, :2] = False
+        mm[row, 0, min(la - 1, 5 * (1 + row % 7))] = row % 3 == 0
+        mm[row, max_ins + 1] = False
+        mm[row, max_ins + 1, la - 1] = True
+        for p in range(max(0, npairs - 4)):
+            ii[row, p], jj[row, p] = fixed[(p + row) % len(fixed)]
+    pref = np.concatenate([np.zeros((b, nc, 1), np.int32),
+                           np.cumsum(mm, 2, dtype=np.int32)], 2)
+    budget = rng.integers(0, 7, b).astype(np.int32)
+    pvalid = rng.random((b, npairs)) < 6 / 7
+    qp5 = rng.integers(0, L, (b, nc)).astype(np.int32)
+    qp3 = rng.integers(0, L, (b, nc)).astype(np.int32)
+    return {"top_d": top, "mm": mm, "pref": pref, "ii": ii, "jj": jj,
+            "pvalid": pvalid, "lengths": lengths, "budget": budget,
+            "qp5": qp5, "qp3": qp3}

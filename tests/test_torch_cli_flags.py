@@ -7,6 +7,7 @@ wall times)."""
 
 import numpy as np
 import pytest
+import torch
 
 from gmap_gsnap_tpu.align import runner as jrun
 from gmap_gsnap_tpu.cli import gsnap as jcli
@@ -76,15 +77,31 @@ def test_cli_flag_byte_equal(disk, capsys, extra):
 
 
 def test_cli_long_reads_on_the_card(tmp_path, capsys):
-    """Reads longer than the CUDA kernels take (K3: 512 bases) are refused
-    on the card before the database is opened, with the way out named;
-    with --device cpu the CLI goes on to open it (here one that does not
-    exist, so that it fails there)."""
+    """Reads longer than the CUDA kernels take (K13: 1024 bases) are
+    refused on the card before the database is opened, with the limit and
+    the way out named; with --device cpu the CLI goes on to open it (here
+    one that does not exist, so that it fails there)."""
     fa = tmp_path / "long.fa"
-    fa.write_text(">r\n" + "ACGT" * 150 + "\n")
+    fa.write_text(">r\n" + "ACGT" * 256 + "A\n")
     args = ["-D", str(tmp_path), "-d", "absent", str(fa)]
     assert tcli.main(args) == 2
     err = capsys.readouterr().err
-    assert "512" in err and "--device cpu" in err
+    assert "1025" in err and "(1024)" in err and "--device cpu" in err
     with pytest.raises(OSError):
         tcli.main(args + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize("lmax", [1024, 1025])
+def test_runner_long_reads_on_the_card(monkeypatch, lmax):
+    """GsnapRunner on the card refuses reads longer than the CUDA kernels
+    take, naming the limit, before it uploads anything; at the limit it
+    goes on (here to the database, which is None, where it fails)."""
+    monkeypatch.setattr(trun, "resolve_device",
+                        lambda d: torch.device("cuda"))
+    params = trun.gsnap_se.GsnapParams()
+    if lmax > 1024:
+        with pytest.raises(ValueError, match=r"1025 bases.*\(1024\)"):
+            trun.GsnapRunner(None, params, lmax=lmax)
+    else:
+        with pytest.raises(AttributeError):
+            trun.GsnapRunner(None, params, lmax=lmax)

@@ -6,6 +6,8 @@ On a machine with a card (and no JAX, whose import tests/conftest.py
 needs):  python -m pytest tests/test_torch_kernels.py --noconftest -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -780,6 +782,80 @@ def test_solve_splices_edges_match_plain(cuda, nc, novel, with_known):
     _equal([gg._solve_splices_cuda(*args)[k] for k in gg._SPLICE_KEYS],
            [want[k] for k in gg._SPLICE_KEYS])
     assert want["valid"].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [75, 100, 150, mmo.CUDA_MAX_READ_LENGTH])
+def test_prefix_mismatches_edges_match_plain(cuda, monkeypatch, L):
+    """K3 on synth.prefix_mismatch_cases: 37 x 24 placements (the last
+    tile cut short), INVALID diagonals and diagonals at and past the
+    genome end, genome N runs and query Ns, reads of 1, 15, 16 and 17 nt;
+    every conversion, with and without an alt genome, under both N
+    rules."""
+    case = synth.prefix_mismatch_cases(np.random.default_rng(L), 37, 24, L)
+    tg = convert.genome_from_host(case["gcodes"], case["gflags"],
+                                  [len(case["gcodes"])], cuda)
+    t = {k: torch.from_numpy(v).to(cuda) for k, v in case.items()}
+    q = se._pack_device_plain(t["codes"], t["nflags"], t["lengths"], L)
+    alt = (tg.ref16.flip(0).contiguous(), tg.flag16)
+    for qunk, gunk in ((False, True), (True, False)):
+        monkeypatch.setattr(mmo, "QUERY_UNK_MISMATCH", qunk)
+        monkeypatch.setattr(mmo, "GENOME_UNK_MISMATCH", gunk)
+        for conv in (None, "ct", "ga", "ag", "tc"):
+            for a in (None, alt):
+                args = (tg, q, t["diags"], t["lengths"], conv, a)
+                _equal(mmo._prefix_mismatches_cuda(*args),
+                       mmo._prefix_mismatches_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [75, 100, 150, mmo.CUDA_MAX_READ_LENGTH])
+@pytest.mark.parametrize("min_end", [0, 4, 60])
+def test_solve_indels_edges_match_plain(cuda, L, min_end):
+    """K4 on synth.indel_pair_cases: insertions of every shift 1-9,
+    deletions of 1, 2, 30 and 31, differences that wrap in uint32 and
+    int32, pairs of a read naming the same rows (and one row twice), a
+    candidate only at s = L (min_end 0), ties in total, rows without
+    mismatches (no candidate: nmm1 at GSNAP_BIG_SCORE's split), min_end
+    past half the read; with and without the seed-order gate."""
+    case = synth.indel_pair_cases(np.random.default_rng(L + min_end), 64,
+                                  32, 16, L)
+    t = {k: torch.from_numpy(v).to(cuda) for k, v in case.items()}
+    for gate in (True, False):
+        args = (t["top_d"], t["mm"], t["pref"], t["ii"], t["jj"],
+                t["pvalid"], t["lengths"], t["budget"], L,
+                t["qp5"] if gate else None, t["qp3"] if gate else None, 9,
+                30, min_end)
+        want = gg._solve_indels_plain(*args)
+        _equal([gg._solve_indels_cuda(*args)[k] for k in gg._INDEL_KEYS],
+               [want[k] for k in gg._INDEL_KEYS])
+        assert want["valid"].any() or min_end == 60
+
+
+@pytest.mark.cuda
+def test_align_batch_gapped_long_reads_cuda_equals_cpu(cuda):
+    """align_batch_gapped at -N 1 on reads of 513 to 1024 nt (K3 loops
+    over a row's words; K1, K13 and the rest at their limits), the card
+    against the CPU plain path."""
+    rng = np.random.default_rng(29)
+    g = synth.make_genome(rng, [400_000, 250_000])
+    db = synth.genome_db(g, 12, 3)
+    recs, _ = synth.plant_spliced_reads(rng, g, 64,
+                                        L=mmo.CUDA_MAX_READ_LENGTH)
+    cut = rng.integers(513, mmo.CUDA_MAX_READ_LENGTH + 1, len(recs))
+    recs = [dataclasses.replace(r, seq=r.seq[:n], quality=r.quality[:n])
+            for r, n in zip(recs, cut)]
+    enc = trun.encode_batch(recs, mmo.CUDA_MAX_READ_LENGTH)
+    gp = gg.GappedParams(base=se.GsnapParams(seed_total=512),
+                         novelsplicing=True)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        tg = convert.genome_from_host(db.codes, db.flags, db.chr_ends, dev)
+        ti = convert.index_from_arrays(db.offsets, db.positions, 12, 3, dev)
+        outs.append(gg.align_batch_gapped(
+            tg, ti, *(torch.from_numpy(x).to(dev) for x in enc), gp))
+    _dict_equal({k: v.cpu() for k, v in outs[0].items()}, outs[1])
+    assert int((outs[1]["npaths"] > 0).sum()) > len(recs) // 2
 
 
 # ------------------------------- K17 and K8's overflow-gate epilogue

@@ -1,15 +1,19 @@
 """Time the redesigned kernels of one checkout of the port on the card —
-K13 (lane_features), K5 (solve_splices), K6 (select_triples, beside its
-library sort), K7 (solve_doublesplices) and K16 (select_pairs, beside its
-library sort) — so that two versions can be compared within one call
-(run it for each tree in turns: old, new, new, old).
+K3 (prefix_mismatches, with and without an alt genome), K4
+(solve_indels), K13 (lane_features), K5 (solve_splices), K6
+(select_triples, beside its library sort), K7 (solve_doublesplices) and
+K16 (select_pairs, beside its library sort) — so that two versions can
+be compared within one call (run it for each tree in turns: old, new,
+new, old).
 
 The inputs are those of an -N 1 batch: planted RNA reads (2048, both
 strands: 4096 rows) over a synthetic genome, seeded, voted and verified
 by the plain stages, at NC=32 (the -N 1 runner's seed budget) and at
-W=4096, NC=128; K13 on K3's mask at both, L=100, k=12, interval 3, trim
-score -3; K5 on 16 splice pairs a read and K7 on 8 triples, without and
-with known-site masks (sparse and dense random bits, novel on and, with
+W=4096, NC=128; K3 on their diagonals (the alt genome: the genome's
+words reversed); K4 on 16 indel pairs a read (max_ins 9, max_del 30,
+min_end 4, the seed-order gate); K13 on K3's mask at both, L=100, k=12,
+interval 3, trim score -3; K5 on 16 splice pairs a read and K7 on 8
+triples, without and with known-site masks (sparse and dense random bits, novel on and, with
 dense bits, off); K16 under both rules with 16 pairs, and on
 synth.diag_pair_rows' edge rows (1024 rows, NC 3 to 128, maxpairs 16 and
 1024).  Times are torch.profiler device time per call, as chip_smoke.py
@@ -21,7 +25,7 @@ wall per call to torch.cuda.synchronize(), the median of 20 after two
 warm-up calls.  Prints one JSON line.
 
     python tools/time_kernels.py [--root DIR] [--mbp 16] [--reads 2048]
-        [--only lane_features solve_splices ...]
+        [--only prefix_mismatches solve_indels ...]
 """
 
 from __future__ import annotations
@@ -37,8 +41,9 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-KERNELS = ("lane_features", "solve_splices", "select_triples",
-           "solve_doublesplices", "select_pairs", "cascade")
+KERNELS = ("prefix_mismatches", "solve_indels", "lane_features",
+           "solve_splices", "select_triples", "solve_doublesplices",
+           "select_pairs", "cascade")
 
 
 def main() -> int:
@@ -131,12 +136,29 @@ def main() -> int:
               cost)
 
     lf_keys = ("cand_mm",) + gg._LANE_FEATURE_KEYS
+    alt = (tg.ref16.flip(0).contiguous(), tg.flag16)
     for st, nc in ((512, 32), (4096, 128)):
         p = se.GsnapParams(seed_total=st, ncand=nc)
-        top_d, votes, _ = se._top_diagonals_plain(
-            se._seed_diagonals_plain(ti, c, f, ln, p, True)[0], nc)
+        diag, qgrid = se._seed_diagonals_plain(ti, c, f, ln, p, True)[:2]
+        top_d, votes, _ = se._top_diagonals_plain(diag, nc)
         mm, pref = mmo._prefix_mismatches_plain(tg, q, top_d, ln, None, None)
         shape = f"W={st} NC={nc}"
+        if "prefix_mismatches" in args.only:
+            for label, a in (("", None), (" alt", alt)):
+                timed(f"prefix_mismatches{label} {shape}",
+                      lambda a=a: mmo._prefix_mismatches_cuda(
+                          tg, q, top_d, ln, None, a),
+                      lambda a=a: mmo._prefix_mismatches_plain(
+                          tg, q, top_d, ln, None, a),
+                      smoke._prefix_cost(q, top_d, ln, 100, a))
+        if "solve_indels" in args.only:
+            ii, jj, pv = gg._select_pairs_plain(
+                top_d, votes, gg._indel_pairs_eligible(30, 9), 16)
+            qp5, qp3 = se._qpos_ranges_plain(diag, qgrid, top_d)
+            kargs = (top_d, mm, pref, ii, jj, pv, ln, budget, 100, qp5, qp3,
+                     9, 30, 4)
+            solver("solve_indels", gg._INDEL_KEYS, shape, kargs,
+                   smoke._indel_cost(torch, kargs))
         if "lane_features" in args.only:
             largs = (mm, ln, 12, 3, -3)
             timed(f"lane_features {shape}",
