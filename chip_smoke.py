@@ -4,8 +4,8 @@
     python3 chip_smoke.py [--mbp 100] [--reads 8192] [--pairs 8192]
                           [--batch 2048]
 
-Runs in about 16 minutes on one H100 (build, the database tools, eight
-paths, the gsnap CLI, checks, timings).
+Runs in 12 to 16 minutes on one H100, as its host's CPU allows (build,
+the database tools, eight paths, the gsnap CLI, checks, timings).
 
 Needs one CUDA device; exits nonzero, printing no result, without one.
 Every path runs gsnap's default --gmap-mode (pairsearch,
@@ -78,8 +78,13 @@ and ends the run with a nonzero exit):
      no-mismatch masks, reads shorter than lmax, a trim score beyond the
      read length), exact duplicate
      candidates and equal (score, left) on both strands, INVALID
-     diagonals and seed slots, diagonals near 2^31 and 2^32 under both
-     pair rules and synth.diag_pair_rows (no or few eligible pairs, equal
+     diagonals and seed slots, synth.qpos_range_cases (repeated and
+     INVALID selected diagonals, all-INVALID rows, diagonals 0 and
+     0xFFFFFFFE, qpos not monotone; W 1 to 4096) for K15,
+     synth.triple_cases (clusters, wrapping differences, equal and zero
+     votes, all-INVALID rows, sums at the key's width; NC 2 to 128,
+     maxdist 0, 1, 200,000 and 2^32 - 1, T 1, 8 and 4 NC) for K6,
+     diagonals near 2^31 and 2^32 under both pair rules and synth.diag_pair_rows (no or few eligible pairs, equal
      vote sums, sums at K16's key width; NC 3 to 128, maxpairs up to
      NC^2)); K7 on synth.doublesplice_cases (more than 8 candidates a
      junction, sites at s = 2 and len - 2, diagonals 63 and 64, at the
@@ -163,9 +168,9 @@ and ends the run with a nonzero exit):
      and the CUDA run of that subset must launch K9/K10 and convert at
      least one GMAP candidate hit (paths 5 and 6: launch K5-K7, with
      SNP-heavy and short-end reads in the subset); and 256 planted RNA
-     reads of 513 to 1024 nt (the longest the card takes) through
-     align_batch_gapped at -N 1: every output equal to the CPU plain
-     path's, K1-K7 and K13-K17 launched;
+     reads of 513 to 4,096 nt through align_batch_gapped at -N 1 (the
+     card takes up to ops/mismatch.CUDA_MAX_READ_LENGTH bases): every
+     output equal to the CPU plain path's, K1-K7 and K13-K17 launched;
   6b. the gsnap CLI on the card: python -m gmap_gsnap_tpu_torch.cli.gsnap
      -D <dir> -d syn as a subprocess on the first 2048 reads or pairs of
      path 1 (SE -N 0), path 4 (PE -N 1, two FASTQ files), path 5 (-N 1 -s
@@ -182,8 +187,10 @@ and ends the run with a nonzero exit):
      its plain version's (and its library call's) on the same clock: K1-K4,
      K6 and K8 at every shape and variant, K2, K6 and K14 at every shape
      and K16 on every strand batch under both rules (its edge rows once),
-     each with its own library sort and bound, K5, K7, K9-K13, K15 and
-     K17 at their first shape; the number of device ops one K14 call runs
+     each with its own library sort and bound, K15 at W=384 / NC=32 and
+     W=4096 / NC=128, K5, K7, K9-K13 and K17 at their first shape (K10-K12
+     over one call a profile); each timing line and phase with the wall
+     clock since the start and the seconds it took; the number of device ops one K14 call runs
      (1: its fields are
      gathered inside it); then profiles of the SE -N 1 and PE -N 1 runs
      (device busy share, top device ops), measured last so that the
@@ -200,7 +207,7 @@ larger of the bytes it must move over 3.35 TB/s and its operations over
 is lower (64 int32 lanes per SM against 128 float32), so the operations
 term is an underestimate; bound_by says which) and the time of one PyTorch
 call computing the same function where there is one (library_ms, else
-null); K2, K6, K14 and K16 also list every timed shape under "shapes" with its
+null); K2, K6, K14, K15 and K16 also list every timed shape under "shapes" with its
 own times, library time and bound; then the nvidia-smi line, then
 {"ok": true, "device": {...}} last.
 """
@@ -229,19 +236,27 @@ SPLICE_KERNELS = ("gsnap_solve_splices", "gsnap_select_triples",
 PAIR_KERNELS = ("gsnap_pair_grid",)
 GMAP_KERNELS = ("gmap_seed_segments", "gmap_chain")
 DYNPROG_KERNELS = ("gmap_banded_gotoh", "gmap_bridge_traceback")
-# checks timed at their first shape only (K5, K7, K9-K13, K15, K17;
+# checks timed at their first shape only (K5, K7, K9-K13, K17;
 # tools/time_kernels.py times K5 and K7 at both shapes, with and without
 # known-site masks)
 FIRST_SHAPE_ONLY = ("solve_splices", "solve_doublesplices", "seed_segments",
                     "chain", "banded_gotoh", "bridge_traceback",
-                    "lane_features", "qpos_ranges", "pack_queries")
+                    "lane_features", "pack_queries")
 # kernels timed at every shape with their own library call and bound
 PER_SHAPE = ("top_diagonals", "select_triples", "rank_hits",
-             "select_pairs")
-# of those, the checks timed at every shape (K16: both rules on every
+             "select_pairs", "qpos_ranges")
+# of those, the ones timed at these shapes alone (K15 at the main and the
+# wide lane's seed grid: W = 384, NC = 32 and W = 4096, NC = 128)
+ONLY_SHAPES = {"qpos_ranges": ("SE -N 0 both strands NC=32",
+                               "SE -N 0 wide both strands NC=128")}
+# of PER_SHAPE's, the checks timed at every shape (K16: both rules on every
 # strand batch; its edge rows are timed once, as the other kernels' are,
 # and at every shape by tools/time_kernels.py)
 EVERY_CHECK = ("select_pairs", "select_pairs/splice")
+# checks timed over one call a profile, not five: the plain versions of
+# K10-K12 run thousands of small torch ops a call, and five calls' events
+# took the profiler 32-216 s a line to gather (an H100 run's clock)
+ONE_REP = ("chain", "banded_gotoh", "bridge_traceback")
 # K13-K16: trims and lane features, ranking (+ the SE gates), seed qpos
 # ranges, pair selection — every path runs them
 # K17 the read packing and reverse complement at the head of the cascade
@@ -254,6 +269,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 CLI_READS = 2048     # reads or pairs of each path the gsnap CLI aligns
 NATIVE_READS = 256   # reads or pairs of each -A gsnap GPU-vs-CPU check
 LONG_READS = 256     # reads of 513 nt and longer, card against CPU
+LONG_LMAX = 4096     # the longest of them
 CASCADE_PASSES = 5   # passes of a main path's device cascade alone
 MEM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 # the float32 rate outside the tensor cores, the nearest published rate
@@ -302,6 +318,28 @@ def _pair_sort(torch, se, top_d, votes, eligible):
         return torch.sort(neg[0], dim=1, stable=True)
 
     return sort
+
+
+def _triple_cost(top_d, votes, maxdist: int, T: int):
+    """K6's cost (bytes, operations), counting the work its range design
+    needs on these inputs: the read's NC diagonals and votes in, 3 int64
+    and a bool out for each of its T triples; the sort of a read's n valid
+    diagonals (n log2 n compares), a binary search at each end of each
+    valid middle's predecessor and successor ranges (4 log2 n), one top-2
+    update (2 compares) at each end of each eligible edge, and the
+    selection of T of the 4 NC keys (4 NC log2(4 NC))."""
+    b, nc = top_d.shape
+    nbytes = _nbytes(top_d, votes) + b * T * 25
+    ok = top_d != 0xFFFFFFFF  # INVALID_DIAG
+    nv = ok.sum(1).double()
+    ops = float((5 * nv * nv.clamp(min=2).log2()).sum())
+    ops += b * 4 * nc * math.log2(4 * nc)
+    for r in range(0, b, 256):  # eligible edges, 256 reads at a time
+        d, o = top_d[r:r + 256], ok[r:r + 256]
+        step = (d[:, None, :] - d[:, :, None]) & 0xFFFFFFFF
+        ops += 4 * int(((step >= 1) & (step <= maxdist) & o[:, :, None]
+                        & o[:, None, :]).sum())
+    return nbytes, ops
 
 
 def _triple_sort(torch, se, top_d, votes, maxdist: int):
@@ -426,6 +464,16 @@ def _doublesplice_cost(torch, dargs):
     return lambda out: (_nbytes(dargs[3:9], out) + rows,
                         _doublesplice_ops(torch, top_d, ti, tm, tj, L,
                                           novel))
+
+
+_T0 = time.time()  # the script's start, for _clock
+
+
+def _clock(since: float | None = None) -> str:
+    """The wall clock since the script started, and since ``since``."""
+    now = time.time()
+    return (f"[{now - _T0:.1f} s" + (f", +{now - since:.1f} s"
+                                      if since is not None else "") + "]")
 
 
 def _call_ms(fn, reps: int = 5) -> float:
@@ -1095,9 +1143,11 @@ def _stage_edges(torch, gg, se, synth, rng, dev, base):
     mismatches, a trim score beyond the read; K13), exact duplicate
     candidates and equal (score, left) on both strands with maxout above
     the candidate count, and synth.rank_hit_edges' rows (K14), INVALID
-    diagonals and seed slots (K15), diagonals near 2^31 and 2^32 under
-    both rules and synth.diag_pair_rows at NC 3 to 128, maxpairs up to
-    NC^2 (K16), synth.diag_vote_rows at W off a power of two and ncand
+    diagonals and seed slots and synth.qpos_range_cases at W 1 to 4096
+    (K15), synth.triple_cases at NC 2 to 128 (K6), synth.diag_vote_rows
+    at W = 40,000 (K2's path for rows past 32,768 slots), diagonals near
+    2^31 and 2^32 under both rules and synth.diag_pair_rows at NC 3 to
+    128, maxpairs up to NC^2 (K16), synth.diag_vote_rows at W off a power of two and ncand
     equal to W (K2), synth.prefix_mismatch_cases (K3) and
     synth.indel_pair_cases (K4) at L 75, 100, 150 and 1024, and
     synth.splice_pair_cases (K5) and synth.doublesplice_cases (K7) at NC
@@ -1151,6 +1201,15 @@ def _stage_edges(torch, gg, se, synth, rng, dev, base):
             partial(se._top_diagonals_plain, d, nc),
             lambda out, d=d: (_nbytes(d, out),
                               d.numel() * math.log2(d.shape[1])), None))
+    # K2's path for rows past 32,768 slots (the runner's exact seed grid
+    # of reads past ~4,100 bases); its own generator
+    wd = t(synth.diag_vote_rows(np.random.default_rng(13), 128, 40000, 128))
+    checks.append(("top_diagonals/wide rows", "128 rows W=40000 NC=128",
+                   partial(se._top_diagonals_cuda, wd, 128),
+                   partial(se._top_diagonals_plain, wd, 128),
+                   lambda out: (_nbytes(wd, out),
+                                wd.numel() * math.log2(wd.shape[1])),
+                   partial(torch.sort, wd, dim=1, stable=True)))
     top, votes = (t(x) for x in synth.diag_pair_cases(rng, 1024, 32))
     grid = top.repeat(1, 12)
     qgrid = torch.arange(grid.shape[1], device=dev, dtype=torch.int32
@@ -1160,6 +1219,29 @@ def _stage_edges(torch, gg, se, synth, rng, dev, base):
                    partial(se._qpos_ranges_plain, grid, qgrid, top),
                    lambda out: (_nbytes(grid, qgrid, top, out), grid.numel()),
                    None))
+    # K15 on synth.qpos_range_cases (repeated and INVALID selected
+    # diagonals, all-INVALID rows, diagonals 0 and 0xFFFFFFFE, qpos not
+    # monotone; W off a multiple of 4) and K6 on synth.triple_cases
+    # (clusters, wrapping differences, equal and zero votes, all-INVALID
+    # rows, sums at the key's width) at maxdist 0, 1 and 2^32 - 1 and T =
+    # 1, 8 and 4 NC; their own generator
+    qrng = np.random.default_rng(12)
+    for w, p in ((1, 1), (33, 32), (384, 32), (385, 1), (4096, 128)):
+        a = tuple(t(x) for x in synth.qpos_range_cases(qrng, 1024, w, p))
+        checks.append(("qpos_ranges/edges", f"cases W={w} P={p}",
+                       partial(se._qpos_ranges_cuda, *a),
+                       partial(se._qpos_ranges_plain, *a),
+                       lambda out, a=a: (_nbytes(a, out), a[0].numel()),
+                       None))
+    for nc in (2, 3, 31, 32, 33, 64, 128):
+        top3, votes3 = (t(x) for x in synth.triple_cases(qrng, 1024, nc))
+        for maxdist, T in ((0, 8), (1, 1), (200_000, 8), (2**32 - 1, 4 * nc)):
+            checks.append((
+                "select_triples/edges", f"NC={nc} maxdist={maxdist} T={T}",
+                partial(gg._select_triples_cuda, top3, votes3, maxdist, T),
+                partial(gg._select_triples_plain, top3, votes3, maxdist, T),
+                lambda out, a=(top3, votes3, maxdist, T): _triple_cost(*a),
+                None))
     rules = (("indel", (0, 30, 9), gg._indel_pairs_eligible(30, 9)),
              ("splice", (1, 200_000, 0), gg._splice_pairs_eligible(200_000)),
              ("splice 2^31+5", (1, 2**31 + 5, 0),
@@ -1224,7 +1306,7 @@ def _stage_edges(torch, gg, se, synth, rng, dev, base):
                 mmo.QUERY_UNK_MISMATCH, mmo.GENOME_UNK_MISMATCH = saved
         return call
 
-    for L in (75, 100, 150, mmo.CUDA_MAX_READ_LENGTH):
+    for L in (75, 100, 150, 1024):
         case = synth.prefix_mismatch_cases(krng, 257, 24, L)
         g = convert.genome_from_host(case["gcodes"], case["gflags"],
                                      [len(case["gcodes"])], dev)
@@ -1521,7 +1603,8 @@ def main(argv=None) -> int:
     # 2. build the kernels
     kbuild.library()
     print(f"build: {kbuild.build_seconds:.1f} s (nvcc {kbuild.NVCC_FLAGS[1]}, "
-          f"{len(kbuild._SIGNATURES)} kernels)",
+          f"{len(kbuild._SIGNATURES)} entry points: seventeen kernels, K2 "
+          f"with a second for wide rows)",
           flush=True)
     for line in kbuild.build_log.splitlines():
         if "Used" in line:
@@ -1839,7 +1922,7 @@ def main(argv=None) -> int:
                      gg._SHORTEXON_KEYS)),
         ]
         costs.setdefault("solve_splices", _splice_cost(torch, sargs))
-        k6_cost = lambda out, t=top_d, v=votes: (_nbytes(t, v, out), 0)
+        k6_cost = lambda out, t=top_d, v=votes: _triple_cost(t, v, sdist, 8)
         costs.setdefault("select_triples", k6_cost)
         shape_costs[("select_triples", shape)] = k6_cost
         library[("select_triples", shape)] = _triple_sort(torch, se, top_d,
@@ -2093,14 +2176,15 @@ def main(argv=None) -> int:
     library_ms, per_shape = {}, {}
 
     def shape_time(name, shape, fk, fp, lib, bound):
+        t0 = time.time()
         ms, clock, calls = _timed(fk, fp, *([lib] if lib else []))
         lib_ms = ms[2] if lib else None
         print(f"kernel {name:20s} {shape:22s}: {clock} time cuda "
               f"{ms[0]:.4f} ms, plain torch {ms[1]:.4f} ms"
               + (f", library {lib_ms:.4f} ms" if lib else "")
               + f", bound {bound[0]:.5f} ms ({bound[1]})"
-              + f"; per call (events) {calls[0]:.4f} / {calls[1]:.4f} ms",
-              flush=True)
+              + f"; per call (events) {calls[0]:.4f} / {calls[1]:.4f} ms "
+              + _clock(t0), flush=True)
         times.setdefault(name, (ms[0], ms[1], clock))
         if lib:
             library_ms.setdefault(name, lib_ms)
@@ -2109,7 +2193,8 @@ def main(argv=None) -> int:
             "library_ms": lib_ms, "bound_ms": bound[0],
             "bound_by": bound[1], "clock": clock})
         return clock
-    print(f"kernel checks at {time.time() - t_start:.1f} s", flush=True)
+    print(f"kernel checks at {time.time() - t_start:.1f} s {_clock()}",
+          flush=True)
     for name, shape, fk, fp in checks:
         want = fp()
         err = _max_abs_err(fk(), want)
@@ -2223,7 +2308,8 @@ def main(argv=None) -> int:
     t_modes = time.time()
     builds = {k: _start_tool(f"{k}index", "-D", tmp, "-d", "syn")
               for k in ("cmet", "atoi")}
-    print(f"CPU plain paths at {time.time() - t_start:.1f} s", flush=True)
+    print(f"CPU plain paths at {time.time() - t_start:.1f} s {_clock()}",
+          flush=True)
     nsub, npairs = min(512, len(records)), min(256, len(p1))
     for label, novel, run_cuda, run in (
             ("SE -N 0", False, runner,
@@ -2256,12 +2342,13 @@ def main(argv=None) -> int:
               f"candidate hits ({counts['final']} in final hit lists, "
               f"{counts['pairs']} in rescued pairs; launches {gmap})",
               flush=True)
-    # reads of 513 nt to the longest the card takes (K3 looping over a
-    # row's words, K1 and K13 near their limits): align_batch_gapped at -N
-    # 1 on the card against the CPU plain path, on the genome and index
-    # those CPU runners loaded; its own generator
+    # reads of 513 to 4,096 nt (K3 looping over a row's words, K1 with
+    # 4,000 k-mers in dynamic shared memory, K13's wide keys and staging,
+    # K5 and K7 with fewer warps a CTA): align_batch_gapped at -N 1 on
+    # the card against the CPU plain path, on the genome and index those
+    # CPU runners loaded; its own generator
     lrng = np.random.default_rng(args.seed + 1)
-    lmax = mmo.CUDA_MAX_READ_LENGTH
+    lmax = LONG_LMAX
     long_recs, _ = synth.plant_spliced_reads(lrng, genome, LONG_READS,
                                              L=lmax, prefix="long")
     long_recs = [dataclasses.replace(r, seq=r.seq[:n], quality=r.quality[:n])
@@ -2381,7 +2468,8 @@ def main(argv=None) -> int:
         t_write[k] = time.time() - t_modes
         made_by[k] = sorted(f for f in set(os.listdir(dbdir)) - before
                             if tag in f)
-    print(f"CLI runs at {time.time() - t_start:.1f} s", flush=True)
+    print(f"CLI runs at {time.time() - t_start:.1f} s {_clock()}",
+          flush=True)
     cli_run("SE -N 0", N0_KERNELS + STAGE_KERNELS + GMAP_KERNELS, records,
             runner, [], optional=DYNPROG_KERNELS)
     cli_run("PE -N 1", ALL_KERNELS, rp1, runner_n1, ["-N", 1], rp2)
@@ -2524,7 +2612,8 @@ def main(argv=None) -> int:
 
     # 7. kernel and plain-version times, and the -N 1 profiles, last, so
     # that the profiler cannot perturb the main paths' timing
-    print(f"timing phase at {time.time() - t_start:.1f} s", flush=True)
+    print(f"timing phase at {time.time() - t_start:.1f} s {_clock()}",
+          flush=True)
     n_events = 0
     for name, shape, fk, fp in checks:
         # K1-K4, K6 and K8 are timed at every shape and variant (a name's
@@ -2541,6 +2630,8 @@ def main(argv=None) -> int:
                 (once and (variant or name in times))
                 or (variant and name in times)):
             continue
+        if name in ONLY_SHAPES and shape not in ONLY_SHAPES[name]:
+            continue
         if base in PER_SHAPE:
             cost = shape_costs.get((name, shape))
             bound = _bound(*cost(fp())) if cost else bounds[name]
@@ -2549,13 +2640,15 @@ def main(argv=None) -> int:
                                    bound) == "events"
             continue
         lib = library.get(name) if name not in times else None
-        ms, clock, calls = _timed(fk, fp, *([lib] if lib else []))
+        t0 = time.time()
+        ms, clock, calls = _timed(fk, fp, *([lib] if lib else []),
+                                  reps=1 if base in ONE_REP else 5)
         n_events += clock == "events"
         print(f"kernel {name:20s} {shape:22s}: {clock} time cuda "
               f"{ms[0]:.4f} ms, plain torch {ms[1]:.4f} ms"
               + (f", library {ms[2]:.4f} ms" if lib else "")
-              + f"; per call (events) {calls[0]:.4f} / {calls[1]:.4f} ms",
-              flush=True)
+              + f"; per call (events) {calls[0]:.4f} / {calls[1]:.4f} ms "
+              + _clock(t0), flush=True)
         times.setdefault(name, (ms[0], ms[1], clock))
         if lib:
             library_ms[name] = ms[2]
@@ -2575,7 +2668,8 @@ def main(argv=None) -> int:
         if nops is not None and nops != 1:
             raise SystemExit(f"_rank_hits_cuda ({what}) ran {nops} device "
                              f"ops, expected its one kernel")
-    print(f"profiles at {time.time() - t_start:.1f} s", flush=True)
+    print(f"profiles at {time.time() - t_start:.1f} s {_clock()}",
+          flush=True)
     _profile_run(torch, lambda: runner_n1.run(rna, io.StringIO(),
                                               batch_size=args.batch),
                  "SE -N 1")

@@ -27,6 +27,7 @@ from dataclasses import dataclass
 import torch
 
 from ..kernels import build as kbuild
+from ..kernels import limits as klimits
 from ..ops import genome as genome_ops
 from ..ops import maxent
 from ..ops import mismatch as mm_ops
@@ -185,18 +186,13 @@ _LANE_FEATURE_KEYS = (
     "lane_nmm_tt", "lane_nmm_0t3", "lane_nmm_t50")
 
 
-# the longest read K13 takes (its trim keys hold a position in 10 bits),
-# and so the longest any CUDA path takes (ops/mismatch.CUDA_MAX_READ_LENGTH)
-LANE_FEATURES_MAX_L = 1024
-
-
 def _lane_features_cuda(mm, lengths, k: int, interval: int,
                         trim_mm_score: int):
     r, kc, L = mm.shape
-    if k > 32 or L > LANE_FEATURES_MAX_L:
+    if k > 32 or L > klimits.LANE_FEATURES_MAX_L:
         raise ValueError(f"the lane_features kernel takes k <= 32 and reads "
-                         f"of at most {LANE_FEATURES_MAX_L} bases, got k={k}, "
-                         f"L={L}")
+                         f"of at most {klimits.LANE_FEATURES_MAX_L} bases, "
+                         f"got k={k}, L={L}")
     dev = mm.device
     feats = {key: torch.empty((r, kc), dtype=torch.bool
                               if key == "lane_present" else torch.int32,
@@ -773,7 +769,9 @@ def select_triples(top_d, votes, maxdist: int, ntriples: int):
     desc, index asc; ineligible = -1, as lax.top_k ranks them) give 4
     combinations; the NC * 4 sums (-1 unless both exist) are ranked by a
     stable descending sort and the first ``ntriples`` kept.  Returns (ti,
-    tm, tj int64[B, T], valid bool[B, T])."""
+    tm, tj int64[B, T], valid bool[B, T]).  The kernel takes votes in
+    [0, 2^23 - 2] summed (K2's are): a negative vote of a valid diagonal
+    or a larger sum stops it with a trap."""
     ntriples = min(ntriples, 4 * top_d.shape[1])
     if top_d.device.type == "cpu":
         return _select_triples_plain(top_d, votes, maxdist, ntriples)

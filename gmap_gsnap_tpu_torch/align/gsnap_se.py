@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..kernels import build as kbuild
+from ..kernels import limits as klimits
 from ..ops import genome as genome_ops
 from ..ops import mismatch as mm_ops
 from ..ops.genome import u32
@@ -194,8 +195,8 @@ def _seed_diagonals_cuda(index: IndexArrays, codes, nflags, lengths,
                          params: GsnapParams, half: bool):
     b, lmax = codes.shape
     s = lmax - index.k + 1
-    if s < 1 or s > 1024 or index.interval > 32:
-        raise ValueError(f"seed kernel: S={s} (1..1024), "
+    if s < 1 or s > klimits.SEED_MAX_S or index.interval > 32:
+        raise ValueError(f"seed kernel: S={s} (1..{klimits.SEED_MAX_S}), "
                          f"interval={index.interval} (<= 32)")
     w = _seed_grid_width(s, params)
     dev = codes.device
@@ -265,20 +266,41 @@ def _top_diagonals_plain(diag: torch.Tensor, ncand: int):
 TOP_DIAG_MAX_W = 32768
 # the kernel's shared memory holds the sorted row and the selected keys
 TOP_DIAG_MAX_NC = 16384
+# wider rows (the runner's exact seed grid for long reads) take the
+# kernel's wide path: votes and positions in 24 bits, the selected keys
+# sorted in shared memory, two scratch rows of uint32 a row
+TOP_DIAG_WIDE_MAX_W = (1 << 24) - 1
+TOP_DIAG_WIDE_MAX_NC = 1024
+TOP_DIAG_WIDE_SCRATCH = 1 << 28    # bytes of scratch a launch, at most
 
 
 def _top_diagonals_cuda(diag: torch.Tensor, ncand: int):
     b, w = diag.shape
-    if w > TOP_DIAG_MAX_W or ncand > min(w, TOP_DIAG_MAX_NC):
+    wide = w > TOP_DIAG_MAX_W
+    if (w > TOP_DIAG_WIDE_MAX_W or ncand > w
+            or ncand > (TOP_DIAG_WIDE_MAX_NC if wide else TOP_DIAG_MAX_NC)):
         raise ValueError(f"top_diagonals kernel: W={w} must be <= "
-                         f"{TOP_DIAG_MAX_W} and >= ncand={ncand}, and "
-                         f"ncand <= {TOP_DIAG_MAX_NC}")
+                         f"{TOP_DIAG_WIDE_MAX_W} and >= ncand={ncand}, and "
+                         f"ncand <= {TOP_DIAG_MAX_NC} "
+                         f"({TOP_DIAG_WIDE_MAX_NC} past W={TOP_DIAG_MAX_W})")
     dev = diag.device
     top_d = torch.empty((b, ncand), dtype=torch.int64, device=dev)
     votes = torch.empty((b, ncand), dtype=torch.int32, device=dev)
     ndistinct = torch.empty(b, dtype=torch.int32, device=dev)
-    kbuild.launch("gsnap_top_diagonals", dev, diag.contiguous(), top_d, votes,
-                  ndistinct, b, w, ncand)
+    diag = diag.contiguous()
+    if not wide:
+        kbuild.launch("gsnap_top_diagonals", dev, diag, top_d, votes,
+                      ndistinct, b, w, ncand)
+        return top_d, votes, ndistinct
+    # a launch a slice of rows, so that the scratch stays bounded
+    rows = max(1, TOP_DIAG_WIDE_SCRATCH // (8 * w))
+    scratch = torch.empty((min(rows, b), 2, w), dtype=torch.int32,
+                          device=dev)
+    for r0 in range(0, b, rows):
+        r1 = min(b, r0 + rows)
+        kbuild.launch("gsnap_top_diagonals_wide", dev, diag[r0:r1],
+                      top_d[r0:r1], votes[r0:r1], ndistinct[r0:r1], scratch,
+                      r1 - r0, w, ncand)
     return top_d, votes, ndistinct
 
 
@@ -311,8 +333,15 @@ def _qpos_ranges_plain(diag_grid, qpos_grid, d_sel):
     return torch.cat(qp5), torch.cat(qp3)
 
 
+# the kernel sorts a read's selected diagonals in one warp's registers
+QPOS_RANGES_MAX_P = 1024
+
+
 def _qpos_ranges_cuda(diag_grid, qpos_grid, d_sel):
     b, p = d_sel.shape
+    if p > QPOS_RANGES_MAX_P:
+        raise ValueError(f"qpos_ranges kernel: {p} selected diagonals, at "
+                         f"most {QPOS_RANGES_MAX_P}")
     dev = d_sel.device
     qp5 = torch.empty((b, p), dtype=torch.int32, device=dev)
     qp3 = torch.empty((b, p), dtype=torch.int32, device=dev)
@@ -328,7 +357,8 @@ def qpos_ranges(diag_grid, qpos_grid, d_sel):
     int64[B, W] and qpos_grid int32[B, W] (the unsorted seed grid of
     :func:`seed_diagonals`) and d_sel int64[B, P], (qp5, qp3) int32[B, P]:
     the min and max qpos of the slots whose diagonal equals d_sel (2^30
-    and -1 where none does)."""
+    and -1 where none does).  The kernel compares diagonals on 32 bits:
+    one outside [0, 2^32) (K1 and K2 make none) stops it with a trap."""
     if d_sel.device.type == "cpu":
         return _qpos_ranges_plain(diag_grid, qpos_grid, d_sel)
     if d_sel.device.type == "cuda":

@@ -481,7 +481,9 @@ class GsnapRunner:
                 and lmax > mismatch_mod.CUDA_MAX_READ_LENGTH):
             raise ValueError(f"reads of {lmax} bases are longer than the "
                              f"CUDA kernels take "
-                             f"({mismatch_mod.CUDA_MAX_READ_LENGTH})")
+                             f"({mismatch_mod.CUDA_MAX_READ_LENGTH}); align "
+                             f"them on the CPU (device='cpu', the CLI's "
+                             f"--device cpu)")
         self.known = None
         self._known_sites = None
         self._splice_labels = None

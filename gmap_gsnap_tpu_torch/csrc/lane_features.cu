@@ -44,6 +44,11 @@
 //      block's word of sampled starts; the first and last by __ffs / __clz.
 //   5. Each thread stores its 13 features: 32 consecutive values an array
 //      a warp.
+// Reads longer than kNarrowL = 1024 bases (kWide): the keys are 64-bit,
+// position in 20 bits, and a warp stages its rows kNarrowL bytes of each
+// at a time, so that the staging area stays 32 KB whatever L; the packed
+// mask is then stored a row a thread.  Reads up to kNarrowL take the
+// 32-bit keys and the whole-row staging above, unchanged.
 #include "common.cuh"
 
 namespace {
@@ -51,16 +56,23 @@ namespace {
 constexpr int kMaxWarps = 8;
 constexpr int kSmemMax = 232448;  // a CTA's opt-in shared memory
 constexpr int kBigPos = 1 << 30;
+constexpr int kNarrowL = 1024;    // the longest read of 32-bit trim keys
 
 __host__ __device__ inline int row_words(int L) { return (L + 31) / 32; }
 // the words of sampled starts, a 16-byte multiple
 __host__ __device__ inline int samp_words(int L) {
   return (row_words(L) + 1 + 3) / 4 * 4;
 }
-// bytes of a warp's staging area: its rows' 32 L mask bytes, and 48 past
-// them that the packing's unaligned word reads may touch (masked off)
+// bytes of a row a warp stages at a time: all of it, or kNarrowL bytes
+// of a longer read
+__host__ __device__ inline int stage_row(int L) {
+  return L > kNarrowL ? kNarrowL : L;
+}
+// bytes of a warp's staging area: its rows' 32 stage_row(L) mask bytes,
+// and 48 past them that the packing's unaligned word reads may touch
+// (masked off)
 __host__ __device__ inline int stage_bytes(int L) {
-  return (32 * L + 15) / 16 * 16 + 48;
+  return (32 * stage_row(L) + 15) / 16 * 16 + 48;
 }
 // 32-bit words of a warp's shared memory: the staging area, then for
 // each word of a row and one past its last (0) the 32 rows' mask words
@@ -79,6 +91,19 @@ __device__ __forceinline__ uint32_t low_bits(int n) {
   return n >= 32 ? 0xFFFFFFFFu : n <= 0 ? 0u : (1u << n) - 1u;
 }
 
+// the trims' keys: score and position in one integer (see step 3)
+template <bool kWide>
+struct TrimKey {
+  using T = int;
+  static constexpr int kShift = 10;  // positions below 1024
+};
+template <>
+struct TrimKey<true> {
+  using T = long long;
+  static constexpr int kShift = 20;  // positions below 2^20
+};
+
+template <bool kWide>
 __global__ void lane_features_kernel(
     const uint8_t* __restrict__ mm, const int32_t* __restrict__ lengths,
     int32_t* __restrict__ o_npos, int32_t* __restrict__ o_t5,
@@ -116,26 +141,43 @@ __global__ void lane_features_kernel(
   uint32_t* words = (uint32_t*)(stage + stage_bytes(L));  // [nw + 1][32]
   int32_t* cnt = (int32_t*)(words + 32 * (nw + 1));       // [nw + 1][32]
 
-  // 1. stage the rows' mask bytes
+  // 1. stage the rows' mask bytes (kWide: kNarrowL of each row at a time,
+  // each row's piece at lane * kNarrowL)
   const uint8_t* src = mm + row0 * L;
-  const int nbytes = nrows * L;
-  int done = 0;
-  if (((uintptr_t)src & 15) == 0) {
-    done = nbytes & ~15;
-    for (int i = lane; i < (nbytes >> 4); i += 32)
-      ((uint4*)stage)[i] = __ldg((const uint4*)src + i);
-  }
-  for (int i = done + lane; i < nbytes; i += 32) stage[i] = src[i];
-  __syncwarp();
-
-  // 2. pack the lane's row (bool bytes: bit 0), bits past L cleared
   const bool has = lane < nrows;
   const int64_t row = row0 + lane;
   const int La = has ? lengths[row / K] : 0;
-  for (int w = 0; w < nw; ++w) {
+  for (int c0 = 0; c0 < (kWide ? L : 1); c0 += kNarrowL) {
+  if (!kWide) {
+    const int nbytes = nrows * L;
+    int done = 0;
+    if (((uintptr_t)src & 15) == 0) {
+      done = nbytes & ~15;
+      for (int i = lane; i < (nbytes >> 4); i += 32)
+        ((uint4*)stage)[i] = __ldg((const uint4*)src + i);
+    }
+    for (int i = done + lane; i < nbytes; i += 32) stage[i] = src[i];
+  } else if ((L & 15) == 0 && ((uintptr_t)src & 15) == 0) {
+    for (int i = lane; i < nrows * (kNarrowL / 16); i += 32) {
+      const int r = i / (kNarrowL / 16), j = 16 * (i % (kNarrowL / 16));
+      if (c0 + j < L)
+        ((uint4*)stage)[i] =
+            __ldg((const uint4*)(src + (int64_t)r * L + c0 + j));
+    }
+  } else {
+    for (int i = lane; i < nrows * kNarrowL; i += 32) {
+      const int r = i / kNarrowL, j = i % kNarrowL;
+      if (c0 + j < L) stage[i] = src[(int64_t)r * L + c0 + j];
+    }
+  }
+  __syncwarp();
+
+  // 2. pack the lane's row (bool bytes: bit 0), bits past L cleared
+  const int wend = min(nw, (c0 + kNarrowL) / 32);
+  for (int w = c0 / 32; w < wend; ++w) {
     uint32_t word = 0;
     if (has) {
-      const int o = lane * L + 32 * w;
+      const int o = kWide ? lane * kNarrowL + 32 * w - c0 : lane * L + 32 * w;
       const uint32_t* sw = (const uint32_t*)stage + (o >> 2);
       const uint32_t r = 8u * (uint32_t)(o & 3);
       uint32_t x[9];
@@ -153,24 +195,37 @@ __global__ void lane_features_kernel(
     }
     words[w * 32 + lane] = word;
   }
+  __syncwarp();
+  }
   words[nw * 32 + lane] = 0u;
   __syncwarp();
-  // the packed bytes, written out through the staging area
   const int nby = (L + 7) / 8;
-  if (has)
-    for (int i = 0; i < nby; ++i)
-      stage[lane * nby + i] =
-          (uint8_t)(words[(i >> 2) * 32 + lane] >> (8 * (i & 3)));
-  __syncwarp();
-  uint8_t* dst = o_packed + row0 * nby;
-  const int pbytes = nrows * nby;
-  done = 0;
-  if (((uintptr_t)dst & 3) == 0) {
-    done = pbytes & ~3;
-    for (int i = lane; i < (pbytes >> 2); i += 32)
-      ((uint32_t*)dst)[i] = ((const uint32_t*)stage)[i];
+  if (!kWide) {
+    // the packed bytes, written out through the staging area
+    if (has)
+      for (int i = 0; i < nby; ++i)
+        stage[lane * nby + i] =
+            (uint8_t)(words[(i >> 2) * 32 + lane] >> (8 * (i & 3)));
+    __syncwarp();
+    uint8_t* dst = o_packed + row0 * nby;
+    const int pbytes = nrows * nby;
+    int done = 0;
+    if (((uintptr_t)dst & 3) == 0) {
+      done = pbytes & ~3;
+      for (int i = lane; i < (pbytes >> 2); i += 32)
+        ((uint32_t*)dst)[i] = ((const uint32_t*)stage)[i];
+    }
+    for (int i = done + lane; i < pbytes; i += 32) dst[i] = stage[i];
+  } else if (has) {
+    // a row a thread: its words, where the row starts on 4 bytes
+    uint8_t* dst = o_packed + row * nby;
+    int i = 0;
+    if (((uintptr_t)dst & 3) == 0)
+      for (; i + 4 <= nby; i += 4)
+        ((uint32_t*)dst)[i >> 2] = words[(i >> 2) * 32 + lane];
+    for (; i < nby; ++i)
+      dst[i] = (uint8_t)(words[(i >> 2) * 32 + lane] >> (8 * (i & 3)));
   }
-  for (int i = done + lane; i < pbytes; i += 32) dst[i] = stage[i];
 
   // mismatches below each word, and below any position
   int npos = 0;
@@ -185,35 +240,40 @@ __global__ void lane_features_kernel(
   };
 
   // 3. the trims over the active positions j < Lx, 8 a step.  P and its
-  // running min / max are kept times 1024, so that a mismatch's score
-  // and position make one key, score * 1024 + j (t3: the last maximum)
-  // or + 1023 - j (t5: the first), and a step is one max without a
-  // branch (the C entry keeps L <= 1024 and |score| <= L + 1: |P| * 1024
-  // < 2^31).  The forward walk's last step may pass Lx: those positions
+  // running min / max are kept times 2^s (s = kShift: 10, or 20 for
+  // kWide), so that a mismatch's score and position make one key, score *
+  // 2^s + j (t3: the last maximum) or + 2^s - 1 - j (t5: the first), and
+  // a step is one max without a branch (the C entry keeps |score| <= L +
+  // 1, so |P| <= (L + 1) L: |P| * 2^10 < 2^31 for L <= 1024 in 32 bits,
+  // |P| * 2^20 < 2^63 for L < 2^20 in 64).  The forward walk's last step may pass Lx: those positions
   // count as matches, which raises neither the prefix min nor a key, and
   // are taken off P after.  The backward walk's steps end at Lx and its
   // last may pass 0: positions below 0 count as matches too, which adds
   // nothing to max(T[1], 0).
   const int Lx = min(max(La, 0), L);
   const int nst = (Lx + 7) >> 3;
-  const int up = 1024, down = score * 1024;  // a match's and a mismatch's
-  int P = 0, Cm = 0, key3 = -1;              // (Cm[-1]: any value >= 0)
+  using Key = typename TrimKey<kWide>::T;
+  constexpr int kShift = TrimKey<kWide>::kShift;
+  constexpr Key kMask = ((Key)1 << kShift) - 1;
+  const Key up = (Key)1 << kShift;     // a match's
+  const Key down = (Key)score << kShift;  // and a mismatch's
+  Key P = 0, Cm = 0, key3 = -1;        // (Cm[-1]: any value >= 0)
   for (int g = 0; g < nst; ++g) {
     const uint32_t bits = (words[(g >> 2) * 32 + lane] >> (8 * (g & 3))) &
                           low_bits(Lx - 8 * g);
 #pragma unroll
     for (int b = 0; b < 8; ++b) {
       const bool m = bits & (1u << b);
-      const int key = max(P - Cm, 0) + 8 * g + b;
-      key3 = max(key3, m ? key : -1);
+      const Key key = max(P - Cm, (Key)0) + 8 * g + b;
+      key3 = max(key3, m ? key : (Key)-1);
       Cm = min(Cm, P);
       P += m ? down : up;
     }
   }
   P -= up * (8 * nst - Lx);                    // P[Lx] = P[L]
-  const int sfin3 = max(P - Cm, 0) >> 10;      // max(P[L] - Cm[L-1], 0)
-  int Pn = P, M = P;  // P[j + 1] and max(P[j + 2 ..]) (Tpad[L+1]: P[L])
-  int key5 = -1;
+  const Key sfin3 = max(P - Cm, (Key)0) >> kShift;  // max(P[L] - Cm[L-1], 0)
+  Key Pn = P, M = P;  // P[j + 1] and max(P[j + 2 ..]) (Tpad[L+1]: P[L])
+  Key key5 = -1;
   for (int g = 0; g < nst; ++g) {
     const int p = Lx - 8 * (g + 1);            // the step's lowest position
     const uint32_t bits =
@@ -223,16 +283,17 @@ __global__ void lane_features_kernel(
 #pragma unroll
     for (int b = 7; b >= 0; --b) {
       const bool m = bits & (1u << b);
-      const int key = max(M - Pn, 0) + 1023 - p - b;
-      key5 = max(key5, m ? key : -1);
+      const Key key = max(M - Pn, (Key)0) + kMask - p - b;
+      key5 = max(key5, m ? key : (Key)-1);
       M = max(M, Pn);
       Pn -= m ? down : up;
     }
   }
-  const int sfin5 = max(M, 0) >> 10;  // max(T[1], 0)
-  const int t5 =
-      key5 < 0 || sfin5 >= (key5 >> 10) ? 0 : 1023 - (key5 & 1023) + 1;
-  const int t3 = key3 < 0 || sfin3 >= (key3 >> 10) ? 0 : La - (key3 & 1023);
+  const Key sfin5 = max(M, (Key)0) >> kShift;  // max(T[1], 0)
+  const int t5 = key5 < 0 || sfin5 >= (key5 >> kShift)
+                     ? 0 : (int)(kMask - (key5 & kMask)) + 1;
+  const int t3 = key3 < 0 || sfin3 >= (key3 >> kShift)
+                     ? 0 : La - (int)(key3 & kMask);
 
   // 4. clean k-mer windows at sampled starts sp <= lastpos
   const int lastpos = La - k;
@@ -294,32 +355,33 @@ extern "C" int gsnap_lane_features(
     void* present, void* nmm_tt, void* nmm_0t3, void* nmm_t50, void* packed,
     int R, int K, int L, int k, int interval, int score, void* stream) {
   // the clean-window test ORs k shifts of a 64-bit window: k <= 32; the
-  // trims' keys hold a position in 10 bits
-  if (L < 1 || L > 1024 || k < 1 || k > 32 || interval < 1)
+  // wide trims' keys hold a position in 20 bits
+  if (L < 1 || L >= (1 << 20) || k < 1 || k > 32 || interval < 1)
     return (int)cudaErrorInvalidValue;
   // Every trim compares sums m + score c over spans of the row (m matches,
   // c mismatches, both <= L), with each other or with 0.  Beyond |score| >
   // L such a comparison is decided by c first and m second, whatever the
-  // magnitude, so any score beyond L + 1 gives the trims of L + 1 (signed):
-  // then |P| * 1024 <= 1025 * 1024 * 1024 < 2^31
+  // magnitude, so any score beyond L + 1 gives the trims of L + 1 (signed),
+  // which keeps |P| <= (L + 1) L for the keys (step 3)
   score = score < -(L + 1) ? -(L + 1) : score > L + 1 ? L + 1 : score;
-  const int64_t total = (int64_t)R * K;
-  if (total == 0) return 0;
+  // as many warps a CTA as fit (one at the least)
   const int64_t per_warp = (int64_t)warp_words(L) * 4;
   const int64_t fixed = (int64_t)samp_words(L) * 4;
   const int64_t fit = (kSmemMax - fixed) / per_warp;
   const int warps = (int)(fit < kMaxWarps ? fit : kMaxWarps);
   if (warps < 1) return (int)cudaErrorInvalidValue;
+  const int64_t total = (int64_t)R * K;
+  if (total == 0) return 0;
   const size_t smem = (size_t)(fixed + warps * per_warp);
+  const auto kernel = L > kNarrowL ? lane_features_kernel<true>
+                                   : lane_features_kernel<false>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        lane_features_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int64_t blocks = (total + 32 * warps - 1) / (32 * warps);
-  lane_features_kernel<<<(unsigned)blocks, 32 * warps, smem,
-                         (cudaStream_t)stream>>>(
+  kernel<<<(unsigned)blocks, 32 * warps, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)mm, (const int32_t*)lengths, (int32_t*)npos,
       (int32_t*)t5, (int32_t*)t3, (int32_t*)lowc, (int32_t*)lbc,
       (int32_t*)cle, (int32_t*)clt, (int32_t*)pfirst, (int32_t*)plast,

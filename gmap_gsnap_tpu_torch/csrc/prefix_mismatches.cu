@@ -288,11 +288,13 @@ extern "C" int gsnap_prefix_mismatches(
   if (L < 1 || NW < 1 || NW * 16 < L || conv < 0 || conv > 4 ||
       ((uintptr_t)mm & 15) || ((uintptr_t)pref & 15))
     return (int)cudaErrorInvalidValue;
+  // the rows' words and counts, beside the static s_left, s_read, s_lim
+  const size_t smem = (size_t)2 * kTile * row_words(NW) * 4;
+  constexpr size_t kStatic = (size_t)kTile * (8 + 4 + 4);
+  if (smem + kStatic > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
   const int64_t total = (int64_t)B * NC;
   if (total == 0) return 0;
-  const size_t smem = (size_t)2 * kTile * row_words(NW) * 4;
-  if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
+  if (smem + kStatic > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         prefix_mismatches_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);

@@ -19,14 +19,19 @@
 // table (random, so latency- and DRAM-transaction-bound), then one
 // read of positions per slot (runs of consecutive addresses, so
 // coalesced).  Keeping the scan and slot owners in shared memory means
-// no intermediate [B, S] or [B, W] array touches device memory.
+// no intermediate [B, S] or [B, W] array touches device memory: 8 bytes
+// of dynamic shared memory a k-mer (its start and its running count),
+// opted in above 48 KB, so that a read may hold as many k-mers as fit a
+// CTA (29,000 or so).
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kMaxS = 1024;   // k-mers per read
 constexpr int kMaxQ = 32;     // sampling interval
+constexpr int kSmemMax = 232448;  // a CTA's opt-in shared memory
+// static shared memory of the kernel: the phase counts, totals and olast
+constexpr int kStaticSmem = (3 * kMaxQ + 3 + 1) * 4;
 
 __global__ void __launch_bounds__(kThreads) seed_diagonals_kernel(
     const uint8_t* __restrict__ codes, const uint8_t* __restrict__ nflags,
@@ -36,8 +41,7 @@ __global__ void __launch_bounds__(kThreads) seed_diagonals_kernel(
     int32_t* __restrict__ nphase_min, int32_t* __restrict__ nph_half, int L,
     int k, int q, int size_threshold, int W, int half, int64_t noffsets,
     int64_t npositions) {
-  __shared__ uint32_t s_start[kMaxS];
-  __shared__ int32_t s_cum[kMaxS];
+  extern __shared__ __align__(16) uint32_t s_start[];  // [S], then s_cum
   __shared__ int32_t s_phase[3][kMaxQ];  // whole read, left half, right half
   __shared__ int32_t s_total[3];
   __shared__ int32_t s_olast;
@@ -45,6 +49,7 @@ __global__ void __launch_bounds__(kThreads) seed_diagonals_kernel(
   const int row = blockIdx.x;
   const int tid = threadIdx.x;
   const int S = L - k + 1;
+  int32_t* s_cum = (int32_t*)(s_start + S);
   const int len = lengths[row];
   const int half_len = len / 2;
   const uint8_t* c = codes + (int64_t)row * L;
@@ -150,9 +155,17 @@ extern "C" int gsnap_seed_diagonals(
     int size_threshold, int W, int half, int64_t noffsets, int64_t npositions,
     void* stream) {
   const int S = L - k + 1;
-  if (S < 1 || S > kMaxS || q < 1 || q > kMaxQ) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)8 * (S < 1 ? 0 : S);
+  if (S < 1 || smem + kStaticSmem > (size_t)kSmemMax || q < 1 || q > kMaxQ)
+    return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  seed_diagonals_kernel<<<B, kThreads, 0, (cudaStream_t)stream>>>(
+  if (smem + kStaticSmem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        seed_diagonals_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  seed_diagonals_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)codes, (const uint8_t*)nflags, (const int32_t*)lengths,
       (const uint32_t*)offsets, (const uint32_t*)positions, (int64_t*)diag,
       (int32_t*)qpos, (uint8_t*)trunc, (int32_t*)nphase_min,

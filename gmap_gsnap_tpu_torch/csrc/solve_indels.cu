@@ -296,13 +296,13 @@ extern "C" int gsnap_solve_indels(
   if ((qp5 == nullptr) != (qp3 == nullptr) || L < 1 || radix <= L ||
       NC < 1 || P < 0 || ((uintptr_t)mm & 15))
     return (int)cudaErrorInvalidValue;
-  if ((int64_t)B * P == 0) return 0;
   // as many reads a CTA as fit 48 KB (one read, opted in, where one does
   // not)
   int R = kMaxReads;
   while (R > 1 && cta_words(R, NC, P, L) * 4 > 48 * 1024) --R;
   const size_t smem = (size_t)cta_words(R, NC, P, L) * 4;
   if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
+  if ((int64_t)B * P == 0) return 0;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         solve_indels_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -69,7 +69,7 @@ __device__ __forceinline__ int nth_bit(const uint32_t* w, int nw, int r) {
   }
   return -1;
 }
-constexpr int kWarpsPerBlock = 8;
+constexpr int kMaxWarps = 8;     // warps a CTA, where they fit
 constexpr int kSmemMax = 232448;  // a CTA's opt-in shared memory
 
 // 32-bit words of one warp's shared memory: two spans, the range and
@@ -93,7 +93,7 @@ __global__ void solve_splices_kernel(
   using namespace gsnap_span;
   extern __shared__ __align__(16) uint32_t smem[];
   const int wib = threadIdx.x >> 5;
-  const int64_t warp = (int64_t)blockIdx.x * kWarpsPerBlock + wib;
+  const int64_t warp = (int64_t)blockIdx.x * (blockDim.x >> 5) + wib;
   const int lane = threadIdx.x & 31;
   if (warp >= (int64_t)B * P) return;  // warp-uniform exit
   const int64_t b = warp / P;
@@ -230,8 +230,12 @@ extern "C" int gsnap_solve_splices(
   if (nwords < 1 || L < 1 || kwords < 0) return (int)cudaErrorInvalidValue;
   if (kwords > 0 && !(kd && ka && kad && kaa))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)kWarpsPerBlock * warp_words(L) * 4;
-  if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
+  // as many warps a CTA as fit (fewer for long reads; one at the least)
+  const int64_t per_warp = (int64_t)warp_words(L) * 4;
+  const int64_t fit = kSmemMax / per_warp;
+  const int warps = (int)(fit < kMaxWarps ? fit : kMaxWarps);
+  if (warps < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)warps * per_warp;
   const gsnap_maxent::Known known{{(const uint32_t*)kd, (const uint32_t*)ka,
                      (const uint32_t*)kad, (const uint32_t*)kaa},
                     kwords};
@@ -242,8 +246,8 @@ extern "C" int gsnap_solve_splices(
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const int64_t blocks = ((int64_t)B * P + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  solve_splices_kernel<<<(unsigned)blocks, 32 * kWarpsPerBlock, smem,
+  const int64_t blocks = ((int64_t)B * P + warps - 1) / warps;
+  solve_splices_kernel<<<(unsigned)blocks, 32 * warps, smem,
                          (cudaStream_t)stream>>>(
       (const uint32_t*)ref16, (const float*)tables, (const int64_t*)top_d,
       (const int32_t*)pref, (const int64_t*)ii, (const int64_t*)jj,

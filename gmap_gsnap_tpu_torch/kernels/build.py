@@ -44,6 +44,7 @@ LAUNCHES: Counter = Counter()
 _SIGNATURES = {
     "gsnap_seed_diagonals": "p" * 10 + "i" * 7 + "ll",
     "gsnap_top_diagonals": "p" * 4 + "i" * 3,
+    "gsnap_top_diagonals_wide": "p" * 5 + "i" * 3,
     "gsnap_prefix_mismatches": "p" * 10 + "ll" + "i" * 7,
     "gsnap_solve_indels": "p" * 17 + "i" * 8,
     "gsnap_solve_splices": "p" * 22 + "ll" + "i" * 5,

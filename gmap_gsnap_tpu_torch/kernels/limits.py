@@ -1,0 +1,99 @@
+"""Shared-memory sizes of the kernels that grow with the read length, as
+their C entry points compute them (``csrc/*.cu``), and the longest read
+that the card's GSNAP path takes.
+
+Each ``*_bytes(L)`` is the shared memory of the kernel's smallest launch
+for reads of L bases: one CTA of one warp where the entry point fits
+fewer warps to a CTA (K5, K7, K13), one read a CTA (K1, K4), one tile
+(K3), static shared memory included.  A launch that needs more than
+:data:`SMEM_MAX` is refused (``cudaErrorInvalidValue``), so
+:data:`MAX_READ_LENGTH` is the longest read every one of them takes; the
+CLI and ``GsnapRunner`` refuse longer reads on the card before the index
+loads.  Reads longer than that align on the CPU (``--device cpu``).
+"""
+
+from __future__ import annotations
+
+SMEM_MAX = 232448     # a CTA's opt-in shared memory on the H100 (kSmemMax)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def seed_diagonals_bytes(S: int) -> int:
+    """K1: the start and running count of each of a read's S k-mers (a
+    read of L bases has at most L), and the static phase counts
+    (``seed_diagonals.cu``)."""
+    return 8 * S + (3 * 32 + 3 + 1) * 4
+
+
+def prefix_mismatches_bytes(L: int) -> int:
+    """K3: a tile of 64 rows' words and counts over ceil(L / 16) query
+    words, and the tile's static rows (``prefix_mismatches.cu``)."""
+    nw = _cdiv(L, 16)
+    return 2 * 64 * ((nw + 1) // 2 + 1) * 4 + 64 * (8 + 4 + 4)
+
+
+def solve_indels_bytes(L: int, ncand: int = 128, indel_pairs: int = 16) -> int:
+    """K4, one read a CTA: each row's slot and each slot's row, the rows
+    its pairs name (at most 2 pairs) staged as bits with their counts
+    (``solve_indels.cu`` cta_words)."""
+    rows = min(ncand, 2 * indel_pairs)
+    return 4 * (ncand + rows + 1 + 2 * indel_pairs
+                + rows * (3 * _cdiv(L, 32) + 4))
+
+
+def solve_splices_bytes(L: int) -> int:
+    """K5, one warp: two genome spans, the range mask and per class the
+    candidate and two known masks (``solve_splices.cu`` warp_words)."""
+    mw = (L + 32) // 32
+    return 4 * (2 * (2 * mw + 4) + 7 * mw)
+
+
+def solve_doublesplices_bytes(L: int) -> int:
+    """K7, one warp: three genome spans, the known and the site masks
+    (``solve_doublesplices.cu`` warp_words)."""
+    mw = (L + 32) // 32
+    return 4 * (3 * (2 * mw + 4) + 16 * mw)
+
+
+def lane_features_bytes(L: int) -> int:
+    """K13, one warp: the sampled starts, the staging area (the whole row,
+    or 1024 bytes of it past 1024 bases) and the 32 rows' words and counts
+    (``lane_features.cu``)."""
+    nw = _cdiv(L, 32)
+    samp = (nw + 1 + 3) // 4 * 4
+    stage = (32 * min(L, 1024) + 15) // 16 * 16 + 48
+    return 4 * samp + stage + 4 * 2 * 32 * (nw + 1)
+
+
+KERNEL_BYTES = {
+    "K1 seed_diagonals": seed_diagonals_bytes,
+    "K3 prefix_mismatches": prefix_mismatches_bytes,
+    "K4 solve_indels": solve_indels_bytes,
+    "K5 solve_splices": solve_splices_bytes,
+    "K7 solve_doublesplices": solve_doublesplices_bytes,
+    "K13 lane_features": lane_features_bytes,
+}
+
+
+def longest_fitting(fn, hi: int = 1 << 20) -> int:
+    """The longest L in [1, hi) with fn(L) <= SMEM_MAX (every fn here
+    grows with L)."""
+    lo = 1
+    while lo < hi - 1:
+        mid = (lo + hi) // 2
+        if fn(mid) <= SMEM_MAX:
+            lo = mid
+        else:
+            hi = mid
+    return lo
+
+
+# the longest read (K1: the most k-mers) each kernel takes, and the
+# longest that every one of them takes; computed once, at import
+LONGEST = {kernel: longest_fitting(fn) for kernel, fn in KERNEL_BYTES.items()}
+SEED_MAX_S = LONGEST["K1 seed_diagonals"]
+LANE_FEATURES_MAX_L = LONGEST["K13 lane_features"]
+MAX_READ_LENGTH = min(LONGEST.values())

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..kernels import build as kbuild
+from ..kernels import limits as klimits
 from . import genome as genome_ops
 from .genome import MASK32
 
@@ -191,10 +192,10 @@ def _prefix_mismatches_plain(genome, queries, diags, lengths, conversion, alt):
     return mm, pref
 
 
-# the longest read every CUDA path takes: K13's trim keys hold a position
-# in 10 bits (align/gsnap_gapped.LANE_FEATURES_MAX_L); K3 takes any
-# length, and K1 up to 1024 k-mers a read (L - k + 1 <= 1024)
-CUDA_MAX_READ_LENGTH = 1024
+# the longest read every CUDA path takes: the shared memory of the kernels
+# that grow with the read (K1, K3, K4, K5, K7, K13), computed from their
+# formulas (kernels/limits.py; K3's tile sets it, at 14,432 bases)
+CUDA_MAX_READ_LENGTH = klimits.MAX_READ_LENGTH
 
 
 def _prefix_mismatches_cuda(genome, queries, diags, lengths, conversion, alt):

@@ -1748,3 +1748,80 @@ def indel_pair_cases(rng: np.random.Generator, b: int, nc: int = 32,
     return {"top_d": top, "mm": mm, "pref": pref, "ii": ii, "jj": jj,
             "pvalid": pvalid, "lengths": lengths, "budget": budget,
             "qp5": qp5, "qp3": qp3}
+
+
+QPOS_RANGE_KINDS = ("repeats", "all invalid", "absent", "one diagonal")
+
+
+def qpos_range_cases(rng: np.random.Generator, b: int, w: int, p: int):
+    """(diag int64[b, w] holding uint32, qpos int32[b, w], d_sel int64[b,
+    p]) for the qpos range kernel (K15), the rows cycling over
+    QPOS_RANGE_KINDS: "repeats": slots and selected diagonals drawn from a
+    pool smaller than p that holds 0, 0xFFFFFFFE and INVALID (0xFFFFFFFF),
+    so that d_sel repeats values and names INVALID, which matches the
+    INVALID slots; "all invalid": every slot INVALID, d_sel half INVALID;
+    "absent": d_sel values the grid lacks beside ones it has; "one
+    diagonal": every slot on one diagonal, d_sel naming it at several
+    places.  qpos is not monotone along the slots."""
+    diag = np.zeros((b, w), np.int64)
+    dsel = np.zeros((b, p), np.int64)
+    qpos = rng.integers(0, 1 << 14, (b, w)).astype(np.int32)
+    for row in range(b):
+        kind = QPOS_RANGE_KINDS[row % len(QPOS_RANGE_KINDS)]
+        pool = np.concatenate([
+            [0, 0xFFFFFFFE, 0xFFFFFFFF, 2**31],
+            rng.integers(0, 2**32, max(1, p // 2))]).astype(np.int64)
+        if kind == "repeats":
+            diag[row] = rng.choice(pool, w)
+            dsel[row] = rng.choice(pool, p)
+        elif kind == "all invalid":
+            diag[row] = 0xFFFFFFFF
+            dsel[row] = np.where(rng.random(p) < 0.5, 0xFFFFFFFF,
+                                 rng.choice(pool, p))
+        elif kind == "absent":
+            diag[row] = rng.choice(pool[: 2 + len(pool) // 2], w)
+            dsel[row] = rng.choice(pool, p)
+        else:
+            diag[row] = pool[row % len(pool)]
+            dsel[row] = np.where(rng.random(p) < 0.5, pool[row % len(pool)],
+                                 rng.choice(pool, p))
+    return diag, qpos, dsel
+
+
+TRIPLE_ROW_KINDS = ("close", "wrap", "equal votes", "zero votes",
+                    "all invalid", "width limit")
+
+
+def triple_cases(rng: np.random.Generator, b: int, nc: int):
+    """(top_d int64[b, nc] holding uint32, votes int32[b, nc]) for the
+    triple selector (K6), the rows cycling over TRIPLE_ROW_KINDS:
+    "close": a cluster with steps of 0-3 (many eligible edges at maxdist
+    1, none at 0, ties of the difference 0); "wrap": diagonals on both
+    sides of 2^32, so that differences wrap uint32; "equal votes": every
+    vote 4 (the lower index wins every tie); "zero votes": every vote 0
+    (the sums tie at 0 with the invalid ones at -1 below them); "all
+    invalid": every diagonal INVALID; "width limit": votes of (2^23 - 2)
+    / 3, whose sum 2^23 - 2 is the largest the kernel's key holds.  One
+    diagonal in 10 is INVALID in the rows that are not all INVALID."""
+    top = np.zeros((b, nc), np.int64)
+    votes = rng.integers(0, 40, (b, nc)).astype(np.int32)
+    for row in range(b):
+        kind = TRIPLE_ROW_KINDS[row % len(TRIPLE_ROW_KINDS)]
+        base = int(rng.choice([50, 2**31 - 40, 2**32 - 2 * nc]))
+        if kind == "wrap":
+            top[row] = (2**32 - nc + rng.integers(0, 2 * nc, nc)) % 2**32
+        elif kind == "all invalid":
+            top[row] = 0xFFFFFFFF
+        else:
+            top[row] = (base + np.cumsum(rng.integers(0, 4, nc))) % 2**32
+        if kind == "equal votes":
+            votes[row] = 4
+        elif kind == "zero votes":
+            votes[row] = 0
+        elif kind == "width limit":
+            votes[row] = np.where(rng.random(nc) < 0.5, (2**23 - 2) // 3,
+                                  rng.integers(0, 9, nc))
+        if kind != "all invalid":
+            top[row, rng.random(nc) < 0.1] = 0xFFFFFFFF
+        rng.shuffle(top[row])
+    return top, votes

@@ -17,6 +17,7 @@ from gmap_gsnap_tpu_torch.align import runner as trun
 from gmap_gsnap_tpu_torch.cli import gsnap as tcli
 from gmap_gsnap_tpu_torch.db import iit_text
 from gmap_gsnap_tpu_torch.io import sam as tsam
+from gmap_gsnap_tpu_torch.ops import mismatch as tmm
 from gmap_gsnap_tpu_torch.utils import synth
 from torch_parity import (fresh_jax_caches, jax_runner_one_device,
                           one_torch_thread)
@@ -77,30 +78,40 @@ def test_cli_flag_byte_equal(disk, capsys, extra):
 
 
 def test_cli_long_reads_on_the_card(tmp_path, capsys):
-    """Reads longer than the CUDA kernels take (K13: 1024 bases) are
+    """Reads longer than the CUDA kernels take (the limit their shared
+    memory sets, ops/mismatch.CUDA_MAX_READ_LENGTH: 14,432 bases) are
     refused on the card before the database is opened, with the limit and
-    the way out named; with --device cpu the CLI goes on to open it (here
-    one that does not exist, so that it fails there)."""
+    the way out named; with --device cpu, and on the card at 1,025 bases
+    (1,024 was the limit before), the CLI goes on to open it (here one
+    that does not exist, so that it fails there)."""
+    top = tmm.CUDA_MAX_READ_LENGTH
     fa = tmp_path / "long.fa"
-    fa.write_text(">r\n" + "ACGT" * 256 + "A\n")
+    fa.write_text(">r\n" + "ACGT" * (top // 4) + "A" * (top % 4 + 1) + "\n")
     args = ["-D", str(tmp_path), "-d", "absent", str(fa)]
     assert tcli.main(args) == 2
     err = capsys.readouterr().err
-    assert "1025" in err and "(1024)" in err and "--device cpu" in err
+    assert str(top + 1) in err and f"({top})" in err and "--device cpu" in err
     with pytest.raises(OSError):
         tcli.main(args + ["--device", "cpu"])
+    fa.write_text(">r\n" + "ACGT" * 256 + "A\n")
+    with pytest.raises(OSError):
+        tcli.main(args)
 
 
-@pytest.mark.parametrize("lmax", [1024, 1025])
+@pytest.mark.parametrize("lmax", [1024, 1025, tmm.CUDA_MAX_READ_LENGTH,
+                                  tmm.CUDA_MAX_READ_LENGTH + 1])
 def test_runner_long_reads_on_the_card(monkeypatch, lmax):
     """GsnapRunner on the card refuses reads longer than the CUDA kernels
-    take, naming the limit, before it uploads anything; at the limit it
+    take, naming the limit and the CPU, before it uploads anything; up to
+    the limit (1,025 bases, past the 1,024 of earlier kernels, too) it
     goes on (here to the database, which is None, where it fails)."""
     monkeypatch.setattr(trun, "resolve_device",
                         lambda d: torch.device("cuda"))
     params = trun.gsnap_se.GsnapParams()
-    if lmax > 1024:
-        with pytest.raises(ValueError, match=r"1025 bases.*\(1024\)"):
+    top = tmm.CUDA_MAX_READ_LENGTH
+    if lmax > top:
+        with pytest.raises(ValueError,
+                           match=rf"{lmax} bases.*\({top}\).*cpu"):
             trun.GsnapRunner(None, params, lmax=lmax)
     else:
         with pytest.raises(AttributeError):

@@ -7,6 +7,7 @@ needs):  python -m pytest tests/test_torch_kernels.py --noconftest -q
 """
 
 import dataclasses
+import io
 
 import numpy as np
 import pytest
@@ -657,6 +658,80 @@ def test_qpos_ranges_matches_plain(batch, seed_total, ncand):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("w,p", [(1, 1), (31, 32), (33, 32), (384, 32),
+                                 (4096, 128), (385, 1)])
+def test_qpos_ranges_edges_match_plain(cuda, w, p):
+    """K15 on synth.qpos_range_cases: selected diagonals repeated and
+    INVALID, rows whose every slot is INVALID, diagonals 0 and
+    0xFFFFFFFE, qpos not monotone; W off a multiple of 4 (the kernel's
+    16-byte loads then give way to single ones)."""
+    args = [torch.from_numpy(x).to(cuda) for x in synth.qpos_range_cases(
+        np.random.default_rng(w + p), 64, w, p)]
+    _equal(se._qpos_ranges_cuda(*args), se._qpos_ranges_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,nc", [(32769, 32), (40000, 128), (100000, 1024),
+                                  (818100, 128)])
+def test_top_diagonals_wide_rows_match_plain(cuda, w, nc):
+    """K2's path for rows wider than 32,768 slots (the runner's exact seed
+    grid: S x the size threshold, 818,100 for 8,181 k-mers at 100) on
+    synth.diag_vote_rows: ties across the cut, fewer heads, all-INVALID
+    rows, one diagonal W times, every vote 1."""
+    d = torch.from_numpy(synth.diag_vote_rows(np.random.default_rng(w), 12,
+                                              w, nc)).to(cuda)
+    _equal(se._top_diagonals_cuda(d, nc), se._top_diagonals_plain(d, nc))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nc", [2, 3, 31, 32, 33, 64, 128])
+def test_select_triples_edges_match_plain(cuda, nc):
+    """K6 on synth.triple_cases (clusters, differences that wrap uint32,
+    equal and zero votes, all-INVALID rows, sums at the key's width 2^23
+    - 2) at maxdist 0, 1 and 2^32 - 1 and T = 1, 8 and 4 NC."""
+    top, votes = (torch.from_numpy(x).to(cuda) for x in
+                  synth.triple_cases(np.random.default_rng(nc), 96, nc))
+    for maxdist in (0, 1, 200_000, 2**32 - 1):
+        for t in sorted({1, 8, 4 * nc}):
+            _equal(gg._select_triples_cuda(top, votes, maxdist, t),
+                   gg._select_triples_plain(top, votes, maxdist, t))
+
+
+_TRIPLE_TRAP_SCRIPT = """
+import sys, torch
+from gmap_gsnap_tpu_torch.align import gsnap_gapped as gg
+v = int(sys.argv[1])
+top = torch.tensor([[100, 105, 110]], dtype=torch.int64, device="cuda")
+# the middle 105 between 100 and 110: sum v + v + v, or a vote v < 0
+w = v if v > 0 else 1
+votes = torch.tensor([[w, v, w]], dtype=torch.int32, device="cuda")
+out = gg._select_triples_cuda(top, votes, 200_000, 4)
+torch.cuda.synchronize()
+print("no trap", out[0].tolist(), out[3].tolist())
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vote", [2**22, -20])
+def test_select_triples_key_out_of_range_traps(cuda, vote):
+    """A vote sum of a valid triple the key cannot hold (3 x 2^22, above
+    2^23 - 2) or a negative vote of a valid diagonal (which ranks below
+    an ineligible entry) stops K6 with a trap, and the launch fails:
+    neither is ever clamped.  In a process of its own, since a trap ends the
+    CUDA context."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", _TRIPLE_TRAP_SCRIPT,
+                           str(vote)], cwd=repo, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode != 0, proc.stdout
+    assert "no trap" not in proc.stdout
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("nc", [32, 128])
 def test_select_pairs_matches_plain(batch, cuda, nc):
     """K16 against _select_pairs_plain, indel and splice rules, on
@@ -785,7 +860,7 @@ def test_solve_splices_edges_match_plain(cuda, nc, novel, with_known):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("L", [75, 100, 150, mmo.CUDA_MAX_READ_LENGTH])
+@pytest.mark.parametrize("L", [75, 100, 150, 1024])
 def test_prefix_mismatches_edges_match_plain(cuda, monkeypatch, L):
     """K3 on synth.prefix_mismatch_cases: 37 x 24 placements (the last
     tile cut short), INVALID diagonals and diagonals at and past the
@@ -809,7 +884,7 @@ def test_prefix_mismatches_edges_match_plain(cuda, monkeypatch, L):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("L", [75, 100, 150, mmo.CUDA_MAX_READ_LENGTH])
+@pytest.mark.parametrize("L", [75, 100, 150, 1024])
 @pytest.mark.parametrize("min_end", [0, 4, 60])
 def test_solve_indels_edges_match_plain(cuda, L, min_end):
     """K4 on synth.indel_pair_cases: insertions of every shift 1-9,
@@ -856,6 +931,44 @@ def test_align_batch_gapped_long_reads_cuda_equals_cpu(cuda):
             tg, ti, *(torch.from_numpy(x).to(dev) for x in enc), gp))
     _dict_equal({k: v.cpu() for k, v in outs[0].items()}, outs[1])
     assert int((outs[1]["npaths"] > 0).sum()) > len(recs) // 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,nreads", [(8192, 6),
+                                      (mmo.CUDA_MAX_READ_LENGTH, 4)])
+def test_long_reads_cuda_equals_cpu(cuda, L, nreads):
+    """Reads of 8,192 nt and of the card's limit (CUDA_MAX_READ_LENGTH,
+    14,432 nt) on the card: align_batch_gapped -N 1 (K1 with its k-mers
+    in dynamic shared memory, K3, K4, K5 and K7 with fewer warps a CTA,
+    K13's wide keys and staging) and GsnapRunner.run at -N 1 with the
+    default GMAP lanes (K2's wide path on the runner's exact seed grid),
+    against the CPU plain path."""
+    rng = np.random.default_rng(31 if L == 8192 else 37)
+    g = synth.make_genome(rng, [400_000, 250_000])
+    db = synth.genome_db(g, 12, 3)
+    recs, _ = synth.plant_spliced_reads(rng, g, nreads, L=L)
+    enc = trun.encode_batch(recs, L)
+    gp = gg.GappedParams(base=se.GsnapParams(seed_total=512),
+                         novelsplicing=True)
+    outs, sams = [], []
+    before = dict(kbuild.LAUNCHES)
+    for dev in (cuda, torch.device("cpu")):
+        tg = convert.genome_from_host(db.codes, db.flags, db.chr_ends, dev)
+        ti = convert.index_from_arrays(db.offsets, db.positions, 12, 3, dev)
+        outs.append(gg.align_batch_gapped(
+            tg, ti, *(torch.from_numpy(x).to(dev) for x in enc), gp))
+        out = io.StringIO()
+        trun.GsnapRunner(db, lmax=L, novelsplicing=True,
+                         device=dev).run(recs, out, batch_size=8)
+        sams.append(out.getvalue())
+    _dict_equal({k: v.cpu() for k, v in outs[0].items()}, outs[1])
+    assert int((outs[1]["npaths"] > 0).sum()) > len(recs) // 2
+    assert sams[0] == sams[1]
+    for name in ("gsnap_seed_diagonals", "gsnap_top_diagonals_wide",
+                 "gsnap_prefix_mismatches", "gsnap_solve_indels",
+                 "gsnap_lane_features", "gsnap_solve_splices",
+                 "gsnap_solve_doublesplices"):
+        assert kbuild.LAUNCHES[name] > before.get(name, 0), name
 
 
 # ------------------------------- K17 and K8's overflow-gate epilogue
@@ -997,7 +1110,8 @@ def test_rank_hits_wrapper_tables(monkeypatch):
 def test_rank_and_top_wrappers_refuse(monkeypatch):
     """What the kernels' widths cannot hold raises before any launch:
     K14 beyond 512 candidates or with a floating-point key, K2 beyond
-    W=32768 or ncand 16384, or ncand above W."""
+    W=2^24 - 1 or ncand 16384 (1024 past W=32768, its wide path), or
+    ncand above W."""
     monkeypatch.setattr(kbuild, "launch", lambda *a: pytest.fail("launched"))
     out = {k: torch.from_numpy(v) for k, v in
            synth.rank_hit_cases(np.random.default_rng(4), 2, 513).items()}
@@ -1007,9 +1121,10 @@ def test_rank_and_top_wrappers_refuse(monkeypatch):
     out["split"] = out["split"].float()
     with pytest.raises(ValueError, match="key fields are integers"):
         gg._rank_hits_cuda(out, se.GsnapParams())
-    for w, nc in ((32769, 32), (32768, 16385), (100, 101)):
+    for w, nc in ((2**24, 32), (32769, 1025), (32768, 16385), (100, 101)):
         with pytest.raises(ValueError, match="top_diagonals kernel"):
-            se._top_diagonals_cuda(torch.zeros((1, w), dtype=torch.int64), nc)
+            se._top_diagonals_cuda(
+                torch.zeros(1, dtype=torch.int64).expand(1, w), nc)
 
 
 def test_top_diagonals_wrapper_passes_no_scratch(monkeypatch):

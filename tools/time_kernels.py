@@ -1,8 +1,9 @@
 """Time the redesigned kernels of one checkout of the port on the card —
 K3 (prefix_mismatches, with and without an alt genome), K4
 (solve_indels), K13 (lane_features), K5 (solve_splices), K6
-(select_triples, beside its library sort), K7 (solve_doublesplices) and
-K16 (select_pairs, beside its library sort) — so that two versions can
+(select_triples, beside its library sort), K7 (solve_doublesplices), K15
+(qpos_ranges) and K16 (select_pairs, beside its library sort) — so that
+two versions can
 be compared within one call (run it for each tree in turns: old, new,
 new, old).
 
@@ -14,7 +15,9 @@ words reversed); K4 on 16 indel pairs a read (max_ins 9, max_del 30,
 min_end 4, the seed-order gate); K13 on K3's mask at both, L=100, k=12,
 interval 3, trim score -3; K5 on 16 splice pairs a read and K7 on 8
 triples, without and with known-site masks (sparse and dense random bits, novel on and, with
-dense bits, off); K16 under both rules with 16 pairs, and on
+dense bits, off); K15 on the seed grids and selected diagonals at W=384,
+NC=32 (the -N 0 runner's seed budget) and W=4096, NC=128; K16 under
+both rules with 16 pairs, and on
 synth.diag_pair_rows' edge rows (1024 rows, NC 3 to 128, maxpairs 16 and
 1024).  Times are torch.profiler device time per call, as chip_smoke.py
 takes them (its _timed), and every kernel is checked against its plain
@@ -43,7 +46,7 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 KERNELS = ("prefix_mismatches", "solve_indels", "lane_features",
            "solve_splices", "select_triples", "solve_doublesplices",
-           "select_pairs", "cascade")
+           "select_pairs", "qpos_ranges", "cascade")
 
 
 def main() -> int:
@@ -176,7 +179,8 @@ def main() -> int:
             timed(f"select_triples {shape}",
                   lambda: gg._select_triples_cuda(top_d, votes, 200_000, 8),
                   lambda: gg._select_triples_plain(top_d, votes, 200_000, 8),
-                  lambda out: (smoke._nbytes(top_d, votes, out), 0), lib)
+                  lambda out: smoke._triple_cost(top_d, votes, 200_000, 8),
+                  lib)
             # the same sort on keys that are all equal, and between events
             same = torch.ones_like(lib()[0])
             flat = lambda: torch.sort(same, dim=1, stable=True)
@@ -200,6 +204,16 @@ def main() -> int:
                 solver("solve_doublesplices", gg._SHORTEXON_KEYS,
                        f"{label} {shape}", a,
                        smoke._doublesplice_cost(torch, a))
+    if "qpos_ranges" in args.only:
+        for st, nc in ((384, 32), (4096, 128)):
+            p = se.GsnapParams(seed_total=st, ncand=nc)
+            diag, qgrid = se._seed_diagonals_plain(ti, c, f, ln, p, True)[:2]
+            top_d = se._top_diagonals_plain(diag, nc)[0]
+            a = (diag, qgrid, top_d)
+            timed(f"qpos_ranges W={st} NC={nc}",
+                  lambda a=a: se._qpos_ranges_cuda(*a),
+                  lambda a=a: se._qpos_ranges_plain(*a),
+                  lambda out, a=a: (smoke._nbytes(a, out), a[0].numel()))
     if "cascade" in args.only:
         for label, novel, st in (("-N 0", False, 384), ("-N 1", True, 512)):
             p = se.GsnapParams(seed_total=st)
