@@ -320,6 +320,45 @@ def _pair_sort(torch, se, top_d, votes, eligible):
     return sort
 
 
+def _grid_sort(torch, pe, gargs):
+    """K8's library call: one stable torch.sort of the [B, NP^2] int64
+    keys K8 ranks (eff << 16 | r5 << 12 | r3 << 8 | cell; r5 the rank of
+    the cell's float32-rounded left5 among the row's NP, r3 of its left3),
+    made from the plain version's cells at the first call, the warm-up of
+    every timing.  It times the ranking's sort alone: no one PyTorch call
+    computes K8's whole function."""
+    keys = []
+
+    def sort():
+        if not keys:
+            cells = pe._pair_cells_plain(*gargs[:7])
+            l5 = cells["l5"][:, :, 0].int().float()
+            l3 = cells["l3"][:, 0, :]
+            r5 = (l5[:, None, :] < l5[:, :, None]).sum(2)
+            r3 = (l3[:, None, :] < l3[:, :, None]).sum(2)
+            b, np_ = r5.shape
+            cell = torch.arange(np_ * np_, device=r5.device)
+            keys.append(cells["eff"] << 16
+                        | (r5[:, :, None] << 12 | r3[:, None, :] << 8)
+                        .reshape(b, -1) | cell)
+        return torch.sort(keys[0], dim=1, stable=True)
+
+    return sort
+
+
+def _bridge_cost(bargs):
+    """K12's cost (bytes, operations) on bridge_traceback's arguments:
+    both sides' nogap and ndiag (the candidates read them; the traceback
+    reads gap1 / gap2 only along its walk), the problem's other inputs
+    and the outputs; ~15 integer operations a junction candidate."""
+    def cost(out):
+        nb = bargs[0][0].shape[0] // 2
+        return (_nbytes(bargs[0][0], bargs[0][3], bargs[1:12], out),
+                15 * nb * bargs[12] * 2 * bargs[13])
+
+    return cost
+
+
 def _triple_cost(top_d, votes, maxdist: int, T: int):
     """K6's cost (bytes, operations), counting the work its range design
     needs on these inputs: the read's NC diagonals and votes in, 3 int64
@@ -534,10 +573,13 @@ def _device_ms(fn, reps: int = 5, tries: int = 4) -> float | None:
     return _cuda_profile(fn, reps, tries, whole=True)[0]
 
 
-def _device_ops(fn, reps: int = 5, tries: int = 4) -> float | None:
-    """The number of CUDA device ops per call of fn (_cuda_profile, from
-    a profile that recorded every call's ops)."""
-    return _cuda_profile(fn, reps, tries, whole=True)[1]
+def _device_ops(fn, reps: int = 5, tries: int = 8) -> float | None:
+    """The number of CUDA device ops per call of fn (_cuda_profile), from
+    a profile that recorded every call's ops; None when none of ``tries``
+    did (each recorded none, or lost some: a count that is no whole
+    number a call)."""
+    ops = _cuda_profile(fn, reps, tries, whole=True)[1]
+    return ops if ops is not None and float(ops).is_integer() else None
 
 
 def _timed(*fns, reps: int = 5) -> tuple:
@@ -653,12 +695,17 @@ def _grid_gate(pe, cuda: bool, gargs, c5, c3, ipm: int, novel: bool,
             + (d5["overflow"], d3["overflow"]))
 
 
-def _gate_reads(ends) -> list:
-    """The candidate arrays K8's gate epilogue reads of each end: the
-    overflow flags it clears and what decides them (the grid's own
-    inputs and outputs are counted apart)."""
-    return [c[k] for c in ends
-            for k in ("overflow", "overflow_trunc", "ovf_bound", "hbound")]
+def _grid_reads(pe, gargs, ends=None) -> int:
+    """Bytes K8 reads, at the dtypes its wrapper passes: each end's
+    ranked hits' pe._HIT_FIELDS (45 B a hit; rank_hits' other fields are
+    not read), the lengths, chr_offsets and, with the gate epilogue, each
+    end's overflow flags and what decides them (10 B a row)."""
+    h5, h3, len5, len3, offs = gargs[:5]
+    n = sum(h[f].numel() * dt.itemsize for h in (h5, h3)
+            for f, dt in pe._HIT_FIELDS)
+    n += 4 * (len5.numel() + len3.numel()) + 8 * offs.numel()
+    return n + (0 if ends is None else
+                sum(10 * c["overflow"].numel() for c in ends))
 
 
 def _fields(fn, args, keys) -> tuple:
@@ -917,13 +964,77 @@ def _lane_inputs(eng, dp, runner, recs, batch: int, label: str) -> dict:
     return captured
 
 
+def _junction_edge_checks(torch, dp, synth, rng, dev, costs) -> list:
+    """K12 checks on synth.junction_traceback_cases: ties under both jump
+    rules, walks off the band past k = 0 and past k = W - 1, len1 2 and
+    64, offsets whose difference wraps int32, W 23 and 32 (dynamic shared
+    memory past 48 KB), T 138 and 6."""
+    checks = []
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    for W in (23, 32):
+        case = synth.junction_traceback_cases(rng, 128, 64, W, 72)
+        mats = tuple(t(case[k]) for k in ("nogap", "gap1", "gap2", "ndiag"))
+        for T, cd, halfp, nospl, known, open_, ext in (
+                (138, 1, False, False, False, dp.PAIRED_OPEN,
+                 dp.PAIRED_EXTEND),
+                (138, -1, True, False, True, dp.SINGLE_OPEN,
+                 dp.SINGLE_EXTEND),
+                (6, 0, False, True, True, dp.PAIRED_OPEN, dp.PAIRED_EXTEND)):
+            kn = t(case["known"] * known)
+            bargs = (mats, *(t(case[k]) for k in (
+                "len1", "len2L", "len2R", "lbandL", "lbandR", "gl", "grv")),
+                kn, kn, t(case["loff"]), t(case["roff"]), 64, W, T, open_,
+                ext, 30, cd, True, halfp, nospl)
+            checks.append(("bridge_traceback/edges",
+                           f"W={W} T={T} cdna={cd} 128 junctions",
+                           partial(dp._bridge_traceback_cuda, *bargs),
+                           partial(dp._bridge_traceback_plain, *bargs)))
+            costs.setdefault("bridge_traceback/edges", _bridge_cost(bargs))
+    return checks
+
+
+def _pair_edge_checks(torch, gg, pe, synth, rng, b: int, params, ipm: int,
+                      dev, costs) -> list:
+    """K8 checks on synth.pair_grid_edges (1,000 chromosome offsets, rows
+    whose every cell is BIG, rows of one pair score) at NP 1, 7 and 16, K
+    from 1 to NP^2, with the gate and without."""
+    checks = []
+    eh, *elens, eoffs = synth.pair_grid_edges(rng, b)
+    eh = {k: torch.from_numpy(v.astype(np.int64) if v.dtype == np.uint32
+                              else v).to(dev) for k, v in eh.items()}
+    elens = [torch.from_numpy(x).to(dev) for x in elens]
+    ec = {k: torch.from_numpy(v).to(dev)
+          for k, v in synth.pair_gate_cases(rng, b).items()}
+    ec5, ec3 = ({k: v[sl] for k, v in ec.items()}
+                for sl in (slice(0, b), slice(b, None)))
+    for np_, K, gate in ((1, 1, True), (7, 1, False), (7, 49, True),
+                         (16, 1, True), (16, 100, True), (16, 256, False)):
+        ee5, ee3 = (gg.rank_hits({k: v[sl] for k, v in eh.items()}, params,
+                                 apply_optimal=False, maxout=np_)
+                    for sl in (slice(0, b), slice(b, None)))
+        eargs = (ee5, ee3, *elens, torch.from_numpy(eoffs).to(dev), 200_000,
+                 params.subopt_levels, K)
+        checks.append(("pair_grid/edges",
+                       f"NP={np_} K={K} gate={int(gate)} {b} pairs",
+                       partial(_grid_gate, pe, True, eargs, ec5, ec3, ipm,
+                               True, gate),
+                       partial(_grid_gate, pe, False, eargs, ec5, ec3, ipm,
+                               True, gate)))
+        costs.setdefault("pair_grid/edges", lambda out, a=eargs, c=(ec5, ec3):
+                         (_grid_reads(pe, a, c) + _nbytes(out), 0))
+    return checks
+
+
 def _gmap_checks(torch, eng, dp, lanes, rng, dev, costs):
     """K9-K12 checks (name, shape, kernel call, plain call): on the
     inputs each runner's GMAP lane gave each kernel (``lanes``: (label,
     _lane_inputs) pairs, the first sets the costs), K9 also at a forced
     hit/segment overflow and at the retry's sizes, K11/K12 also on 32 and
     128 random junction windows, both gap tiers, every cdna_direction
-    table.  Fills ``costs`` with each kernel's (bytes, operations)."""
+    table, and K12 on synth.junction_traceback_cases' edges.  Fills
+    ``costs`` with each kernel's (bytes, operations)."""
+    from gmap_gsnap_tpu_torch.utils import synth
+
     checks = []
 
     def dynprog(label, margs, bargs):
@@ -989,15 +1100,14 @@ def _gmap_checks(torch, eng, dp, lanes, rng, dev, costs):
                          w["roff"], 64, 23, 138, open_, ext, 30, cd, True,
                          halfp, nospl)
                 dynprog(f"nb={nb} open={open_} cdna={cd}", margs, bargs)
+    checks += _junction_edge_checks(torch, dp, synth, rng, dev, costs)
     first = next(c for c in checks if c[0] == "banded_gotoh")
     ma = first[2].args
     # ~20 integer operations per band cell, ~15 per junction candidate
     costs["banded_gotoh"] = lambda out: (
         _nbytes(ma[:6], ma[7], out), 20 * out[0].numel())
     fb = next(c for c in checks if c[0] == "bridge_traceback")[2].args
-    costs["bridge_traceback"] = lambda out: (
-        _nbytes(fb[0][0], fb[0][3], fb[1:12], out),
-        15 * fb[0][0].shape[0] // 2 * 64 * 2 * 23)
+    costs["bridge_traceback"] = _bridge_cost(fb)
     return checks
 
 
@@ -1975,7 +2085,8 @@ def main(argv=None) -> int:
                    partial(_grid_gate, pe, False, gargs, gc5, gc3, ipm,
                            True)))
     costs["pair_grid"] = lambda out, a=gargs, c=(gc5, gc3): (
-        _nbytes(a, _gate_reads(c), out), 0)
+        _grid_reads(pe, a, c) + _nbytes(out), 0)
+    library["pair_grid"] = _grid_sort(torch, pe, gargs)
     print(f"K8 gate inputs: runner batch {int(gc5['overflow'].sum())} / "
           f"{int(gc3['overflow'].sum())} ends overflowing before the gate",
           flush=True)
@@ -1998,13 +2109,15 @@ def main(argv=None) -> int:
                                novel, gate)))
         costs[f"pair_grid/gate hand-built {label}"] = (
             lambda out, a=hargs, c=(hc5, hc3): (
-                _nbytes(a, _gate_reads(c), out), 0))
+                _grid_reads(pe, a, c) + _nbytes(out), 0))
         want = _grid_gate(pe, False, hargs, hc5, hc3, ipm, novel, gate)
         print(f"K8 gate hand-built {label}: "
               f"{int(hc5['overflow'].sum() + hc3['overflow'].sum())} "
               f"overflow flags in, {int(want[-2].sum() + want[-1].sum())} "
               f"out ({int((hc5['overflow_trunc'] & hc5['overflow']).sum())}"
               f" read-1 flags truncated)", flush=True)
+    checks += _pair_edge_checks(torch, gg, pe, synth, rng, args.batch, params,
+                                ipm, dev, costs)
     for what, e5, e3, (ln5, ln3) in (
             ("runner", res["end5_pairing"], res["end3_pairing"], plens),
             ("hand-built",
@@ -2017,7 +2130,7 @@ def main(argv=None) -> int:
             partial(_fields, pe._pair_grid_cuda, gargs, pe.PAIR_GRID_KEYS),
             partial(_fields, pe._pair_grid_plain, gargs, pe.PAIR_GRID_KEYS)))
         costs.setdefault("pair_grid", lambda out, a=gargs: (
-            _nbytes(a, out), 0))
+            _grid_reads(pe, a) + _nbytes(out), 0))
     # K13-K16 on the main paths' inputs: SE -N 0 and -N 1 at the main and
     # the wide lane's widths, one PE -N 1 batch (read 1s and inverted read
     # 2s, as align_batch_pe stacks them), and hand-built edges
@@ -2664,7 +2777,9 @@ def main(argv=None) -> int:
                       partial(gg._rank_gate_se_cuda, *gargs1))):
         nops = _device_ops(fn)
         print(f"rank_hits: {nops} CUDA device ops per _rank_hits_cuda call "
-              f"({what}, SE -N 0 batch)", flush=True)
+              f"({what}, SE -N 0 batch"
+              + ("; not measured: every profile lost device ops)"
+                 if nops is None else ")"), flush=True)
         if nops is not None and nops != 1:
             raise SystemExit(f"_rank_hits_cuda ({what}) ran {nops} device "
                              f"ops, expected its one kernel")

@@ -315,8 +315,9 @@ def _extend_end(gstr, qstr, qpos, diag, direction, trim_mismatch_score=-3,
 
 
 def align_cdna(db: GenomeDB, query: str, max_intronlen: int = 1_000_000,
-               extend_ends: bool = False, device="cpu"):
-    """Align a cDNA query; returns the best Path or None.
+               extend_ends: bool = False, device="cuda"):
+    """Align a cDNA query on ``device`` (the card unless the caller asks
+    for the CPU); returns the best Path or None.
 
     extend_ends: extend the outer exons to the query bounds without
     trimming (the QUERYEND_NOGAPS end policy used when GSNAP invokes
@@ -345,7 +346,7 @@ def _bucket_q(n: int) -> int:
 
 def align_cdna_batch(db: GenomeDB, queries: list[str],
                      max_intronlen: int = 1_000_000,
-                     extend_ends: bool = False, device="cpu"):
+                     extend_ends: bool = False, device="cuda"):
     """Batched cDNA alignment: seeding, segment extraction, chaining and
     the chain backtrack for BOTH strands of EVERY query run as one pass
     on ``device`` over the database's device index (kernels K9, K10);

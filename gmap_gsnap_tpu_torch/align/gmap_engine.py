@@ -299,7 +299,7 @@ def chains_from_device(segs, B: int, Q: int, score, prev):
 # ---------------------------------------------- dynprog junction rescue
 
 def solve_junctions_batch(gcodes, requests, cdna_direction,
-                          finalp: bool = True, device="cpu"):
+                          finalp: bool = True, device="cuda"):
     """Re-solve messy intron junctions with the banded affine DP kernels
     (traverse_genome_gap -> Dynprog_genome_gap semantics,
     stage3.c:5633): the window query [lo, hi) bridges from diagonal
@@ -314,7 +314,7 @@ def solve_junctions_batch(gcodes, requests, cdna_direction,
 
 
 def solve_junctions_dispatch(gcodes, requests, cdna_direction,
-                             finalp: bool = True, device="cpu"):
+                             finalp: bool = True, device="cuda"):
     """Device half of solve_junctions_batch: queues K11 (both sides of
     every junction as one batch) and K12 on ``device``; returns a handle
     for solve_junctions_finish."""

@@ -123,8 +123,12 @@ def _part_ivs(h, lengths):
     return los, his, oks
 
 
-def _pair_grid_plain(h5, h3, lengths5, lengths3, chr_offsets, pairmax: int,
-                     subopt: int, maxpairs: int):
+def _pair_cells_plain(h5, h3, lengths5, lengths3, chr_offsets, pairmax: int,
+                      subopt: int):
+    """The grid's cells before the ranking: eff int64 [B, NP^2] (the pair
+    score of a chosen cell within subopt of the best, else BIG), pairtype
+    and insert [B, NP, NP], have_conc bool [B], and the wrapped lefts l5
+    [B, NP, 1] and l3 [B, 1, NP]."""
     b, np_ = h5["left"].shape
     L5 = lengths5.long()[:, None]
     L3 = lengths3.long()[:, None]
@@ -186,7 +190,18 @@ def _pair_grid_plain(h5, h3, lengths5, lengths3, chr_offsets, pairmax: int,
     # stage3hr.c:9719)
     best = eff.min(1, keepdim=True).values
     eff = torch.where(eff > best + subopt, BIG, eff)
+    return dict(eff=eff, pairtype=pairtype, insert=insert,
+                have_conc=have_conc, l5=l5, l3=l3)
 
+
+def _pair_grid_plain(h5, h3, lengths5, lengths3, chr_offsets, pairmax: int,
+                     subopt: int, maxpairs: int):
+    b, np_ = h5["left"].shape
+    n = np_ * np_
+    cells = _pair_cells_plain(h5, h3, lengths5, lengths3, chr_offsets,
+                              pairmax, subopt)
+    eff, pairtype, insert = cells["eff"], cells["pairtype"], cells["insert"]
+    l5, l3 = cells["l5"], cells["l3"]
     take = lambda x, i: torch.gather(x, 1, i)
     left5f = l5.expand(b, np_, np_).reshape(b, n)
     left3f = l3.expand(b, np_, np_).reshape(b, n)
@@ -208,7 +223,7 @@ def _pair_grid_plain(h5, h3, lengths5, lengths3, chr_offsets, pairmax: int,
         "insert": torch.where(ok, insf, 0).int(),
         "pscore": torch.where(ok, eff2, BIG).int(),
         "npairs": ok.sum(1).int(),
-        "pair_concordant": have_conc,
+        "pair_concordant": cells["have_conc"],
     }
 
 

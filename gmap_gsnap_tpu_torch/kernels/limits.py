@@ -68,6 +68,24 @@ def lane_features_bytes(L: int) -> int:
     return 4 * samp + stage + 4 * 2 * 32 * (nw + 1)
 
 
+def bridge_traceback_bytes(M: int, W: int, NL: int, NR: int, T: int) -> int:
+    """K12, one junction a CTA: both sides' nogap, gap1, gap2 and ndiag
+    ([M + 1, W] each), the known-site rewards and the score and type
+    tables, each as the 16-byte chunks that cover it; both walks' T steps;
+    the decision table of both sides and the dinucleotide codes; and a
+    bound on the static shared memory (``bridge_traceback.cu``
+    bridge_smem_bytes + kStaticSmem).  The GMAP path's M = 64, W = 23,
+    NL = NR = 72, T = 138 take 46,340 bytes."""
+    mat = (M + 1) * W
+
+    def chunks(n):      # chunk_words
+        return (n + 15) // 16 * 4 + 4
+
+    return (4 * (6 * chunks(4 * mat) + 2 * chunks(mat) + chunks(4 * (NL + 1))
+                 + chunks(4 * (NR + 1)) + chunks(4 * 128) + 4 * T)
+            + (2 * mat + (NL + 1) + (NR + 1) + 2 * T) + 512)
+
+
 KERNEL_BYTES = {
     "K1 seed_diagonals": seed_diagonals_bytes,
     "K3 prefix_mismatches": prefix_mismatches_bytes,

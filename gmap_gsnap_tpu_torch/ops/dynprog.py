@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..kernels import build as kbuild
+from ..kernels import limits as klimits
 
 NEG_INF = -1000000  # dynprog.c NEG_INFINITY
 
@@ -367,14 +368,17 @@ def bridge_intron(nogapL, ndiagL, nogapR, ndiagR, len1, len2L, len2R,
     def pin(ng, lb):
         return torch.gather(ng, 2, lb[:, None, None].expand(B, M, 1))[:, :, 0]
 
-    sep = (rightoffset.long() - leftoffset.long())[:, None, None]
+    # the separation test in int32, wrapping as JAX's (offsets of genomes
+    # past 2^31 bases)
+    w32 = lambda x: ((x + 2**31) & 0xFFFFFFFF) - 2**31
+    sep = w32(rightoffset.long() - leftoffset.long())[:, None, None]
     # family A: cL varies ("indel on left"), cR pinned at rR.  The -1
     # gap-avoidance applies to the varying side only (dynprog.c:3727)
     rdi_pin = torch.where(rR <= len2R[:, None] - 2, cols(rightdi, rR), 0)
     scR_pin = pin(ngR, lbandR) + cols(right_known, rR)
     okR_pin = (rR >= 1) & (rR <= len2R[:, None] - 1)
     okA = (okL & okR_pin[:, :, None] & rok[:, :, None]
-           & (rR[:, :, None] < sep - cL_band))
+           & (rR[:, :, None] < w32(sep - cL_band)))
     itypA = ldi_band & rdi_pin[:, :, None]
     scoreA = torch.where(okA, ngL + lkn_band - ndL + itab[itypA]
                          + scR_pin[:, :, None], NEG_INF)
@@ -383,7 +387,7 @@ def bridge_intron(nogapL, ndiagL, nogapR, ndiagR, len1, len2L, len2R,
     scL_pin = pin(ngL, lbandL) + cols(left_known, rL)
     okL_pin = (rL >= 1) & (rL <= len2L[:, None] - 1)
     okB = (okR & okL_pin[:, :, None] & rok[:, :, None]
-           & (rL[:, :, None] < sep - cR_band))
+           & (rL[:, :, None] < w32(sep - cR_band)))
     itypB = ldi_pin[:, :, None] & rdi_band
     scoreB = torch.where(okB, scL_pin[:, :, None] + itab[itypB] + ngR
                          + rkn_band - ndR, NEG_INF)
@@ -447,6 +451,11 @@ def _bridge_traceback_cuda(mats, len1, len2L, len2R, lbandL, lbandR, gl,
     if left_known.shape != (nb, NL + 1) or right_known.shape != (nb, NR + 1):
         raise ValueError("bridge_traceback kernel: known-site tables must be "
                          "[nb, N + 1]")
+    smem = klimits.bridge_traceback_bytes(M, W, NL, NR, T)
+    if smem > klimits.SMEM_MAX:
+        raise ValueError(f"bridge_traceback kernel: M={M}, W={W}, NL={NL}, "
+                         f"NR={NR}, T={T} need {smem} bytes of shared "
+                         f"memory, more than {klimits.SMEM_MAX}")
     dev = nogap.device
     i32 = lambda t: t.to(device=dev, dtype=I32).contiguous()
     itab, ttab = intron_score_table(cdna_direction, canonical_reward, finalp,

@@ -1825,3 +1825,106 @@ def triple_cases(rng: np.random.Generator, b: int, nc: int):
             top[row, rng.random(nc) < 0.1] = 0xFFFFFFFF
         rng.shuffle(top[row])
     return top, votes
+
+
+# ------------------------- the junction dynprog (K12) and pairing grid (K8)
+
+JUNCTION_EDGE_KINDS = ("ties", "past k = 0", "past k = W")
+JUNCTION_NEG_INF = -1000000   # dynprog's NEG_INF
+
+
+def junction_traceback_cases(rng: np.random.Generator, nb: int, M: int = 64,
+                             W: int = 23, NL: int = 72):
+    """Hand-built inputs of the junction search and both tracebacks
+    (``ops/dynprog.bridge_traceback``) for ``nb`` junctions: band
+    matrices ``nogap`` / ``gap1`` / ``gap2`` int32 and ``ndiag`` bool
+    [2 nb, M + 1, W] (rows :nb the left sides, nb: the reversed right
+    sides, as the banded sweep lays them out), and per junction ``len1``,
+    ``len2L``, ``len2R``, ``lbandL``, ``lbandR`` int32 [nb], genome
+    windows ``gl`` / ``grv`` int32 [nb, NL], known-site rewards ``known``
+    int32 [nb, NL + 1] (0 or 20) and offsets ``loff`` / ``roff`` int64
+    [nb].  Junction i's matrices are of kind
+    JUNCTION_EDGE_KINDS[i % 3], on both sides:
+
+    "ties": every cell from -2..2, so that gap1 == nogap and gap2 ==
+    max(nogap, gap1) hold often, 10% NEG_INF;
+    "past k = 0": gap1 = nogap + 2 and gap2 NEG_INF, so that a walk turns
+    GAP1 at once and goes on left past the band's first column (out of
+    the band every cell reads NEG_INF, and NEG_INF >= or > NEG_INF + open
+    holds) while its column is above 1;
+    "past k = W": gap2 = nogap + 2 and gap1 NEG_INF: a GAP2 walk past the
+    last column while its row is above 1.
+
+    len1 runs 2..M (junction 0 has 2, junction 1 has M), len2 = len1 + 8
+    (at most NL with NL = M + 8), bands 0-3 (an edge walk crosses the band
+    edge only where its column exceeds band + 1 there); the windows hold
+    codes 0-4 with GT, GC, AT / AG, AC planted; two junctions in 5 have
+    offsets at both ends of int32, so that the separation test's
+    differences wrap as JAX's int32 arithmetic does."""
+    neg = JUNCTION_NEG_INF
+    shape = (2 * nb, M + 1, W)
+    nogap = rng.integers(-20, 21, shape)
+    kind = np.tile(np.arange(nb) % 3, 2)[:, None, None]
+    small = rng.integers(-2, 3, shape)
+    gap1 = np.select([kind == 0, kind == 1], [rng.integers(-2, 3, shape),
+                                              nogap + 2], neg)
+    gap2 = np.select([kind == 0, kind == 2], [rng.integers(-2, 3, shape),
+                                              nogap + 2], neg)
+    nogap = np.where(kind == 0, small, nogap)
+    holes = (kind == 0) & (rng.random((3,) + shape) < 0.1)
+    nogap, gap1, gap2 = (np.where(h, neg, a)
+                         for h, a in zip(holes, (nogap, gap1, gap2)))
+    len1 = rng.integers(2, M + 1, nb)
+    len1[:2] = (2, M)[: min(nb, 2)]
+    gl = rng.integers(0, 5, (nb, NL))
+    grv = rng.integers(0, 5, (nb, NL))
+    for row in range(nb):   # dinucleotides: GT/GC/AT left, AG/AC right
+        for c in rng.choice(NL - 1, 6, replace=False):
+            gl[row, c : c + 2] = ((2, 3), (2, 1), (0, 3))[c % 3]
+            grv[row, c : c + 2] = ((2, 0), (1, 0))[c % 2]
+    loff = rng.integers(0, 1000, nb)
+    roff = loff + rng.integers(0, 200, nb)
+    # offsets at both ends of int32 (a genome past 2^31 bases): every 5th
+    # junction's difference wraps to a small negative one, every 5th
+    # other's to just above INT32_MIN, so that it less a column wraps too
+    loff[4::5] = -2**31 + rng.integers(0, 1000, len(loff[4::5]))
+    roff[4::5] = 2**31 - 1 - rng.integers(0, 1000, len(roff[4::5]))
+    loff[3::5] = 2**31 - 1 - rng.integers(0, 30, len(loff[3::5]))
+    roff[3::5] = rng.integers(0, 30, len(roff[3::5]))
+    i32 = lambda a: np.ascontiguousarray(a, np.int32)
+    return dict(
+        nogap=i32(nogap), gap1=i32(gap1), gap2=i32(gap2),
+        ndiag=rng.random(shape) < 0.3, len1=i32(len1), len2L=i32(len1 + 8),
+        len2R=i32(len1 + 8), lbandL=i32(rng.integers(0, 4, nb)),
+        lbandR=i32(rng.integers(0, 4, nb)), gl=i32(gl), grv=i32(grv),
+        known=i32(rng.integers(0, 2, (nb, NL + 1)) * 20),
+        loff=loff.astype(np.int64), roff=roff.astype(np.int64))
+
+
+def pair_grid_edges(rng: np.random.Generator, b: int, nchr: int = 1000,
+                    nc: int = 24, L: int = 100):
+    """``pair_hit_cases``' hits for ``b`` read pairs beside ``nchr``
+    chromosomes: their offsets int64 [nchr + 1] (0 first, 2^32 - 1 last:
+    the JAX package keeps them as uint32) are random, and three in each of
+    pair_hit_cases' clusters, so that hits and mates straddle chromosome
+    ends.  Rows where every cell of the grid is BIG: pair 3 and every 5th
+    after it have every read-1 hit BIG, pair 4 and every 5th after it
+    every read-2 hit.  Rows 1 and 2 keep pair_hit_cases' grid of equal
+    scores, where the ranks of left5 and left3 and the cell index decide
+    (no chromosome ends inside them).
+    Returns (hits, lengths5, lengths3, chr_offsets)."""
+    near = np.asarray(PAIR_HIT_BASES, np.int64)[:, None] + rng.integers(
+        -3000, 3000, (len(PAIR_HIT_BASES), 3))
+    rest = rng.choice(2**32 - 2, nchr - 1 - near.size, replace=False) + 1
+    ends = np.unique(np.concatenate([near.ravel() % (2**32 - 1), rest]))
+    keep = (ends > 0) & (ends < 2**32 - 1)
+    for start in (100_000_000, 2**31 - 150):   # rows 1 and 2 stay whole
+        keep &= (ends <= start) | (ends > start + 2_000)
+    ends = ends[keep][: nchr - 1]
+    offsets = np.concatenate([[0], ends, [2**32 - 1]]).astype(np.int64)
+    hits, len5, len3 = pair_hit_cases(rng, b, offsets[1:], nc, L)
+    big = hits["score"]
+    big[3:b:5] = 10**6
+    big[b + 4 :: 5] = 10**6
+    hits["nmm"] = np.where(big < 10**6, hits["nmm"], 0).astype(np.int32)
+    return hits, len5, len3, offsets

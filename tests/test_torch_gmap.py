@@ -141,7 +141,8 @@ def test_solve_junctions_batch_matches_jax(world):
     for batch in (reqs, wide):
         for direction in (1, -1, 0):
             j = jeng.solve_junctions_batch(gcodes, batch, direction)
-            t = teng.solve_junctions_batch(gcodes, batch, direction)
+            t = teng.solve_junctions_batch(gcodes, batch, direction,
+                                            device="cpu")
             assert t == j
             assert sum(x is not None for x in t) > 0
 
@@ -236,7 +237,7 @@ def test_align_cdna_batch_matches_jax(world):
             jp = jgmap.align_cdna_batch(jdb, qs, max_intronlen=il,
                                         extend_ends=True)
             tp = tgmap.align_cdna_batch(db, qs, max_intronlen=il,
-                                        extend_ends=True)
+                                        extend_ends=True, device="cpu")
             assert [_path(p) for p in tp] == [_path(p) for p in jp]
         assert seen["dynprog"] > 0 and seen["deep"] > 0, seen
         # a forced hit/segment overflow re-runs the seeding, same paths
@@ -247,7 +248,7 @@ def test_align_cdna_batch_matches_jax(world):
         jp = jgmap.align_cdna_batch(jdb, queries[:12], max_intronlen=200_000,
                                     extend_ends=True)
         tp = tgmap.align_cdna_batch(db, queries[:12], max_intronlen=200_000,
-                                    extend_ends=True)
+                                    extend_ends=True, device="cpu")
         assert [_path(p) for p in tp] == [_path(p) for p in jp]
         assert tgmap._HS_STICKY[128] != (64, 8)
     finally:
@@ -263,3 +264,58 @@ def _path(p):
             p.querylength,
             tuple((e.qstart, e.qend, e.gstart, e.gend, e.matches,
                    e.mismatches) for e in p.exons))
+
+
+class _Asked(Exception):
+    """Raised by a stand-in for the device index: carries the device the
+    entry point asked for."""
+
+
+def _junction_requests(rng, gcodes, n=6):
+    reqs = []
+    for _ in range(n):
+        dL = int(rng.integers(1000, len(gcodes) - 30_000))
+        dR = dL + int(rng.integers(9, 20_000))
+        split = int(rng.integers(30, 70))
+        q = np.concatenate([gcodes[dL : dL + split],
+                            gcodes[dR + split : dR + 100]])
+        reqs.append((q.astype(np.uint8), split - 11, split + 11, dL, dR))
+    return reqs
+
+
+@pytest.mark.parametrize("entry", ["align_cdna", "align_cdna_batch",
+                                   "solve_junctions_batch",
+                                   "solve_junctions_dispatch"])
+def test_gmap_entry_points_default_to_the_card(world, monkeypatch, entry):
+    """Called without ``device``, each GMAP engine entry point asks for
+    CUDA (here, without a card, the request raises; with
+    device="cpu" the same call runs)."""
+    rng, g, db, _ = world
+    if entry.startswith("align_cdna"):
+        def stand_in(db_, device):
+            raise _Asked(device)
+
+        monkeypatch.setattr(tgmap.datadir, "device_index", stand_in)
+        query = synth.plant_reads(rng, g, 1)[0][0].seq
+        fn = getattr(tgmap, entry)
+        arg = query if entry == "align_cdna" else [query]
+        with pytest.raises(_Asked) as asked:
+            fn(db, arg, max_intronlen=200_000, extend_ends=True)
+        assert torch.device(asked.value.args[0]).type == "cuda"
+        with pytest.raises(_Asked) as asked:
+            fn(db, arg, max_intronlen=200_000, extend_ends=True, device="cpu")
+        assert torch.device(asked.value.args[0]).type == "cpu"
+        return
+    reqs = _junction_requests(rng, db.codes)
+    fn = getattr(teng, entry)
+    if torch.cuda.is_available():
+        before = teng.dp.kbuild.LAUNCHES["gmap_bridge_traceback"]
+        fn(db.codes, reqs, 1)
+        assert teng.dp.kbuild.LAUNCHES["gmap_bridge_traceback"] == before + 1
+    else:
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            fn(db.codes, reqs, 1)
+    out = fn(db.codes, reqs, 1, device="cpu")
+    if entry == "solve_junctions_dispatch":
+        out = teng.solve_junctions_finish(out)
+    assert sum(x is not None for x in out) > 0

@@ -20,6 +20,7 @@ from gmap_gsnap_tpu_torch.align import gsnap_pe as pe
 from gmap_gsnap_tpu_torch.align import gsnap_se as se
 from gmap_gsnap_tpu_torch.align import runner as trun
 from gmap_gsnap_tpu_torch.kernels import build as kbuild
+from gmap_gsnap_tpu_torch.kernels import limits as klimits
 from gmap_gsnap_tpu_torch.ops import dynprog as dp
 from gmap_gsnap_tpu_torch.ops import mismatch as mmo
 from gmap_gsnap_tpu_torch.ops.genome import GenomeArrays
@@ -1041,6 +1042,127 @@ def test_pair_grid_gate_matches_plain(cuda, novel):
         else:
             _equal([c5["overflow"], c3["overflow"]],
                    [w5["overflow"], w3["overflow"]])
+
+
+def _junction_args(case, dev, W, T, table, open_, ext):
+    """bridge_traceback's arguments from a junction_traceback_cases dict
+    (or one of its layout) on dev, M = 64."""
+    cd, halfp, nospl, known = table
+    t = lambda k: torch.from_numpy(np.ascontiguousarray(case[k])).to(dev)
+    kn = t("known") if known else torch.zeros_like(t("known"))
+    mats = tuple(t(k) for k in ("nogap", "gap1", "gap2", "ndiag"))
+    return (mats, t("len1"), t("len2L"), t("len2R"), t("lbandL"),
+            t("lbandR"), t("gl"), t("grv"), kn, kn, t("loff"), t("roff"), 64,
+            W, T, open_, ext, 30, cd, True, halfp, nospl)
+
+
+JUNCTION_TABLES = ((1, False, False, False), (-1, True, False, True),
+                   (0, False, False, False), (1, False, True, True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [23, 32])
+@pytest.mark.parametrize("T", [138, 6])
+def test_bridge_traceback_edges_match_plain(cuda, W, T):
+    """K12 against its plain version on synth.junction_traceback_cases
+    (ties under jump early and late, walks past k = 0 and past k = W - 1,
+    len1 2 and 64) and on band-sweep windows at W (the kernel's dynamic
+    shared memory passes 48 KB at W = 32), every table, both gap tiers;
+    T = 6 cuts every walk."""
+    cases = [synth.junction_traceback_cases(np.random.default_rng(W + s),
+                                            nb, 64, W, 72)
+             for s, nb in ((0, 24), (1, 300))]
+    rng = np.random.default_rng(W)
+    nb = 64
+    q = rng.integers(0, 5, (2 * nb, 64)).astype(np.int32)
+    g = rng.integers(0, 5, (2 * nb, 72)).astype(np.int32)
+    g[:, :64] = np.where(rng.random((2 * nb, 64)) < 0.8, q, g[:, :64])
+    len1 = np.tile(np.r_[2, 64, rng.integers(2, 65, nb - 2)], 2).astype(
+        np.int32)
+    q[np.arange(64)[None, :] >= len1[:, None]] = 5
+    lb, rb = dp.compute_bands(len1, len1 + 8, 7)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    mats = dp._banded_matrices_cuda(
+        t(q), t(g), t(len1), t(len1 + 8), t(lb), t(rb),
+        dp.pair_matrix(dp.MISMATCH_HIGHQ), t(np.arange(2 * nb) >= nb), 64, W,
+        dp.PAIRED_OPEN, dp.PAIRED_EXTEND)
+    loff = rng.integers(0, 1000, nb)
+    cases.append(dict(
+        nogap=mats[0].cpu().numpy(), gap1=mats[1].cpu().numpy(),
+        gap2=mats[2].cpu().numpy(), ndiag=mats[3].cpu().numpy(),
+        len1=len1[:nb], len2L=len1[:nb] + 8, len2R=len1[nb:] + 8,
+        lbandL=lb[:nb], lbandR=lb[nb:], gl=g[:nb], grv=g[nb:],
+        known=(rng.integers(0, 2, (nb, 73)) * 20).astype(np.int32),
+        loff=loff, roff=loff + rng.integers(0, 200, nb)))
+    for case in cases:
+        for open_, ext in ((dp.PAIRED_OPEN, dp.PAIRED_EXTEND),
+                           (dp.SINGLE_OPEN, dp.SINGLE_EXTEND)):
+            for table in JUNCTION_TABLES:
+                a = _junction_args(case, cuda, W, T, table, open_, ext)
+                _equal(dp._bridge_traceback_cuda(*a),
+                       dp._bridge_traceback_plain(*a))
+
+
+@pytest.mark.cuda
+def test_bridge_traceback_at_its_shared_memory_limit(cuda):
+    """K12 at the largest M whose shared memory kernels/limits.py admits
+    (W = 32, NL = NR = M + 8, T = M + NL + 2: about 227 KB of dynamic
+    shared memory) against its plain version; one row more is refused."""
+    def fits(m):
+        return klimits.bridge_traceback_bytes(m, 32, m + 8, m + 8,
+                                              2 * m + 10) <= klimits.SMEM_MAX
+
+    m = max(x for x in range(64, 1024) if fits(x))
+    rng = np.random.default_rng(m)
+    nb = 16
+    shape = (2 * nb, m + 1, 32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    mats = tuple(t(rng.integers(-30, 31, shape).astype(np.int32))
+                 for _ in range(3)) + (t(rng.random(shape) < 0.3),)
+    len1 = t(rng.integers(2, m + 1, nb).astype(np.int32))
+    lb = t(rng.integers(0, 8, nb).astype(np.int32))
+    win = t(rng.integers(0, 5, (nb, m + 8)).astype(np.int32))
+    kn = t((rng.integers(0, 2, (nb, m + 9)) * 20).astype(np.int32))
+    off = t(rng.integers(0, 1000, nb))
+    a = (mats, len1, len1 + 8, len1 + 8, lb, lb, win, win, kn, kn, off,
+         off + 50, m, 32, 2 * m + 10, dp.PAIRED_OPEN, dp.PAIRED_EXTEND, 30,
+         0, True, False, False)
+    _equal(dp._bridge_traceback_cuda(*a), dp._bridge_traceback_plain(*a))
+    assert not fits(m + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("np_", [1, 7, 16])
+def test_pair_grid_edges_match_plain(cuda, np_):
+    """K8 against its plain grid and gate on synth.pair_grid_edges (1,000
+    chromosome offsets, rows whose every cell is BIG, rows of one pair
+    score, lefts above 2^24 and near 2^31) at NP = np_, K = 1, NP^2 and
+    100, with and without the gate."""
+    rng = np.random.default_rng(np_)
+    b = 1024
+    hits, len5, len3, offsets = synth.pair_grid_edges(rng, b)
+    cands = synth.pair_gate_cases(rng, b)
+    t = lambda v: torch.from_numpy(v.astype(np.int64) if v.dtype == np.uint32
+                                   else v).to(cuda)
+    h5, h3 = _ranked_ends({k: t(v) for k, v in hits.items()}, b,
+                          se.GsnapParams(), np_)
+    lens = (t(len5), t(len3))
+    for K in sorted({1, np_ * np_, min(100, np_ * np_)}):
+        for pairmax, subopt, gate_on in ((200_000, 2, True), (1000, 0, False)):
+            c5, c3 = ({k: t(v[s]) for k, v in cands.items()}
+                      for s in (slice(0, b), slice(b, None)))
+            w5, w3 = dict(c5), dict(c3)
+            args = (h5, h3, *lens, t(offsets), pairmax, subopt, K)
+            want = pe._pair_grid_plain(*args)
+            got = pe._pair_grid_cuda(*args, (c5, c3, 1, True) if gate_on
+                                     else None)
+            _equal([got[k] for k in pe.PAIR_GRID_KEYS],
+                   [want[k] for k in pe.PAIR_GRID_KEYS])
+            assert (want["npairs"] == 0).any() and (want["npairs"] > 0).any()
+            if gate_on:
+                o5, o3 = pe._pair_gate_plain(want, h5, h3, w5, w3, subopt, 1,
+                                             True)
+                _equal([c5["overflow"], c3["overflow"]], [o5, o3])
 
 
 def test_pack_and_gate_wrappers_argument_order(monkeypatch):

@@ -7,6 +7,7 @@
 #include <algorithm>
 #include <barrier>
 #include <climits>
+#include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
@@ -21,6 +22,7 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
 #define __launch_bounds__(...)
 #define __restrict__
 #define __shared__ static
@@ -116,6 +118,13 @@ template <class T> inline T __ldg(const T* p) { return *p; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
+// int <-> float32 to nearest even; the conversion back saturates
+inline float __int2float_rn(int x) { return (float)x; }
+inline int __float2int_rn(float f) {
+  if (f != f) return 0;
+  const float r = std::nearbyint(f);
+  return r >= 2147483648.0f ? INT_MAX : r <= -2147483648.0f ? INT_MIN : (int)r;
+}
 template <class T> inline T atomicAdd(T* p, T v) { std::lock_guard<std::mutex> g(emu_mu); T o = *p; *p = o + v; return o; }
 template <class T> inline T atomicMin(T* p, T v) { std::lock_guard<std::mutex> g(emu_mu); T o = *p; if (v < o) *p = v; return o; }
 template <class T> inline T atomicMax(T* p, T v) { std::lock_guard<std::mutex> g(emu_mu); T o = *p; if (v > o) *p = v; return o; }

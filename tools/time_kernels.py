@@ -2,10 +2,10 @@
 K3 (prefix_mismatches, with and without an alt genome), K4
 (solve_indels), K13 (lane_features), K5 (solve_splices), K6
 (select_triples, beside its library sort), K7 (solve_doublesplices), K15
-(qpos_ranges) and K16 (select_pairs, beside its library sort) — so that
-two versions can
-be compared within one call (run it for each tree in turns: old, new,
-new, old).
+(qpos_ranges), K16 (select_pairs, beside its library sort), K12
+(bridge_traceback) and K8 (pair_grid, beside its ranking's library sort)
+— so that two versions can be compared within one call (run it for each
+tree in turns: old, new, new, old).
 
 The inputs are those of an -N 1 batch: planted RNA reads (2048, both
 strands: 4096 rows) over a synthetic genome, seeded, voted and verified
@@ -19,7 +19,11 @@ dense bits, off); K15 on the seed grids and selected diagonals at W=384,
 NC=32 (the -N 0 runner's seed budget) and W=4096, NC=128; K16 under
 both rules with 16 pairs, and on
 synth.diag_pair_rows' edge rows (1024 rows, NC 3 to 128, maxpairs 16 and
-1024).  Times are torch.profiler device time per call, as chip_smoke.py
+1024); K12 and K8 on the inputs the PE -N 1 runner gives them
+(pe_inputs: 4096 planted RNA pairs in batches of 2048; K12 also on 128
+random junction windows, its plain version profiled over one call).
+Times are torch.profiler device time per call over 50 calls after 50 ms
+of the kernel (the card's clocks up), as chip_smoke.py
 takes them (its _timed), and every kernel is checked against its plain
 version first.  K6's library sort is also timed on keys of the same
 shape that are all equal, and between CUDA events.  "cascade" times
@@ -35,6 +39,7 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
+import io
 import json
 import os
 import subprocess
@@ -44,9 +49,12 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+PE_BATCH = 2048   # pairs a runner batch, as chip_smoke.py runs PE -N 1
+REPS = 50         # calls a profile (the plain K12: one)
 KERNELS = ("prefix_mismatches", "solve_indels", "lane_features",
            "solve_splices", "select_triples", "solve_doublesplices",
-           "select_pairs", "qpos_ranges", "cascade")
+           "select_pairs", "qpos_ranges", "bridge_traceback", "pair_grid",
+           "cascade")
 
 
 def main() -> int:
@@ -105,15 +113,30 @@ def main() -> int:
                 ("masks 0.15 novel=0", False, masks[0.15]))
     times = {}
 
-    def timed(name, fk, fp, cost, lib=None):
-        """Check fk against fp, then time both (and lib); cost maps the
-        plain output to (bytes, operations), chip_smoke's bound."""
+    def timed(name, fk, fp, cost, lib=None, plain_reps=None):
+        """Check fk against fp, then time both (and lib) over REPS calls a
+        profile (the plain version over plain_reps, where given) after 50
+        ms of fk; cost maps the plain output to (bytes, operations),
+        chip_smoke's bound."""
         got, want = fk(), fp()
         if smoke._max_abs_err(got, want) != 0:
             raise SystemExit(f"{name}: kernel disagrees with its plain "
                              f"version")
         bound = smoke._bound(*cost(want))
-        ms, clock, _ = smoke._timed(fk, fp, *([lib] if lib else []))
+        # the card's clocks up first: 50 ms of the kernel
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 0.05:
+            fk()
+            torch.cuda.synchronize()
+        if plain_reps is None:
+            ms, clock, _ = smoke._timed(fk, fp, *([lib] if lib else []),
+                                        reps=REPS)
+        else:
+            ms, clock, _ = smoke._timed(fk, *([lib] if lib else []),
+                                        reps=REPS)
+            pms, pclock, _ = smoke._timed(fp, reps=plain_reps)
+            ms = [ms[0], pms[0], *ms[1:]]
+            clock = clock if pclock == clock else f"{clock} / plain {pclock}"
         times[name] = {"ms": ms[0], "plain_ms": ms[1], "clock": clock,
                        "library_ms": ms[2] if lib else None,
                        "bound_ms": bound[0], "bound_by": bound[1]}
@@ -242,11 +265,129 @@ def main() -> int:
             pt, pv = (torch.from_numpy(x).to(dev)
                       for x in synth.diag_pair_rows(rng, 1024, nc))
             pairs(f"edges NC={nc} P={npairs}", pt, pv, npairs)
+    if {"bridge_traceback", "pair_grid"} & set(args.only):
+        pe_inputs(torch, smoke, db, g, dev, args, timed)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(json.dumps({"root": root, "card": smi, "times": times}))
     return 0
+
+
+def pe_inputs(torch, smoke, db, g, dev, args, timed) -> None:
+    """K12 and K8 on the inputs the PE -N 1 runner (default GMAP lanes)
+    gives them over 2 PE_BATCH planted RNA pairs (3% messy junctions) in
+    batches of PE_BATCH, as chip_smoke runs it: K12 on its largest call's
+    junction windows and on 128 random windows (chip_smoke's
+    _junction_windows), K8 on the ranked end hits of one batch and of the
+    batches stacked (4,096 pairs), with its gate epilogue and without,
+    beside its ranking's library sort, and that sort's width: a stable
+    torch.sort of random [2048, 256] keys as int32 and as int64."""
+    from gmap_gsnap_tpu_torch.align import gsnap_pe as pe
+    from gmap_gsnap_tpu_torch.align import gsnap_se as se
+    from gmap_gsnap_tpu_torch.align import runner as trun
+    from gmap_gsnap_tpu_torch.ops import dynprog as dp
+    from gmap_gsnap_tpu_torch.utils import synth
+
+    rng = np.random.default_rng(args.seed + 1)
+    p1, p2, _ = synth.plant_pairs(
+        rng, g, 2 * PE_BATCH,
+        weights={**synth.RNA_PAIR_MIX, "messy_junction": 0.03})
+    params = se.GsnapParams(size_threshold=se.dynamic_size_threshold(
+        int(db.offsets[-1]), db.k, "standard"))
+    runner = trun.GsnapRunner(db, params, lmax=100, novelsplicing=True,
+                              device=dev)
+    captured = {}
+    real_bt, real_grid = dp.bridge_traceback, pe.pair_grid
+
+    def spy_bt(*a):
+        if "bt" not in captured or a[1].shape[0] > captured["bt"][1].shape[0]:
+            captured["bt"] = a
+        return real_bt(*a)
+
+    def spy_grid(*a):
+        gate = a[8] if len(a) > 8 else None
+        captured.setdefault("grid", []).append(a[:8] + (
+            None if gate is None else (dict(gate[0]), dict(gate[1]),
+                                       *gate[2:]),))
+        return real_grid(*a)
+
+    dp.bridge_traceback, pe.pair_grid = spy_bt, spy_grid
+    try:
+        runner.run_pe(p1, p2, io.StringIO(), batch_size=PE_BATCH)
+    finally:
+        dp.bridge_traceback, pe.pair_grid = real_bt, real_grid
+    if "bridge_traceback" in args.only:
+        if "bt" not in captured:
+            raise SystemExit("the PE -N 1 runner's GMAP lane ran no junction "
+                             "dynprog")
+        lane = captured["bt"]
+        w = smoke._junction_windows(torch, dp, rng, 128, dev)
+        margs = (w["q"], w["g"], w["len1"], w["len2"], w["lb"], w["rb"],
+                 dp.pair_matrix(dp.MISMATCH_HIGHQ), w["late"], 64, 23,
+                 dp.PAIRED_OPEN, dp.PAIRED_EXTEND)
+        mats = dp._banded_matrices_plain(*margs)
+        rand = (mats, w["len1"][:128], w["len2"][:128], w["len2"][128:],
+                w["lb"][:128], w["lb"][128:], w["g"][:128], w["g"][128:],
+                w["known"], w["known"], w["loff"], w["roff"], 64, 23, 138,
+                dp.PAIRED_OPEN, dp.PAIRED_EXTEND, 30, 1, True, False, False)
+        for label, a in ((f"PE -N 1 lane nb={lane[1].shape[0]}", lane),
+                         ("random nb=128", rand)):
+            print(f"bridge_traceback {label}: M={a[12]} W={a[13]} T={a[14]}",
+                  flush=True)
+            timed(f"bridge_traceback {label}",
+                  lambda a=a: dp._bridge_traceback_cuda(*a),
+                  lambda a=a: dp._bridge_traceback_plain(*a),
+                  smoke._bridge_cost(a), plain_reps=1)
+    if "pair_grid" in args.only:
+        # the batches' K8 inputs, stacked
+        calls = [c for c in captured["grid"] if c[2].shape[0] == PE_BATCH]
+        if not calls or any(c[8] is None for c in calls):
+            raise SystemExit(f"the PE -N 1 runner made no gated K8 call of "
+                             f"{PE_BATCH} pairs")
+        cat = lambda ds: {k: torch.cat([d[k] for d in ds]) for k in ds[0]}
+        h5, h3 = cat([c[0] for c in calls]), cat([c[1] for c in calls])
+        l5 = torch.cat([c[2] for c in calls])
+        l3 = torch.cat([c[3] for c in calls])
+        offs, pairmax, subopt, maxpairs = calls[0][4:8]
+        c5, c3 = cat([c[8][0] for c in calls]), cat([c[8][1] for c in calls])
+        ipm, novel = calls[0][8][2:]
+        print(f"pair_grid: {len(calls)} runner batches of {PE_BATCH} "
+              f"pairs, NP={h5['left'].shape[1]}, maxpairs={maxpairs}",
+              flush=True)
+        for n in sorted({PE_BATCH, l5.shape[0]}):
+            cut = lambda d: {k: v[:n] for k, v in d.items()}
+            a = (cut(h5), cut(h3), l5[:n], l3[:n], offs, pairmax, subopt,
+                 maxpairs)
+            g5, g3 = cut(c5), cut(c3)
+            lib = (smoke._grid_sort(torch, pe, a)
+                   if hasattr(pe, "_pair_cells_plain") else None)
+            timed(f"pair_grid {n} pairs + gate",
+                  lambda a=a, g5=g5, g3=g3: smoke._grid_gate(
+                      pe, True, a, g5, g3, ipm, novel),
+                  lambda a=a, g5=g5, g3=g3: smoke._grid_gate(
+                      pe, False, a, g5, g3, ipm, novel),
+                  lambda out, a=a, g5=g5, g3=g3: (
+                      smoke._grid_reads(pe, a, (g5, g3))
+                      + smoke._nbytes(out), 0),
+                  lib)
+            timed(f"pair_grid {n} pairs",
+                  lambda a=a: smoke._fields(pe._pair_grid_cuda, a,
+                                            pe.PAIR_GRID_KEYS),
+                  lambda a=a: smoke._fields(pe._pair_grid_plain, a,
+                                            pe.PAIR_GRID_KEYS),
+                  lambda out, a=a: (smoke._grid_reads(pe, a)
+                                    + smoke._nbytes(out), 0))
+        # the library sort by key width: one stable torch.sort of the
+        # same [B, 256] random keys as int32 and as int64
+        k32 = torch.randint(0, 2**31 - 1, (PE_BATCH, 256),
+                            dtype=torch.int32, device=dev)
+        k64 = k32.long()
+        ms, clock, _ = smoke._timed(lambda: torch.sort(k32, stable=True),
+                                    lambda: torch.sort(k64, stable=True),
+                                    reps=REPS)
+        print(f"torch.sort [{PE_BATCH}, 256] stable: int32 {ms[0]} ms, "
+              f"int64 {ms[1]} ms ({clock})", flush=True)
 
 
 if __name__ == "__main__":
