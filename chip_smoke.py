@@ -65,7 +65,14 @@ and ends the run with a nonzero exit):
      (max_intronlen 200,000 and 30), K9 also at a
      forced hit/segment overflow and at the retry's sizes, K11/K12 also
      on 32 and 128 random junction windows with both gap tiers and every
-     cdna_direction; K1/K2 on the SNP index, K3 with the alt genome and
+     cdna_direction, K11 also on synth.band_sweep_cases (W 1, 23 and 32,
+     M 1, 33, 64 and 100, lband 0, a band of W cells and one past W, len2 below W
+     and len2 = N, codes 4 and 5, jump late and early, both gap tiers);
+     K1 on synth.seed_row_cases (k = 4: counts of 0, the threshold and
+     one above it, N runs, reads shorter than L and than k, positions
+     below their query position, grids that the repeat reads overflow;
+     S 1, 31, 32, 33 and 100, interval 1, 3, 7 and 32, half on and off);
+     K1/K2 on the SNP index, K3 with the alt genome and
      K5/K7 with the known-site masks at novel 1 and 0 on path 5's reads,
      and K5/K7 on dense random masks with word-aligned, genome-end and
      INVALID diagonals; K13-K16 on the strands of one batch of SE -N 0
@@ -190,9 +197,9 @@ and ends the run with a nonzero exit):
      each with its own library sort and bound, K15 at W=384 / NC=32 and
      W=4096 / NC=128, K5, K7, K9-K13 and K17 at their first shape (K10-K12
      over one call a profile); each timing line and phase with the wall
-     clock since the start and the seconds it took; the number of device ops one K14 call runs
-     (1: its fields are
-     gathered inside it); then profiles of the SE -N 1 and PE -N 1 runs
+     clock since the start and the seconds it took; the number of device
+     ops one K14 call runs (1: its fields are gathered inside it) and one
+     K11 call runs (1: the pair matrix goes by value); then profiles of the SE -N 1 and PE -N 1 runs
      (device busy share, top device ops), measured last so that the
      profiler cannot perturb step 5's timing.
 
@@ -357,6 +364,26 @@ def _bridge_cost(bargs):
                 15 * nb * bargs[12] * 2 * bargs[13])
 
     return cost
+
+
+def _seed_cost(se, codes, nflags, lengths, k: int):
+    """K1's cost (bytes, operations) on seed_diagonals' reads: the reads
+    and the outputs, two offsets-table reads a k-mer and a positions read
+    a filled slot."""
+    def cost(out):
+        kmers = codes.shape[0] * (codes.shape[1] - k + 1)
+        return (_nbytes(codes, nflags, lengths, out) + kmers * 8
+                + int((out[0] != se.INVALID_DIAG).sum()) * 4, 0)
+
+    return cost
+
+
+def _gotoh_cost(margs):
+    """K11's cost (bytes, operations) on banded_matrices' arguments: the
+    codes, lengths, bands and jump rule read once, the four matrices
+    written once; ~20 integer operations a band cell."""
+    return lambda out: (_nbytes(margs[:6], margs[7], out),
+                        20 * out[0].numel())
 
 
 def _triple_cost(top_d, votes, maxdist: int, T: int):
@@ -993,6 +1020,57 @@ def _junction_edge_checks(torch, dp, synth, rng, dev, costs) -> list:
     return checks
 
 
+def _sweep_edge_checks(torch, dp, synth, rng, dev, costs) -> list:
+    """K11 checks on synth.band_sweep_cases: W 1, 23 and 32, M 1, 33, 64
+    and 100 (a pass of 32 rows cut short, rows past K11's ring of 64),
+    lband 0, a band of W cells and one past W, len2 below W and len2 = N,
+    codes 4 and 5, jump late and early, both gap tiers."""
+    checks = []
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    for W, M in ((1, 1), (1, 64), (23, 64), (32, 64), (32, 1), (23, 100),
+                 (32, 33)):
+        case = synth.band_sweep_cases(rng, 300, M, W)
+        for open_, ext in ((dp.PAIRED_OPEN, dp.PAIRED_EXTEND),
+                           (dp.SINGLE_OPEN, dp.SINGLE_EXTEND)):
+            margs = (*(t(case[k]) for k in ("q", "g", "len1", "len2",
+                                            "lband", "rband")),
+                     dp.pair_matrix(dp.MISMATCH_HIGHQ), t(case["late"]), M,
+                     W, open_, ext)
+            checks.append(("banded_gotoh/edges",
+                           f"W={W} M={M} open={open_} 300 problems",
+                           partial(dp._banded_matrices_cuda, *margs),
+                           partial(dp._banded_matrices_plain, *margs)))
+            costs.setdefault("banded_gotoh/edges", _gotoh_cost(margs))
+    return checks
+
+
+def _seed_edge_checks(torch, se, synth, rng, dev, costs) -> list:
+    """K1 checks on synth.seed_row_cases (k = 4, threshold 5): counts of
+    0, the threshold and one above it, N runs, reads shorter than L and
+    than k, positions below their query position, repeat reads that
+    overflow a 24-slot grid; S 1, 31, 32, 33 and 100 k-mers; interval 1,
+    3, 7 and 32; grids of 24 and 100 slots and the exact one; half on and
+    off."""
+    checks = []
+    k, thr = 4, 5
+    t = lambda a: torch.from_numpy(a).to(dev)
+    for S, q in ((31, 1), (32, 32), (33, 3), (1, 32), (100, 7)):
+        case = synth.seed_row_cases(rng, 512, S + k - 1, k, thr)
+        idx = se.IndexArrays(t(case["offsets"]), t(case["positions"]), k, q)
+        reads = tuple(t(case[x]) for x in ("codes", "nflags", "lengths"))
+        for seed_total, half in ((24, True), (100, False), (0, True)):
+            p = se.GsnapParams(seed_total=seed_total, size_threshold=thr)
+            sargs = (idx, *reads, p, half)
+            checks.append(("seed_diagonals/edges",
+                           f"S={S} q={q} seed_total={seed_total} half="
+                           f"{int(half)} 512 reads",
+                           partial(se._seed_diagonals_cuda, *sargs),
+                           partial(se._seed_diagonals_plain, *sargs)))
+            costs.setdefault("seed_diagonals/edges",
+                             _seed_cost(se, *reads, k))
+    return checks
+
+
 def _pair_edge_checks(torch, gg, pe, synth, rng, b: int, params, ipm: int,
                       dev, costs) -> list:
     """K8 checks on synth.pair_grid_edges (1,000 chromosome offsets, rows
@@ -1101,11 +1179,9 @@ def _gmap_checks(torch, eng, dp, lanes, rng, dev, costs):
                          halfp, nospl)
                 dynprog(f"nb={nb} open={open_} cdna={cd}", margs, bargs)
     checks += _junction_edge_checks(torch, dp, synth, rng, dev, costs)
+    checks += _sweep_edge_checks(torch, dp, synth, rng, dev, costs)
     first = next(c for c in checks if c[0] == "banded_gotoh")
-    ma = first[2].args
-    # ~20 integer operations per band cell, ~15 per junction candidate
-    costs["banded_gotoh"] = lambda out: (
-        _nbytes(ma[:6], ma[7], out), 20 * out[0].numel())
+    costs["banded_gotoh"] = _gotoh_cost(first[2].args)
     fb = next(c for c in checks if c[0] == "bridge_traceback")[2].args
     costs["bridge_traceback"] = _bridge_cost(fb)
     return checks
@@ -1145,15 +1221,12 @@ def _stage_checks(torch, gg, se, mmo, genome_dev, index, index_minus, c, f,
         mm, pref = mmo._prefix_mismatches_plain(genome_dev, q, top_d, ll,
                                                 conv, None)
         if conv is not None:
-            kmers = cc.shape[0] * (100 - idx.k + 1)
             sargs = (idx, cconv, ff, ll, base, True)
             checks += [
                 (f"seed_diagonals/{conv} index", shape,
                  partial(se._seed_diagonals_cuda, *sargs),
                  partial(se._seed_diagonals_plain, *sargs),
-                 lambda out, a=sargs, n=kmers: (
-                     _nbytes(a[1:4], out) + n * 8
-                     + int((out[0] != se.INVALID_DIAG).sum()) * 4, 0), None),
+                 _seed_cost(se, cconv, ff, ll, idx.k), None),
                 (f"prefix_mismatches/{conv}", shape,
                  partial(mmo._prefix_mismatches_cuda, genome_dev, q, top_d,
                          ll, conv, None),
@@ -1976,12 +2049,8 @@ def main(argv=None) -> int:
              partial(_fields, gg._solve_indels_cuda, kargs, gg._INDEL_KEYS),
              partial(_fields, gg._solve_indels_plain, kargs, gg._INDEL_KEYS)),
         ]
-        # reads, index lookups (two offsets per k-mer, a position per
-        # filled slot), genome words of each candidate span, outputs
-        kmers = c2.shape[0] * (100 - db.k + 1)
-        costs.setdefault("seed_diagonals", lambda out: (
-            _nbytes(c2, f2, l2, out) + kmers * 8
-            + int((out[0] != se.INVALID_DIAG).sum()) * 4, 0))
+        costs.setdefault("seed_diagonals",
+                         _seed_cost(se, c2, f2, l2, db.k))
         k2_cost = lambda out, d=diag: (
             _nbytes(d, out), d.numel() * math.log2(d.shape[1]))
         costs.setdefault("top_diagonals", k2_cost)
@@ -1999,6 +2068,7 @@ def main(argv=None) -> int:
                                    q2, top_d, l2, conv, a),
                            partial(mmo._prefix_mismatches_plain, genome_dev,
                                    q2, top_d, l2, conv, a)))
+    checks += _seed_edge_checks(torch, se, synth, rng, dev, costs)
     # the splice kernels on the RNA reads (the -N 1 runner's seed budget)
     r2, rf2, rl2 = strands(rna)
     rq2 = se._pack_device_plain(r2, rf2, rl2, 100)
@@ -2220,10 +2290,7 @@ def main(argv=None) -> int:
                  None, alt),
          partial(mmo._prefix_mismatches_plain, genome_dev, vq2, top_d, vl2,
                  None, alt))]
-    kmers5 = v2.shape[0] * (100 - db.k + 1)
-    costs["seed_diagonals/snp index"] = lambda out: (
-        _nbytes(v2, vf2, vl2, out) + kmers5 * 8
-        + int((out[0] != se.INVALID_DIAG).sum()) * 4, 0)
+    costs["seed_diagonals/snp index"] = _seed_cost(se, v2, vf2, vl2, db.k)
     costs["top_diagonals/snp index"] = lambda out, d=seed[0]: (
         _nbytes(d, out), d.numel() * math.log2(d.shape[1]))
     shape_costs[("top_diagonals/snp index", shape)] = costs[
@@ -2284,6 +2351,7 @@ def main(argv=None) -> int:
                                       "SE -N 0"))]
     checks += _gmap_checks(torch, eng, dp, lanes, rng, dev, costs)
     errs, bounds, times = {}, {}, {}
+    bound_shape = {}  # the shape each name's bound was computed at
     # library call times (first shape), and PER_SHAPE's kernels' rows:
     # every timed shape with its library call and bound
     library_ms, per_shape = {}, {}
@@ -2319,6 +2387,7 @@ def main(argv=None) -> int:
             errs[name] = err
             cost = costs.get(name) or costs[name.split("/")[0]]
             bounds[name] = _bound(*cost(want))
+            bound_shape[name] = shape
     torch.cuda.synchronize()
 
     # 5. the four main paths
@@ -2760,6 +2829,8 @@ def main(argv=None) -> int:
         print(f"kernel {name:20s} {shape:22s}: {clock} time cuda "
               f"{ms[0]:.4f} ms, plain torch {ms[1]:.4f} ms"
               + (f", library {ms[2]:.4f} ms" if lib else "")
+              + (f", bound {bounds[name][0]:.5f} ms ({bounds[name][1]})"
+                 if bound_shape.get(name) == shape else "")
               + f"; per call (events) {calls[0]:.4f} / {calls[1]:.4f} ms "
               + _clock(t0), flush=True)
         times.setdefault(name, (ms[0], ms[1], clock))
@@ -2783,6 +2854,17 @@ def main(argv=None) -> int:
         if nops is not None and nops != 1:
             raise SystemExit(f"_rank_hits_cuda ({what}) ran {nops} device "
                              f"ops, expected its one kernel")
+    # K11 is one launch a call: the pair matrix goes by value, jump_late
+    # as a view of its bytes
+    margs = next(c for c in checks if c[0] == "banded_gotoh")[2].args
+    nops = _device_ops(partial(dp._banded_matrices_cuda, *margs))
+    print(f"banded_gotoh: {nops} CUDA device ops per _banded_matrices_cuda "
+          f"call (the first K11 check's inputs"
+          + ("; not measured: every profile lost device ops)"
+             if nops is None else ")"), flush=True)
+    if nops is not None and nops != 1:
+        raise SystemExit(f"_banded_matrices_cuda ran {nops} device ops, "
+                         f"expected its one kernel")
     print(f"profiles at {time.time() - t_start:.1f} s {_clock()}",
           flush=True)
     _profile_run(torch, lambda: runner_n1.run(rna, io.StringIO(),

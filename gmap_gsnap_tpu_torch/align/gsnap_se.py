@@ -195,9 +195,11 @@ def _seed_diagonals_cuda(index: IndexArrays, codes, nflags, lengths,
                          params: GsnapParams, half: bool):
     b, lmax = codes.shape
     s = lmax - index.k + 1
-    if s < 1 or s > klimits.SEED_MAX_S or index.interval > 32:
+    if (s < 1 or s > klimits.SEED_MAX_S or index.interval > 32
+            or index.k > 16):
         raise ValueError(f"seed kernel: S={s} (1..{klimits.SEED_MAX_S}), "
-                         f"interval={index.interval} (<= 32)")
+                         f"interval={index.interval} (<= 32), k={index.k} "
+                         f"(<= 16)")
     w = _seed_grid_width(s, params)
     dev = codes.device
     diag = torch.empty((b, w), dtype=torch.int64, device=dev)
@@ -219,7 +221,8 @@ def seed_diagonals(index: IndexArrays, codes, nflags, lengths,
                    params: GsnapParams, half: bool = True):
     """Candidate diagonals on the compact seed grid (kernel K1).
 
-    codes uint8[B, L], nflags bool[B, L], lengths int32[B] ->
+    codes uint8[B, L] (2-bit codes 0..3), nflags bool[B, L], lengths
+    int32[B] ->
     ``(diag int64[B, W], qpos int32[B, W], trunc bool[B],
     nphase_min int32[B], nph_half int32[B])`` with W =
     _seed_grid_width(S, params):

@@ -53,7 +53,7 @@ _SIGNATURES = {
     "gsnap_pair_grid": "p" * 38 + "i" * 9,
     "gmap_seed_segments": "p" * 11 + "i" * 6 + "ll" + "ii",
     "gmap_chain": "p" * 10 + "i" * 5,
-    "gmap_banded_gotoh": "p" * 12 + "i" * 6,
+    "gmap_banded_gotoh": "p" * 10 + "h" + "i" * 6,
     "gmap_bridge_traceback": "p" * 21 + "i" * 8,
     "gsnap_lane_features": "p" * 16 + "i" * 6,
     "gsnap_rank_hits": "hhi" + "p" * 24 + "i" * 15,

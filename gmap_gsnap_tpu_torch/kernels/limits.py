@@ -4,7 +4,7 @@ that the card's GSNAP path takes.
 
 Each ``*_bytes(L)`` is the shared memory of the kernel's smallest launch
 for reads of L bases: one CTA of one warp where the entry point fits
-fewer warps to a CTA (K5, K7, K13), one read a CTA (K1, K4), one tile
+fewer warps to a CTA (K1, K5, K7, K13), one read a CTA (K4), one tile
 (K3), static shared memory included.  A launch that needs more than
 :data:`SMEM_MAX` is refused (``cudaErrorInvalidValue``), so
 :data:`MAX_READ_LENGTH` is the longest read every one of them takes; the
@@ -22,10 +22,14 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def seed_diagonals_bytes(S: int) -> int:
-    """K1: the start and running count of each of a read's S k-mers (a
-    read of L bases has at most L), and the static phase counts
-    (``seed_diagonals.cu``)."""
-    return 8 * S + (3 * 32 + 3 + 1) * 4
+    """K1, one warp (one read): each of its S k-mers' start and usable
+    count, its codes packed 16 to a word and its N flags 32 to a word
+    (sized for the longest read of S k-mers, k = 16, with a word of
+    padding each), and a window of 128 slots' owners and starts
+    (``seed_diagonals.cu`` warp_words)."""
+    code_words = (S + 15 + 15) // 16 + 1
+    nflag_words = (S + 15 + 31) // 32 + 1
+    return 4 * ((2 * S + code_words + nflag_words + 2 * 128 + 3) // 4 * 4)
 
 
 def prefix_mismatches_bytes(L: int) -> int:

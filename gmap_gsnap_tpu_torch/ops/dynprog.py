@@ -185,16 +185,21 @@ def _banded_matrices_cuda(q, g, len1, len2, lband, rband, pairmat,
     if W > 32 or q.shape != (B, M):
         raise ValueError(f"banded_gotoh kernel: W={W} must be <= 32 and q "
                          f"{tuple(q.shape)} must be [{B}, {M}]")
+    if jump_late.dtype != torch.bool:
+        raise ValueError(f"banded_gotoh kernel: jump_late is "
+                         f"{jump_late.dtype}, expected torch.bool")
     dev = q.device
     i32 = lambda t: t.to(device=dev, dtype=I32).contiguous()
-    pm = torch.as_tensor(np.asarray(pairmat, np.int32)).reshape(-1).to(dev)
     nogap, gap1, gap2 = (torch.empty((B, M + 1, W), dtype=I32, device=dev)
                          for _ in range(3))
     ndiag = torch.empty((B, M + 1, W), dtype=torch.bool, device=dev)
-    kbuild.launch("gmap_banded_gotoh", dev, i32(q), i32(g), i32(len1),
-                  i32(len2), i32(lband), i32(rband), pm,
-                  jump_late.to(device=dev, dtype=torch.uint8).contiguous(),
-                  nogap, gap1, gap2, ndiag, B, M, N, W, open_, extend)
+    # the pair matrix goes by value in the kernel's parameters, and
+    # jump_late as its bytes: the call's one device op is the kernel
+    pm = np.asarray(pairmat, np.int64).reshape(NCODES * NCODES).tolist()
+    kbuild.launch("gmap_banded_gotoh", dev, i32(q), i32(g), i32(len2),
+                  i32(lband), i32(rband),
+                  jump_late.to(dev).contiguous().view(torch.uint8), nogap,
+                  gap1, gap2, ndiag, pm, B, M, N, W, open_, extend)
     return nogap, gap1, gap2, ndiag
 
 

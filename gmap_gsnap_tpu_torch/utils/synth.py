@@ -1901,6 +1901,134 @@ def junction_traceback_cases(rng: np.random.Generator, nb: int, M: int = 64,
         loff=loff.astype(np.int64), roff=roff.astype(np.int64))
 
 
+BAND_SWEEP_KINDS = ("full band", "lband 0", "short genome", "full genome",
+                    "band past W")
+
+
+def band_sweep_cases(rng: np.random.Generator, nb: int, M: int = 64,
+                     W: int = 23, N: int | None = None) -> dict:
+    """Inputs of the banded Gotoh sweep (``ops/dynprog.banded_matrices``,
+    kernel K11) for ``nb`` problems, problem i of kind
+    BAND_SWEEP_KINDS[i % 5]: "full band": lband + rband = W - 1 (the band
+    fills the W cells), lband random; "lband 0": the band starts at the
+    diagonal; "short genome": len2 below W, so that cells of the band lie
+    past the genome's end; "full genome": len2 = N; "band past W": lband
+    + rband = W + 3.  Query and genome codes run 0-5 (N and the
+    past-chromosome '*' among them), the genome copying the query 70% of
+    the time; the query rows past len1 hold 5 (the GMAP path's padding)
+    in even problems and random codes in odd ones; len1 runs 1..M
+    (problem 0 has 1, problem 1 has M), N defaults to M + 8; jump_late
+    is random, problems 0 and 1 jump early and late.  Returns q int32[nb,
+    M], g int32[nb, N], len1 / len2 / lband / rband int32[nb] and late
+    bool[nb]."""
+    N = M + 8 if N is None else N
+    q = rng.integers(0, 6, (nb, M))
+    g = rng.integers(0, 6, (nb, N))
+    n = min(M, N)
+    g[:, :n] = np.where(rng.random((nb, n)) < 0.7, q[:, :n], g[:, :n])
+    len1 = rng.integers(1, M + 1, nb)
+    len1[:2] = (1, M)[: min(nb, 2)]
+    pad = ((np.arange(nb) % 2 == 0)[:, None]
+           & (np.arange(M)[None, :] >= len1[:, None]))
+    q = np.where(pad, 5, q)
+    len2 = rng.integers(1, N + 1, nb)
+    lband = np.zeros(nb, np.int64)
+    rband = np.zeros(nb, np.int64)
+    for i in range(nb):
+        kind = BAND_SWEEP_KINDS[i % len(BAND_SWEEP_KINDS)]
+        lband[i] = rng.integers(0, W) if kind != "lband 0" else 0
+        if kind == "full band":
+            rband[i] = W - 1 - lband[i]
+        elif kind == "band past W":
+            rband[i] = W + 3 - lband[i]
+        else:
+            rband[i] = rng.integers(0, W - lband[i])
+        if kind == "short genome":
+            len2[i] = rng.integers(0, W) if W > 1 else 0
+        elif kind == "full genome":
+            len2[i] = N
+    late = rng.random(nb) < 0.5
+    late[:2] = (False, True)[: min(nb, 2)]
+    i32 = lambda a: np.ascontiguousarray(a, np.int32)
+    return dict(q=i32(q), g=i32(g), len1=i32(len1), len2=i32(len2),
+                lband=i32(lband), rband=i32(rband), late=late)
+
+
+SEED_ROW_KINDS = ("random", "ns", "short", "poly-A", "poly-T", "poly-C",
+                  "poly-G", "all N", "low positions", "repeat")
+
+
+def seed_row_cases(rng: np.random.Generator, b: int, L: int, k: int,
+                   threshold: int) -> dict:
+    """Reads and a k-mer index of their own for the seed-diagonal stage
+    (``align/gsnap_se.seed_diagonals``, kernel K1), read i of kind
+    SEED_ROW_KINDS[i % 10] over 4^k oligos with hand-set counts: "random";
+    "ns": N flags at random places and an N run; "short": a length below
+    L (below k in every third such read, so that no k-mer is inside it);
+    "poly-A": every k-mer the all-A oligo, whose count is threshold + 1
+    (valid, never usable); "poly-T": the all-T oligo, count 0 (in
+    threshold, not usable); "poly-C": the all-C oligo, count exactly
+    threshold; "poly-G": the all-G oligo, count 1; "all N": no valid
+    k-mer; "low positions": oligos whose positions lie below their query
+    positions (diag INVALID), and "repeat": a repeated 3-base unit whose
+    three oligos hold threshold positions each, so that a small grid
+    truncates.  Other oligos' counts run 0..threshold + 2; a third of all
+    positions lie below 64, a tenth near 2^32.  Returns codes uint8[b, L]
+    (0..3), nflags bool[b, L], lengths int32[b], offsets int32[4^k + 1]
+    and positions int32[P] holding uint32 bits."""
+    n_oligo = 4 ** k
+    counts = rng.integers(0, threshold + 3, n_oligo)
+    poly = lambda c: sum(c << (2 * i) for i in range(k))
+    counts[poly(0)] = threshold + 1
+    counts[poly(3)] = 0
+    counts[poly(1)] = threshold
+    counts[poly(2)] = 1
+    unit = np.array([0, 1, 3])
+    rep = [int(sum(int(unit[(j + i) % 3]) << (2 * (k - 1 - i))
+                   for i in range(k))) for j in range(3)]
+    counts[rep] = threshold
+    total = int(counts.sum())
+    pos = rng.integers(64, 2**31, max(total, 1)).astype(np.int64)
+    r = rng.random(len(pos))
+    pos = np.where(r < 0.33, rng.integers(0, 64, len(pos)), pos)
+    pos = np.where(r > 0.9, 2**32 - 1 - rng.integers(0, 1 << 20, len(pos)),
+                   pos)
+    offsets = np.concatenate([[0], np.cumsum(counts)])
+    low = [o for o in range(n_oligo) if counts[o] > 0][:64]
+    for o in low:   # "low positions" reads draw from these oligos
+        pos[offsets[o] : offsets[o + 1]] = rng.integers(
+            0, 8, counts[o])
+    codes = rng.integers(0, 4, (b, L))
+    nflags = np.zeros((b, L), bool)
+    lengths = np.full(b, L)
+    for i in range(b):
+        kind = SEED_ROW_KINDS[i % len(SEED_ROW_KINDS)]
+        if kind == "ns":
+            nflags[i, rng.choice(L, max(1, L // 10), replace=False)] = True
+            at = rng.integers(0, L)
+            nflags[i, at : at + k // 2 + 1] = True
+        elif kind == "short":
+            lengths[i] = (rng.integers(0, k) if i % 3 == 0 or L <= k
+                          else rng.integers(k, L))
+        elif kind.startswith("poly-"):
+            codes[i] = "ACGT".index(kind[-1])
+        elif kind == "all N":
+            nflags[i] = True
+        elif kind == "low positions":
+            # k-mers of the low oligos, laid end to end
+            picks = rng.choice(low, -(-L // k))
+            seq = np.concatenate([[(o >> (2 * (k - 1 - j))) & 3
+                                   for j in range(k)] for o in picks])
+            codes[i] = seq[:L]
+        elif kind == "repeat":
+            codes[i] = unit[np.arange(L) % 3]
+    # codes past a read's length are random, as a batch's padding may be
+    return dict(codes=codes.astype(np.uint8), nflags=nflags,
+                lengths=lengths.astype(np.int32),
+                offsets=offsets.astype(np.uint32).view(np.int32),
+                positions=pos.astype(np.uint32).view(np.int32))
+
+
 def pair_grid_edges(rng: np.random.Generator, b: int, nchr: int = 1000,
                     nc: int = 24, L: int = 100):
     """``pair_hit_cases``' hits for ``b`` read pairs beside ``nchr``

@@ -1,10 +1,15 @@
-"""The plain versions of K12 (bridge_traceback: the junction search and
-both tracebacks) and K8 (pair_grid: the pairing grid, the pair ranking
-and the pair overflow gate), which their kernels are held to, against
-the JAX package on the edges the kernels' designs turn on, and, where
-g++ is present, both CUDA sources built through tools/cuda_emu (a CPU
-emulation of the CUDA subset they use) and run by their own wrappers
-against the plain versions.
+"""The plain versions of K11 (banded_matrices: the band sweep), K12
+(bridge_traceback: the junction search and both tracebacks) and K8
+(pair_grid: the pairing grid, the pair ranking and the pair overflow
+gate), which their kernels are held to, against the JAX package on the
+edges the kernels' designs turn on, and, where g++ is present, the three
+CUDA sources built through tools/cuda_emu (a CPU emulation of the CUDA
+subset they use) and run by their own wrappers against the plain
+versions.
+
+K11 (synth.band_sweep_cases): W = 1, 23 and 32; M = 1, 33, 64 and 100;
+lband 0, a band of W cells and one past W; len2 below W and len2 = N;
+codes 4 and 5; jump late and early; both gap tiers.
 
 K12 (synth.junction_traceback_cases and random windows through the band
 sweep): W = 23 and 32; len1 = 2 and 64; ties of gap1 == nogap and gap2
@@ -56,6 +61,45 @@ TABLES = ((1, False, False, False), (-1, True, False, True),
 def _jax_reference():
     with fresh_jax_caches(), jax_runner_one_device(), one_torch_thread():
         yield
+
+
+# ------------------------------------------------------------------- K11
+
+# (W, M): one band cell, the GMAP path's 23 and a full warp; one query
+# row, the path's 64, and 33 and 100 (a pass of 32 rows cut short, and
+# rows past the kernel's ring of 64)
+SWEEP_EDGES = [(1, 1), (1, 64), (23, 64), (32, 64), (32, 1), (23, 100),
+               (32, 33)]
+TIERS = ((tdp.PAIRED_OPEN, tdp.PAIRED_EXTEND),
+         (tdp.SINGLE_OPEN, tdp.SINGLE_EXTEND))
+
+
+def _sweep_args(W, M, tier, nb=20):
+    case = synth.band_sweep_cases(np.random.default_rng(10 * W + M), nb, M,
+                                  W)
+    t = lambda k: torch.from_numpy(case[k])
+    return (t("q"), t("g"), t("len1"), t("len2"), t("lband"), t("rband"),
+            tdp.pair_matrix(tdp.MISMATCH_HIGHQ), t("late"), M, W, *tier)
+
+
+@pytest.mark.parametrize("W,M", SWEEP_EDGES)
+def test_band_sweep_cases_match_jax(W, M):
+    """The plain band sweep against JAX's banded_matrices on
+    band_sweep_cases (lband 0, a full band, a band past W, len2 below W
+    and len2 = N, codes 4 and 5 in both sequences, jump late and early),
+    both gap tiers."""
+    for tier in TIERS:
+        a = _sweep_args(W, M, tier)
+        got = tdp.banded_matrices(*a)
+        want = jdp.banded_matrices(
+            *(jnp.asarray(x.numpy()) for x in a[:6]), jnp.asarray(a[6]),
+            jnp.asarray(a[7].numpy()), M=M, W=W, open_=tier[0],
+            extend=tier[1])
+        for g, j in zip(got, want):
+            assert g.shape == np.asarray(j).shape
+            np.testing.assert_array_equal(g.numpy(), np.asarray(j))
+    # the band reaches past the genome and the walls hold scores
+    assert (got[0] == tdp.NEG_INF).any() and (got[0] > tdp.NEG_INF).any()
 
 
 # ------------------------------------------------------------------- K12
@@ -278,7 +322,7 @@ def test_pair_grid_edges_match_jax(arrays, monkeypatch, np_, K, gate):
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
-    """kernels.build.launch pointed at K12 and K8 built by tools/cuda_emu
+    """kernels.build.launch pointed at K11, K12 and K8 built by tools/cuda_emu
     (restored after), so that the _X_cuda wrappers run the CUDA sources
     on CPU tensors; yields the emulated library."""
     if shutil.which("g++") is None:
@@ -288,7 +332,7 @@ def emulated(tmp_path_factory):
     import emu_build
 
     launch = kbuild.launch
-    so = emu_build.build(["bridge_traceback", "pair_grid"],
+    so = emu_build.build(["banded_gotoh", "bridge_traceback", "pair_grid"],
                          str(tmp_path_factory.mktemp("emu")))
     emu_build.use(so)
     yield ctypes.CDLL(so)
@@ -299,6 +343,17 @@ def _same(got, want):
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("W,M", SWEEP_EDGES)
+def test_banded_gotoh_emulated_kernel(emulated, W, M):
+    """K11's CUDA source against the plain band sweep on band_sweep_cases,
+    both gap tiers; a launch is counted for each call."""
+    before = kbuild.LAUNCHES["gmap_banded_gotoh"]
+    for tier in TIERS:
+        a = _sweep_args(W, M, tier)
+        _same(tdp._banded_matrices_cuda(*a), tdp._banded_matrices_plain(*a))
+    assert kbuild.LAUNCHES["gmap_banded_gotoh"] == before + len(TIERS)
 
 
 @pytest.mark.parametrize("W", [23, 32])

@@ -1263,3 +1263,70 @@ def test_top_diagonals_wrapper_passes_no_scratch(monkeypatch):
     assert a[0] is d and a[1] is top_d and a[2] is votes and a[3] is nd
     assert a[4:] == (5, 383, 32)
     assert top_d.shape == (5, 32) and votes.dtype == torch.int32
+
+
+# ---------------------------------------------- K11 and K1 on their edges
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,M", [(1, 1), (1, 64), (23, 64), (32, 64),
+                                 (32, 1), (23, 100), (32, 33)])
+def test_banded_gotoh_edges_match_plain(cuda, W, M):
+    """K11 against the plain band sweep on synth.band_sweep_cases (lband
+    0, a band of W cells and one past W, len2 below W and len2 = N, codes
+    4 and 5, jump late and early), both gap tiers, 20 and 300 problems."""
+    for nb in (20, 300):
+        case = synth.band_sweep_cases(np.random.default_rng(W + M + nb), nb,
+                                      M, W)
+        t = lambda k: torch.from_numpy(case[k]).to(cuda)
+        for tier in ((dp.PAIRED_OPEN, dp.PAIRED_EXTEND),
+                     (dp.SINGLE_OPEN, dp.SINGLE_EXTEND)):
+            a = (t("q"), t("g"), t("len1"), t("len2"), t("lband"),
+                 t("rband"), dp.pair_matrix(dp.MISMATCH_HIGHQ), t("late"), M,
+                 W, *tier)
+            _equal(dp._banded_matrices_cuda(*a), dp._banded_matrices_plain(*a))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,q", [(31, 1), (32, 32), (33, 3), (1, 32),
+                                 (100, 7)])
+def test_seed_diagonals_edges_match_plain(cuda, S, q):
+    """K1 against the plain seed diagonals on synth.seed_row_cases (k = 4,
+    threshold 5: counts of 0, the threshold and one above it, N runs,
+    reads shorter than L and than k, positions below their query
+    position, repeat reads that overflow a 24-slot grid), grids of 24 and
+    100 slots and the exact one, half on and off."""
+    k, thr = 4, 5
+    case = synth.seed_row_cases(np.random.default_rng(S), 200, S + k - 1, k,
+                                thr)
+    t = lambda key: torch.from_numpy(case[key]).to(cuda)
+    ti = se.IndexArrays(t("offsets"), t("positions"), k, q)
+    for seed_total in (24, 100, 0):
+        p = se.GsnapParams(seed_total=seed_total, size_threshold=thr)
+        for half in (True, False):
+            a = (ti, t("codes"), t("nflags"), t("lengths"), p, half)
+            _equal(se._seed_diagonals_cuda(*a), se._seed_diagonals_plain(*a))
+
+
+def test_banded_gotoh_wrapper_passes_no_copies(monkeypatch):
+    """K11's wrapper hands the C entry point the pair matrix as a host
+    table of 36 scores (no device copy) and jump_late as a view of its
+    bytes (no cast), and raises on a jump_late that is not bool (checked
+    on the CPU with the launch captured)."""
+    seen = []
+    monkeypatch.setattr(kbuild, "launch",
+                        lambda name, dev, *a: seen.append((name, a)))
+    case = synth.band_sweep_cases(np.random.default_rng(3), 6, 8, 23)
+    t = lambda k: torch.from_numpy(case[k])
+    late = t("late")
+    pm = dp.pair_matrix(dp.MISMATCH_HIGHQ)
+    args = (t("q"), t("g"), t("len1"), t("len2"), t("lband"), t("rband"),
+            pm, late, 8, 23, dp.PAIRED_OPEN, dp.PAIRED_EXTEND)
+    out = dp._banded_matrices_cuda(*args)
+    name, a = seen[0]
+    assert name == "gmap_banded_gotoh"
+    assert len(a) == len(kbuild._SIGNATURES[name])
+    assert a[5].dtype == torch.uint8 and a[5].data_ptr() == late.data_ptr()
+    assert a[6:10] == out and a[10] == pm.reshape(-1).tolist()
+    assert a[11:] == (6, 8, 16, 23, dp.PAIRED_OPEN, dp.PAIRED_EXTEND)
+    with pytest.raises(ValueError, match="expected torch.bool"):
+        dp._banded_matrices_cuda(*args[:7], late.int(), *args[8:])

@@ -1,8 +1,14 @@
 """Port parity: seeding and voting (kernels K1 and K2, plain path)
 against gmap_gsnap_tpu.align.gsnap_se on the same synthetic genome,
-index and reads.  Every comparison is exact."""
+index and reads, and on synth.seed_row_cases (K1's edges); where g++ is
+present, K1's CUDA source built through tools/cuda_emu (a CPU emulation
+of the CUDA subset it uses) and run by its own wrapper against the plain
+version.  Every comparison is exact."""
 
 import dataclasses
+import os
+import shutil
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -13,6 +19,7 @@ from gmap_gsnap_tpu.align import gsnap_se as jse
 from gmap_gsnap_tpu_torch import convert
 from gmap_gsnap_tpu_torch.align import gsnap_se as tse
 from gmap_gsnap_tpu_torch.align.runner import encode_batch
+from gmap_gsnap_tpu_torch.kernels import build as kbuild
 from gmap_gsnap_tpu_torch.utils import synth
 
 
@@ -149,3 +156,121 @@ def test_params_copy():
     assert sorted(jf) == sorted(tf)
     assert jse.dynamic_size_threshold(10**7, 12, "standard") == \
         tse.dynamic_size_threshold(10**7, 12, "standard")
+
+
+# ------------------------------------ K1 on its edges, and emulated
+
+# (S, interval): the warp's chunk edge (31, 32, 33 k-mers), one phase and
+# 32 phases, and four chunks under 7 phases (a chunk's phases rotate);
+# K = 4, so that every oligo's count is set by hand
+SEED_EDGES = [(31, 1), (32, 32), (33, 3), (100, 7)]
+SEED_K, SEED_THRESHOLD = 4, 5
+
+
+def _seed_rows(S, b=20):
+    """synth.seed_row_cases at S k-mers: the port's index, reads as
+    tensors, and the JAX index (positions padded as its loader does)."""
+    case = synth.seed_row_cases(np.random.default_rng(S), b,
+                                S + SEED_K - 1, SEED_K, SEED_THRESHOLD)
+    return case, (torch.from_numpy(case[k]) for k in ("codes", "nflags",
+                                                      "lengths"))
+
+
+def _seed_index(case, q):
+    return tse.IndexArrays(torch.from_numpy(case["offsets"]),
+                           torch.from_numpy(case["positions"]), SEED_K, q)
+
+
+@pytest.mark.parametrize("S,q", SEED_EDGES)
+def test_seed_row_cases_match_jax(S, q):
+    """The plain seed diagonals against JAX's on seed_row_cases: counts of
+    0, the threshold and one above it, N runs, reads shorter than L and
+    than k, positions below their query position, a grid of 24 slots that
+    the repeat reads overflow and the exact grid, half on and off, JAX's
+    index with and without its packed start/count table."""
+    case, (c, f, l) = _seed_rows(S)
+    ti = _seed_index(case, q)
+    ji = jse.IndexArrays.from_host(case["offsets"].view(np.uint32),
+                                   case["positions"].view(np.uint32),
+                                   SEED_K, q)
+    jo, jv = jse._extract_oligos(jnp.asarray(case["codes"]),
+                                 jnp.asarray(case["nflags"]),
+                                 jnp.asarray(case["lengths"]), SEED_K)
+    for seed_total in (24, 0):
+        p = jse.GsnapParams(seed_total=seed_total,
+                            size_threshold=SEED_THRESHOLD)
+        tp = tse.GsnapParams(seed_total=seed_total,
+                             size_threshold=SEED_THRESHOLD)
+        for startcnt in (True, False):
+            jidx = _jax_index(ji, startcnt)
+            jres = jse._seed_diagonals(jidx, jo, jv, p,
+                                       jnp.asarray(case["lengths"]))
+            tres = tse.seed_diagonals(ti, c, f, l, tp, half=True)
+            for a, b in zip(jres, tres):
+                _eq(a, b)
+        jres0 = jse._seed_diagonals(jidx, jo, jv, p)
+        tres0 = tse.seed_diagonals(ti, c, f, l, tp, half=False)
+        _eq(jres0[4], tres0[4])
+        if seed_total == 24:
+            assert tres[2].any() and not tres[2].all()
+    diag = tres[0]
+    assert (diag == tse.INVALID_DIAG).all(1).any()      # no usable k-mer
+    assert ((diag != tse.INVALID_DIAG) & (tres[1] > 8)).any()
+    assert (tres[3] == 0).any() and (tres[3] > 0).any()
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """kernels.build.launch pointed at K1 built by tools/cuda_emu
+    (restored after), so that _seed_diagonals_cuda runs the CUDA source
+    on CPU tensors."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the CPU emulation of the kernels")
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", "cuda_emu"))
+    import emu_build
+
+    launch = kbuild.launch
+    so = emu_build.build(["seed_diagonals"],
+                         str(tmp_path_factory.mktemp("emu")))
+    emu_build.use(so)
+    yield
+    kbuild.launch = launch
+
+
+def _same(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("S,q", SEED_EDGES + [(1, 32)])
+def test_seed_diagonals_emulated_kernel(emulated, S, q):
+    """K1's CUDA source against the plain version on seed_row_cases (a
+    grid of 24 slots, the repeat reads' overflow; 100 slots, 128 and more
+    filled in two windows; the exact grid), half on and off; a launch is
+    counted for each call."""
+    case, (c, f, l) = _seed_rows(S)
+    ti = _seed_index(case, q)
+    before = kbuild.LAUNCHES["gsnap_seed_diagonals"]
+    n = 0
+    for seed_total in (24, 100, 0):
+        p = tse.GsnapParams(seed_total=seed_total,
+                            size_threshold=SEED_THRESHOLD)
+        for half in (True, False):
+            _same(tse._seed_diagonals_cuda(ti, c, f, l, p, half),
+                  tse._seed_diagonals_plain(ti, c, f, l, p, half))
+            n += 1
+    assert kbuild.LAUNCHES["gsnap_seed_diagonals"] == before + n
+
+
+@pytest.mark.parametrize("seed_total", [384, 64, 0])
+def test_seed_diagonals_emulated_kernel_planted(emulated, world, seed_total):
+    """K1's CUDA source against the plain version on the planted reads
+    (k = 12, interval 3, a quarter of them 50-99 nt): the main path's
+    grid, a truncating one and the exact one."""
+    ji, ti, c, f, l = world
+    p = tse.GsnapParams(seed_total=seed_total)
+    args = (ti, torch.from_numpy(c), torch.from_numpy(f),
+            torch.from_numpy(l), p, True)
+    _same(tse._seed_diagonals_cuda(*args), tse._seed_diagonals_plain(*args))

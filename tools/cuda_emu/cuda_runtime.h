@@ -95,6 +95,7 @@ template <class T, class F> inline T emu_reduce(T v, F f) {
 template <class T> inline T __reduce_add_sync(unsigned, T v) { return emu_reduce(v, [](T a, T b) { return (T)(a + b); }); }
 template <class T> inline T __reduce_min_sync(unsigned, T v) { return emu_reduce(v, [](T a, T b) { return a < b ? a : b; }); }
 template <class T> inline T __reduce_max_sync(unsigned, T v) { return emu_reduce(v, [](T a, T b) { return a < b ? b : a; }); }
+inline unsigned __reduce_or_sync(unsigned, unsigned v) { return emu_reduce(v, [](unsigned a, unsigned b) { return a | b; }); }
 inline unsigned __ballot_sync(unsigned, int p) {
   EmuWarp& w = emu_warp();
   w.buf[emu_lane()] = p != 0;

@@ -1,16 +1,19 @@
 """Time the redesigned kernels of one checkout of the port on the card —
-K3 (prefix_mismatches, with and without an alt genome), K4
+K1 (seed_diagonals), K3 (prefix_mismatches, with and without an alt
+genome), K4
 (solve_indels), K13 (lane_features), K5 (solve_splices), K6
 (select_triples, beside its library sort), K7 (solve_doublesplices), K15
 (qpos_ranges), K16 (select_pairs, beside its library sort), K12
-(bridge_traceback) and K8 (pair_grid, beside its ranking's library sort)
-— so that two versions can be compared within one call (run it for each
-tree in turns: old, new, new, old).
+(bridge_traceback), K11 (banded_gotoh) and K8 (pair_grid, beside its
+ranking's library sort) — so that two versions can be compared within
+one call (run it for each tree in turns: old, new, new, old).
 
 The inputs are those of an -N 1 batch: planted RNA reads (2048, both
 strands: 4096 rows) over a synthetic genome, seeded, voted and verified
 by the plain stages, at NC=32 (the -N 1 runner's seed budget) and at
-W=4096, NC=128; K3 on their diagonals (the alt genome: the genome's
+W=4096, NC=128; K1 on those reads with the k=12 index and with a k=15
+one (a 4.3 GB offsets table, as the main path's), at W=384 (the -N 0
+runner's grid) and W=4096; K3 on their diagonals (the alt genome: the genome's
 words reversed); K4 on 16 indel pairs a read (max_ins 9, max_del 30,
 min_end 4, the seed-order gate); K13 on K3's mask at both, L=100, k=12,
 interval 3, trim score -3; K5 on 16 splice pairs a read and K7 on 8
@@ -32,7 +35,7 @@ wall per call to torch.cuda.synchronize(), the median of 20 after two
 warm-up calls.  Prints one JSON line.
 
     python tools/time_kernels.py [--root DIR] [--mbp 16] [--reads 2048]
-        [--only prefix_mismatches solve_indels ...]
+        [--only seed_diagonals prefix_mismatches solve_indels ...]
 """
 
 from __future__ import annotations
@@ -50,11 +53,11 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PE_BATCH = 2048   # pairs a runner batch, as chip_smoke.py runs PE -N 1
-REPS = 50         # calls a profile (the plain K12: one)
-KERNELS = ("prefix_mismatches", "solve_indels", "lane_features",
-           "solve_splices", "select_triples", "solve_doublesplices",
-           "select_pairs", "qpos_ranges", "bridge_traceback", "pair_grid",
-           "cascade")
+REPS = 50         # calls a profile (the plain K11 and K12: one)
+KERNELS = ("seed_diagonals", "prefix_mismatches", "solve_indels",
+           "lane_features", "solve_splices", "select_triples",
+           "solve_doublesplices", "select_pairs", "qpos_ranges",
+           "banded_gotoh", "bridge_traceback", "pair_grid", "cascade")
 
 
 def main() -> int:
@@ -227,6 +230,24 @@ def main() -> int:
                 solver("solve_doublesplices", gg._SHORTEXON_KEYS,
                        f"{label} {shape}", a,
                        smoke._doublesplice_cost(torch, a))
+    if "seed_diagonals" in args.only:
+        for k, idx in ((12, ti), (15, None)):
+            if idx is None:    # the main path's k: a 4.3 GB offsets table
+                db15 = synth.genome_db(g, k, 3)
+                idx = convert.index_from_arrays(db15.offsets, db15.positions,
+                                                k, 3, dev)
+                del db15
+            for st in (384, 4096):
+                p = se.GsnapParams(
+                    seed_total=st, size_threshold=se.dynamic_size_threshold(
+                        idx.positions.shape[0], k, "standard"))
+                a = (idx, c, f, ln, p, True)
+                timed(f"seed_diagonals k={k} W={st}",
+                      lambda a=a: se._seed_diagonals_cuda(*a),
+                      lambda a=a: se._seed_diagonals_plain(*a),
+                      smoke._seed_cost(se, c, f, ln, k))
+            del idx
+            torch.cuda.empty_cache()
     if "qpos_ranges" in args.only:
         for st, nc in ((384, 32), (4096, 128)):
             p = se.GsnapParams(seed_total=st, ncand=nc)
@@ -265,7 +286,7 @@ def main() -> int:
             pt, pv = (torch.from_numpy(x).to(dev)
                       for x in synth.diag_pair_rows(rng, 1024, nc))
             pairs(f"edges NC={nc} P={npairs}", pt, pv, npairs)
-    if {"bridge_traceback", "pair_grid"} & set(args.only):
+    if {"banded_gotoh", "bridge_traceback", "pair_grid"} & set(args.only):
         pe_inputs(torch, smoke, db, g, dev, args, timed)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -275,11 +296,11 @@ def main() -> int:
 
 
 def pe_inputs(torch, smoke, db, g, dev, args, timed) -> None:
-    """K12 and K8 on the inputs the PE -N 1 runner (default GMAP lanes)
-    gives them over 2 PE_BATCH planted RNA pairs (3% messy junctions) in
-    batches of PE_BATCH, as chip_smoke runs it: K12 on its largest call's
-    junction windows and on 128 random windows (chip_smoke's
-    _junction_windows), K8 on the ranked end hits of one batch and of the
+    """K11, K12 and K8 on the inputs the PE -N 1 runner (default GMAP
+    lanes) gives them over 2 PE_BATCH planted RNA pairs (3% messy
+    junctions) in batches of PE_BATCH, as chip_smoke runs it: K11 and K12
+    on their largest call's junction windows and on 128 random windows
+    (chip_smoke's _junction_windows), K8 on the ranked end hits of one batch and of the
     batches stacked (4,096 pairs), with its gate epilogue and without,
     beside its ranking's library sort, and that sort's width: a stable
     torch.sort of random [2048, 256] keys as int32 and as int64."""
@@ -298,7 +319,13 @@ def pe_inputs(torch, smoke, db, g, dev, args, timed) -> None:
     runner = trun.GsnapRunner(db, params, lmax=100, novelsplicing=True,
                               device=dev)
     captured = {}
-    real_bt, real_grid = dp.bridge_traceback, pe.pair_grid
+    real_bm, real_bt = dp.banded_matrices, dp.bridge_traceback
+    real_grid = pe.pair_grid
+
+    def spy_bm(*a):
+        if "bm" not in captured or a[0].shape[0] > captured["bm"][0].shape[0]:
+            captured["bm"] = a
+        return real_bm(*a)
 
     def spy_bt(*a):
         if "bt" not in captured or a[1].shape[0] > captured["bt"][1].shape[0]:
@@ -312,21 +339,31 @@ def pe_inputs(torch, smoke, db, g, dev, args, timed) -> None:
                                        *gate[2:]),))
         return real_grid(*a)
 
-    dp.bridge_traceback, pe.pair_grid = spy_bt, spy_grid
+    dp.banded_matrices, dp.bridge_traceback = spy_bm, spy_bt
+    pe.pair_grid = spy_grid
     try:
         runner.run_pe(p1, p2, io.StringIO(), batch_size=PE_BATCH)
     finally:
-        dp.bridge_traceback, pe.pair_grid = real_bt, real_grid
-    if "bridge_traceback" in args.only:
+        dp.banded_matrices, dp.bridge_traceback = real_bm, real_bt
+        pe.pair_grid = real_grid
+    if {"banded_gotoh", "bridge_traceback"} & set(args.only):
         if "bt" not in captured:
             raise SystemExit("the PE -N 1 runner's GMAP lane ran no junction "
                              "dynprog")
-        lane = captured["bt"]
         w = smoke._junction_windows(torch, dp, rng, 128, dev)
         margs = (w["q"], w["g"], w["len1"], w["len2"], w["lb"], w["rb"],
                  dp.pair_matrix(dp.MISMATCH_HIGHQ), w["late"], 64, 23,
                  dp.PAIRED_OPEN, dp.PAIRED_EXTEND)
         mats = dp._banded_matrices_plain(*margs)
+    if "banded_gotoh" in args.only:
+        for label, a in ((f"PE -N 1 lane nb={captured['bm'][0].shape[0] // 2}",
+                          captured["bm"]), ("random nb=128", margs)):
+            timed(f"banded_gotoh {label}",
+                  lambda a=a: dp._banded_matrices_cuda(*a),
+                  lambda a=a: dp._banded_matrices_plain(*a),
+                  smoke._gotoh_cost(a), plain_reps=1)
+    if "bridge_traceback" in args.only:
+        lane = captured["bt"]
         rand = (mats, w["len1"][:128], w["len2"][:128], w["len2"][128:],
                 w["lb"][:128], w["lb"][128:], w["g"][:128], w["g"][128:],
                 w["known"], w["known"], w["loff"], w["roff"], 64, 23, 138,
