@@ -249,6 +249,9 @@ DYNPROG_KERNELS = ("gmap_banded_gotoh", "gmap_bridge_traceback")
 FIRST_SHAPE_ONLY = ("solve_splices", "solve_doublesplices", "seed_segments",
                     "chain", "banded_gotoh", "bridge_traceback",
                     "lane_features", "pack_queries")
+# of those, the edge checks timed once (their first shape), beside their
+# bound: K9's and K10's
+TIMED_EDGES = ("seed_segments/edges", "chain/edges")
 # kernels timed at every shape with their own library call and bound
 PER_SHAPE = ("top_diagonals", "select_triples", "rank_hits",
              "select_pairs", "qpos_ranges")
@@ -260,7 +263,8 @@ ONLY_SHAPES = {"qpos_ranges": ("SE -N 0 both strands NC=32",
 # strand batch; its edge rows are timed once, as the other kernels' are,
 # and at every shape by tools/time_kernels.py)
 EVERY_CHECK = ("select_pairs", "select_pairs/splice")
-# checks timed over one call a profile, not five: the plain versions of
+# checks whose plain version is timed over one call a profile, not five
+# (the kernel over five, in a profile of its own): the plain versions of
 # K10-K12 run thousands of small torch ops a call, and five calls' events
 # took the profiler 32-216 s a line to gather (an H100 run's clock)
 ONE_REP = ("chain", "banded_gotoh", "bridge_traceback")
@@ -374,6 +378,40 @@ def _seed_cost(se, codes, nflags, lengths, k: int):
         kmers = codes.shape[0] * (codes.shape[1] - k + 1)
         return (_nbytes(codes, nflags, lengths, out) + kmers * 8
                 + int((out[0] != se.INVALID_DIAG).sum()) * 4, 0)
+
+    return cost
+
+
+def _segment_cost(torch, sargs):
+    """K9's (bytes, operations) on seed_segments' arguments: the oligos
+    and valid flags, each valid k-mer's two offsets, each hit's position
+    (min(nhits, H) a row) and the outputs; n log2 n compares a row's
+    hits."""
+    offs, pos, oligos, valid, k, H, S, thr = sargs
+    nvalid = int(valid.sum())
+
+    def cost(out):
+        nv = out[4].clamp(max=H).double()
+        return (_nbytes(oligos, valid, out) + nvalid * 8 + float(nv.sum()) * 4,
+                float((nv * torch.log2(nv.clamp(min=1))).sum()))
+
+    return cost
+
+
+def _chain_lv(torch, valid):
+    """Each row's last valid segment index (0 where none): the dependent
+    steps K10 runs."""
+    idx = torch.arange(valid.shape[1], device=valid.device)
+    return torch.where(valid, idx, -1).max(1).values.clamp(min=0)
+
+
+def _chain_cost(torch, cargs):
+    """K10's (bytes, operations) on chain's arguments: the segments and
+    the outputs; ~12 integer operations a transition scored (lv (lv + 1)
+    / 2 a row)."""
+    def cost(out):
+        lv = _chain_lv(torch, cargs[3]).double()
+        return _nbytes(cargs[:4], out), 12 * float((lv * (lv + 1) / 2).sum())
 
     return cost
 
@@ -960,6 +998,8 @@ def _junction_windows(torch, dp, rng, nb: int, dev):
 def _lane_inputs(eng, dp, runner, recs, batch: int, label: str) -> dict:
     """The inputs the GMAP lane of ``runner`` gives K9-K12 over one batch
     of ``recs`` (the largest call of each kernel), by name."""
+    import torch
+
     captured = {}
     hooks = [(eng, "seed_segments", lambda a: a[2].shape[0]),
              (eng, "chain", lambda a: a[0].shape[0]),
@@ -983,12 +1023,55 @@ def _lane_inputs(eng, dp, runner, recs, batch: int, label: str) -> dict:
             setattr(mod, name, fn)
     if "seed_segments" not in captured or "chain" not in captured:
         raise SystemExit(f"{label}: the GMAP lane did not run on one batch")
+    seg, ch = captured["seed_segments"], captured["chain"]
     print(f"GMAP lane inputs of one {label} batch: oligos "
-          f"{tuple(captured['seed_segments'][2].shape)}, max_intronlen "
-          f"{captured['chain'][5]}, junction dynprog "
+          f"{tuple(seg[2].shape)}, K9 rows {seg[2].shape[0]} H {seg[5]} S "
+          f"{seg[6]}, K10 rows {ch[0].shape[0]} S {ch[0].shape[1]} largest "
+          f"lv {int(_chain_lv(torch, ch[3]).max())}, max_intronlen "
+          f"{ch[5]}, junction dynprog "
           f"{'ran' if 'banded_matrices' in captured else 'did not run'}",
           flush=True)
     return captured
+
+
+def _segment_edge_checks(torch, eng, synth, rng, dev, costs) -> list:
+    """K9 checks on synth.seed_segment_cases (counts 0, 1, threshold and
+    one above; no valid k-mer; nhits = H and H + 1; nsegs = S and S + 1;
+    MIN_SEGLEN and a base shorter; query gaps 2k and 2k + 1; wrapping
+    diagonals; Q 1, 33, 128; k 12 and 15; rows of 2,048 and 2,049 hits,
+    either side of the register / scratch edge) at the case's H and S and
+    at H / 4, S / 2; K10 checks on synth.chain_cases (lv 0, 31, 32, 33, S
+    - 1, ties, no valid segment; S 48, 64 and 1,100: past 1,024 segments
+    a row is read in place), both intron limits, C 192 and 1."""
+    checks = []
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    for Q, k, thr, H, S, nh in synth.SEED_SEGMENT_CASES:
+        case = synth.seed_segment_cases(rng, Q, k, thr, H, S, nh)
+        a = tuple(t(case[x]) for x in ("offsets", "positions", "oligos",
+                                       "valid"))
+        for h, s_ in ((H, S), (max(H // 4, 1), max(S // 2, 1))):
+            sargs = (*a, k, h, s_, thr)
+            checks.append(("seed_segments/edges",
+                           f"Q={Q} k={k} H={h} S={s_} {len(case['kinds'])} "
+                           f"rows",
+                           partial(_fields, eng._seed_segments_cuda, sargs,
+                                   eng.SEG_KEYS),
+                           partial(_fields, eng._seed_segments_plain, sargs,
+                                   eng.SEG_KEYS)))
+            costs.setdefault("seed_segments/edges",
+                             _segment_cost(torch, sargs))
+    for S, lvs in synth.CHAIN_CASE_SHAPES:
+        case = synth.chain_cases(rng, 64, S, lvs)
+        a = tuple(t(case[x]) for x in ("qstart", "qend", "diag", "valid"))
+        for il, C in ((30, 192), (200_000, 192), (200_000, 1)):
+            cargs = (*a, 12, il, C)
+            checks.append(("chain/edges", f"S={S} il={il} C={C} 64 rows",
+                           partial(_fields, eng._chain_cuda, cargs,
+                                   eng.CHAIN_KEYS),
+                           partial(_fields, eng._chain_plain, cargs,
+                                   eng.CHAIN_KEYS)))
+            costs.setdefault("chain/edges", _chain_cost(torch, cargs))
+    return checks
 
 
 def _junction_edge_checks(torch, dp, synth, rng, dev, costs) -> list:
@@ -1135,32 +1218,16 @@ def _gmap_checks(torch, eng, dp, lanes, rng, dev, costs):
                                    eng.SEG_KEYS)))
         ch = captured["chain"]
         checks.append(("chain", f"{label} {ch[0].shape[0]} rows "
-                                f"S={ch[0].shape[1]} il={ch[5]}",
+                                f"S={ch[0].shape[1]} il={ch[5]} lv<="
+                                f"{int(_chain_lv(torch, ch[3]).max())}",
                        partial(_fields, eng._chain_cuda, ch, eng.CHAIN_KEYS),
                        partial(_fields, eng._chain_plain, ch, eng.CHAIN_KEYS)))
         if "banded_matrices" in captured:
             margs = captured["banded_matrices"]
             dynprog(f"{label} {margs[0].shape[0] // 2} junctions", margs,
                     captured["bridge_traceback"])
-    offs, pos, oligos, valid, k, H, S, thr = lanes[0][1]["seed_segments"]
-    nvalid = int(valid.sum())
-
-    def seed_cost(out, H=H):
-        nv = out[4].clamp(max=H).double()
-        return (_nbytes(oligos, valid, out) + nvalid * 8 + float(nv.sum()) * 4,
-                float((nv * torch.log2(nv.clamp(min=1))).sum()))
-
-    costs["seed_segments"] = seed_cost
-    ch = lanes[0][1]["chain"]
-
-    def chain_cost(out):
-        S_ = ch[3].shape[1]
-        idx = torch.arange(S_, device=dev)
-        lv = torch.where(ch[3], idx, -1).max(1).values.clamp(min=0).double()
-        # ~12 integer operations per transition scored
-        return _nbytes(ch[:4], out), 12 * float((lv * (lv + 1) / 2).sum())
-
-    costs["chain"] = chain_cost
+    costs["seed_segments"] = _segment_cost(torch, lanes[0][1]["seed_segments"])
+    costs["chain"] = _chain_cost(torch, lanes[0][1]["chain"])
     for nb in (32, 128):
         w = _junction_windows(torch, dp, rng, nb, dev)
         for open_, ext in ((dp.PAIRED_OPEN, dp.PAIRED_EXTEND),
@@ -1178,6 +1245,7 @@ def _gmap_checks(torch, eng, dp, lanes, rng, dev, costs):
                          w["roff"], 64, 23, 138, open_, ext, 30, cd, True,
                          halfp, nospl)
                 dynprog(f"nb={nb} open={open_} cdna={cd}", margs, bargs)
+    checks += _segment_edge_checks(torch, eng, synth, rng, dev, costs)
     checks += _junction_edge_checks(torch, dp, synth, rng, dev, costs)
     checks += _sweep_edge_checks(torch, dp, synth, rng, dev, costs)
     first = next(c for c in checks if c[0] == "banded_gotoh")
@@ -2809,7 +2877,8 @@ def main(argv=None) -> int:
         base = name.split("/")[0]
         once, variant = base in FIRST_SHAPE_ONLY, "/" in name
         if name not in EVERY_CHECK and (
-                (once and (variant or name in times))
+                (once and ((variant and name not in TIMED_EDGES)
+                           or name in times))
                 or (variant and name in times)):
             continue
         if name in ONLY_SHAPES and shape not in ONLY_SHAPES[name]:
@@ -2823,9 +2892,14 @@ def main(argv=None) -> int:
             continue
         lib = library.get(name) if name not in times else None
         t0 = time.time()
-        ms, clock, calls = _timed(fk, fp, *([lib] if lib else []),
-                                  reps=1 if base in ONE_REP else 5)
-        n_events += clock == "events"
+        if base in ONE_REP:   # the kernel over 5 calls, the plain over 1
+            ms, clock, calls = _timed(fk, *([lib] if lib else []))
+            pms, pclock, pcalls = _timed(fp, reps=1)
+            ms, calls = [ms[0], pms[0], *ms[1:]], [calls[0], pcalls[0]]
+            clock = clock if pclock == clock else f"{clock} / plain {pclock}"
+        else:
+            ms, clock, calls = _timed(fk, fp, *([lib] if lib else []))
+        n_events += "events" in clock
         print(f"kernel {name:20s} {shape:22s}: {clock} time cuda "
               f"{ms[0]:.4f} ms, plain torch {ms[1]:.4f} ms"
               + (f", library {ms[2]:.4f} ms" if lib else "")
@@ -2854,17 +2928,27 @@ def main(argv=None) -> int:
         if nops is not None and nops != 1:
             raise SystemExit(f"_rank_hits_cuda ({what}) ran {nops} device "
                              f"ops, expected its one kernel")
-    # K11 is one launch a call: the pair matrix goes by value, jump_late
-    # as a view of its bytes
+    # K11, K9 and K10 are one launch a call: K11's pair matrix goes by
+    # value, and each wrapper passes its bool flags as a view of their
+    # bytes (K9 also at a retry's H, with its global scratch row)
     margs = next(c for c in checks if c[0] == "banded_gotoh")[2].args
-    nops = _device_ops(partial(dp._banded_matrices_cuda, *margs))
-    print(f"banded_gotoh: {nops} CUDA device ops per _banded_matrices_cuda "
-          f"call (the first K11 check's inputs"
-          + ("; not measured: every profile lost device ops)"
-             if nops is None else ")"), flush=True)
-    if nops is not None and nops != 1:
-        raise SystemExit(f"_banded_matrices_cuda ran {nops} device ops, "
-                         f"expected its one kernel")
+    seg = lanes[0][1]["seed_segments"]
+    for what, fn in (
+            ("_banded_matrices_cuda", partial(dp._banded_matrices_cuda,
+                                              *margs)),
+            ("_seed_segments_cuda", partial(eng._seed_segments_cuda, *seg)),
+            ("_seed_segments_cuda at 16 H", partial(
+                eng._seed_segments_cuda, *seg[:5], 16 * seg[5], seg[6],
+                seg[7])),
+            ("_chain_cuda", partial(eng._chain_cuda,
+                                    *lanes[0][1]["chain"]))):
+        nops = _device_ops(fn)
+        print(f"{what}: {nops} CUDA device ops a call (the first lane's "
+              f"inputs" + ("; not measured: every profile lost device ops)"
+                           if nops is None else ")"), flush=True)
+        if nops is not None and nops != 1:
+            raise SystemExit(f"{what} ran {nops} device ops, expected its "
+                             f"one kernel")
     print(f"profiles at {time.time() - t_start:.1f} s {_clock()}",
           flush=True)
     _profile_run(torch, lambda: runner_n1.run(rna, io.StringIO(),

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..kernels import build as kbuild
+from ..kernels import limits as klimits
 from ..ops import dynprog as dp
 from . import gmap_config
 
@@ -128,15 +129,11 @@ def _seed_segments_plain(offsets, positions, oligos, valid, k: int, H: int,
                 nhits=nhits.int(), nsegs=nsegs.int())
 
 
-# dynamic shared memory a seed_segments CTA may take; larger H and S
-# work in a global scratch row instead
-SEED_SMEM_BYTES = 200 * 1024
-
-
 def seed_workspace_bytes(H: int, S: int) -> int:
-    """Bytes of K9's per-row work area: the hits' 64-bit sort keys over
-    H slots, then the segments' keys and ends over the next power of
-    two >= min(S, H)."""
+    """Bytes of K9's global scratch row, which a row whose hits outnumber
+    kernels/limits.py seed_segments_register_hits() works in: the hits'
+    64-bit sort keys over H slots, then the segments' keys and ends over
+    the next power of two >= min(S, H)."""
     ns = 1 << max(min(S, H) - 1, 0).bit_length()
     return (8 * H + 12 * ns + 7) // 8 * 8    # rows stay 8-byte aligned
 
@@ -148,11 +145,14 @@ def _seed_segments_cuda(offsets, positions, oligos, valid, k: int, H: int,
     if H & (H - 1) or Q > 65536 or min(S, H) > 65536:
         raise ValueError(f"seed_segments kernel: H={H} must be a power of 2, "
                          f"Q={Q} and min(S, H)={min(S, H)} at most 65536")
+    if valid.dtype != torch.bool:
+        raise TypeError(f"seed_segments kernel: valid {valid.dtype}, "
+                        f"expected bool")
     Sout = min(S, H)
     ws = seed_workspace_bytes(H, S)
-    use_smem = ws <= SEED_SMEM_BYTES
-    scratch = (None if use_smem or not B else
-               torch.empty((B, ws), dtype=torch.uint8, device=dev))
+    wide = H > klimits.seed_segments_register_hits() and B > 0
+    scratch = (torch.empty((B, ws), dtype=torch.uint8, device=dev)
+               if wide else None)
     out = dict(qstart=torch.empty((B, Sout), dtype=torch.int32, device=dev),
                qend=torch.empty((B, Sout), dtype=torch.int32, device=dev),
                diag=torch.empty((B, Sout), dtype=torch.int64, device=dev),
@@ -161,9 +161,9 @@ def _seed_segments_cuda(offsets, positions, oligos, valid, k: int, H: int,
                nsegs=torch.empty(B, dtype=torch.int32, device=dev))
     kbuild.launch("gmap_seed_segments", dev, offsets, positions,
                   oligos.to(torch.int32).contiguous(),
-                  valid.to(torch.uint8).contiguous(), scratch,
+                  valid.contiguous().view(torch.uint8), scratch,
                   *(out[key] for key in SEG_KEYS), B, Q, k, H, S, threshold,
-                  offsets.shape[0], positions.shape[0], ws, int(use_smem))
+                  offsets.shape[0], positions.shape[0], ws)
     return out
 
 
@@ -241,9 +241,11 @@ def _chain_cuda(qstart, qend, diag, valid, k: int, max_intronlen: int,
                dg=torch.empty((B, C), dtype=torch.int64, device=dev),
                deep=torch.empty(B, dtype=torch.bool, device=dev),
                best=torch.empty(B, dtype=torch.int32, device=dev))
+    if valid.dtype != torch.bool:
+        raise TypeError(f"chain kernel: valid {valid.dtype}, expected bool")
     kbuild.launch("gmap_chain", dev, qstart.to(torch.int32).contiguous(),
                   qend.to(torch.int32).contiguous(), diag.contiguous(),
-                  valid.to(torch.uint8).contiguous(),
+                  valid.contiguous().view(torch.uint8),
                   *(out[key] for key in CHAIN_KEYS), B, S, C, k,
                   max_intronlen)
     return out

@@ -20,7 +20,7 @@ static inline int gsnap_blocks(int64_t threads, int per_block) {
   return (int)((threads + per_block - 1) / per_block);
 }
 
-// Block-wide helpers of the GMAP kernels (K9, K10, K12).  Every thread of
+// Block-wide helpers of the GMAP kernels (K9, K12).  Every thread of
 // the block must call them; they synchronise the block.
 
 __device__ __forceinline__ int64_t gmap_max64(int64_t a, int64_t b) {

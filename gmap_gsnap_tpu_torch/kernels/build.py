@@ -51,7 +51,7 @@ _SIGNATURES = {
     "gsnap_select_triples": "p" * 6 + "i" * 3 + "l",
     "gsnap_solve_doublesplices": "p" * 28 + "ll" + "i" * 5,
     "gsnap_pair_grid": "p" * 38 + "i" * 9,
-    "gmap_seed_segments": "p" * 11 + "i" * 6 + "ll" + "ii",
+    "gmap_seed_segments": "p" * 11 + "i" * 6 + "ll" + "i",
     "gmap_chain": "p" * 10 + "i" * 5,
     "gmap_banded_gotoh": "p" * 10 + "h" + "i" * 6,
     "gmap_bridge_traceback": "p" * 21 + "i" * 8,

@@ -90,6 +90,25 @@ def bridge_traceback_bytes(M: int, W: int, NL: int, NR: int, T: int) -> int:
             + (2 * mat + (NL + 1) + (NR + 1) + 2 * T) + 512)
 
 
+def seed_segments_register_hits() -> int:
+    """K9: the hits a row sorts in registers, a CTA of 256 threads
+    holding 8 keys each (``gmap_seed_segments.cu`` kRegHits); a row with
+    more, which only H above it admits, works in a global scratch row
+    (``gmap_engine.seed_workspace_bytes``)."""
+    return 256 * 8
+
+
+def seed_segments_bytes(Q: int, H: int, S: int) -> int:
+    """K9, one query row a CTA: min(H, seed_segments_register_hits())
+    hit keys, min(pow2(min(S, H)), that) segment keys and ends, and a
+    chunk of up to 1,024 k-mers' starts and first slots
+    (``gmap_seed_segments.cu`` smem_layout); no larger for any H."""
+    nk = min(H, seed_segments_register_hits())
+    ns = min(1 << max(min(S, H) - 1, 0).bit_length(), nk)
+    cq = min(Q, 1024)
+    return (8 * nk + 12 * ns + 8 * cq + 7) // 8 * 8
+
+
 KERNEL_BYTES = {
     "K1 seed_diagonals": seed_diagonals_bytes,
     "K3 prefix_mismatches": prefix_mismatches_bytes,

@@ -2056,3 +2056,175 @@ def pair_grid_edges(rng: np.random.Generator, b: int, nchr: int = 1000,
     big[b + 4 :: 5] = 10**6
     hits["nmm"] = np.where(big < 10**6, hits["nmm"], 0).astype(np.int32)
     return hits, len5, len3, offsets
+
+
+# (Q, k, threshold, H, S, rows of exactly n hits) of seed_segment_cases
+# that the tests and chip_smoke.py run: Q 1, 33 and 128; k 12 (a kept
+# segment is two hits) and 15 (one hit); H and S small enough that rows
+# reach them, and H 4,096 with rows either side of K9's register /
+# scratch edge (kernels/limits.py seed_segments_register_hits)
+SEED_SEGMENT_CASES = ((1, 12, 5, 16, 4, ()), (33, 12, 5, 64, 8, ()),
+                      (128, 15, 10, 256, 16, ()),
+                      (128, 12, 100, 4096, 192, (2048, 2049)))
+# (S, last valid segments) of chain_cases that they run: lv 0, 31, 32,
+# 33 and S - 1; S 1,100 past the 1,024 segments K10 stages
+CHAIN_CASE_SHAPES = ((64, (0, 31, 32, 33)), (48, (47, 1, 2)),
+                     (1100, (1099, 5)))
+SEGMENT_ROW_KINDS = ("random", "count 0", "count 1", "count threshold",
+                     "count threshold + 1", "no valid k-mer", "nhits = H",
+                     "nhits = H + 1", "nsegs = S", "nsegs = S + 1", "edges")
+SEGMENT_MIN_SEGLEN = 15   # gmap_engine.MIN_SEGLEN
+
+
+def seed_segment_cases(rng: np.random.Generator, Q: int, k: int,
+                       threshold: int, H: int, S: int,
+                       nhits=()) -> dict:
+    """Oligo rows and an index of their own for GMAP's seeding and
+    segment stage (``align/gmap_engine.seed_segments``, kernel K9): one
+    row of each SEGMENT_ROW_KINDS that fits Q k-mers and the threshold,
+    then one row of exactly n hits for each n in ``nhits``.  Each k-mer of
+    each row is its own oligo; a hit is placed by its diagonal (position
+    = diag + qpos - Q, as uint32).  "count c": one k-mer holding c hits;
+    "no valid k-mer": hits, every k-mer flagged invalid; "nhits = H" /
+    "H + 1": k-mers filled to that many hits; "nsegs = S" / "S + 1": that
+    many kept segments on distinct diagonals (two hits MIN_SEGLEN - k
+    apart, or one hit where k >= MIN_SEGLEN); "edges": a segment exactly
+    MIN_SEGLEN long and one a base shorter, query gaps of 2k (one
+    segment) and 2k + 1 (two), diagonals that wrap uint32 and a hit whose
+    diagonal is 0xFFFFFFFF.  Returns offsets int32[R Q + 1], positions
+    int32[P] holding uint32 bits, oligos int32[R, Q], valid bool[R, Q]
+    and kinds (one name a row)."""
+    U = 2**32
+    d = max(SEGMENT_MIN_SEGLEN - k, 0)     # qpos span of a shortest kept
+    rows, kinds = [], []
+
+    def new_row(kind):
+        rows.append(({}, np.ones(Q, bool)))
+        kinds.append(kind)
+        return rows[-1]
+
+    def hit(row, q, diag):
+        row[0].setdefault(q, set()).add(int(diag) % U)
+
+    def spread(row, q, n):   # n hits of k-mer q on distinct diagonals
+        for diag in rng.choice(1 << 30, n, replace=False) + (1 << 20):
+            hit(row, q, diag)
+
+    row = new_row("random")
+    diags = rng.integers(1 << 20, 1 << 30, 6)
+    for q in range(Q):
+        if rng.random() < 0.5:
+            spread(row, q, int(rng.integers(1, 4)))
+        if rng.random() < 0.6:     # runs on a few shared diagonals
+            hit(row, q, diags[rng.integers(0, len(diags))])
+    for c in (0, 1, threshold, threshold + 1):
+        row = new_row(f"count {c if c < threshold else 'threshold'}"
+                      + (" + 1" if c > threshold else ""))
+        spread(row, Q // 2, c)
+        if Q > 1:
+            spread(row, 0, 1)
+    row = new_row("no valid k-mer")
+    for q in range(Q):
+        spread(row, q, 2)
+    row[1][:] = False
+    for n, kind in ((H, "nhits = H"), (H + 1, "nhits = H + 1"),
+                    *((n, f"nhits = {n}") for n in nhits)):
+        if n > Q * threshold:
+            continue
+        row = new_row(kind)
+        left = n
+        for q in range(Q):
+            c = min(threshold, left)
+            spread(row, q, c)
+            left -= c
+    for n, kind in ((S, "nsegs = S"), (S + 1, "nsegs = S + 1")):
+        pairs = [(q, q + d) for q in range(0, Q - d, d + 1 if d else 1)]
+        if n > len(pairs) * threshold:
+            continue
+        row = new_row(kind)
+        sdiags = rng.choice(1 << 30, n, replace=False) + (1 << 20)
+        for i, diag in enumerate(sdiags):
+            for q in set(pairs[i % len(pairs)]):
+                hit(row, q, diag)
+    if Q > 2 * k + 2 + d:
+        row = new_row("edges")
+        base = int(rng.integers(1 << 20, 1 << 29))
+        for q in (0, d):                  # exactly MIN_SEGLEN: kept
+            hit(row, q, base)
+        if d >= 1:
+            for q in (0, d - 1):          # a base shorter: dropped
+                hit(row, q, base + 1)
+        for q in (0, 2 * k, 2 * k + d):   # gap 2k: one segment
+            hit(row, q, base + 2)
+        for q in (0, 2 * k + 1, 2 * k + 1 + d):   # 2k + 1: two
+            hit(row, q, base + 3)
+        for q in (1, 1 + d):              # positions near 2^32: wrap
+            hit(row, q, Q - 2)
+            hit(row, q, U - 1)            # the padding's diagonal
+    R = len(rows)
+    counts = np.zeros(R * Q, np.int64)
+    pos = []
+    for r, (hits, _) in enumerate(rows):
+        for q in range(Q):
+            diags = sorted(hits.get(q, ()))
+            counts[r * Q + q] = len(diags)
+            pos += [(dg + q - Q) % U for dg in diags]
+    offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    return dict(offsets=offsets.astype(np.uint32).view(np.int32),
+                positions=np.array(pos or [0], np.uint32).view(np.int32),
+                oligos=np.arange(R * Q, dtype=np.int32).reshape(R, Q),
+                valid=np.stack([v for _, v in rows]), kinds=kinds)
+
+
+CHAIN_ROW_KINDS = ("random", "ties", "no valid segment", "lv at the end")
+
+
+def chain_cases(rng: np.random.Generator, b: int, S: int,
+                lvs=(0, 31, 32, 33)) -> dict:
+    """Segment rows for GMAP's chain DP (``align/gmap_engine.chain``,
+    kernel K10), ordered by (qstart, diag) as K9 leaves them: row i's
+    last valid segment is lvs[i % len(lvs)] (clipped to S - 1), with
+    invalid segments before it in every third row; every fourth row is of
+    kind CHAIN_ROW_KINDS[(i // 4) % 4]: "ties" (up to 40 segments alike
+    and one that chains onto each equally, so that equal candidates name
+    predecessors 32 apart), "no valid segment",
+    "lv at the end" (lv = S - 1).  Diagonals step by indels (|gd| <= 30),
+    introns (9 to 300,000) and wrap uint32 near 0.  Returns qstart, qend
+    int32[b, S], diag int64[b, S] (uint32 values), valid bool[b, S]."""
+    qstart = np.zeros((b, S), np.int64)
+    qend = np.zeros((b, S), np.int64)
+    diag = np.zeros((b, S), np.int64)
+    valid = np.zeros((b, S), bool)
+    for i in range(b):
+        lv = min(lvs[i % len(lvs)], S - 1)
+        kind = CHAIN_ROW_KINDS[(i // 4) % 4] if i % 4 == 3 else "random"
+        if kind == "lv at the end":
+            lv = S - 1
+        n = lv + 1
+        qs = np.sort(rng.integers(0, 4 * n + 20, n))
+        qe = qs + rng.integers(12, 40, n)
+        step = rng.choice([0, 1, 2], n, p=[0.5, 0.3, 0.2])
+        jump = np.where(step == 0, rng.integers(-30, 31, n),
+                        np.where(step == 1, rng.integers(9, 300_000, n),
+                                 rng.integers(-2_000_000, 2_000_000, n)))
+        dg = (int(rng.integers(0, 2**32)) + np.cumsum(jump)) % 2**32
+        if i % 5 == 0:                       # wrap near 0
+            dg = (dg - dg[0] + 50) % 2**32
+        if kind == "ties":
+            # segments 0 .. n - 2 alike and segment n - 1 chaining onto each
+            # of them equally: candidates tie at j and j + 32 in a lane
+            n = lv + 1 if lv >= 33 else min(S, 40)
+            qs = np.full(n, qs[0])
+            qe = qs + 12
+            qs[-1], qe[-1] = qe[0], qe[0] + 20
+            dg = np.full(n, dg[0])
+        order = np.lexsort((dg, qs))
+        qstart[i, :n], qend[i, :n], diag[i, :n] = qs[order], qe[order], dg[order]
+        valid[i, :n] = kind != "no valid segment"
+        if i % 3 == 0 and n > 2 and kind != "ties":
+            valid[i, rng.choice(n - 1, max(1, n // 5), replace=False)] = False
+        qstart[i, n:] = qstart[i, n - 1]
+        qend[i, n:] = qend[i, n - 1]
+        diag[i, n:] = 0xFFFFFFFF
+    return dict(qstart=qstart.astype(np.int32), qend=qend.astype(np.int32),
+                diag=diag, valid=valid)

@@ -343,22 +343,19 @@ def _gmap_queries(db, g, rng, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H,S,smem", [(1024, 192, True), (64, 8, True),
-                                      (128, 512, True), (16384, 192, True),
-                                      (1024, 3072, False)])
-def test_gmap_seed_and_chain_match_plain(cuda, monkeypatch, H, S, smem):
+@pytest.mark.parametrize("H,S", [(1024, 192), (64, 8), (128, 512),
+                                 (16384, 192), (1024, 3072)])
+def test_gmap_seed_and_chain_match_plain(cuda, H, S):
     """K9 and K10 against their plain versions: hit and segment overflow,
-    segment arrays narrower than S, the largest H of 100 bp reads, the
-    global-scratch path; both intron limits; a backtrack of one step
-    (every chain is deeper)."""
+    segment arrays narrower than S, the largest H of 100 bp reads (a
+    global scratch row passed), segment rows as wide as K10 stages; both
+    intron limits; a backtrack of one step (every chain is deeper)."""
     rng = np.random.default_rng(43)
     g = synth.make_genome(rng, [400_000, 250_000, 100_000])
     db = synth.genome_db(g, 12, 3)
     ti = convert.index_from_arrays(db.offsets, db.positions, 12, 3, cuda)
     oligos, valid = (torch.from_numpy(x).to(cuda)
                      for x in _gmap_queries(db, g, rng, 256))
-    if not smem:
-        monkeypatch.setattr(eng, "SEED_SMEM_BYTES", 0)
     got = eng._seed_segments_cuda(ti.offsets, ti.positions, oligos, valid, 12,
                                   H, S, 100)
     want = eng._seed_segments_plain(ti.offsets, ti.positions, oligos, valid,
@@ -371,6 +368,59 @@ def test_gmap_seed_and_chain_match_plain(cuda, monkeypatch, H, S, smem):
         _equal([got[k] for k in eng.CHAIN_KEYS],
                [want[k] for k in eng.CHAIN_KEYS])
     assert want["deep"].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,k,thr,H,S,nhits", synth.SEED_SEGMENT_CASES,
+                         ids=["Q1", "Q33", "Q128-k15", "Q128-edge"])
+def test_seed_segment_cases_match_plain(cuda, Q, k, thr, H, S, nhits):
+    """K9 against its plain version on synth.seed_segment_cases (counts 0,
+    1, threshold and one above; no valid k-mer; nhits = H and H + 1;
+    nsegs = S and S + 1; MIN_SEGLEN and a base shorter; gaps 2k and 2k +
+    1; wrapping diagonals) at the case's H and S and at H / 4, S / 2; one
+    device op a call."""
+    case = synth.seed_segment_cases(np.random.default_rng(Q + k + H), Q, k,
+                                    thr, H, S, nhits)
+    a = tuple(torch.from_numpy(case[x]).to(cuda)
+              for x in ("offsets", "positions", "oligos", "valid"))
+    for h, s_ in ((H, S), (max(H // 4, 1), max(S // 2, 1))):
+        args = (*a, k, h, s_, thr)
+        got = eng._seed_segments_cuda(*args)
+        want = eng._seed_segments_plain(*args)
+        _equal([got[x] for x in eng.SEG_KEYS], [want[x] for x in eng.SEG_KEYS])
+    _one_device_op(lambda: eng._seed_segments_cuda(*a, k, H, S, thr))
+
+
+def _one_device_op(fn):
+    """fn launches one device op (torch.profiler over 3 calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    assert n in (0, 3), n     # 0: a profile that recorded nothing
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,lvs", synth.CHAIN_CASE_SHAPES)
+def test_chain_cases_match_plain(cuda, S, lvs):
+    """K10 against its plain version on synth.chain_cases (lv 0, 31, 32,
+    33 and S - 1; ties; no valid segment; past 1,024 segments read in
+    place), both intron limits, C 192 and 1; one device op a call."""
+    case = synth.chain_cases(np.random.default_rng(S), 8, S, lvs)
+    a = [torch.from_numpy(case[x]).to(cuda)
+         for x in ("qstart", "qend", "diag", "valid")]
+    for il, C in ((30, 192), (200_000, 192), (200_000, 1)):
+        got = eng._chain_cuda(*a, 12, il, C)
+        want = eng._chain_plain(*a, 12, il, C)
+        _equal([got[x] for x in eng.CHAIN_KEYS],
+               [want[x] for x in eng.CHAIN_KEYS])
+    _one_device_op(lambda: eng._chain_cuda(*a, 12, 200_000))
 
 
 @pytest.mark.cuda

@@ -1,5 +1,5 @@
-"""Where K1 (csrc/seed_diagonals.cu) and K11 (csrc/banded_gotoh.cu) spend
-their time, on the card.
+"""Where K1 (csrc/seed_diagonals.cu), K11 (csrc/banded_gotoh.cu) and K9
+(csrc/gmap_seed_segments.cu) spend their time, on the card.
 
 Builds each source with its stamp markers defined: SEED_STAMP(i) and
 GOTOH_STAMP(i) make lane 0 of each warp write clock64() at the end of
@@ -26,6 +26,12 @@ wrappers:
   cycles of the staging and of the row loop, whole and a row (median
   and most over the problems), with the row stores and without, the
   span, and the device times;
+  K9 ("gmap_seed", GMAP_SEED_STAMP(i), thread 0 of each row's CTA) on
+  the PE -N 1 runner's GMAP-lane inputs (tools/time_kernels.py
+  lane_inputs): per phase (counts, expansion, sort, segments, segment
+  sort, stores) the median and the largest cycles over the rows, the
+  slowest row's phases, the span, the shared memory and the CTAs an SM
+  holds, at the runner's H and S and at those of one and two retries;
   "latency": one warp's dependent chains (a shuffle, an add and a max, a
   shared load, a shuffle with four global or four shared stores), their
   cycles an iteration.
@@ -37,7 +43,8 @@ another checkout (its wrappers and its csrc/, whose sources must carry
 the same markers; phases it does not stamp are left out).  Prints one
 line per measurement.
 
-    python tools/probe_seed_gotoh.py [--root DIR] [--only seed gotoh latency]
+    python tools/probe_seed_gotoh.py [--root DIR]
+        [--only seed gotoh gmap_seed latency]
 """
 
 from __future__ import annotations
@@ -56,10 +63,14 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
 MAX_ITEMS = 8192      # reads or problems stamped
 SEED = 11
-# source, marker, stamps, the kernel's variable naming the item stamped
-PROBES = {"seed": ("seed_diagonals", "SEED_STAMP", 6, "row"),
-          "gotoh": ("banded_gotoh", "GOTOH_STAMP", 3, "b")}
-ENTRIES = {"seed": "gsnap_seed_diagonals", "gotoh": "gmap_banded_gotoh"}
+# source, marker, stamps, the kernel's variable naming the item stamped,
+# the threads that stamp it
+PROBES = {"seed": ("seed_diagonals", "SEED_STAMP", 6, "row", "lane 0"),
+          "gotoh": ("banded_gotoh", "GOTOH_STAMP", 3, "b", "lane 0"),
+          "gmap_seed": ("gmap_seed_segments", "GMAP_SEED_STAMP", 7, "row",
+                        "thread 0")}
+ENTRIES = {"seed": "gsnap_seed_diagonals", "gotoh": "gmap_banded_gotoh",
+           "gmap_seed": "gmap_seed_segments"}
 
 
 def build_source(root: str, which: str, out: str, stamp: bool = True,
@@ -69,7 +80,8 @@ def build_source(root: str, which: str, out: str, stamp: bool = True,
     its path."""
     from gmap_gsnap_tpu_torch.kernels import build as kbuild
 
-    src, macro, n, var = PROBES[which]
+    src, macro, n, var, who = PROBES[which]
+    skip = "(threadIdx.x & 31) != 0" if who == "lane 0" else "threadIdx.x != 0"
     csrc = os.path.join(root, "gmap_gsnap_tpu_torch", "csrc")
     with open(os.path.join(csrc, src + ".cu")) as f:
         body = f.read()
@@ -79,7 +91,7 @@ def build_source(root: str, which: str, out: str, stamp: bool = True,
 __device__ long long g_clock[{MAX_ITEMS}][{n}];
 __device__ unsigned long long g_ns[{MAX_ITEMS}][2];
 __device__ __forceinline__ void probe_stamp(long long item, int i) {{
-  if ((threadIdx.x & 31) != 0 || item < 0 || item >= {MAX_ITEMS}) return;
+  if ({skip} || item < 0 || item >= {MAX_ITEMS}) return;
   g_clock[item][i] = clock64();
   if (i == 0 || i == {n - 1}) {{
     unsigned long long t;
@@ -252,6 +264,68 @@ def probe_seed(torch, smoke, kbuild, out, args) -> None:
         torch.cuda.empty_cache()
 
 
+def probe_gmap_seed(torch, smoke, kbuild, out, args) -> None:
+    """K9 on the PE -N 1 runner's GMAP-lane inputs (tools/time_kernels.py
+    lane_inputs over its 16 Mbp genome, k = 12): its largest call at the
+    runner's H and S and at those of one and two overflow retries (x4
+    each, which align/gmap.py keeps for the rest of the process)."""
+    from gmap_gsnap_tpu_torch import convert
+    from gmap_gsnap_tpu_torch.align import gmap_engine as eng
+    from gmap_gsnap_tpu_torch.utils import synth
+
+    sys.path.insert(0, HERE)
+    import time_kernels
+
+    dev = torch.device("cuda")
+    probe = Probe(build_source(args.root, "gmap_seed", out),
+                  ENTRIES["gmap_seed"])
+    default = Probe(build_source(args.root, "gmap_seed", out, stamp=False),
+                    ENTRIES["gmap_seed"])
+    rng = np.random.default_rng(SEED)
+    n = 16_000_000
+    g = synth.make_genome(rng, [n // 2, n // 3, n - n // 2 - n // 3])
+    db = synth.genome_db(g, 12, 3)
+    captured, _ = time_kernels.lane_inputs(torch, db, g, dev, SEED + 1)
+    offs, pos, oligos, valid, k, H, S, thr = captured["seg"]
+    rows = oligos.shape[0]
+    for h, s_ in ((H, S), (4 * H, 4 * S), (16 * H, 16 * S)):
+        a = (offs, pos, oligos, valid, k, h, s_, thr)
+        call = lambda a=a: eng._seed_segments_cuda(*a)
+        want = eng._seed_segments_plain(*a)
+        plain_built = using(kbuild, default, lambda: device_ms(
+            torch, call, "seed_segments"))
+        stamped = using(kbuild, probe, lambda: device_ms(
+            torch, call, "seed_segments"))
+        probe.lib.probe_clear()
+        got = using(kbuild, probe, call)
+        torch.cuda.synchronize()
+        keys = eng.SEG_KEYS
+        if smoke._max_abs_err([got[x] for x in keys],
+                              [want[x] for x in keys]) != 0:
+            raise SystemExit("the stamped K9 disagrees with the plain "
+                             "version")
+        clk, ns = probe.stamps(PROBES["gmap_seed"][2], rows)
+        ph = phase_cycles(clk)
+        total = sum(ph.values())
+        slow = int(total.argmax())
+        nv = want["nhits"].clamp(max=h).cpu().numpy()
+        layout = using(kbuild, probe, lambda: time_kernels.seed_layout(
+            eng, kbuild, oligos.shape[1], h, s_))
+        print(f"gmap_seed rows={rows} Q={oligos.shape[1]} H={h} S={s_}: "
+              f"{layout}; "
+              f"min(nhits, H) most {int(nv.max())}, median "
+              f"{float(np.median(nv))}, nsegs most "
+              f"{int(want['nsegs'].max())}; cycles a phase (stamp: median / "
+              f"most) " + ", ".join(f"{i}: {int(np.median(v))} / "
+                                    f"{int(v.max())}" for i, v in ph.items())
+              + f"; the slowest row ({slow}, {int(nv[slow])} hits): "
+              + ", ".join(f"{i}: {int(v[slow])}" for i, v in ph.items())
+              + f"; rows' cycles median {int(np.median(total))}, most "
+              f"{int(total.max())}; {spans(ns)}; profiler ms a call: "
+              f"stamped {stamped:.4f}, default build {plain_built:.4f}",
+              flush=True)
+
+
 def probe_gotoh(torch, smoke, kbuild, out, args) -> None:
     from gmap_gsnap_tpu_torch.ops import dynprog as dp
 
@@ -398,6 +472,8 @@ def main() -> int:
         probe_seed(torch, smoke, kbuild, out, args)
     if "gotoh" in args.only:
         probe_gotoh(torch, smoke, kbuild, out, args)
+    if "gmap_seed" in args.only:
+        probe_gmap_seed(torch, smoke, kbuild, out, args)
     if "latency" in args.only:
         probe_latency(out)
     return 0

@@ -4,9 +4,10 @@ genome), K4
 (solve_indels), K13 (lane_features), K5 (solve_splices), K6
 (select_triples, beside its library sort), K7 (solve_doublesplices), K15
 (qpos_ranges), K16 (select_pairs, beside its library sort), K12
-(bridge_traceback), K11 (banded_gotoh) and K8 (pair_grid, beside its
-ranking's library sort) — so that two versions can be compared within
-one call (run it for each tree in turns: old, new, new, old).
+(bridge_traceback), K11 (banded_gotoh), K8 (pair_grid, beside its
+ranking's library sort), K9 (seed_segments), K10 (chain) and K17
+(pack_queries) — so that two versions can be compared within one call
+(run it for each tree in turns: old, new, new, old).
 
 The inputs are those of an -N 1 batch: planted RNA reads (2048, both
 strands: 4096 rows) over a synthetic genome, seeded, voted and verified
@@ -22,9 +23,12 @@ dense bits, off); K15 on the seed grids and selected diagonals at W=384,
 NC=32 (the -N 0 runner's seed budget) and W=4096, NC=128; K16 under
 both rules with 16 pairs, and on
 synth.diag_pair_rows' edge rows (1024 rows, NC 3 to 128, maxpairs 16 and
-1024); K12 and K8 on the inputs the PE -N 1 runner gives them
-(pe_inputs: 4096 planted RNA pairs in batches of 2048; K12 also on 128
-random junction windows, its plain version profiled over one call).
+1024); K12, K8, K9, K10 and K17 on the inputs the PE -N 1 runner gives
+them (pe_inputs: 4096 planted RNA pairs in batches of 2048; K12 also on
+128 random junction windows, its plain version profiled over one call;
+K9 also at the H and S of one and two overflow retries, with its shared
+memory and the CTAs an SM holds; K10's largest last valid segment; K17
+at 2048 reads and at the largest call).
 Times are torch.profiler device time per call over 50 calls after 50 ms
 of the kernel (the card's clocks up), as chip_smoke.py
 takes them (its _timed), and every kernel is checked against its plain
@@ -57,7 +61,10 @@ REPS = 50         # calls a profile (the plain K11 and K12: one)
 KERNELS = ("seed_diagonals", "prefix_mismatches", "solve_indels",
            "lane_features", "solve_splices", "select_triples",
            "solve_doublesplices", "select_pairs", "qpos_ranges",
-           "banded_gotoh", "bridge_traceback", "pair_grid", "cascade")
+           "banded_gotoh", "bridge_traceback", "pair_grid", "seed_segments",
+           "chain", "pack_queries", "cascade")
+PE_LANE = ("banded_gotoh", "bridge_traceback", "pair_grid", "seed_segments",
+           "chain", "pack_queries")
 
 
 def main() -> int:
@@ -286,7 +293,7 @@ def main() -> int:
             pt, pv = (torch.from_numpy(x).to(dev)
                       for x in synth.diag_pair_rows(rng, 1024, nc))
             pairs(f"edges NC={nc} P={npairs}", pt, pv, npairs)
-    if {"banded_gotoh", "bridge_traceback", "pair_grid"} & set(args.only):
+    if set(PE_LANE) & set(args.only):
         pe_inputs(torch, smoke, db, g, dev, args, timed)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -295,22 +302,23 @@ def main() -> int:
     return 0
 
 
-def pe_inputs(torch, smoke, db, g, dev, args, timed) -> None:
-    """K11, K12 and K8 on the inputs the PE -N 1 runner (default GMAP
-    lanes) gives them over 2 PE_BATCH planted RNA pairs (3% messy
-    junctions) in batches of PE_BATCH, as chip_smoke runs it: K11 and K12
-    on their largest call's junction windows and on 128 random windows
-    (chip_smoke's _junction_windows), K8 on the ranked end hits of one batch and of the
-    batches stacked (4,096 pairs), with its gate epilogue and without,
-    beside its ranking's library sort, and that sort's width: a stable
-    torch.sort of random [2048, 256] keys as int32 and as int64."""
+def lane_inputs(torch, db, g, dev, seed: int) -> tuple:
+    """The inputs the PE -N 1 runner (default GMAP lanes) gives K8, K9,
+    K10, K11, K12 and K17 over 2 PE_BATCH planted RNA pairs (3% messy
+    junctions) in batches of PE_BATCH, as chip_smoke runs it: the largest
+    call of K9 ("seg"), K10 ("chain"), K11 ("bm"), K12 ("bt") and K17
+    ("pack"), every K8 call ("grid"), and each K9 call's (rows, Q, H, S)
+    in order ("seg_calls"); and the generator the pairs were planted
+    from."""
+    from gmap_gsnap_tpu_torch.align import gmap_engine as eng
+    from gmap_gsnap_tpu_torch.align import gsnap_gapped as gg
     from gmap_gsnap_tpu_torch.align import gsnap_pe as pe
     from gmap_gsnap_tpu_torch.align import gsnap_se as se
     from gmap_gsnap_tpu_torch.align import runner as trun
     from gmap_gsnap_tpu_torch.ops import dynprog as dp
     from gmap_gsnap_tpu_torch.utils import synth
 
-    rng = np.random.default_rng(args.seed + 1)
+    rng = np.random.default_rng(seed)
     p1, p2, _ = synth.plant_pairs(
         rng, g, 2 * PE_BATCH,
         weights={**synth.RNA_PAIR_MIX, "messy_junction": 0.03})
@@ -318,19 +326,23 @@ def pe_inputs(torch, smoke, db, g, dev, args, timed) -> None:
         int(db.offsets[-1]), db.k, "standard"))
     runner = trun.GsnapRunner(db, params, lmax=100, novelsplicing=True,
                               device=dev)
-    captured = {}
-    real_bm, real_bt = dp.banded_matrices, dp.bridge_traceback
+    captured = {"seg_calls": []}
+    largest = {"bm": (dp, "banded_matrices", lambda a: a[0].shape[0]),
+               "bt": (dp, "bridge_traceback", lambda a: a[1].shape[0]),
+               "seg": (eng, "seed_segments", lambda a: a[2].shape[0]),
+               "chain": (eng, "chain", lambda a: a[0].shape[0]),
+               "pack": (gg, "pack_batch", lambda a: a[0].shape[0])}
+    saved = {key: getattr(mod, name) for key, (mod, name, _) in
+             largest.items()}
     real_grid = pe.pair_grid
 
-    def spy_bm(*a):
-        if "bm" not in captured or a[0].shape[0] > captured["bm"][0].shape[0]:
-            captured["bm"] = a
-        return real_bm(*a)
-
-    def spy_bt(*a):
-        if "bt" not in captured or a[1].shape[0] > captured["bt"][1].shape[0]:
-            captured["bt"] = a
-        return real_bt(*a)
+    def spy(*a, key, size):
+        if key not in captured or size(a) > size(captured[key]):
+            captured[key] = a
+        if key == "seg":
+            captured["seg_calls"].append((a[2].shape[0], a[2].shape[1],
+                                          a[5], a[6]))
+        return saved[key](*a)
 
     def spy_grid(*a):
         gate = a[8] if len(a) > 8 else None
@@ -339,13 +351,64 @@ def pe_inputs(torch, smoke, db, g, dev, args, timed) -> None:
                                        *gate[2:]),))
         return real_grid(*a)
 
-    dp.banded_matrices, dp.bridge_traceback = spy_bm, spy_bt
+    for key, (mod, name, size) in largest.items():
+        setattr(mod, name, lambda *a, key=key, size=size: spy(
+            *a, key=key, size=size))
     pe.pair_grid = spy_grid
     try:
         runner.run_pe(p1, p2, io.StringIO(), batch_size=PE_BATCH)
     finally:
-        dp.banded_matrices, dp.bridge_traceback = real_bm, real_bt
+        for key, (mod, name, _) in largest.items():
+            setattr(mod, name, saved[key])
         pe.pair_grid = real_grid
+    return captured, rng
+
+
+def seed_layout(eng, kbuild, Q: int, H: int, S: int) -> str:
+    """K9's shared memory a CTA and the CTAs an SM holds at (Q, H, S), for
+    the checkout timed: the design of PRs 4-14 (a work area of 8 H + 12
+    pow2(min(S, H)) bytes, in shared memory up to SEED_SMEM_BYTES) or
+    the register design (kernels/limits.py seed_segments_bytes)."""
+    from gmap_gsnap_tpu_torch.kernels import limits as klimits
+
+    lib = kbuild.library()
+    occ = getattr(getattr(lib, "lib", lib), "gmap_seed_segments_occupancy",
+                  None)
+    if hasattr(eng, "SEED_SMEM_BYTES"):
+        ws = eng.seed_workspace_bytes(H, S)
+        shared = ws <= eng.SEED_SMEM_BYTES
+        where = (f"work area {ws} B in "
+                 f"{'shared memory' if shared else 'global scratch'}")
+        ctas = occ(H, S, ws, int(shared)) if occ else "not measured"
+    else:
+        where = (f"shared memory {klimits.seed_segments_bytes(Q, H, S)} B, "
+                 f"scratch {'yes' if H > klimits.seed_segments_register_hits() else 'no'}")
+        ctas = occ(Q, H, S) if occ else "not measured"
+    return f"{where}, CTAs an SM {ctas}"
+
+
+def pe_inputs(torch, smoke, db, g, dev, args, timed) -> None:
+    """K11, K12, K8, K9, K10 and K17 on the inputs the PE -N 1 runner
+    gives them (lane_inputs): K11 and K12 on their largest call's
+    junction windows and on 128 random windows (chip_smoke's
+    _junction_windows), K8 on the ranked end hits of one batch and of the
+    batches stacked (4,096 pairs), with its gate epilogue and without,
+    beside its ranking's library sort, and that sort's width: a stable
+    torch.sort of random [2048, 256] keys as int32 and as int64; K9 on
+    its largest call (and at the H and S that one and two overflow
+    retries give, which align/gmap.py keeps for the rest of the process),
+    K10 on its largest call, K17 on its largest call (one mate's
+    PE_BATCH reads)."""
+    from gmap_gsnap_tpu_torch.align import gmap_engine as eng
+    from gmap_gsnap_tpu_torch.align import gmap as tgmap
+    from gmap_gsnap_tpu_torch.align import gsnap_pe as pe
+    from gmap_gsnap_tpu_torch.align import gsnap_se as se
+    from gmap_gsnap_tpu_torch.kernels import build as kbuild
+    from gmap_gsnap_tpu_torch.ops import dynprog as dp
+
+    captured, rng = lane_inputs(torch, db, g, dev, args.seed + 1)
+    print(f"GMAP lane: K9 calls (rows, Q, H, S) {captured['seg_calls']}; "
+          f"sticky (H, S) by Q after the run {tgmap._HS_STICKY}", flush=True)
     if {"banded_gotoh", "bridge_traceback"} & set(args.only):
         if "bt" not in captured:
             raise SystemExit("the PE -N 1 runner's GMAP lane ran no junction "
@@ -425,6 +488,42 @@ def pe_inputs(torch, smoke, db, g, dev, args, timed) -> None:
                                     reps=REPS)
         print(f"torch.sort [{PE_BATCH}, 256] stable: int32 {ms[0]} ms, "
               f"int64 {ms[1]} ms ({clock})", flush=True)
+    if "seed_segments" in args.only:
+        offs, pos, oligos, valid, k, H, S, thr = captured["seg"]
+        want = eng._seed_segments_plain(*captured["seg"])
+        nv = want["nhits"].clamp(max=H).float()
+        for h, s_ in ((H, S), (4 * H, 4 * S), (16 * H, 16 * S)):
+            a = (offs, pos, oligos, valid, k, h, s_, thr)
+            print(f"seed_segments rows={oligos.shape[0]} Q={oligos.shape[1]} "
+                  f"H={h} S={s_}: {seed_layout(eng, kbuild, oligos.shape[1], h, s_)}"
+                  f"; min(nhits, H) most {int(nv.max())}, median "
+                  f"{float(nv.median())}", flush=True)
+            timed(f"seed_segments H={h} S={s_}",
+                  lambda a=a: smoke._fields(eng._seed_segments_cuda, a,
+                                            eng.SEG_KEYS),
+                  lambda a=a: smoke._fields(eng._seed_segments_plain, a,
+                                            eng.SEG_KEYS),
+                  smoke._segment_cost(torch, a))
+    if "chain" in args.only:
+        ch = captured["chain"]
+        lv = smoke._chain_lv(torch, ch[3]).float()
+        print(f"chain rows={ch[0].shape[0]} S={ch[0].shape[1]} "
+              f"max_intronlen={ch[5]}: last valid segment most "
+              f"{int(lv.max())}, median {float(lv.median())}", flush=True)
+        timed(f"chain S={ch[0].shape[1]}",
+              lambda: smoke._fields(eng._chain_cuda, ch, eng.CHAIN_KEYS),
+              lambda: smoke._fields(eng._chain_plain, ch, eng.CHAIN_KEYS),
+              smoke._chain_cost(torch, ch), plain_reps=1)
+    if "pack_queries" in args.only:
+        c, f, ln, uni = (captured["pack"] + (False,))[:4]
+        print(f"pack_queries: largest call {c.shape[0]} reads, L="
+              f"{c.shape[1]}, uniform {uni}", flush=True)
+        for n in (PE_BATCH, c.shape[0]):
+            a = (c[:n], f[:n], ln[:n], uni)
+            timed(f"pack_queries {n} reads",
+                  lambda a=a: smoke._packed(se._pack_batch_cuda, *a),
+                  lambda a=a: smoke._packed(se._pack_batch_plain, *a),
+                  lambda out, a=a: (smoke._nbytes(a[:3], out), 0))
 
 
 if __name__ == "__main__":
