@@ -112,11 +112,13 @@ and ends the run with a nonzero exit):
      150 and 1024;
      K17 on each path's batch as the path gives it (the
      uniform flip) and in a mixed-length form (lengths 1, 15, 16, 17, 100,
-     N runs); K8 with its overflow-gate epilogue on the PE -N 1 runner's
-     own candidates of one batch and on hand-built rows where each term of
-     the gate flips (truncated ends, int32 sums that wrap), at -N 0 and
-     -N 1, and without the gate (known sites): outputs must be equal,
-     float32 ones bit for bit;
+     N runs), and on synth.pack_query_cases (lengths 0-33 and L, all-N
+     reads, N runs, lengths past L; L 100, 17, 151, 16, 33 and 14,432, B
+     61, 37, 1 and 0; both uniform forms); K8 with its overflow-gate
+     epilogue on the PE -N 1 runner's own candidates of one batch and on
+     hand-built rows where each term of the gate flips (truncated ends,
+     int32 sums that wrap), at -N 0 and -N 1, and without the gate (known
+     sites): outputs must be equal, float32 ones bit for bit;
   5. the four main paths, each through GsnapRunner.run or run_pe over all
      its reads into a SAM buffer, with every kernel's launch count reset
      before and read after:
@@ -177,7 +179,8 @@ and ends the run with a nonzero exit):
      SNP-heavy and short-end reads in the subset); and 256 planted RNA
      reads of 513 to 4,096 nt through align_batch_gapped at -N 1 (the
      card takes up to ops/mismatch.CUDA_MAX_READ_LENGTH bases): every
-     output equal to the CPU plain path's, K1-K7 and K13-K17 launched;
+     output equal to the CPU plain path's, K1-K7 and K13-K17 launched, and
+     K17 alone on their batch;
   6b. the gsnap CLI on the card: python -m gmap_gsnap_tpu_torch.cli.gsnap
      -D <dir> -d syn as a subprocess on the first 2048 reads or pairs of
      path 1 (SE -N 0), path 4 (PE -N 1, two FASTQ files), path 5 (-N 1 -s
@@ -198,10 +201,12 @@ and ends the run with a nonzero exit):
      W=4096 / NC=128, K5, K7, K9-K13 and K17 at their first shape (K10-K12
      over one call a profile); each timing line and phase with the wall
      clock since the start and the seconds it took; the number of device
-     ops one K14 call runs (1: its fields are gathered inside it) and one
-     K11 call runs (1: the pair matrix goes by value); then profiles of the SE -N 1 and PE -N 1 runs
-     (device busy share, top device ops), measured last so that the
-     profiler cannot perturb step 5's timing.
+     ops one K14 call runs (1: its fields are gathered inside it), one
+     K11 call (1: the pair matrix goes by value) and one K9, K10 and K17
+     call (1 each); then profiles of the SE -N 1 and PE -N 1 runs (device
+     busy share, top device ops, and every hand kernel with its time and
+     launches, a template's instantiations summed), measured last so that
+     the profiler cannot perturb step 5's timing.
 
 Prints one JSON line with every kernel's launches (on the PE -N 1 path,
 which runs all seventeen; per path under launches_by_path; the checks of
@@ -227,6 +232,7 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -1801,15 +1807,36 @@ def _profile_run(torch, run, label: str) -> None:
     print(f"{label} profile: wall {wall:.3f} s, device busy {busy:.4f} s "
           f"({100 * busy / wall:.1f}% busy, {100 - 100 * busy / wall:.1f}% "
           f"idle)", flush=True)
-    hand = [e for e in ev if any(f"{n[len('gsnap_'):]}_kernel(" in e.key
-                                 for n in ALL_KERNELS)]
-    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:12]
-    for e in top + [e for e in hand if e not in top]:
+    hand = {}
+    for e in ev:
+        n = _hand_kernel(e.key)
+        if n is not None:
+            hand.setdefault(n, []).append(e)
+    for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  "
               f"{e.key[:90]}")
-    print(f"{label} profile: hand kernels "
-          f"{sum(e.self_device_time_total for e in hand) / 1e3:.3f} ms of "
+    print(f"{label} profile: every hand kernel (its instantiations summed)",
+          flush=True)
+    for n in ALL_KERNELS:
+        es = hand.get(n, [])
+        print(f"  {sum(e.self_device_time_total for e in es) / 1e3:9.3f} ms  "
+              f"{sum(e.count for e in es):6d}x  {n}"
+              + (f" ({len(es)} instantiations)" if len(es) > 1 else ""))
+    total = sum(e.self_device_time_total for es in hand.values() for e in es)
+    print(f"{label} profile: hand kernels {total / 1e3:.3f} ms of "
           f"{busy * 1e3:.3f} ms device time", flush=True)
+
+
+def _hand_kernel(key: str) -> str | None:
+    """The entry of ALL_KERNELS whose kernel a profiler event names, or
+    None: its key holds the kernel's function name, followed by "(" or,
+    for a template (K2, K6, K13-K16), by "<" (``rank_hits_kernel<8,
+    1>(...)``); K2's wide path is ``top_diagonals_wide_kernel``."""
+    for n in ALL_KERNELS:
+        base = n.split("_", 1)[1]
+        if re.search(rf"(?<![A-Za-z0-9_]){base}(?:_wide)?_kernel[(<]", key):
+            return n
+    return None
 
 
 def main(argv=None) -> int:
@@ -2320,6 +2347,23 @@ def main(argv=None) -> int:
                            partial(_packed, se._pack_batch_plain, cc, ff, ll,
                                    u)))
             costs[name] = lambda out, a=(cc, ff, ll): (_nbytes(a, out), 0)
+    # K17 on synth.pack_query_cases (lengths 0-33 and L, all-N reads, N
+    # runs, lengths past L; rows off a 4-byte boundary, the card's longest
+    # read, B off a CTA's reads, 1 and 0), both uniform forms; their own
+    # generators
+    for b_, L_ in synth.PACK_QUERY_SHAPES:
+        for u in (False, True):
+            cc, ff, ll = (torch.from_numpy(x).to(dev) for x in
+                          synth.pack_query_cases(np.random.default_rng(
+                              b_ + L_), b_, L_, u))
+            checks.append(("pack_queries/edges",
+                           f"B={b_} L={L_} uniform={int(u)}",
+                           partial(_packed, se._pack_batch_cuda, cc, ff, ll,
+                                   u),
+                           partial(_packed, se._pack_batch_plain, cc, ff, ll,
+                                   u)))
+            costs.setdefault("pack_queries/edges",
+                             lambda out, a=(cc, ff, ll): (_nbytes(a, out), 0))
     for name, shape, fk, fp, cost, lib in _stage_edges(
             torch, gg, se, synth, rng, dev, params):
         checks.append((name, shape, fk, fp))
@@ -2627,6 +2671,17 @@ def main(argv=None) -> int:
                          f"plain path (max_abs_err={err}), a kernel did not "
                          f"launch ({long_launches}) or few reads placed "
                          f"({placed})")
+    # K17 alone on the long reads' batch
+    lenc = tuple(torch.from_numpy(x).to(dev) for x in enc)
+    want17 = _packed(se._pack_batch_plain, *lenc)
+    err17 = _max_abs_err(_packed(se._pack_batch_cuda, *lenc), want17)
+    errs["pack_queries/long reads"] = err17
+    bounds["pack_queries/long reads"] = _bound(_nbytes(lenc, want17), 0)
+    print(f"kernel pack_queries/long reads {LONG_READS} reads L={lmax}: "
+          f"max_abs_err={err17}", flush=True)
+    if err17 != 0:
+        raise SystemExit(f"kernel pack_queries disagrees with its plain "
+                         f"version on the long reads (max_abs_err={err17})")
     del long_out
 
     # paths 5 and 6: the subset must launch K5/K7 (with the known masks,
@@ -2928,9 +2983,10 @@ def main(argv=None) -> int:
         if nops is not None and nops != 1:
             raise SystemExit(f"_rank_hits_cuda ({what}) ran {nops} device "
                              f"ops, expected its one kernel")
-    # K11, K9 and K10 are one launch a call: K11's pair matrix goes by
-    # value, and each wrapper passes its bool flags as a view of their
-    # bytes (K9 also at a retry's H, with its global scratch row)
+    # K11, K9, K10 and K17 are one launch a call: K11's pair matrix goes
+    # by value, and each wrapper passes its bool flags as a view of their
+    # bytes (K9 also at a retry's H, with its global scratch row); K17's
+    # inputs come contiguous with int32 lengths
     margs = next(c for c in checks if c[0] == "banded_gotoh")[2].args
     seg = lanes[0][1]["seed_segments"]
     for what, fn in (
@@ -2941,7 +2997,12 @@ def main(argv=None) -> int:
                 eng._seed_segments_cuda, *seg[:5], 16 * seg[5], seg[6],
                 seg[7])),
             ("_chain_cuda", partial(eng._chain_cuda,
-                                    *lanes[0][1]["chain"]))):
+                                    *lanes[0][1]["chain"])),
+            ("_pack_batch_cuda", next(
+                c for c in checks if c[0] == "pack_queries")[2]),
+            ("_pack_batch_cuda on PE -N 1's stacked mates", next(
+                c for c in checks
+                if c[0] == "pack_queries/PE -N 1 mixed")[2])):
         nops = _device_ops(fn)
         print(f"{what}: {nops} CUDA device ops a call (the first lane's "
               f"inputs" + ("; not measured: every profile lost device ops)"

@@ -514,10 +514,20 @@ def _pack_batch_plain(codes, nflags, lengths, uniform: bool = False):
 
 
 def _pack_batch_cuda(codes, nflags, lengths, uniform: bool = False):
-    b, lmax = codes.shape
+    """K17 (``csrc/pack_queries.cu``): one launch, no other device op
+    where lengths is already int32 and the inputs contiguous, as on every
+    path.  Raises on inputs the kernel does not take (kbuild.launch on a
+    tensor of another device)."""
     if codes.dtype != torch.uint8 or nflags.dtype != torch.bool:
         raise TypeError(f"pack_batch: codes {codes.dtype} / nflags "
                         f"{nflags.dtype}, expected uint8 / bool")
+    if (codes.dim() != 2 or nflags.shape != codes.shape
+            or lengths.shape != codes.shape[:1]):
+        raise ValueError(f"pack_batch: codes {tuple(codes.shape)}, nflags "
+                         f"{tuple(nflags.shape)}, lengths "
+                         f"{tuple(lengths.shape)}; expected [B, L], [B, L], "
+                         f"[B]")
+    b, lmax = codes.shape
     dev = codes.device
     w = (lmax + 15) // 16
     words = [torch.empty((b, w), dtype=torch.int64, device=dev)

@@ -60,6 +60,7 @@ _SIGNATURES = {
     "gsnap_qpos_ranges": "p" * 5 + "i" * 3,
     "gsnap_select_pairs": "p" * 5 + "i" * 4 + "li",
     "gsnap_pack_queries": "p" * 9 + "i" * 4,
+    "gsnap_pack_queries_floor": "i" * 2,
 }
 
 _lib = None

@@ -2063,6 +2063,48 @@ def pair_grid_edges(rng: np.random.Generator, b: int, nchr: int = 1000,
 # segment is two hits) and 15 (one hit); H and S small enough that rows
 # reach them, and H 4,096 with rows either side of K9's register /
 # scratch edge (kernels/limits.py seed_segments_register_hits)
+# (B, L) of the read packing kernel's edge batches (K17): the main L,
+# rows that start off a 4-byte boundary (L 17, 151), a word of 16 and
+# lengths past one and two words, the longest read the card takes
+# (ops/mismatch.CUDA_MAX_READ_LENGTH), B off a multiple of the reads in a
+# CTA, and B of 1 and 0
+PACK_QUERY_SHAPES = ((61, 100), (61, 17), (61, 151), (37, 16), (37, 33),
+                     (3, 14432), (1, 100), (0, 100))
+PACK_QUERY_KINDS = ("random", "all N", "N runs", "longer than L")
+PACK_EDGE_LENGTHS = (0, 1, 15, 16, 17, 31, 32, 33)
+
+
+def pack_query_cases(rng: np.random.Generator, b: int, L: int,
+                     uniform: bool = False):
+    """(codes uint8[b, L], nflags bool[b, L], lengths int32[b]) for the
+    read packing and reverse complement (K17).  codes are 2-bit and the
+    bytes past a read's length hold random codes, as a reused buffer may;
+    3% of the flags are set.  The first rows take the lengths of
+    PACK_EDGE_LENGTHS below L and then L; the others a random length in
+    [1, L] and, cycling over PACK_QUERY_KINDS, every flag set ("all N"),
+    a run of up to 40 flags ("N runs") or a length 1-3 past L, which the
+    reverse complement's source clips to L - 1 ("longer than L").  With
+    ``uniform`` every length is L (the flip's contract)."""
+    codes = rng.integers(0, 4, (b, L)).astype(np.uint8)
+    nflags = rng.random((b, L)) < 0.03
+    lengths = rng.integers(1, L + 1, b).astype(np.int32)
+    edges = [x for x in PACK_EDGE_LENGTHS if x < L] + [L]
+    for row in range(b):
+        kind = PACK_QUERY_KINDS[row % len(PACK_QUERY_KINDS)]
+        if kind == "all N":
+            nflags[row] = True
+        elif kind == "N runs":
+            a = int(rng.integers(0, L))
+            nflags[row, a : a + int(rng.integers(1, 41))] = True
+        elif kind == "longer than L":
+            lengths[row] = L + int(rng.integers(1, 4))
+        if row < len(edges):
+            lengths[row] = edges[row]
+    if uniform:
+        lengths[:] = L
+    return codes, nflags, lengths
+
+
 SEED_SEGMENT_CASES = ((1, 12, 5, 16, 4, ()), (33, 12, 5, 64, 8, ()),
                       (128, 15, 10, 256, 16, ()),
                       (128, 12, 100, 4096, 192, (2048, 2049)))

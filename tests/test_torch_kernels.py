@@ -1050,12 +1050,26 @@ def _packed_equal(got, want):
 @pytest.mark.parametrize("lmax", [100, 17, 16, 151])
 def test_pack_batch_matches_plain(cuda, lmax):
     """K17 against _pack_batch_plain, mixed lengths and (on the reads of
-    length lmax) the uniform flip."""
+    length lmax) the uniform flip; then on synth.pack_query_cases at every
+    PACK_QUERY_SHAPES of this lmax (lmax 100 also takes the others), both
+    uniform forms, on the batch and on its rows from the second on (rows
+    that start off a 4-byte boundary where lmax is odd)."""
     c, f, ln = _pack_inputs(np.random.default_rng(lmax), 1024, lmax, cuda)
     _packed_equal(se._pack_batch_cuda(c, f, ln), se._pack_batch_plain(c, f, ln))
     full = ln == lmax
     args = (c[full].contiguous(), f[full].contiguous(), ln[full], True)
     _packed_equal(se._pack_batch_cuda(*args), se._pack_batch_plain(*args))
+    for b, L in synth.PACK_QUERY_SHAPES:
+        if L != lmax and (lmax != 100 or L in (17, 16, 151)):
+            continue
+        for uniform in (False, True):
+            c, f, ln = (torch.from_numpy(x).to(cuda) for x in
+                        synth.pack_query_cases(np.random.default_rng(b + L),
+                                               b, L, uniform))
+            for rows in (slice(None), slice(1, None)):
+                a = (c[rows], f[rows], ln[rows], uniform)
+                _packed_equal(se._pack_batch_cuda(*a),
+                              se._pack_batch_plain(*a))
 
 
 @pytest.mark.cuda

@@ -1,11 +1,11 @@
 """Port parity for the two device stages this slice moved into kernels,
 through their plain versions: the read packing and per-read reverse
 complement (kernel K17; the JAX package's gsnap_se._pack_device and
-_revcomp_batch) at lengths 1, 15, 16, 17 and lmax, with N runs, mixed and
-uniform; and the pair overflow gate (K8's epilogue; JAX gsnap_pe.py
-:241-283) against JAX's align_batch_pe overflow outputs on hand-built
-rows in which each of the gate's terms flips, at -N 0 and -N 1, and with
-known sites (no gate)."""
+_revcomp_batch) at lengths 1, 15, 16, 17 and lmax, with N runs, mixed
+and uniform, and on synth.pack_query_cases; and the pair overflow gate
+(K8's epilogue; JAX gsnap_pe.py :241-283) against JAX's align_batch_pe
+overflow outputs on hand-built rows in which each of the gate's terms
+flips, at -N 0 and -N 1, and with known sites (no gate)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -48,30 +48,51 @@ def pack_cases(rng, b: int, lmax: int):
     return codes, nflags, lengths
 
 
+def _pack_equal_jax(c, f, ln, uniform):
+    """The plain pack_batch against JAX _revcomp_batch + _pack_device on
+    one batch (numpy inputs), every output."""
+    lmax = c.shape[1]
+    jc, jf, jl = (jnp.asarray(x) for x in (c, f, ln))
+    fwd, trc, trf, rev = tse.pack_batch(*(torch.from_numpy(x)
+                                          for x in (c, f, ln)), uniform)
+    jrc, jrf = jse._revcomp_batch(jc, jf, jl, uniform)
+    assert np.array_equal(np.asarray(jrc), trc.numpy())
+    assert np.array_equal(np.asarray(jrf), trf.numpy())
+    assert trc.dtype == torch.uint8 and trf.dtype == torch.bool
+    for jq, tq in ((jse._pack_device(jc, jf, jl, lmax), fwd),
+                   (jse._pack_device(jrc, jrf, jl, lmax), rev)):
+        assert np.array_equal(np.asarray(jq.codes16).astype(np.int64),
+                              tq.codes16.numpy())
+        assert np.array_equal(np.asarray(jq.nflags16).astype(np.int64),
+                              tq.nflags16.numpy())
+        assert tq.lmax == lmax
+        assert tq.codes16.shape == (c.shape[0], -(-lmax // 16))
+
+
 @pytest.mark.parametrize("lmax", [100, 17, 16, 151])
 def test_pack_and_revcomp_match_jax(lmax):
     rng = np.random.default_rng(lmax)
     c, f, ln = pack_cases(rng, 64, lmax)
-    tc, tf, tl = (torch.from_numpy(x) for x in (c, f, ln))
-    jc, jf, jl = (jnp.asarray(x) for x in (c, f, ln))
-    for uniform in (False, True):
-        sel = slice(None) if not uniform else ln == lmax
-        if uniform:
-            assert sel.sum() >= 1
-        jrc, jrf = jse._revcomp_batch(jc[sel], jf[sel], jl[sel], uniform)
-        fwd, trc, trf, rev = tse.pack_batch(tc[sel], tf[sel], tl[sel],
-                                            uniform)
-        assert np.array_equal(np.asarray(jrc), trc.numpy())
-        assert np.array_equal(np.asarray(jrf), trf.numpy())
-        assert trc.dtype == torch.uint8 and trf.dtype == torch.bool
-        for jq, tq in ((jse._pack_device(jc[sel], jf[sel], jl[sel], lmax),
-                        fwd),
-                       (jse._pack_device(jrc, jrf, jl[sel], lmax), rev)):
-            assert np.array_equal(np.asarray(jq.codes16).astype(np.int64),
-                                  tq.codes16.numpy())
-            assert np.array_equal(np.asarray(jq.nflags16).astype(np.int64),
-                                  tq.nflags16.numpy())
-            assert tq.lmax == lmax and tq.codes16.shape[1] == -(-lmax // 16)
+    _pack_equal_jax(c, f, ln, False)
+    full = ln == lmax
+    assert full.sum() >= 1
+    _pack_equal_jax(c[full], f[full], ln[full], True)
+
+
+@pytest.mark.parametrize("uniform", [False, True])
+@pytest.mark.parametrize("b,lmax", synth.PACK_QUERY_SHAPES)
+def test_pack_query_cases_match_jax(b, lmax, uniform):
+    """synth.pack_query_cases: lengths 0, 1, 15, 16, 17, 31, 32, 33 and
+    lmax, all-N reads, N runs, lengths past lmax (the source clipped);
+    rows off a 4-byte boundary (lmax 17, 151), the card's longest read,
+    B of 61, 37, 1 and 0; the flip where every length is lmax."""
+    c, f, ln = synth.pack_query_cases(np.random.default_rng(b + lmax), b,
+                                      lmax, uniform)
+    if b > len(synth.PACK_EDGE_LENGTHS) + 1 and not uniform:
+        edges = {x for x in synth.PACK_EDGE_LENGTHS if x < lmax} | {lmax}
+        assert edges < set(ln.tolist())
+        assert f.all(1).any() and (ln > lmax).any()
+    _pack_equal_jax(c, f, ln, uniform)
 
 
 @pytest.fixture(scope="module")

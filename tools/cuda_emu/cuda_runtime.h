@@ -116,6 +116,19 @@ inline int __clz(unsigned x) { return x ? __builtin_clz(x) : 32; }
 inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned sh) {
   sh &= 31; return sh ? (lo >> sh) | (hi << (32 - sh)) : lo; }
 template <class T> inline T __ldg(const T* p) { return *p; }
+// byte n of the result: byte (s >> 4n) & 7 of y:x (x bytes 0-3, y 4-7);
+// with bit 3 of the nibble set, that byte's sign bit replicated
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  const uint64_t v = (uint64_t)y << 32 | x;
+  unsigned r = 0;
+  for (int n = 0; n < 4; ++n) {
+    const unsigned sel = (s >> (4 * n)) & 0xF;
+    unsigned byte = (unsigned)(v >> (8 * (sel & 7))) & 0xFF;
+    if (sel & 8) byte = (byte & 0x80) ? 0xFF : 0;
+    r |= byte << (8 * n);
+  }
+  return r;
+}
 // float32 with one rounding each (emu_build.py compiles with
 // -ffp-contract=off, so no product is fused into a sum)
 inline float __fmul_rn(float a, float b) { return a * b; }

@@ -45,6 +45,7 @@ warm-up calls.  Prints one JSON line.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib.util
 import io
 import json
@@ -127,7 +128,7 @@ def main() -> int:
         """Check fk against fp, then time both (and lib) over REPS calls a
         profile (the plain version over plain_reps, where given) after 50
         ms of fk; cost maps the plain output to (bytes, operations),
-        chip_smoke's bound."""
+        chip_smoke's bound.  Returns the name's entry of the JSON line."""
         got, want = fk(), fp()
         if smoke._max_abs_err(got, want) != 0:
             raise SystemExit(f"{name}: kernel disagrees with its plain "
@@ -151,6 +152,7 @@ def main() -> int:
                        "library_ms": ms[2] if lib else None,
                        "bound_ms": bound[0], "bound_by": bound[1]}
         print(f"{name}: {times[name]}", flush=True)
+        return times[name]
 
     rules = (("indel", (0, 30, 9), gg._indel_pairs_eligible(30, 9)),
              ("splice", (1, 200_000, 0), gg._splice_pairs_eligible(200_000)))
@@ -397,8 +399,9 @@ def pe_inputs(torch, smoke, db, g, dev, args, timed) -> None:
     torch.sort of random [2048, 256] keys as int32 and as int64; K9 on
     its largest call (and at the H and S that one and two overflow
     retries give, which align/gmap.py keeps for the rest of the process),
-    K10 on its largest call, K17 on its largest call (one mate's
-    PE_BATCH reads)."""
+    K10 on its largest call, K17 on its first PE_BATCH reads, its largest
+    call and 256 reads of 513-4,096 nt, each beside an empty kernel on its
+    grid (the launch floor)."""
     from gmap_gsnap_tpu_torch.align import gmap_engine as eng
     from gmap_gsnap_tpu_torch.align import gmap as tgmap
     from gmap_gsnap_tpu_torch.align import gsnap_pe as pe
@@ -515,15 +518,42 @@ def pe_inputs(torch, smoke, db, g, dev, args, timed) -> None:
               lambda: smoke._fields(eng._chain_plain, ch, eng.CHAIN_KEYS),
               smoke._chain_cost(torch, ch), plain_reps=1)
     if "pack_queries" in args.only:
+        from gmap_gsnap_tpu_torch.align import runner as trun
+        from gmap_gsnap_tpu_torch.utils import synth
+
         c, f, ln, uni = (captured["pack"] + (False,))[:4]
         print(f"pack_queries: largest call {c.shape[0]} reads, L="
               f"{c.shape[1]}, uniform {uni}", flush=True)
-        for n in (PE_BATCH, c.shape[0]):
-            a = (c[:n], f[:n], ln[:n], uni)
-            timed(f"pack_queries {n} reads",
-                  lambda a=a: smoke._packed(se._pack_batch_cuda, *a),
-                  lambda a=a: smoke._packed(se._pack_batch_plain, *a),
-                  lambda out, a=a: (smoke._nbytes(a[:3], out), 0))
+        # and 256 reads of 513-4,096 nt, as chip_smoke's long reads
+        lrng = np.random.default_rng(args.seed + 2)
+        recs, _ = synth.plant_spliced_reads(lrng, g, 256, L=4096,
+                                            prefix="long")
+        recs = [dataclasses.replace(r, seq=r.seq[:n], quality=r.quality[:n])
+                for r, n in zip(recs, lrng.integers(513, 4097, 256))]
+        long_batch = tuple(torch.from_numpy(x).to(dev)
+                           for x in trun.encode_batch(recs, 4096))
+        for label, a in ((f"{PE_BATCH} reads",
+                          (c[:PE_BATCH], f[:PE_BATCH], ln[:PE_BATCH], uni)),
+                         (f"{c.shape[0]} reads", (c, f, ln, uni)),
+                         ("256 long reads L=4096", long_batch + (False,))):
+            name = f"pack_queries {label}"
+            entry = timed(
+                name, lambda a=a: smoke._packed(se._pack_batch_cuda, *a),
+                lambda a=a: smoke._packed(se._pack_batch_plain, *a),
+                lambda out, a=a: (smoke._nbytes(a[:3], out), 0))
+            # the launch floor: an empty kernel on the kernel's grid, timed
+            # in turns with the kernel on one clock (a checkout from before
+            # the floor's entry point has none)
+            if "gsnap_pack_queries_floor" in kbuild._SIGNATURES:
+                b_, L_ = a[0].shape
+                ms, clock, _ = smoke._timed(
+                    lambda a=a: se._pack_batch_cuda(*a),
+                    lambda: kbuild.launch("gsnap_pack_queries_floor", dev,
+                                          b_, L_), reps=REPS)
+                entry.update(beside_floor_ms=ms[0], floor_ms=ms[1],
+                             floor_clock=clock)
+                print(f"{name}: kernel {ms[0]} ms, empty kernel on its grid "
+                      f"{ms[1]} ms ({clock})", flush=True)
 
 
 if __name__ == "__main__":
