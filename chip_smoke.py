@@ -5,7 +5,8 @@
                           [--batch 2048]
 
 Runs in 12 to 16 minutes on one H100, as its host's CPU allows (build,
-the database tools, eight paths, the gsnap CLI, checks, timings).
+the database tools, eight gsnap paths, the gsnap CLI, the gmap CLI (path
+9), checks, timings).
 
 Needs one CUDA device; exits nonzero, printing no result, without one.
 Every path runs gsnap's default --gmap-mode (pairsearch,
@@ -23,7 +24,7 @@ and ends the run with a nonzero exit):
      opened with GenomeDB.open; its codes, flags, chromosome bounds,
      offsets and positions must equal synth.genome_db of the same genome,
      and every path runs on it; the seconds of the FASTA write, the build
-     and the open are printed; planted 100 bp
+     and the open are printed; while gmap_build runs, planted 100 bp
      DNA reads for the SE -N 0 path (0-3 substitutions, half
      reverse-complemented, some with N, some with 1-3 nt indels, in a
      random order with the messy junctions below), RNA
@@ -193,13 +194,38 @@ and ends the run with a nonzero exit):
   6c. -A gsnap (GSNAP's native output) on the card on 256 reads or pairs
      of paths 1, 4 and 5 (with --print-snps), byte-equal to the same CLI
      with --device cpu;
+  6d. path 9, the gmap CLI on the card (BASELINE config 1), after paths 7
+     and 8: python -m gmap_gsnap_tpu_torch.cli.gmap -D <dir> -d syn on 142
+     cDNA queries (64 three-exon queries shaped as bench.py's gmap
+     workload with their introns between strong splice sites, a quarter
+     with 2 substitutions beside a junction; 64 with bench.py's own
+     draws, whose junctions fall anywhere; 8 cross-chromosome chimeras; 4 queries of 20-60 kb in 20-40 exons, at
+     Q = 65,536; 2 queries on duplicated segments, which the genome gets
+     before it is written) in the default Paths format, -f samse and -A,
+     in one process (_gmap_cli_runs, the runs sharing one database open)
+     that counts each run's kernel launches: each output byte-equal to
+     the same CLI's with --device cpu (started beside paths 7 and 8);
+     K9-K12 must launch and no other kernel; K9 must run at Q = 65,536
+     and on rows past its register hits; >= 99% of the three-exon
+     queries of each set best on their planted chromosome and strand
+     over the planted span; >= 90% of the first set's introns exact;
+     >= 85% of the second set's exact or at a shift that leaves the
+     spliced sequence as it is, and >= 99% those or moved to a
+     canonical intron within 10 nt (GMAP takes a canonical intron and
+     its mismatches over a non-canonical one); >= 7 of 8 chimeras as
+     two parts on their planted chromosomes (samse); queries/s, walls,
+     peak device memory and a profile of the -A run (device busy share,
+     hand-kernel time, K9-K12's time and launches), with the clock at the
+     path's start and end;
   7. each kernel's device time (torch.profiler) and per-call time beside
      its plain version's (and its library call's) on the same clock: K1-K4,
      K6 and K8 at every shape and variant, K2, K6 and K14 at every shape
      and K16 on every strand batch under both rules (its edge rows once),
      each with its own library sort and bound, K15 at W=384 / NC=32 and
      W=4096 / NC=128, K5, K7, K9-K13 and K17 at their first shape (K10-K12
-     over one call a profile); each timing line and phase with the wall
+     over one call a profile), the edge-row checks untimed but K9's and
+     K10's (tools/time_kernels.py times the others); each timing line and
+     phase with the wall
      clock since the start and the seconds it took; the number of device
      ops one K14 call runs (1: its fields are gathered inside it), one
      K11 call (1: the pair matrix goes by value) and one K9, K10 and K17
@@ -209,7 +235,8 @@ and ends the run with a nonzero exit):
      the profiler cannot perturb step 5's timing.
 
 Prints one JSON line with every kernel's launches (on the PE -N 1 path,
-which runs all seventeen; per path under launches_by_path; the checks of
+which runs all seventeen; per path under launches_by_path, the gmap CLI's
+default-format run as "gmap CLI"; the checks of
 other inputs, such as K5 with known masks, under variants), error, device
 time (ms, plain_ms at the first shape checked; clock says whether both
 are torch.profiler device times or, where a profile recorded none, CUDA
@@ -258,6 +285,10 @@ FIRST_SHAPE_ONLY = ("solve_splices", "solve_doublesplices", "seed_segments",
 # of those, the edge checks timed once (their first shape), beside their
 # bound: K9's and K10's
 TIMED_EDGES = ("seed_segments/edges", "chain/edges")
+# the other edge-row checks are checked, not timed (tools/time_kernels.py
+# times the kernels on them): a variant whose name ends in one of these
+UNTIMED_EDGES = ("/edges", "hand-built", "/near duplicates",
+                 "/left 0 and 2^32-1", "/BIG-1, BIG, 0")
 # kernels timed at every shape with their own library call and bound
 PER_SHAPE = ("top_diagonals", "select_triples", "rank_hits",
              "select_pairs", "qpos_ranges")
@@ -288,6 +319,14 @@ NATIVE_READS = 256   # reads or pairs of each -A gsnap GPU-vs-CPU check
 LONG_READS = 256     # reads of 513 nt and longer, card against CPU
 LONG_LMAX = 4096     # the longest of them
 CASCADE_PASSES = 5   # passes of a main path's device cascade alone
+# path 9, the gmap CLI: three-exon cDNAs with their introns between
+# strong splice sites (a quarter with a messy junction), as many shaped
+# as bench.py make_gmap_workload draws them (junctions anywhere),
+# cross-chromosome chimeras, long cDNAs (Q = 65,536) and queries on
+# duplicated segments
+GMAP_QUERIES, GMAP_BENCH, GMAP_CHIMERAS, GMAP_LONG, GMAP_DUPS = (
+    64, 64, 8, 4, 2)
+GMAP_FORMATS = (("paths", []), ("samse", ["-f", "samse"]), ("-A", ["-A"]))
 MEM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 # the float32 rate outside the tensor cores, the nearest published rate
 # to the kernels' int32 work; the card's int32 rate is lower (64 int32
@@ -669,12 +708,14 @@ def _timed(*fns, reps: int = 5) -> tuple:
 _STARTED: list = []  # every tool process started, stopped at exit
 
 
-def _start_tool(name: str, *args, env=None) -> subprocess.Popen:
+def _start_tool(name: str, *args, env=None, out=None) -> subprocess.Popen:
     """Start ``python -m gmap_gsnap_tpu_torch.cli.<name> args`` from the
-    checkout's root."""
+    checkout's root; its standard output to the file ``out`` if given
+    (a tool that runs unread in the background must not fill a pipe)."""
     proc = subprocess.Popen(
         [sys.executable, "-m", f"gmap_gsnap_tpu_torch.cli.{name}",
-         *map(str, args)], cwd=REPO, stdout=subprocess.PIPE,
+         *map(str, args)], cwd=REPO,
+        stdout=subprocess.PIPE if out is None else open(out, "w"),
         stderr=subprocess.PIPE, text=True, env=env)
     _STARTED.append(proc)
     return proc
@@ -699,6 +740,199 @@ def _finish_tool(proc: subprocess.Popen, name: str) -> tuple:
 
 def _tool(name: str, *args, env=None) -> tuple:
     return _finish_tool(_start_tool(name, *args, env=env), name)
+
+
+def _gmap_cli_runs(spec_file: str) -> None:
+    """Path 9's shim, run in a process of its own (``python -c "import
+    chip_smoke; chip_smoke._gmap_cli_runs(spec)"`` from the checkout's
+    root): the port's gmap CLI module as __main__ (python -m) once per
+    entry of the JSON spec's "runs", with that entry's arguments and its
+    standard output written to that entry's file.  The runs share one
+    GenomeDB.open (and so its device index).  Writes to the spec's
+    "result" file each run's exit code, wall seconds, kernel launches,
+    the (Q, H, S, most hits in a row) of its K9 calls, and for the entry
+    marked "profile" the
+    CUDA events of a torch.profiler trace of the run; and the peak device
+    memory of all runs."""
+    import contextlib
+    import runpy
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gmap_gsnap_tpu_torch.align import gmap_engine as eng
+    from gmap_gsnap_tpu_torch.db import datadir
+    from gmap_gsnap_tpu_torch.kernels import build as kbuild
+
+    with open(spec_file) as f:
+        spec = json.load(f)
+    real_open, opened = datadir.GenomeDB.open, {}
+
+    def open_once(*a, **kw):
+        key = json.dumps([a, kw], default=str)
+        if key not in opened:
+            opened[key] = real_open(*a, **kw)
+        return opened[key]
+
+    k9, seen = eng._seed_segments_cuda, set()
+
+    def k9_seen(offsets, positions, oligos, valid, k, H, S, threshold):
+        out = k9(offsets, positions, oligos, valid, k, H, S, threshold)
+        seen.add((int(oligos.shape[1]), int(H), int(S),
+                  int(out["nhits"].max())))
+        return out
+
+    datadir.GenomeDB.open = open_once
+    eng._seed_segments_cuda = k9_seen
+    torch.cuda.reset_peak_memory_stats()
+    results = []
+    for run in spec["runs"]:
+        before = dict(kbuild.LAUNCHES)
+        seen.clear()
+        sys.argv = ["gmap", *run["args"]]
+        prof = (profile(activities=[ProfilerActivity.CUDA])
+                if run.get("profile") else contextlib.nullcontext())
+        with open(run["out"], "w") as f, contextlib.redirect_stdout(f), \
+                prof as trace:
+            t0 = time.time()
+            try:
+                runpy.run_module("gmap_gsnap_tpu_torch.cli.gmap",
+                                 run_name="__main__", alter_sys=True)
+                rc = 0
+            except SystemExit as e:
+                rc = e.code
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        results.append(dict(
+            rc=rc, wall=wall, k9=sorted(seen),
+            launches={k: n - before.get(k, 0) for k, n in
+                      kbuild.LAUNCHES.items() if n > before.get(k, 0)},
+            events=None if trace is None else [
+                [e.key, e.count, e.self_device_time_total]
+                for e in trace.key_averages()
+                if e.device_type == DeviceType.CUDA]))
+    with open(spec["result"], "w") as f:
+        json.dump(dict(runs=results, peak=torch.cuda.max_memory_allocated()),
+                  f)
+
+
+def _sam_records(sam_text: str) -> dict:
+    """SAM body lines as {qname: [fields of each line, in order]}."""
+    out: dict = {}
+    for line in sam_text.splitlines():
+        if line and not line.startswith("@"):
+            f = line.split("\t")
+            out.setdefault(f[0], []).append(f)
+    return out
+
+
+def _ref_span(f, starts) -> tuple:
+    """A SAM line's universal [start, end) and its introns [(start, end)],
+    read from POS and the CIGAR's reference-consuming operations."""
+    p = start = int(starts[f[2]]) + int(f[3]) - 1
+    introns = []
+    for n, op in re.findall(r"(\d+)([MIDNSHP=X])", f[5]):
+        if op in "MD=X":
+            p += int(n)
+        elif op == "N":
+            introns.append((p, p + int(n)))
+            p += int(n)
+    return start, p, introns
+
+
+def _intron_shift_equal(ascii_g, planted, got) -> bool:
+    """``got`` is the planted intron or the same intron shifted along the
+    genome by bases that leave the spliced sequence as it is (the bases
+    it moves from one end of the intron equal those it takes in at the
+    other): an ambiguous junction placed elsewhere, not an error."""
+    (s, e), (s2, e2) = planted, got
+    d = s2 - s
+    if e2 - s2 != e - s:
+        return False
+    if d >= 0:
+        return bytes(ascii_g[s:s + d]) == bytes(ascii_g[e:e + d])
+    return bytes(ascii_g[s + d:s]) == bytes(ascii_g[e + d:e])
+
+
+# the canonical intron ends (GT-AG, GC-AG, AT-AC) on either strand
+_CANONICAL_INTRONS = {"GT..AG", "GC..AG", "AT..AC", "CT..AC", "CT..GC",
+                      "GT..AT"}
+
+
+def _intron_canonical_near(ascii_g, planted, got, reach: int = 10) -> bool:
+    """``got`` has canonical ends, each within ``reach`` bases of the
+    planted intron's: GMAP moves a non-canonical junction to a canonical
+    one close by and takes the mismatches that costs."""
+    (s, e), (s2, e2) = planted, got
+    ends = (bytes(ascii_g[s2:s2 + 2]) + b".." + bytes(ascii_g[e2 - 2:e2]))
+    return (abs(s2 - s) <= reach and abs(e2 - e) <= reach
+            and ends.decode() in _CANONICAL_INTRONS)
+
+
+def _gmap_bars(sam_text: str, genome, truths, bench_truths, chimeras,
+               long_truths, dups) -> dict:
+    """Path 9's planted truths against the card's samse output: the
+    counts (good, of) of best paths on the planted chromosome and strand
+    over the planted span (ends within 20 nt), of planted introns
+    reported exactly (and, for the bench-shaped queries, exactly or at a
+    shift that leaves the spliced sequence as it is, and those or moved
+    to a canonical intron close by), of chimeras
+    reported as two parts on their planted chromosomes, of long queries
+    placed, and of duplicated-segment queries reported with both exact
+    copies (NH 2)."""
+    recs = _sam_records(sam_text)
+    starts = dict(zip(genome.names,
+                      np.concatenate([[0], genome.chr_ends[:-1]])))
+
+    def placed(name, t):
+        f = recs.get(name, [None])[0]
+        if f is None or f[2] != t.chrom or bool(int(f[1]) & 16) == t.plusp:
+            return None
+        start, end, introns = _ref_span(f, starts)
+        ok = (abs(start - t.exons[0][0]) <= 20
+              and abs(end - t.exons[-1][1]) <= 20)
+        return introns if ok else None
+
+    got = {k: [0, 0] for k in ("placed", "introns", "bench_placed",
+                               "bench_exact", "bench_introns",
+                               "bench_canonical", "chimeras",
+                               "long", "dups")}
+    for i, t in enumerate(truths):
+        introns = placed(f"c{i}", t)
+        got["placed"][0] += introns is not None
+        got["introns"][0] += sum(iv in (introns or ()) for iv in t.introns)
+        got["placed"][1] += 1
+        got["introns"][1] += len(t.introns)
+    for i, t in enumerate(bench_truths):
+        introns = placed(f"b{i}", t)
+        got["bench_placed"][0] += introns is not None
+        introns = introns or ()
+        got["bench_exact"][0] += sum(iv in introns for iv in t.introns)
+        same = [any(_intron_shift_equal(genome.ascii, iv, j)
+                    for j in introns) for iv in t.introns]
+        got["bench_introns"][0] += sum(same)
+        got["bench_canonical"][0] += sum(
+            ok or any(_intron_canonical_near(genome.ascii, iv, j)
+                      for j in introns) for ok, iv in zip(same, t.introns))
+        got["bench_placed"][1] += 1
+        for key in ("bench_exact", "bench_introns", "bench_canonical"):
+            got[key][1] += len(t.introns)
+    for i, t in enumerate(chimeras):
+        fs = recs.get(f"x{i}", [])
+        got["chimeras"][0] += (len(fs) == 2 and all("XT:Z:" in "\t".join(f)
+                                                     for f in fs)
+                               and [f[2] for f in fs]
+                               == [p.chrom for p in t.parts])
+        got["chimeras"][1] += 1
+    for i, t in enumerate(long_truths):
+        got["long"][0] += placed(f"long{i}", t) is not None
+        got["long"][1] += 1
+    for i in range(dups):
+        got["dups"][0] += any("NH:i:2" in f for f in recs.get(f"dup{i}",
+                                                              [[]])[0])
+        got["dups"][1] += 1
+    return {k: tuple(v) for k, v in got.items()}
 
 
 # python -c program: ``<launches.json> <gsnap args>`` runs the gsnap CLI
@@ -1863,6 +2097,7 @@ def main(argv=None) -> int:
     from gmap_gsnap_tpu_torch.io import fasta
     from gmap_gsnap_tpu_torch.db.iit import IIT
     from gmap_gsnap_tpu_torch.kernels import build as kbuild
+    from gmap_gsnap_tpu_torch.kernels import limits as klimits
     from gmap_gsnap_tpu_torch.ops import dynprog as dp
     from gmap_gsnap_tpu_torch.ops import mismatch as mmo
     from gmap_gsnap_tpu_torch.utils import synth
@@ -1895,6 +2130,10 @@ def main(argv=None) -> int:
     chr_lengths = [total * w // 10 for w in (4, 3, 2)]
     chr_lengths.append(total - sum(chr_lengths))
     genome = synth.make_genome(rng, chr_lengths, n_runs=20)
+    # path 9's duplicated segments are copied into the genome before it
+    # is written; its queries come from a generator of their own
+    grng = np.random.default_rng(args.seed + 9)
+    dup_recs, _, _ = synth.gmap_repeat_queries(grng, genome, GMAP_DUPS)
     t_genome = time.time() - t0
     # 3a. the user's database flow: the genome as FASTA, the port's
     # gmap_build at the large-genome setting (k=15, interval 3, the
@@ -1917,8 +2156,54 @@ def main(argv=None) -> int:
     with ThreadPoolExecutor(1) as pool:
         mem_job = pool.submit(mem_db)
         t1 = time.time()
-        _tool("gmap_build", "-d", "syn", "-D", tmp, "-k", 15, "-q", 3,
-              fasta_path)
+        build = _start_tool("gmap_build", "-d", "syn", "-D", tmp, "-k", 15,
+                            "-q", 3, fasta_path)
+        # the reads of every path are planted while gmap_build runs
+        t0 = time.time()
+        # 1% of the DNA reads are messy junctions, for the GMAP lanes
+        nmessy = args.reads // 100
+        records, truth = synth.plant_reads(
+            rng, genome, args.reads - nmessy,
+            weights=dict(sub=0.88, n=0.04, mid_indel=0.04, end_indel=0.01,
+                         terminal=0.01, repeat=0.01, junk=0.01))
+        records += synth.plant_spliced_reads(
+            rng, genome, nmessy, weights=dict(messy_junction=1),
+            prefix="m")[0]
+        # interleaved, so every batch and the CPU subset of step 6 hold some
+        records = [records[i] for i in rng.permutation(len(records))]
+        rna, rna_truth = synth.plant_spliced_reads(
+            rng, genome, args.reads, weights=dict(
+                unspliced=0.5, junction=0.3, shortexon=0.1, distant=0.05,
+                n_indel=0.05, messy_junction=0.03))
+        # 1% of them from repeat copies, which overflow the candidate
+        # budget, so the -N 1 path runs its wide lane too
+        nrep = args.reads // 100
+        rna = rna[: args.reads - nrep] + synth.plant_reads(
+            rng, genome, nrep, weights=dict(repeat=1), prefix="p")[0]
+        rna_truth = rna_truth[: args.reads - nrep]
+        p1, p2, p_truth = synth.plant_pairs(
+            rng, genome, args.pairs // 2,
+            weights={**synth.DNA_PAIR_MIX, "messy_junction": 0.02})
+        rp1, rp2, rp_truth = synth.plant_pairs(
+            rng, genome, args.pairs,
+            weights={**synth.RNA_PAIR_MIX, "messy_junction": 0.03})
+        # path 7: bisulfite reads (cmet); path 8: A-to-I edited RNA
+        # pairs (atoi)
+        bis, bis_truth = synth.plant_bisulfite_reads(rng, genome, args.reads)
+        # (--pairs / 4: path 8 runs at ~100 pairs/s, host-bound)
+        ep1, ep2, ep_truth, ep_edited = synth.plant_edited_pairs(
+            rng, genome, args.pairs // 4)
+        t_reads = time.time() - t0
+        # path 9's cDNA queries, written as FASTA
+        gq, gq_truth = synth.gmap_queries(grng, genome, GMAP_QUERIES,
+                                          messy=0.25)
+        gx, gx_truth = synth.gmap_chimeras(grng, genome, GMAP_CHIMERAS)
+        gl, gl_truth = synth.gmap_long_queries(grng, genome, GMAP_LONG)
+        gb, gb_truth = synth.gmap_queries(grng, genome, GMAP_BENCH,
+                                          sites=False, prefix="b")
+        gmap_fa = os.path.join(tmp, "cdna.fa")
+        synth.write_fasta_records(gmap_fa, gq + gb + gx + gl + dup_recs)
+        _finish_tool(build, "gmap_build")
         t_build = time.time() - t1
         mem, t_mem = mem_job.result()
     dbdir = os.path.join(tmp, "syn")
@@ -1940,52 +2225,26 @@ def main(argv=None) -> int:
                          f"{db.basesize}, gamma files {gamma}")
     del mem
     print(f"database: FASTA write {t_fa:.2f} s ({os.path.getsize(fasta_path)}"
-          f" B), gmap_build -k 15 -q 3 {t_build:.2f} s (basesize 12, gamma "
+          f" B), gmap_build -k 15 -q 3 {t_build:.2f} s (the reads planted "
+          f"beside it; basesize 12, gamma "
           f"offsets: {', '.join(gamma)}; "
           f"{sum(os.path.getsize(os.path.join(dbdir, f)) for f in os.listdir(dbdir) if os.path.isfile(os.path.join(dbdir, f)))}"
           f" B on disk), GenomeDB.open with the offsets decoded and "
           f"positions read {t_open:.2f} s; codes, flags, chromosome bounds "
           f"and names, offsets and positions equal to synth.genome_db "
           f"(built in {t_mem:.2f} s beside gmap_build)", flush=True)
-    t0 = time.time()
-    # 1% of the DNA reads are messy junctions, for the GMAP lanes
-    nmessy = args.reads // 100
-    records, truth = synth.plant_reads(
-        rng, genome, args.reads - nmessy,
-        weights=dict(sub=0.88, n=0.04, mid_indel=0.04, end_indel=0.01,
-                     terminal=0.01, repeat=0.01, junk=0.01))
-    records += synth.plant_spliced_reads(
-        rng, genome, nmessy, weights=dict(messy_junction=1), prefix="m")[0]
-    # interleaved, so every batch and the CPU subset of step 6 hold some
-    records = [records[i] for i in rng.permutation(len(records))]
-    rna, rna_truth = synth.plant_spliced_reads(
-        rng, genome, args.reads, weights=dict(
-            unspliced=0.5, junction=0.3, shortexon=0.1, distant=0.05,
-            n_indel=0.05, messy_junction=0.03))
-    # 1% of them from repeat copies, which overflow the candidate budget,
-    # so the -N 1 path runs its wide lane too
-    nrep = args.reads // 100
-    rna = rna[: args.reads - nrep] + synth.plant_reads(
-        rng, genome, nrep, weights=dict(repeat=1), prefix="p")[0]
-    rna_truth = rna_truth[: args.reads - nrep]
-    p1, p2, p_truth = synth.plant_pairs(
-        rng, genome, args.pairs // 2,
-        weights={**synth.DNA_PAIR_MIX, "messy_junction": 0.02})
-    rp1, rp2, rp_truth = synth.plant_pairs(
-        rng, genome, args.pairs,
-        weights={**synth.RNA_PAIR_MIX, "messy_junction": 0.03})
-    # path 7: bisulfite reads (cmet); path 8: A-to-I edited RNA pairs (atoi)
-    bis, bis_truth = synth.plant_bisulfite_reads(rng, genome, args.reads)
-    # (--pairs / 4: path 8 runs at ~100 pairs/s, host-bound)
-    ep1, ep2, ep_truth, ep_edited = synth.plant_edited_pairs(
-        rng, genome, args.pairs // 4)
     print(f"setup: {total / 1e6:.1f} Mbp, 4 chromosomes, k=15/3 index "
           f"({len(db.positions)} positions), {len(records)} DNA + {len(rna)} "
           f"RNA reads, {len(p1)} DNA + {len(rp1)} RNA pairs, "
           f"{len(bis)} bisulfite reads ({sum(t.site >= 0 for t in bis_truth)}"
           f" with a read-C / genome-T site), {len(ep1)} RNA pairs "
-          f"({int(ep_edited.sum())} A-to-I edited): genome "
-          f"{t_genome:.1f} s, reads {time.time() - t0:.1f} s", flush=True)
+          f"({int(ep_edited.sum())} A-to-I edited), "
+          f"{len(gq) + len(gx) + len(gl) + len(dup_recs)} cDNA queries "
+          f"({len(gq)} three-exon, {len(gx)} chimeras, "
+          f"{len(gl)} of {min(len(r.seq) for r in gl)}-"
+          f"{max(len(r.seq) for r in gl)} nt, {len(dup_recs)} on duplicated "
+          f"segments): genome {t_genome:.1f} s, reads {t_reads:.1f} s",
+          flush=True)
     params = se.GsnapParams(   # the default --gmap-mode: every GMAP lane
         size_threshold=se.dynamic_size_threshold(int(db.offsets[-1]), db.k,
                                                  "standard"))
@@ -2062,14 +2321,15 @@ def main(argv=None) -> int:
         f.write(synth.splicesites_text(genome, introns, decoys))
     with open(os.path.join(tmp, "snps.txt"), "w") as f:
         f.write(synth.snps_text(genome, spos, salt))
+    # both maps' iit_store side by side
     t0 = time.time()
-    _tool("iit_store", "-o", os.path.join(maps, "sites"),
-          os.path.join(tmp, "sites.txt"))
-    t_sites = time.time() - t0
-    t0 = time.time()
-    _tool("iit_store", "-o", os.path.join(maps, "snps"),
-          os.path.join(tmp, "snps.txt"))
+    stores = [_start_tool("iit_store", "-o", os.path.join(maps, m),
+                          os.path.join(tmp, f"{m}.txt"))
+              for m in ("sites", "snps")]
+    _finish_tool(stores[1], "iit_store")
     t_snps = time.time() - t0
+    _finish_tool(stores[0], "iit_store")
+    t_sites = time.time() - t0
     t0 = time.time()
     _tool("snpindex", "-D", tmp, "-d", "syn", "-v", "snps",
           os.path.join(maps, "snps.iit"))
@@ -2090,7 +2350,7 @@ def main(argv=None) -> int:
     t_runner = time.time() - t0
     print(f"setup -s/-v times: iit_store of the splicesites map "
           f"{t_sites:.2f} s ({sites.nsites} sites), iit_store of the SNP map "
-          f"{t_snps:.2f} s, snpindex {t_index:.2f} s "
+          f"{t_snps:.2f} s (side by side), snpindex {t_index:.2f} s "
           f"({len(runner_sv.index.positions)} positions), load_splicesites "
           f"{t_load:.2f} s, bitmask upload {t_bits:.3f} s, runner set-up "
           f"(splice sites again, SNP index read and upload) {t_runner:.2f} s",
@@ -2906,12 +3166,125 @@ def main(argv=None) -> int:
             "positions and |TLEN|", *_pairs_ok(sam, ep_truth, genome, "e"),
             0.99)
 
+    # path 9's references: the gmap CLI with --device cpu on its cDNA
+    # queries in each format, started now, so that they run beside paths 7
+    # and 8 (two torch threads each)
+    gmap_cmd = ["-D", tmp, "-d", "syn", gmap_fa]
+    gmap_cpu = {fmt: _start_tool("gmap", *flags, *gmap_cmd, "--device", "cpu",
+                                 env={**os.environ, "OMP_NUM_THREADS": "2"},
+                                 out=os.path.join(tmp, f"gmap_cpu_{i}"))
+                for i, (fmt, flags) in enumerate(GMAP_FORMATS)}
+    t_gmap_cpu = time.time()
     mode_path("cmet-stranded", "cmet", "SE cmet -N 0", bis, None, False,
               N0_KERNELS + STAGE_KERNELS, bars7,
               cli_extra=["--mode", "cmet-stranded", "--cmetdir", dbdir])
     mode_path("atoi-stranded", "atoi", "PE atoi -N 1", ep1, ep2, True,
               N0_KERNELS + SPLICE_KERNELS + PAIR_KERNELS + STAGE_KERNELS,
               bars8)
+
+    # 9. the gmap CLI on the card (BASELINE config 1): python -m
+    # gmap_gsnap_tpu_torch.cli.gmap on the directory gmap_build wrote, in
+    # a process of its own (_gmap_cli_runs) that runs it in each format
+    # and counts its kernel launches; each output byte-equal to the CLI's
+    # with --device cpu; the planted truths checked on the samse output
+    t9 = time.time()
+    cpu_left = sum(proc.poll() is None for proc in gmap_cpu.values())
+    print(f"path 9 (gmap CLI) at {t9 - t_start:.1f} s {_clock()}; "
+          f"{cpu_left} of its {len(gmap_cpu)} --device cpu runs (started "
+          f"{t9 - t_gmap_cpu:.1f} s ago) still running", flush=True)
+    spec = {"result": os.path.join(tmp, "gmap_runs.json"), "runs": [
+        {"args": [*flags, *gmap_cmd], "out": os.path.join(tmp, f"gmap_{i}"),
+         "profile": fmt == "-A"}
+        for i, (fmt, flags) in enumerate(GMAP_FORMATS)]}
+    with open(os.path.join(tmp, "gmap_spec.json"), "w") as f:
+        json.dump(spec, f)
+    _finish_tool(subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "chip_smoke._gmap_cli_runs(sys.argv[1])",
+         os.path.join(tmp, "gmap_spec.json")], cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+        "gmap CLI on the card")
+    with open(spec["result"]) as f:
+        got9 = json.load(f)
+    nq9 = len(gq) + len(gb) + len(gx) + len(gl) + len(dup_recs)
+    card9 = {}
+    for i, ((fmt, flags), run, r9) in enumerate(zip(
+            GMAP_FORMATS, spec["runs"], got9["runs"])):
+        with open(run["out"]) as f:
+            card9[fmt] = f.read()
+        _finish_tool(gmap_cpu[fmt], f"gmap {fmt} --device cpu")
+        with open(os.path.join(tmp, f"gmap_cpu_{i}")) as f:
+            ref = f.read()
+        if r9["rc"] != 0 or card9[fmt] != ref or card9[fmt].count("\n") < nq9:
+            raise SystemExit(f"gmap CLI {fmt}: the card's output (exit "
+                             f"{r9['rc']}, {len(card9[fmt])} B) differs from "
+                             f"--device cpu's ({len(ref)} B)")
+        want9 = GMAP_KERNELS + DYNPROG_KERNELS
+        missing = [k for k in want9 if r9["launches"].get(k, 0) == 0]
+        extra_k = [k for k in r9["launches"] if k not in want9]
+        if missing or extra_k:
+            raise SystemExit(f"gmap CLI {fmt}: kernels not launched "
+                             f"{missing}, launched but not on the path "
+                             f"{extra_k}")
+        note = {"paths": ", the database open and upload included",
+                "-A": ", traced by torch.profiler"}.get(fmt, "")
+        print(f"gmap CLI {fmt} ({' '.join(flags) or 'default'}): {nq9} "
+              f"queries, {len(card9[fmt])} B byte-equal to --device cpu; "
+              f"card wall {r9['wall']:.2f} s ({nq9 / r9['wall']:.2f} "
+              f"queries/s{note}); launches {r9['launches']}", flush=True)
+    print(f"gmap CLI: peak device memory of the card's runs "
+          f"{got9['peak']} B ({got9['peak'] / 2**30:.2f} GiB)", flush=True)
+    k9calls = {tuple(c) for r9 in got9["runs"] for c in r9["k9"]}
+    qs9 = sorted({c[0] for c in k9calls})
+    # rows of more hits than K9 sorts in registers take its scratch row
+    scratch9 = sorted(c for c in k9calls
+                      if c[3] > klimits.seed_segments_register_hits())
+    if qs9[-1] != 65_536 or not scratch9:
+        raise SystemExit(f"gmap CLI: K9 never ran at Q = 65,536 ({qs9}) or "
+                         f"on a row past its register hits")
+    paths["gmap CLI"] = dict(got9["runs"][0]["launches"])
+    b9 = _gmap_bars(card9["samse"], genome, gq_truth, gb_truth, gx_truth,
+                    gl_truth, len(dup_recs))
+    print(f"gmap CLI: K9 at Q {qs9}; rows past its register hits in "
+          f"{len(scratch9)} calls, (Q, H, S, most hits) {scratch9[-3:]}; "
+          f"{b9['long'][0]} of {b9['long'][1]} "
+          f"long queries placed over their planted span; "
+          f"{b9['dups'][0]} of {b9['dups'][1]} duplicated-segment queries "
+          f"with both exact copies (NH:i:2)", flush=True)
+    bar("gmap CLI", "planted three-exon queries best on their chromosome "
+        "and strand over the planted span", *b9["placed"], 0.99)
+    bar("gmap CLI", "planted introns reported exactly", *b9["introns"], 0.90)
+    print(f"gmap CLI: bench-shaped queries' planted introns reported "
+          f"exactly {b9['bench_exact'][0]}/{b9['bench_exact'][1]}",
+          flush=True)
+    bar("gmap CLI", "bench-shaped three-exon queries best on their "
+        "chromosome and strand over the planted span", *b9["bench_placed"],
+        0.99)
+    bar("gmap CLI", "bench-shaped queries' planted introns reported exactly "
+        "or at a shift that leaves the spliced sequence as it is",
+        *b9["bench_introns"], 0.85)
+    bar("gmap CLI", "bench-shaped queries' planted introns reported exactly, "
+        "at such a shift, or moved to a canonical intron within 10 nt",
+        *b9["bench_canonical"], 0.99)
+    bar("gmap CLI", "chimeras reported as two parts on their planted "
+        "chromosomes", *b9["chimeras"], 7 / 8)
+    ev = got9["runs"][2]["events"] or []
+    busy = sum(e[2] for e in ev) / 1e6
+    wall9 = got9["runs"][2]["wall"]
+    hand9 = {}
+    for key, count, us in ev:
+        n = _hand_kernel(key)
+        if n is not None:
+            c, t = hand9.get(n, (0, 0.0))
+            hand9[n] = (c + count, t + us)
+    print(f"gmap CLI -A profile: wall {wall9:.3f} s, device busy {busy:.4f} s"
+          f" ({100 * busy / wall9:.1f}% busy), hand kernels "
+          f"{sum(t for _, t in hand9.values()) / 1e3:.3f} ms; "
+          + ", ".join(f"{n} {hand9.get(n, (0, 0.0))[1] / 1e3:.3f} ms "
+                      f"{hand9.get(n, (0, 0.0))[0]}x"
+                      for n in GMAP_KERNELS + DYNPROG_KERNELS), flush=True)
+    print(f"path 9 done at {time.time() - t_start:.1f} s {_clock(t9)}",
+          flush=True)
     if "jax" in sys.modules or "gmap_gsnap_tpu" in sys.modules:
         raise SystemExit("jax or the JAX package was imported")
 
@@ -2931,6 +3304,9 @@ def main(argv=None) -> int:
         # clock
         base = name.split("/")[0]
         once, variant = base in FIRST_SHAPE_ONLY, "/" in name
+        if (variant and name not in TIMED_EDGES
+                and any(e in name for e in UNTIMED_EDGES)):
+            continue
         if name not in EVERY_CHECK and (
                 (once and ((variant and name not in TIMED_EDGES)
                            or name in times))

@@ -20,10 +20,12 @@ Layer map:
   db/       database construction, loader and device containers, the IIT
             reader and writer, known splice sites, the SNP-tolerant index
             and the cmet/atoi converted indexes
-  io/       FASTA/FASTQ input, SAM and GSNAP native output
+  io/       FASTA/FASTQ input, SAM and GSNAP native output, the gmap
+            CLI's writers (every -f format, -A) and output routing
   native/   C host loops (gamma offsets, SAM lines), built with cc
-  cli/      ``python -m gmap_gsnap_tpu_torch.cli.gsnap``, the database
-            tools ``cli.gmap_build``, ``gmapindex``, ``fa_coords``,
+  cli/      ``python -m gmap_gsnap_tpu_torch.cli.gsnap`` and
+            ``cli.gmap``, the database tools ``cli.gmap_build``,
+            ``gmapindex``, ``fa_coords``,
             ``gmap_process``, ``iit_store``, ``snpindex``, ``cmetindex``,
             ``atoiindex``
   convert   JAX-package state (as numpy arrays) -> port containers
@@ -31,8 +33,10 @@ Layer map:
 GSNAP single-end and paired-end, standard, cmet-stranded and
 atoi-stranded mode, ``-N 0`` / ``-N 1``, known splice sites (``-s``) and
 SNP-tolerant alignment (``-v``), with the default GMAP rescue lanes, SAM
-or native (``-A gsnap``) output, from a database the port's own tools
-build, exist so far; ROADMAP.md lists what is still to be ported.
+or native (``-A gsnap``) output, and the gmap CLI (cDNA alignment with
+multiple paths and chimeras, every output format), from a database the
+port's own tools build, exist so far; ROADMAP.md lists what is still to
+be ported.
 """
 
 __version__ = "0.1.0"

@@ -20,9 +20,11 @@ biases the diagonals.  The pipeline:
   4. ENDS   — extend to the query ends and trim like stage3.c end
               refinement.
 
-The result is a Path: aligned exon list.  Not ported yet (the ``gmap``
-CLI slice, ROADMAP.md): multiple paths per query, chimeras, the genomic
-range restriction and the output formats.
+The result is a Path: aligned exon list.  With ``npaths`` > 1 a query
+gets a ranked list of non-overlapping Paths (``rank_paths``,
+``align_cdna_paths``), ``align_cdna_chimera`` splits a query whose
+best path leaves a long margin into two parts; the ``gmap`` CLI
+(cli/gmap.py) calls these one query at a time, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -346,12 +348,19 @@ def _bucket_q(n: int) -> int:
 
 def align_cdna_batch(db: GenomeDB, queries: list[str],
                      max_intronlen: int = 1_000_000,
-                     extend_ends: bool = False, device="cuda"):
+                     extend_ends: bool = False,
+                     npaths: int = 1, device="cuda"):
     """Batched cDNA alignment: seeding, segment extraction, chaining and
     the chain backtrack for BOTH strands of EVERY query run as one pass
     on ``device`` over the database's device index (kernels K9, K10);
     host work is O(segments) per query.  Returns one best Path (or None)
-    per query."""
+    per query; with npaths > 1, a ranked list of non-overlapping Paths
+    per query instead (stage3array_from_list semantics, gmap.c:561:
+    Stage3_cmp goodness order, then overlap elimination), from K10's
+    score / prev.
+
+    A query longer than 65,536 + k - 1 bases (the longest Q rung, K9's
+    limit) raises ValueError naming its length, on every device."""
     from . import gmap_engine
 
     genome_str = db.genome_str
@@ -366,6 +375,11 @@ def align_cdna_batch(db: GenomeDB, queries: list[str],
     maxq = max((len(q) - k + 1 for q in qstrs), default=0)
     if maxq <= 0:
         return [None] * B
+    if maxq > _Q_LADDER[-1]:
+        n = max(len(q) for q in queries)
+        raise ValueError(
+            f"query of {n} bases: the GMAP engine aligns at most "
+            f"{_Q_LADDER[-1] + k - 1} bases ({_Q_LADDER[-1]} {k}-mers)")
     Q = _bucket_q(maxq)
     rows = len(qstrs)
     oligos = np.zeros((rows, Q), np.int64)
@@ -390,38 +404,43 @@ def align_cdna_batch(db: GenomeDB, queries: list[str],
     while True:
         segs_d = gmap_engine.seed_segments(
             index.offsets, index.positions, oligos_d, valid_d, k, H, S, 100)
-        ch_d = gmap_engine.chain(segs_d["qstart"], segs_d["qend"],
-                                 segs_d["diag"], segs_d["valid"], k,
-                                 max_intronlen)
-        qspan, cdg, deep, nhits_a, nsegs_a = (
-            x.cpu().numpy() for x in (ch_d["qspan"], ch_d["dg"],
-                                      ch_d["deep"], segs_d["nhits"],
-                                      segs_d["nsegs"]))
-        nhits = int(nhits_a.max())
-        nsegs = int(nsegs_a.max())
-        if nhits <= H and nsegs <= S and not deep.any():
-            chains = []
-            for b in range(rows):
-                m = qspan[b] >= 0
-                if not m.any():
-                    chains.append([])
-                    continue
-                idx = np.flatnonzero(m)[::-1]   # end-first -> start
-                d = cdg[b].astype(np.int64) - Q
-                qs_b = qspan[b] >> 16
-                qe_b = qspan[b] & 0xFFFF
-                chains.append([[
-                    (int(qs_b[t]), int(qe_b[t]),
-                     int(d[t] + qs_b[t]), int(d[t]))
-                    for t in idx]])
-            break
+        ch_d = gmap_engine.chain(
+            segs_d["qstart"], segs_d["qend"], segs_d["diag"],
+            segs_d["valid"], k, max_intronlen)
+        if npaths <= 1:
+            qspan, cdg, deep, nhits_a, nsegs_a = (
+                x.cpu().numpy() for x in (ch_d["qspan"], ch_d["dg"],
+                                          ch_d["deep"], segs_d["nhits"],
+                                          segs_d["nsegs"]))
+            nhits = int(nhits_a.max())
+            nsegs = int(nsegs_a.max())
+            if nhits <= H and nsegs <= S and not deep.any():
+                chains = []
+                for b in range(rows):
+                    m = qspan[b] >= 0
+                    if not m.any():
+                        chains.append([])
+                        continue
+                    idx = np.flatnonzero(m)[::-1]   # end-first -> start
+                    d = cdg[b].astype(np.int64) - Q
+                    qs_b = qspan[b] >> 16
+                    qe_b = qspan[b] & 0xFFFF
+                    chains.append([[
+                        (int(qs_b[t]), int(qe_b[t]),
+                         int(d[t] + qs_b[t]), int(d[t]))
+                        for t in idx]])
+                break
+        else:
+            nhits = int(segs_d["nhits"].max())
+            nsegs = int(segs_d["nsegs"].max())
         if nhits <= H and nsegs <= S:
-            # a chain used every backtrack step: back to the host with
-            # the full segment arrays and the DP (no truncation)
+            # several chains a row, or a chain that used every backtrack
+            # step: back to the host with the full segment arrays and
+            # the device DP (no truncation)
             chains = gmap_engine.chains_from_device(
                 {kk: segs_d[kk].cpu().numpy() for kk in gmap_engine.SEG_KEYS},
-                rows, Q, ch_d["score"].cpu().numpy(),
-                ch_d["prev"].cpu().numpy())
+                (ch_d["score"].cpu().numpy(), ch_d["prev"].cpu().numpy()),
+                rows, Q, npaths)
             break
         # overflow: re-run at larger hit/segment budgets (the S
         # truncation keeps the LOWEST diagonals, silently dropping
@@ -479,10 +498,88 @@ def align_cdna_batch(db: GenomeDB, queries: list[str],
     for b in range(B):
         paths = [p for (row, _), p in row_paths.items()
                  if row // 2 == b and p is not None]
-        paths.sort(key=lambda p: -(p.matches - 3 * p.mismatches))
-        out.append(paths[0] if paths else None)
+        if npaths <= 1:
+            paths.sort(key=lambda p: -(p.matches - 3 * p.mismatches))
+            out.append(paths[0] if paths else None)
+        else:
+            out.append(rank_paths(paths))
     return out
 
+
+def path_goodness(p: Path) -> int:
+    """Stage3 goodness (stage3.c:3684, scores.h constants): matches
+    with mismatch/indel-open/indel-extend penalties, minus 12 per
+    noncanonical intron."""
+    qopens = qindels = topens = tindels = noncanonical = 0
+    for i in range(len(p.exons) - 1):
+        ggap = p.exons[i + 1].gstart - p.exons[i].gend
+        qgap = p.exons[i + 1].qstart - p.exons[i].qend
+        if qgap > 0 and ggap <= 0:
+            qopens += 1
+            qindels += qgap
+        elif 0 < ggap < MIN_INTRONLENGTH:
+            topens += 1
+            tindels += ggap
+        elif ggap >= MIN_INTRONLENGTH:
+            if i < len(p.intron_types) and p.intron_types[i] not in (
+                    "canonical", "gcag", "atac"):
+                noncanonical += 1
+    return (p.matches - 3 * p.mismatches - 5 * qopens - 2 * qindels
+            - 5 * topens - 2 * tindels - 12 * noncanonical)
+
+
+def rank_paths(paths: "list[Path]") -> "list[Path]":
+    """Order by Stage3_cmp (goodness desc, chrnum, genomicstart) and
+    eliminate genomically-overlapping same-strand paths, keeping the
+    better one (stage3array_from_list remove-overlaps pass,
+    gmap.c:617-651 with Stage3_overlap).  Paths scoring more than
+    stage2's suboptimal_score_end=3 (gmap.c:265) below the best never
+    survive the reference's stage2 parse winnowing — observed: even a
+    1-mismatch copy of a duplicated locus is not reported."""
+    paths = sorted(paths, key=lambda p: (
+        -path_goodness(p), p.chrnum,
+        p.gstart if p.watsonp else p.gend))
+    kept: list[Path] = []
+    for p in paths:
+        if kept and path_goodness(p) < path_goodness(kept[0]) - 3:
+            break
+        lo, hi = min(p.gstart, p.gend), max(p.gstart, p.gend)
+        if any(x.watsonp == p.watsonp
+               and min(x.gstart, x.gend) <= hi and lo <= max(x.gstart, x.gend)
+               for x in kept):
+            continue
+        kept.append(p)
+    return kept
+
+
+def path_mapqs(paths: "list[Path]"):
+    """MAPQ / XQ / X2 for a ranked path list (Stage3_recompute_goodness,
+    stage3.c:3657-3688): absmq = matches - 10*mismatches relativized to
+    the best; mapq from the softmax posterior; XQ clamps absmq + 40 at
+    0.  Returns (mapqs, absmqs, second_absmq)."""
+    if not paths:
+        return [], [], 0
+    raw = np.array([p.matches - 10 * p.mismatches for p in paths], float)
+    rel = raw - raw.max()
+    total = np.exp(rel).sum()
+    q = 1.0 - np.exp(rel) / total
+    mapqs = np.where(q < 1.0e-4, 40,
+                     np.rint(-10.0 * np.log10(np.maximum(q, 1e-300))))
+    absmqs = np.maximum(rel + 40, 0).astype(int)
+    second = int(absmqs[1]) if len(paths) > 1 else 0
+    return [int(m) for m in mapqs], [int(a) for a in absmqs], second
+
+
+def align_cdna_paths(db: GenomeDB, query: str,
+                     max_intronlen: int = 1_000_000,
+                     npaths: int = 10,
+                     device="cuda") -> "list[Path]":
+    """All surviving non-overlapping paths for one query, ranked."""
+    return align_cdna_batch(db, [query], max_intronlen=max_intronlen,
+                            npaths=npaths, device=device)[0]
+
+
+CHIMERA_MARGIN = 40  # gmap.c:234 chimera_margin default
 
 _CODE_LUT = np.full(256, 4, np.uint8)
 for _i, _c in enumerate(b"ACGT"):
@@ -490,9 +587,135 @@ for _i, _c in enumerate(b"ACGT"):
 
 
 def _codes_of(s) -> np.ndarray:
-    if hasattr(s, "ascii"):
-        return _CODE_LUT[s.ascii]
+    """uint8 codes (A C G T 0-3, anything else 4) of a str, or of a
+    genome's LazyGenomeStr, which keeps them (decoding the whole genome
+    took ~0.2 s at 100 Mbp, which every align_cdna_batch call paid)."""
+    if hasattr(s, "codes4"):
+        return s.codes4
     return _CODE_LUT[np.frombuffer(s.encode("latin-1"), np.uint8)]
+
+
+def _path_matchvec_read(gstr_a, path: Path, read: str, L: int) -> np.ndarray:
+    """int32[L] per-READ-position match score (+1 match, 0 elsewhere)
+    for a path (Stage3_pathscores flattened to our exon model)."""
+    vec = np.zeros(L, np.int32)
+    qstr = read if path.watsonp else dna.revcomp_str(read)
+    qa = _as_bytes(qstr)
+    for e in path.exons:
+        eq = _match_vec(gstr_a, qa, e.qstart, e.qend, e.gstart - e.qstart)
+        qpos = np.arange(e.qstart, e.qend)
+        rpos = qpos if path.watsonp else (L - 1 - qpos)
+        vec[rpos] = eq.astype(np.int32)
+    return vec
+
+
+def _clip_path_read(path: Path, lo: int, hi: int, L: int, gstr: str,
+                    read: str) -> Path | None:
+    """Clip a path to READ region [lo, hi); exon coords stay in the
+    path's aligned orientation."""
+    if path.watsonp:
+        alo, ahi = lo, hi
+    else:
+        alo, ahi = L - hi, L - lo
+    qstr = read if path.watsonp else dna.revcomp_str(read)
+    exons = []
+    for e in path.exons:
+        qs, qe = max(e.qstart, alo), min(e.qend, ahi)
+        if qe <= qs:
+            continue
+        diag = e.gstart - e.qstart
+        m, mm = _count_matches(gstr, qstr, qs, qe, diag)
+        exons.append(Exon(qs, qe, diag + qs, diag + qe, m, mm))
+    if not exons:
+        return None
+    # direction comes from the part's OWN canonical introns
+    # (pick_cdna_direction): none -> indeterminate
+    itypes = []
+    direction = 0
+    for a, b in zip(exons, exons[1:]):
+        gap = b.gstart - a.gend
+        if gap >= MIN_INTRONLENGTH:
+            ld = gstr[a.gend : a.gend + 2]
+            rd = gstr[b.gstart - 2 : b.gstart]
+            _, it = intron_score(ld, rd, path.cdna_direction, 1, True)
+            itypes.append(it)
+            if it in ("canonical", "gcag", "atac"):
+                direction = path.cdna_direction
+        else:
+            itypes.append("indel")
+    return Path(watsonp=path.watsonp, cdna_direction=direction,
+                exons=exons, intron_types=itypes,
+                querylength=L, chrnum=path.chrnum)
+
+
+def align_cdna_chimera(db: GenomeDB, query: str,
+                       max_intronlen: int = 1_000_000, best="auto",
+                       margin: int = CHIMERA_MARGIN, overlap: int = 0,
+                       device="cuda"):
+    """Chimera detection (gmap.c:1945-2010 check_for_chimera +
+    chimera.c:263 Chimera_bestpath): when the best path leaves a query
+    margin >= chimera_margin, the uncovered part is re-aligned and the
+    breakpoint maximizing joint matches splits the read into two paths.
+
+    Returns (paths, chimerapos): one path (chimerapos None) or two
+    paths in read order with the 0-based breakpoint (last position of
+    part 1).  Pass best= to reuse an already-computed best path."""
+    if best == "auto":
+        best = align_cdna(db, query, device=device)
+    if best is None:
+        return [], None
+    L = len(query)
+    read = query.upper()
+    # margins in READ coords (Stage3_largemargin)
+    if best.watsonp:
+        five_margin, three_margin = best.qstart, L - best.qend
+    else:
+        five_margin, three_margin = L - best.qend, best.qstart
+    if max(five_margin, three_margin) < margin:
+        return [best], None
+    # re-align the uncovered margin
+    if five_margin >= three_margin:
+        sub = read[:five_margin]
+        sub_off, sub_is_five = 0, True
+    else:
+        sub = read[L - three_margin :]
+        sub_off, sub_is_five = L - three_margin, False
+    other = align_cdna(db, sub, max_intronlen=max_intronlen,
+                       device=device)
+    if other is None:
+        return [best], None
+    # rebase the margin path into full-read coordinates
+    if other.watsonp:
+        shift = sub_off
+    else:
+        # revcomp coords of the substring -> revcomp coords of the read
+        shift = (L - sub_off - len(sub))
+    for e in other.exons:
+        e.qstart += shift
+        e.qend += shift
+    other.querylength = L
+
+    p5, p3 = (other, best) if sub_is_five else (best, other)
+    gstr_a = _as_bytes(db.genome_str)
+    v5 = _path_matchvec_read(gstr_a, p5, read, L)
+    v3 = _path_matchvec_read(gstr_a, p3, read, L)
+    # breakpoint b maximizes matches5[0..b] + matches3[b+1..L)
+    c5 = np.cumsum(v5)
+    s3 = np.concatenate([np.cumsum(v3[::-1])[::-1], [0]])
+    tot = c5[: L - 1] + s3[1:L]
+    b = int(np.argmax(tot))
+    # -o/--chimera-overlap: show this much overlap between the two
+    # parts (gmap.c:1450-1456 clip bounds breakpoint+overlap /
+    # breakpoint+1-overlap)
+    part1 = _clip_path_read(p5, 0, b + 1 + overlap, L, db.genome_str, read)
+    part2 = _clip_path_read(p3, b + 1 - overlap, L, L, db.genome_str, read)
+    if part1 is None or part2 is None:
+        return [best], None
+    # require both parts to contribute meaningfully (chimera_margin)
+    if (int(v5[: b + 1].sum()) < margin
+            or int(v3[b + 1 :].sum()) < margin):
+        return [best], None
+    return [part1, part2], b
 
 
 def chop_path_ends(gstr: str, qstr: str, path: Path) -> None:

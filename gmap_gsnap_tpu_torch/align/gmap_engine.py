@@ -16,8 +16,11 @@ the kernel or raises:
     in one kernel: the sparse chain DP over segments and the backtrack
     of each row's best chain.
 
-The host functions are copied: ``chains_from_device`` (:321, the branch
-that takes the device DP's scores), ``solve_junctions_batch`` and its
+The host functions are copied: ``chains_from_device`` (:321: up to
+``npaths`` segment-disjoint chains a row from the device DP; the JAX
+version's ``genome_range`` and its host DP are left out, as no caller
+passes a range),
+``solve_junctions_batch`` and its
 dispatch/finish halves (:432-609), whose device work is K11 + K12
 (``ops/dynprog.py``).  The JAX package's packed transfers
 (``pack_dispatch``/``pack_finish``/``fetch_packed``, a workaround for a
@@ -37,6 +40,7 @@ from ..ops import dynprog as dp
 from . import gmap_config
 
 MIN_SEGLEN = 15
+MIN_CHAIN_SCORE = 20  # MIN_MATCHES path floor (gmap.c:82)
 MAX_INSERTLEN = 30
 MIN_INTRONLENGTH = 9
 PEEL = 11                  # maxpeelback (gsnap.c:96)
@@ -62,8 +66,8 @@ def _seed_segments_plain(offsets, positions, oligos, valid, k: int, H: int,
     B, Q = oligos.shape
     dev = oligos.device
     o = oligos.long().clamp(0, offsets.shape[0] - 2)
-    s = offsets.long()[o]          # the index's uint32 bits read as int32,
-    e = offsets.long()[o + 1]      # as JAX's astype(int32) reads them
+    s = offsets[o].long()          # the index's uint32 bits read as int32,
+    e = offsets[o + 1].long()      # as JAX's astype(int32) reads them
     cnt = _w32(e - s)
     keep = valid & (cnt > 0) & (cnt <= threshold)
     cnt = torch.where(keep, cnt, 0)
@@ -85,7 +89,7 @@ def _seed_segments_plain(offsets, positions, oligos, valid, k: int, H: int,
     s_at = torch.gather(s, 1, qidx)
     ok = t < torch.minimum(nhits, torch.tensor(H, device=dev))[:, None]
     pidx = (s_at + (t - base_at)).clamp(0, positions.shape[0] - 1)
-    pos = positions.long()[pidx] & U32
+    pos = positions[pidx].long() & U32
     diag_f = torch.where(ok, (pos - qidx + Q) & U32, U32)
 
     # hits are qpos-ascending by construction: one stable sort by diag
@@ -144,7 +148,8 @@ def _seed_segments_cuda(offsets, positions, oligos, valid, k: int, H: int,
     dev = oligos.device
     if H & (H - 1) or Q > 65536 or min(S, H) > 65536:
         raise ValueError(f"seed_segments kernel: H={H} must be a power of 2, "
-                         f"Q={Q} and min(S, H)={min(S, H)} at most 65536")
+                         f"Q={Q} and min(S, H)={min(S, H)} at most 65536; "
+                         f"run with --device cpu")
     if valid.dtype != torch.bool:
         raise TypeError(f"seed_segments kernel: valid {valid.dtype}, "
                         f"expected bool")
@@ -197,7 +202,10 @@ def _chain_plain(qstart, qend, diag, valid, k: int, max_intronlen: int,
     score = torch.where(valid, seglen, NEG_CHAIN)
     prev = torch.full((B, S), -1, dtype=torch.int64, device=dev)
     jidx = torch.arange(S, device=dev)[None, :]
-    for i in range(1, S):
+    # a step updates only rows whose segment i is valid: none past the
+    # last column any row holds a valid segment in
+    live = torch.nonzero(valid.any(0))
+    for i in range(1, int(live[-1]) + 1 if len(live) else 0):
         qgap = qs[:, i : i + 1] - qe
         gd = _w32(dg[:, i : i + 1] - dg)     # uint32 difference as int32
         ok = (valid & (jidx < i) & (gd <= max_intronlen)
@@ -269,18 +277,25 @@ def chain(qstart, qend, diag, valid, k: int, max_intronlen: int,
     raise ValueError(f"unsupported device {qstart.device}")
 
 
-def chains_from_device(segs, B: int, Q: int, score, prev):
-    """Host backtrack of each row's best chain over the segments, from
-    the device DP's score/prev (the deep-chain case of
-    align_cdna_batch).  Returns per-row lists of one chain
-    [(qstart, qend, gstart, diag)] ordered by query position, or []."""
+def chains_from_device(segs, dp_scores, B: int, Q: int, npaths: int = 1):
+    """Host chain backtrack over the device-extracted segments.
+
+    ``dp_scores`` is the device chain DP's (score, prev) (kernel K10's
+    outputs).  Returns per-row lists of up to `npaths` chains
+    [(qstart, qend, gstart, diag)] ordered by query position; extra
+    chains (score order, segment-disjoint with earlier ones) model the
+    reference's multiple gregions (stage1.c Gregion_filter_unique keeps
+    the best non-overlapping candidate regions, each of which stage3
+    turns into a path)."""
     qstart = np.asarray(segs["qstart"]).astype(np.int64)
     qend = np.asarray(segs["qend"]).astype(np.int64)
     diag = np.asarray(segs["diag"]).astype(np.int64) - Q  # unbias
     valid = np.asarray(segs["valid"])
     NEG = -(2**60)
-    score_a = np.where(valid, np.asarray(score).astype(np.int64), NEG)
-    prev_a = np.asarray(prev).astype(np.int64)
+    score_a = np.asarray(dp_scores[0]).astype(np.int64)
+    score_a = np.where(valid, score_a, NEG)
+    prev_a = np.asarray(dp_scores[1]).astype(np.int64)
+
     chains = []
     for b in range(B):
         nv = int(valid[b].sum())
@@ -288,13 +303,30 @@ def chains_from_device(segs, B: int, Q: int, score, prev):
             chains.append([])
             continue
         qs, qe, d = qstart[b, :nv], qend[b, :nv], diag[b, :nv]
-        idxs = []
-        i = int(np.argmax(score_a[b, :nv]))
-        while i >= 0:
-            idxs.append(i)
-            i = int(prev_a[b, i])
-        chains.append([[(int(qs[i]), int(qe[i]), int(d[i] + qs[i]), int(d[i]))
-                        for i in reversed(idxs)]])
+        score = score_a[b, :nv]
+        prev = prev_a[b, :nv]
+        row_chains = []
+        used = np.zeros(nv, bool)
+        best_score = int(score.max())
+        for e in np.argsort(-score, kind="stable"):
+            if len(row_chains) >= npaths:
+                break
+            if row_chains and score[int(e)] < MIN_CHAIN_SCORE:
+                break    # below the MIN_MATCHES path floor (gmap.c:82)
+            if used[int(e)]:
+                continue
+            idxs = []
+            i = int(e)
+            while i >= 0 and not used[i]:
+                idxs.append(i)
+                i = int(prev[i])
+            if i >= 0:       # ran into a segment claimed by a better chain
+                continue
+            used[idxs] = True
+            row_chains.append([
+                (int(qs[i]), int(qe[i]), int(d[i] + qs[i]), int(d[i]))
+                for i in reversed(idxs)])
+        chains.append(row_chains)
     return chains
 
 

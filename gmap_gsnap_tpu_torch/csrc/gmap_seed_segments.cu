@@ -66,6 +66,11 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 1024;              // k-mers a chunk, 4 a thread
 constexpr int kRegHits = kThreads * 8;    // hits sorted in registers
 constexpr int kMinSeglen = 15;
+// the kernel's static shared memory (its block reduction's red[32]): a
+// CTA whose dynamic layout fills the 48 KB default (H >= kRegHits,
+// min(S, H) > kRegHits / 2, Q >= kChunk) needs the opt-in for these
+// bytes too
+constexpr int kStaticSmem = 32 * sizeof(int);
 constexpr uint64_t kPad = ~0ull;
 
 __host__ __device__ __forceinline__ int pow2_at_least(int n) {
@@ -428,7 +433,7 @@ extern "C" int gmap_seed_segments(
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   const int smem = smem_layout(Q, H, S).bytes;
-  if (smem > 48 * 1024) {
+  if (smem + kStaticSmem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         seed_segments_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
@@ -447,7 +452,7 @@ extern "C" int gmap_seed_segments(
 // sizes (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1.
 extern "C" int gmap_seed_segments_occupancy(int Q, int H, int S) {
   const int smem = smem_layout(Q, H, S).bytes;
-  if (smem > 48 * 1024 &&
+  if (smem + kStaticSmem > 48 * 1024 &&
       cudaFuncSetAttribute(seed_segments_kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            smem) != cudaSuccess)

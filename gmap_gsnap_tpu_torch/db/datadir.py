@@ -122,6 +122,7 @@ class LazyGenomeStr:
         self._codes = codes
         self._flags = flags
         self._ascii: np.ndarray | None = None
+        self._codes4: np.ndarray | None = None
 
     @property
     def ascii(self) -> np.ndarray:
@@ -132,6 +133,19 @@ class LazyGenomeStr:
                 a[self._flags] = ord("N")
             self._ascii = a
         return self._ascii
+
+    @property
+    def codes4(self) -> np.ndarray:
+        """uint8 codes with N as 4 (A C G T 0-3), which the GMAP engine's
+        junction windows index: the code array itself on a genome
+        without N, else one more array of 1 byte/nt, built once."""
+        if self._codes4 is None:
+            if self._flags is None or not self._flags.any():
+                self._codes4 = self._codes
+            else:
+                self._codes4 = np.where(self._flags, np.uint8(4),
+                                        self._codes).astype(np.uint8)
+        return self._codes4
 
     def __len__(self) -> int:
         return len(self._codes)

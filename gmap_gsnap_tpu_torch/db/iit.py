@@ -1,8 +1,9 @@
 """Interval Index Tree (IIT) binary format: the reader and the writer.
 
-A copy of gmap_gsnap_tpu/db/iit.py without its queries and dumps: the
-port opens databases and maps, and writes splice-site and SNP maps
-(db/iit_text.py).  Binary-compatible with the
+A copy of gmap_gsnap_tpu/db/iit.py without its dumps: the port opens
+databases and maps, writes splice-site and SNP maps (db/iit_text.py),
+and looks intervals up for the ``gmap`` CLI's -m (``get``,
+``_record_text``).  Binary-compatible with the
 reference format (genome-vendor/gmap-gsnap, src/iit-write.c:373-406
 file-format comment, src/iit-read.c readers):
 
@@ -483,6 +484,44 @@ class IIT:
             iit.annotations[d] = annots[k : k + n]
             k += n
         return iit
+
+    # ------------------------------------------------------------------ query
+    def get(self, div: str, x: int, y: int, sortp: bool = True) -> list[int]:
+        """Return 0-based record indices (within div) of intervals
+        overlapping [x, y], optionally sorted by (low, high) as in
+        sort_matches_by_position (iit-read.c:1264-1287)."""
+        ivs = self.intervals.get(div, [])
+        matches = [i for i, iv in enumerate(ivs) if iv.low <= y and iv.high >= x]
+        if sortp:
+            matches.sort(key=lambda i: (ivs[i].low, ivs[i].high))
+        return matches
+
+    # ------------------------------------------------------------------- dump
+    def _record_text(self, div: str, i: int) -> str:
+        iv = self.intervals[div][i]
+        label = self.labels[div][i]
+        parts = [f">{label} "]
+        if div != "":
+            parts.append(f"{div}:")
+        if iv.sign < 0:
+            parts.append(f"{iv.high}..{iv.low}")
+        else:
+            parts.append(f"{iv.low}..{iv.high}")
+        if iv.type > 0:
+            parts.append(f" {self.types[iv.type]}")
+        annot = self.annotations[div][i].decode("ascii", errors="replace")
+        # version 5 semantics (IIT_dump, iit-read.c:810-830): annotation's
+        # first line is the rest-of-header; initial '\n' means none.
+        if self.version >= 5:
+            if annot == "":
+                parts.append("\n")
+            elif annot.startswith("\n"):
+                parts.append(annot)
+            else:
+                parts.append(" " + annot)
+        else:
+            parts.append("\n" + annot)
+        return "".join(parts)
 
     def divs_in_file_order(self) -> list[str]:
         return list(self.divs)

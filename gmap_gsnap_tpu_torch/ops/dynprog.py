@@ -227,9 +227,8 @@ def banded_matrices(q, g, len1, len2, lband, rband, pairmat, jump_late,
 def _cell(arr, r, k, W: int):
     """arr[b, r, k] with out-of-band k -> NEG_INF."""
     B, M1, _ = arr.shape
-    flat = arr.reshape(B, M1 * W).long()
     idx = r.clamp(0, M1 - 1) * W + k.clamp(0, W - 1)
-    v = torch.gather(flat, 1, idx[:, None])[:, 0]
+    v = torch.gather(arr.reshape(B, M1 * W), 1, idx[:, None])[:, 0].long()
     return torch.where((k >= 0) & (k < W) & (r >= 0) & (r < M1), v, NEG_INF)
 
 
@@ -252,7 +251,15 @@ def traceback(nogap, gap1, gap2, r0, c0, lband, jump_late,
         return torch.where(late, a >= b, a > b)
 
     ops, oprs, opcs = [], [], []
-    for _ in range(T):
+    for t in range(T):
+        if t and bool((state == S_DONE).all()):
+            # every walk has ended: each later step emits OP_NONE at
+            # (r - 1, c - 1), as the loop would
+            n = T - t
+            ops += [torch.full_like(r, OP_NONE)] * n
+            oprs += [r - 1] * n
+            opcs += [c - 1] * n
+            break
         k = c - r + lband
         at_origin = (r <= 0) & (c <= 0)
         done = (state == S_DONE) | ((state == S_NOGAP) & ((r <= 0) | (c <= 0)))

@@ -2270,3 +2270,218 @@ def chain_cases(rng: np.random.Generator, b: int, S: int,
         diag[i, n:] = 0xFFFFFFFF
     return dict(qstart=qstart.astype(np.int32), qend=qend.astype(np.int32),
                 diag=diag, valid=valid)
+
+
+# ------------------------------------------------------ gmap cDNA queries
+
+@dataclass
+class GmapTruth:
+    """Where a cDNA query was cut from: its exons as universal [start,
+    end) plus-strand spans in genome order, on chromosome ``chrom``;
+    ``plusp`` is False when the query is their reverse complement.  A
+    chimera's ``parts`` hold one GmapTruth per part in query order, and
+    ``breakpoint`` is the 0-based query position where part 1 ends."""
+    chrom: str
+    plusp: bool
+    exons: list
+    parts: list | None = None
+    breakpoint: int | None = None
+
+    @property
+    def introns(self) -> list:
+        """[(first intron base, last intron base + 1)] in genome order."""
+        return [(a[1], b[0]) for a, b in zip(self.exons, self.exons[1:])]
+
+
+def _chrom_of(genome: Genome, pos: int) -> int:
+    return int(np.searchsorted(genome.chr_ends, pos, side="right"))
+
+
+def _clean_span(genome: Genome, ncum, p: int, span: int) -> bool:
+    """[p, p + span) lies inside one chromosome and holds no N."""
+    c = _chrom_of(genome, p)
+    return (p + span <= int(genome.chr_ends[c])
+            and ncum[p + span] - ncum[p] == 0)
+
+
+def _cdna(genome: Genome, exons, plusp: bool, subs=()) -> str:
+    """The exons' bases joined, with substitutions [(query position,
+    base)] (base None: one that differs from the genome's), reverse
+    complemented unless plusp."""
+    seq = np.concatenate([genome.ascii[s:e] for s, e in exons])
+    for q, b in subs:
+        seq[q] = (_ACGT[(np.flatnonzero(_ACGT == seq[q])[0] + 1) % 4]
+                  if b is None else b)
+    if not plusp:
+        seq = _COMP[seq[::-1]]
+    return seq.tobytes().decode()
+
+
+def gmap_queries(rng: np.random.Generator, genome: Genome, n: int,
+                 sites: bool = True, messy: float = 0.0,
+                 prefix: str = "c"):
+    """``n`` three-exon cDNA queries shaped as bench.py make_gmap_workload
+    makes them (bench.py:86-101; the port cannot import bench.py): exons
+    of 200-800 nt, introns of 500-8,000 nt, 0-4 random base draws (a draw
+    may keep the base).  With ``sites`` each intron runs between a donor
+    and an acceptor site of maxent probability >= 0.90 (GT..AG, or CT..AC
+    for a gene on the minus strand), drawn uniformly among such sites
+    within those lengths; without, the draws are bench.py's own and the
+    junctions fall anywhere (on a random genome their placement is often
+    ambiguous by a base or more).  A share ``messy`` of the queries also
+    carries 2 substitutions within 11 nt of one junction, where the GMAP
+    engine re-solves the junction with its dynprog (kernels K11, K12).
+    Unlike bench.py, a placement that crosses a chromosome end or an N
+    is drawn again, and half the queries are reverse complemented.
+    Returns (records, [GmapTruth])."""
+    g = genome.ascii
+    codes = genome.codes_flags[0]
+    ncum = _ncum(genome)
+
+    def pick(lo, hi, kind):
+        got = _good_sites(genome, codes, lo, hi, kind)
+        return int(rng.choice(got)) if len(got) else None
+
+    records, truth = [], []
+    for i in range(n):
+        while True:
+            p = int(rng.integers(0, len(g) - 30000))
+            exlens = rng.integers(200, 800, 3)
+            gaps = rng.integers(500, 8000, 2)
+            if not sites:
+                exons, gp = [], p
+                for j, el in enumerate(exlens):
+                    exons.append((gp, gp + int(el)))
+                    gp += int(el) + (int(gaps[j]) if j < 2 else 0)
+            else:
+                ks, ke = (("donor", "acceptor") if rng.random() < 0.5
+                          else ("antiacceptor", "antidonor"))
+                s1 = pick(p + 200, p + 800, ks)
+                e1 = None if s1 is None else pick(s1 + 500, s1 + 8000, ke)
+                s2 = None if e1 is None else pick(e1 + 200, e1 + 800, ks)
+                e2 = None if s2 is None else pick(s2 + 500, s2 + 8000, ke)
+                if e2 is None:
+                    continue
+                exons = [(p, s1), (e1, s2), (e2, e2 + int(exlens[2]))]
+            if _clean_span(genome, ncum, p, exons[-1][1] - p):
+                break
+        L = sum(e - s for s, e in exons)
+        subs = [(int(rng.integers(0, L)), _ACGT[int(rng.integers(0, 4))])
+                for _ in range(int(rng.integers(0, 5)))]
+        if rng.random() < messy:
+            at = sum(e - s for s, e in exons[: int(rng.integers(1, 3))])
+            for q in at + rng.choice(np.arange(-11, 11), 2, replace=False):
+                subs.append((int(q), None))
+        plusp = bool(rng.random() < 0.5)
+        name = f"{prefix}{i}"
+        records.append(Record(name, name, _cdna(genome, exons, plusp, subs)))
+        truth.append(GmapTruth(genome.names[_chrom_of(genome, p)], plusp,
+                               exons))
+    return records, truth
+
+
+def gmap_chimeras(rng: np.random.Generator, genome: Genome, n: int,
+                  prefix: str = "x"):
+    """``n`` chimeric queries: a 200-600 nt piece of one chromosome's plus
+    strand joined to the reverse complement of a 200-600 nt piece of
+    another chromosome.  Needs two chromosomes or more.  Returns (records,
+    [GmapTruth]) with each query's two parts and its breakpoint."""
+    assert len(genome.names) >= 2
+    ncum = _ncum(genome)
+    starts = np.concatenate([[0], genome.chr_ends[:-1]])
+    records, truth = [], []
+    for i in range(n):
+        c1, c2 = rng.choice(len(genome.names), 2, replace=False)
+        parts = []
+        for c, plusp in ((int(c1), True), (int(c2), False)):
+            ln = int(rng.integers(200, 601))
+            while True:
+                p = int(rng.integers(int(starts[c]),
+                                     int(genome.chr_ends[c]) - ln))
+                if _clean_span(genome, ncum, p, ln):
+                    break
+            parts.append(GmapTruth(genome.names[c], plusp, [(p, p + ln)]))
+        seq = "".join(_cdna(genome, t.exons, t.plusp) for t in parts)
+        name = f"{prefix}{i}"
+        records.append(Record(name, name, seq))
+        n1 = parts[0].exons[0][1] - parts[0].exons[0][0]
+        truth.append(GmapTruth(parts[0].chrom, True, parts[0].exons,
+                               parts=parts, breakpoint=n1 - 1))
+    return records, truth
+
+
+def gmap_long_queries(rng: np.random.Generator, genome: Genome, n: int,
+                      prefix: str = "long"):
+    """``n`` long cDNA queries of 20-60 kb in 20-40 exons (each at least
+    100 nt) with introns of 200-3,000 nt and no substitutions: past
+    16,398 bases the GMAP engine takes its largest Q rung, 65,536.
+    Returns (records, [GmapTruth])."""
+    g = genome.ascii
+    ncum = _ncum(genome)
+    records, truth = [], []
+    for i in range(n):
+        L = int(rng.integers(20_000, 60_001))
+        E = int(rng.integers(20, 41))
+        cuts = np.sort(rng.choice(np.arange(1, L // 100), E - 1,
+                                  replace=False)) * 100
+        exlens = np.diff(np.concatenate([[0], cuts, [L]]))
+        gaps = rng.integers(200, 3001, E - 1)
+        span = int(exlens.sum() + gaps.sum())
+        while True:
+            p = int(rng.integers(0, len(g) - span))
+            if _clean_span(genome, ncum, p, span):
+                break
+        exons, gp = [], p
+        for j, el in enumerate(exlens):
+            exons.append((gp, gp + int(el)))
+            gp += int(el) + (int(gaps[j]) if j < E - 1 else 0)
+        plusp = bool(rng.random() < 0.5)
+        name = f"{prefix}{i}"
+        records.append(Record(name, name, _cdna(genome, exons, plusp)))
+        truth.append(GmapTruth(genome.names[_chrom_of(genome, p)], plusp,
+                               exons))
+    return records, truth
+
+
+def gmap_repeat_queries(rng: np.random.Generator, genome: Genome, n: int,
+                        L: int = 300, prefix: str = "dup"):
+    """``n`` queries on duplicated segments, as tests/test_gmap_multipath.py
+    builds its genome: an L-nt segment is copied over two other places of
+    ``genome`` (changed in place, so call this before the genome is
+    written or indexed), once with 2 mismatches (at 50 and 150, A or G)
+    and once exact; the query is the segment, on either strand.  Returns
+    (records, [GmapTruth] of the original, [(the 2-mismatch copy's start,
+    the exact copy's start)])."""
+    g = genome.ascii
+    ncum = _ncum(genome)   # copies of N-free spans keep the N counts
+    records, truth, copies = [], [], []
+    taken: list = []
+    for i in range(n):
+        starts = []
+        while len(starts) < 3:
+            p = int(rng.integers(0, len(g) - L))
+            if (_clean_span(genome, ncum, p, L)
+                    and all(abs(p - q) > 2 * L for q in taken + starts)):
+                starts.append(p)
+        taken += starts
+        p0, p1, p2 = starts
+        seg = g[p0 : p0 + L].copy()
+        mm = seg.copy()
+        for q in (50, 150):
+            mm[q] = ord("A") if mm[q] != ord("A") else ord("G")
+        g[p1 : p1 + L] = mm
+        g[p2 : p2 + L] = seg
+        plusp = bool(rng.random() < 0.5)
+        name = f"{prefix}{i}"
+        records.append(Record(name, name,
+                              _cdna(genome, [(p0, p0 + L)], plusp)))
+        truth.append(GmapTruth(genome.names[_chrom_of(genome, p0)], plusp,
+                               [(p0, p0 + L)]))
+        copies.append((p1, p2))
+    return records, truth, copies
+
+
+def write_fasta_records(path: str, records) -> None:
+    with open(path, "w") as f:
+        for r in records:
+            f.write(f">{r.header}\n{r.seq}\n")

@@ -25,6 +25,7 @@ from gmap_gsnap_tpu_torch.ops import dynprog as dp
 from gmap_gsnap_tpu_torch.ops import mismatch as mmo
 from gmap_gsnap_tpu_torch.ops.genome import GenomeArrays
 from gmap_gsnap_tpu_torch.utils import device as tdevice
+from gmap_gsnap_tpu_torch.utils import dna
 from gmap_gsnap_tpu_torch.utils import synth
 
 
@@ -368,6 +369,29 @@ def test_gmap_seed_and_chain_match_plain(cuda, H, S):
         _equal([got[k] for k in eng.CHAIN_KEYS],
                [want[k] for k in eng.CHAIN_KEYS])
     assert want["deep"].any()
+
+
+@pytest.mark.cuda
+def test_seed_segments_at_the_default_shared_memory_size(cuda):
+    """K9 at Q = 1,024, H = 8,192 and S = 4,096, where its dynamic shared
+    memory is exactly the 48 KB a CTA gets without the opt-in, which its
+    static block-reduction array then needs (a cDNA query of more than
+    1,024 segments takes S = 4,096 at the first retry)."""
+    assert klimits.seed_segments_bytes(1024, 8192, 4096) == 48 * 1024
+    rng = np.random.default_rng(44)
+    g = synth.make_genome(rng, [400_000, 250_000])
+    db = synth.genome_db(g, 12, 3)
+    ti = convert.index_from_arrays(db.offsets, db.positions, 12, 3, cuda)
+    codes, _ = g.codes_flags
+    starts = rng.integers(0, len(codes) - 1100, 6)
+    oligos = np.stack([dna.pack_kmers(codes[p : p + 1035], 12)[:1024]
+                       for p in starts]).astype(np.int32)
+    oligos = torch.from_numpy(oligos).to(cuda)
+    valid = torch.ones(oligos.shape, dtype=torch.bool, device=cuda)
+    args = (ti.offsets, ti.positions, oligos, valid, 12, 8192, 4096, 100)
+    got, want = eng._seed_segments_cuda(*args), eng._seed_segments_plain(*args)
+    _equal([got[k] for k in eng.SEG_KEYS], [want[k] for k in eng.SEG_KEYS])
+    assert int(want["nsegs"].min()) > 0
 
 
 @pytest.mark.cuda
@@ -1394,3 +1418,66 @@ def test_banded_gotoh_wrapper_passes_no_copies(monkeypatch):
     assert a[11:] == (6, 8, 16, 23, dp.PAIRED_OPEN, dp.PAIRED_EXTEND)
     with pytest.raises(ValueError, match="expected torch.bool"):
         dp._banded_matrices_cuda(*args[:7], late.int(), *args[8:])
+
+
+GMAP_CLI_KERNELS = ("gmap_seed_segments", "gmap_chain", "gmap_banded_gotoh",
+                    "gmap_bridge_traceback")
+
+
+@pytest.fixture(scope="module")
+def gmap_disk(cuda, tmp_path_factory):
+    """A 1 Mbp genome built by the port's gmap_build (k = 12) and 16 cDNA
+    queries: 12 three-exon ones (half with a messy junction), 2
+    chimeras, a duplicated segment and one long query (Q = 65,536)."""
+    from gmap_gsnap_tpu_torch.cli import gmap_build
+
+    d = str(tmp_path_factory.mktemp("gmapcard"))
+    rng = np.random.default_rng(29)
+    g = synth.make_genome(rng, [400_000, 300_000, 300_000])
+    reps, _, _ = synth.gmap_repeat_queries(rng, g, 1)
+    g.write_fasta(f"{d}/g.fa")
+    assert gmap_build.main(["-d", "syn", "-D", d, "-k", "12",
+                            f"{d}/g.fa"]) == 0
+    q, _ = synth.gmap_queries(rng, g, 12, messy=0.5)
+    x, _ = synth.gmap_chimeras(rng, g, 2)
+    lq, _ = synth.gmap_long_queries(rng, g, 1)
+    synth.write_fasta_records(f"{d}/q.fa", q + x + reps + lq)
+    return d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", [[], ["-f", "samse"], ["-A"]])
+def test_gmap_cli_matches_cpu(gmap_disk, capsys, flags):
+    """The gmap CLI on the card (its default device) prints the bytes it
+    prints with --device cpu, and launches K9-K12."""
+    from gmap_gsnap_tpu_torch.cli import gmap as tcli
+
+    args = flags + ["-D", gmap_disk, "-d", "syn", f"{gmap_disk}/q.fa"]
+    before = {n: kbuild.LAUNCHES[n] for n in GMAP_CLI_KERNELS}
+    assert tcli.main(args) == 0
+    card = capsys.readouterr().out
+    launched = {n: kbuild.LAUNCHES[n] - before[n] for n in GMAP_CLI_KERNELS}
+    assert tcli.main(args + ["--device", "cpu"]) == 0
+    assert card == capsys.readouterr().out
+    assert card.count("\n") > 16
+    assert all(launched.values()), launched
+
+
+@pytest.mark.cuda
+def test_gmap_query_past_the_engine_refused_on_the_card(gmap_disk):
+    """On the card, as on the CPU, a query longer than 65,536 + k - 1
+    bases raises ValueError naming its length; one base shorter aligns
+    through K9's scratch path."""
+    from gmap_gsnap_tpu_torch.align import gmap as tgmap
+    from gmap_gsnap_tpu_torch.db.datadir import GenomeDB
+
+    db = GenomeDB.open(f"{gmap_disk}/syn", "syn")
+    n = 65_536 + db.k - 1
+    rng = np.random.default_rng(5)
+    q = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, n + 1)]
+    q = q.tobytes().decode()
+    with pytest.raises(ValueError, match=f"query of {n + 1} bases"):
+        tgmap.align_cdna_paths(db, q)
+    before = kbuild.LAUNCHES["gmap_seed_segments"]
+    assert isinstance(tgmap.align_cdna_paths(db, q[:n]), list)
+    assert kbuild.LAUNCHES["gmap_seed_segments"] > before

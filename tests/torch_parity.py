@@ -371,3 +371,139 @@ def modes_world(d, seed: int = 37):
                               pairs[mode][m])
     return dict(genome=g, db=db, dir=str(d), conv=conv, reads=reads,
                 truth=[truth[i] for i in keep], pairs=pairs)
+
+
+def gmap_world(d, seed: int = 61):
+    """The gmap CLI tests' world in directory ``d``: a 300 kbp genome of
+    3 chromosomes with two duplicated segments (synth.gmap_repeat_queries)
+    built by the port's gmap_build into d/syn (k=12), cDNA queries of
+    every kind written to d/q.fa, a genes map stored by the port's
+    iit_store into the database's maps folder, a chromosome subset file
+    d/subsets.txt, and d/pair.fa (two sequences for -1 / -2).  Returns
+    a dict (genome, records, truths, paths of the files)."""
+    import os
+
+    import numpy as np
+
+    from gmap_gsnap_tpu_torch.cli import gmap_build, iit_store
+    from gmap_gsnap_tpu_torch.io.fasta import Record
+    from gmap_gsnap_tpu_torch.utils import synth
+
+    rng = np.random.default_rng(seed)
+    g = synth.make_genome(rng, [150_000, 100_000, 50_000])
+    reps, rtruth, _ = synth.gmap_repeat_queries(rng, g, 2)
+    g.write_fasta(os.path.join(d, "g.fa"))
+    assert gmap_build.main(["-d", "syn", "-D", d, "-k", "12",
+                            os.path.join(d, "g.fa")]) == 0
+    q3, t3 = synth.gmap_queries(rng, g, 6, messy=0.5)
+    qb, tb = synth.gmap_queries(rng, g, 2, sites=False, prefix="b")
+    qx, tx = synth.gmap_chimeras(rng, g, 2)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    nrich = np.frombuffer(q3[0].seq.encode(), np.uint8).copy()
+    nrich[rng.random(len(nrich)) < 0.2] = ord("N")
+    rand = acgt[rng.integers(0, 4, 500)].tobytes().decode()
+    # a query shorter than k goes in a file of its own: only the Paths
+    # format takes one (both CLIs raise TypeError under any other)
+    short = Record("short", "short sequence", "ACGTACGTAC")
+    synth.write_fasta_records(os.path.join(d, "short.fa"), [short, q3[0]])
+    odd = [Record("nrich", "nrich", nrich.tobytes().decode()),
+           Record("random", "random", rand),
+           Record("polya", "polya", "A" * 180 + rand[:40]),
+           Record("lowc", "lowc", "CA" * 120)]
+    records = q3 + qb + qx + reps + odd
+    synth.write_fasta_records(os.path.join(d, "q.fa"), records)
+    # a genes map: intervals over query 0 (plus and minus strand), one
+    # exon of query 2, and all of chr3; annotations on some
+    starts = dict(zip(g.names, np.concatenate([[0], g.chr_ends[:-1]])))
+    (c0, e0), (c2, e2) = ((t.chrom, [(int(a - starts[t.chrom]),
+                                      int(b - starts[t.chrom]))
+                                     for a, b in t.exons])
+                          for t in (t3[0], t3[2]))
+    with open(os.path.join(d, "genes.txt"), "w") as f:
+        f.write(f">gA {c0}:{e0[0][0] + 1}..{e0[-1][1]} first gene\n"
+                f"annotation of gA\n"
+                f">gB {c0}:{e0[1][1]}..{e0[1][0] + 1}\nannotation of gB\n"
+                f">gC {c2}:{e2[0][0] + 1}..{e2[0][1]} third gene\n"
+                f">gD chr3:1..50000 whole chromosome\nannotation of gD\n")
+    maps = os.path.join(d, "syn", "syn.maps")
+    os.makedirs(maps, exist_ok=True)
+    assert iit_store.main(["-o", os.path.join(maps, "genes"),
+                           os.path.join(d, "genes.txt")]) == 0
+    with open(os.path.join(d, "subsets.txt"), "w") as f:
+        f.write(">first\nchr1\n>rest\nchr2\nchr3\n")
+    seg = g.ascii[1000:4000].tobytes().decode()
+    synth.write_fasta_records(os.path.join(d, "pair.fa"), [
+        Record("seg", "seg", seg), Record("sub", "sub part",
+                                          seg[500:900] + seg[1400:1900])])
+    # a user genomic segment around query 0 (-g)
+    lo, hi = t3[0].exons[0][0] - 2000, t3[0].exons[-1][1] + 2000
+    synth.write_fasta_records(os.path.join(d, "gseg.fa"), [Record(
+        "gseg", "gseg", g.ascii[lo:hi].tobytes().decode())])
+    # the core queries most flag sets run: both strands, a bench-style
+    # query, a chimera, a repeat query, a random and a poly-A one
+    core = [r for r in records if r.label in (
+        "c0", "c1", "c2", "b0", "x0", "dup0", "random", "polya")]
+    synth.write_fasta_records(os.path.join(d, "core.fa"), core)
+    return dict(genome=g, records=records, truths=t3 + tb + tx + rtruth,
+                cmdline=f"{seg},{seg[500:900] + seg[1400:1900]}",
+                **{name: os.path.join(d, f"{name}.fa")
+                   for name in ("q", "core", "short", "pair", "gseg")},
+                d=d, subsets=os.path.join(d, "subsets.txt"))
+
+
+def restore_gmap_globals(monkeypatch):
+    """Put back, after the test, the module globals that both packages'
+    gmap CLIs set (cli/gmap.py: MIN_INTRONLENGTH, the gmap_config knobs,
+    the translation flags)."""
+    from gmap_gsnap_tpu.align import gmap as jgmap
+    from gmap_gsnap_tpu.align import gmap_config as jcfg
+    from gmap_gsnap_tpu.align import translation as jtr
+    from gmap_gsnap_tpu_torch.align import gmap as tgmap
+    from gmap_gsnap_tpu_torch.align import gmap_config as tcfg
+    from gmap_gsnap_tpu_torch.align import translation as ttr
+
+    for mod, names in ((jgmap, ("MIN_INTRONLENGTH",)),
+                       (tgmap, ("MIN_INTRONLENGTH",)),
+                       (jcfg, ("CANONICAL_MODE", "NOSPLICING", "MINENDEXON")),
+                       (tcfg, ("CANONICAL_MODE", "NOSPLICING", "MINENDEXON")),
+                       (jtr, ("FULLLENGTH_P", "CDS_STARTPOS")),
+                       (ttr, ("FULLLENGTH_P", "CDS_STARTPOS"))):
+        for name in names:
+            monkeypatch.setattr(mod, name, getattr(mod, name))
+
+
+def port_path(p):
+    """A JAX package's GMAP Path (or None) as the port's Path, field for
+    field, so that both packages' writers can print the same Path."""
+    from gmap_gsnap_tpu_torch.align import gmap as tgmap
+
+    if p is None:
+        return None
+    return tgmap.Path(
+        watsonp=p.watsonp, cdna_direction=p.cdna_direction,
+        exons=[tgmap.Exon(e.qstart, e.qend, e.gstart, e.gend, e.matches,
+                          e.mismatches) for e in p.exons],
+        intron_types=list(p.intron_types), querylength=p.querylength,
+        indels=p.indels, chrnum=p.chrnum)
+
+
+def gmap_path_fields(p):
+    """Every field of a GMAP Path (either package's), for equality."""
+    if p is None:
+        return None
+    return (p.watsonp, p.cdna_direction, tuple(p.intron_types),
+            p.querylength, p.indels, p.chrnum,
+            tuple((e.qstart, e.qend, e.gstart, e.gend, e.matches,
+                   e.mismatches) for e in p.exons))
+
+
+def gmap_cli_outputs(capsys, args):
+    """(JAX stdout, port stdout) of the gmap CLI with args, the port's
+    with --device cpu; the exit codes must agree."""
+    from gmap_gsnap_tpu.cli import gmap as jcli
+    from gmap_gsnap_tpu_torch.cli import gmap as tcli
+
+    rc = jcli.main(args)
+    jax = capsys.readouterr().out
+    assert tcli.main(args + ["--device", "cpu"]) == rc
+    return jax, capsys.readouterr().out
