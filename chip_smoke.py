@@ -4,9 +4,10 @@
     python3 chip_smoke.py [--mbp 100] [--reads 8192] [--pairs 8192]
                           [--batch 2048]
 
-Runs in 12 to 16 minutes on one H100, as its host's CPU allows (build,
+Runs in 13 to 17 minutes on one H100, as its host's CPU allows (build,
 the database tools, eight gsnap paths, the gsnap CLI, the gmap CLI (path
-9), checks, timings).
+9), the gsnap CLI with maps and split outputs (path 10), uniqscan,
+checks, timings).
 
 Needs one CUDA device; exits nonzero, printing no result, without one.
 Every path runs gsnap's default --gmap-mode (pairsearch,
@@ -217,6 +218,19 @@ and ends the run with a nonzero exit):
      peak device memory and a profile of the -A run (device busy share,
      hand-kernel time, K9-K12's time and launches), with the clock at the
      path's start and end;
+  6e. path 10, the gsnap CLI with the multimapping maps and the output
+     router: one process of python -m gmap_gsnap_tpu_torch.cli.gsnap at
+     PE -N 1 on 2048 pairs (a quarter inside copies of the repeat family)
+     under -M 1, with a genes map (synth.copy_genes_gtf through the port's
+     gtf_genes and iit_store), a tally and a runlength map over chosen
+     copies (-g, --use-tally, --use-runlength), --split-output, a read
+     group and -j 5: every split file and standard output byte-equal to
+     the runner's in process through an OutputRouter with the same maps,
+     K1-K17 launched, and fewer pairs with NH > 1 than the runner reports
+     without the maps (both counts printed, with the CLI's rate line, wall
+     and peak device memory); then uniqscan on the card on 200 nt that
+     start 250 nt into a repeat copy, byte-equal to uniqscan --device cpu
+     (started at path 10's start), launching SE -N 0's kernels;
   7. each kernel's device time (torch.profiler) and per-call time beside
      its plain version's (and its library call's) on the same clock: K1-K4,
      K6 and K8 at every shape and variant, K2, K6 and K14 at every shape
@@ -236,7 +250,8 @@ and ends the run with a nonzero exit):
 
 Prints one JSON line with every kernel's launches (on the PE -N 1 path,
 which runs all seventeen; per path under launches_by_path, the gmap CLI's
-default-format run as "gmap CLI"; the checks of
+default-format run as "gmap CLI", path 10's process as "gsnap CLI maps"
+and uniqscan's as "uniqscan"; the checks of
 other inputs, such as K5 with known masks, under variants), error, device
 time (ms, plain_ms at the first shape checked; clock says whether both
 are torch.profiler device times or, where a profile recorded none, CUDA
@@ -327,6 +342,14 @@ CASCADE_PASSES = 5   # passes of a main path's device cascade alone
 GMAP_QUERIES, GMAP_BENCH, GMAP_CHIMERAS, GMAP_LONG, GMAP_DUPS = (
     64, 64, 8, 4, 2)
 GMAP_FORMATS = (("paths", []), ("samse", ["-f", "samse"]), ("-A", ["-A"]))
+# path 10, the gsnap CLI with the multimapping maps and the output router:
+# PE -N 1 pairs, a quarter of them inside copies of the repeat family,
+# under -M PATH10_M, a read group and -j PATH10_SHIFT
+PATH10_PAIRS, PATH10_M, PATH10_SHIFT = 2048, 1, 5
+PATH10_RG = ("--read-group-id", "RG10", "--read-group-name", "synth",
+             "--read-group-library", "lib10", "--read-group-platform",
+             "ILLUMINA")
+UNIQSCAN_NT = 200   # uniqscan's sequence: 150 nt of a repeat copy, 50 past
 MEM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 # the float32 rate outside the tensor cores, the nearest published rate
 # to the kernels' int32 work; the card's int32 rate is lower (64 int32
@@ -935,25 +958,55 @@ def _gmap_bars(sam_text: str, genome, truths, bench_truths, chimeras,
     return {k: tuple(v) for k, v in got.items()}
 
 
-# python -c program: ``<launches.json> <gsnap args>`` runs the gsnap CLI
-# module as __main__ and, at the process's exit, writes the kernel
-# launches it counted (kernels.build.LAUNCHES) to launches.json
-_GSNAP_COUNTING = (
+# python -c program: ``<launches.json> <module> <args>`` runs the port's
+# CLI module gmap_gsnap_tpu_torch.cli.<module> as __main__ and, at the
+# process's exit, writes the kernel launches it counted
+# (kernels.build.LAUNCHES) and its peak device memory to launches.json
+_CLI_COUNTING = (
     "import atexit, json, runpy, sys\n"
+    "import torch\n"
     "from gmap_gsnap_tpu_torch.kernels import build\n"
-    "out = sys.argv.pop(1)\n"
-    "atexit.register(lambda: json.dump(dict(build.LAUNCHES), open(out, 'w')))\n"
-    "runpy.run_module('gmap_gsnap_tpu_torch.cli.gsnap', run_name='__main__',"
+    "out, mod = sys.argv.pop(1), sys.argv.pop(1)\n"
+    "atexit.register(lambda: json.dump(dict(\n"
+    "    launches=dict(build.LAUNCHES),\n"
+    "    peak=torch.cuda.max_memory_allocated()\n"
+    "    if torch.cuda.is_initialized() else 0), open(out, 'w')))\n"
+    "runpy.run_module('gmap_gsnap_tpu_torch.cli.' + mod, run_name='__main__',"
     " alter_sys=True)\n")
 
 
-def _gsnap_counting(lfile: str, *args) -> tuple:
-    """(stdout, stderr) of the gsnap CLI run with args; the kernels it
-    launched are written to lfile as JSON."""
+def _cli_counting(lfile: str, module: str, *args) -> tuple:
+    """(stdout, stderr) of the port's CLI ``module`` run with args; the
+    kernels it launched and its peak device memory are written to lfile
+    as JSON."""
     proc = subprocess.Popen(
-        [sys.executable, "-c", _GSNAP_COUNTING, lfile, *map(str, args)],
+        [sys.executable, "-c", _CLI_COUNTING, lfile, module,
+         *map(str, args)],
         cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    return _finish_tool(proc, "gsnap")
+    _STARTED.append(proc)
+    return _finish_tool(proc, module)
+
+
+def _split_outputs(root: str) -> dict:
+    """{suffix: text} of the files a --split-output ``root`` wrote."""
+    head, base = os.path.split(root)
+    return {f[len(base) + 1:]: open(os.path.join(head, f)).read()
+            for f in sorted(os.listdir(head)) if f.startswith(base + ".")}
+
+
+def _multimapped_pairs(sam_text: str) -> tuple:
+    """(pairs whose read 1 lines carry NH > 1, their NH summed)."""
+    nhs = {}
+    for line in sam_text.splitlines():
+        if line.startswith("@"):
+            continue
+        f = line.split("\t")
+        if not int(f[1]) & 0x40:
+            continue
+        nh = [x for x in f[11:] if x.startswith("NH:i:")]
+        if nh and int(nh[0][5:]) > 1:
+            nhs[f[0]] = int(nh[0][5:])
+    return len(nhs), sum(nhs.values())
 
 
 def _rate_line(stderr: str) -> str:
@@ -2981,7 +3034,7 @@ def main(argv=None) -> int:
     # gmap_build wrote, over the first CLI_READS reads or pairs of a
     # path's set, written as FASTQ; its SAM (header included) must equal
     # what the runner writes for the same reads at the same batch size,
-    # and the kernels it launched (written by _GSNAP_COUNTING) must be its
+    # and the kernels it launched (written by _CLI_COUNTING) must be its
     # path's
     def write_inputs(tag, recs, mates, n):
         files = [os.path.join(tmp, f"{tag}_1.fq")]
@@ -3002,8 +3055,8 @@ def main(argv=None) -> int:
             run_with.run_pe(reads[0], reads[1], ref, batch_size=args.batch)
         lfile = os.path.join(tmp, "launches.json")
         t0 = time.time()
-        out, err = _gsnap_counting(lfile, "-D", tmp, "-d", "syn",
-                                   "--batch-size", args.batch, *extra, *files)
+        out, err = _cli_counting(lfile, "gsnap", "-D", tmp, "-d", "syn",
+                                 "--batch-size", args.batch, *extra, *files)
         wall = time.time() - t0
         if out != ref.getvalue():
             a, b = out.splitlines(), ref.getvalue().splitlines()
@@ -3012,7 +3065,7 @@ def main(argv=None) -> int:
             raise SystemExit(f"CLI {label}: SAM differs from the runner's at "
                              f"line {i} of {len(a)} / {len(b)}")
         with open(lfile) as f:
-            launches = json.load(f)
+            launches = json.load(f)["launches"]
         os.remove(lfile)
         missing = [k for k in want if launches.get(k, 0) == 0]
         extra_k = [k for k in ALL_KERNELS if k not in want + optional
@@ -3284,6 +3337,173 @@ def main(argv=None) -> int:
                       f"{hand9.get(n, (0, 0.0))[0]}x"
                       for n in GMAP_KERNELS + DYNPROG_KERNELS), flush=True)
     print(f"path 9 done at {time.time() - t_start:.1f} s {_clock(t9)}",
+          flush=True)
+    # 10. the gsnap CLI with the multimapping maps and the output router
+    # on the card: PE -N 1 (BASELINE.md's headline config) on PATH10_PAIRS
+    # pairs, a quarter of them inside copies of the genome's repeat family
+    # (synth.plant_copy_pairs), under -M PATH10_M, with three maps over
+    # chosen copies (a genes map from synth.copy_genes_gtf through the
+    # port's gtf_genes and iit_store, a tally and a runlength map through
+    # iit_store), --split-output, a read group and -j; every split file
+    # and standard output byte-equal to what the runner writes in process
+    # through an OutputRouter with the same maps for the same pairs, its
+    # kernels those of PE -N 1, and fewer pairs multimapped (NH > 1) than
+    # the runner reports without the maps.  uniqscan --device cpu (10b)
+    # runs beside it
+    from gmap_gsnap_tpu_torch.io import outbuffer
+    from gmap_gsnap_tpu_torch.io import sam as sam_mod
+
+    t10 = time.time()
+    print(f"path 10 (gsnap CLI with maps and router flags) at "
+          f"{t10 - t_start:.1f} s {_clock()}", flush=True)
+    uq_at = next(int(p) + 250 for p in genome.repeats
+                 if b"N" not in genome.ascii[p + 250 : p + 250 + UNIQSCAN_NT]
+                 .tobytes() and np.searchsorted(genome.chr_ends, p + 250,
+                                                side="right")
+                 == np.searchsorted(genome.chr_ends, p + 250 + UNIQSCAN_NT,
+                                    side="right"))
+    uq_seq = genome.ascii[uq_at : uq_at + UNIQSCAN_NT].tobytes().decode()
+    uq_cmd = ["-D", tmp, "-d", "syn", uq_seq]
+    uq_cpu = _start_tool("uniqscan", *uq_cmd, "--device", "cpu",
+                         env={**os.environ, "OMP_NUM_THREADS": "2"})
+    t_uq_cpu = time.time()
+    groups, unit = genome.repeats[None], genome.repeat_unit
+    mrng = np.random.default_rng(args.seed + 10)
+    texts10 = {"genes.gtf": synth.copy_genes_gtf(genome, groups, unit),
+               "tally.txt": synth.copy_tally_text(mrng, genome, groups, unit),
+               "rl.txt": synth.copy_runlength_text(genome, groups, unit)}
+    for name, text in texts10.items():
+        with open(os.path.join(tmp, name), "w") as f:
+            f.write(text)
+    stores = [_start_tool("iit_store", "-o", os.path.join(tmp, m),
+                          os.path.join(tmp, f"{m}.txt"))
+              for m in ("tally", "rl")]
+    genes_txt, _ = _tool("gtf_genes", os.path.join(tmp, "genes.gtf"))
+    with open(os.path.join(tmp, "genes.txt"), "w") as f:
+        f.write(genes_txt)
+    stores.append(_start_tool("iit_store", "-o", os.path.join(maps, "genes"),
+                              os.path.join(tmp, "genes.txt")))
+    ncopy = PATH10_PAIRS // 4
+    c1, c2, _ = synth.plant_copy_pairs(mrng, genome, groups, unit, ncopy)
+    order10 = mrng.permutation(PATH10_PAIRS)
+    m1 = [(rp1[: PATH10_PAIRS - ncopy] + c1)[i] for i in order10]
+    m2 = [(rp2[: PATH10_PAIRS - ncopy] + c2)[i] for i in order10]
+    files10 = [os.path.join(tmp, f"m10_{e}.fq") for e in (1, 2)]
+    synth.write_fastq(files10[0], m1)
+    synth.write_fastq(files10[1], m2)
+    reads10 = [list(fasta.read_seqfile(f)) for f in files10]
+    for proc, m in zip(stores, ("tally", "rl", "genes")):
+        _finish_tool(proc, f"iit_store {m}")
+    t_maps = time.time() - t10
+    params10 = dataclasses.replace(params, subopt_levels=PATH10_M)
+    map_kw = dict(genesdb="genes", tallydb="tally", tally_dir=tmp,
+                  runlengthdb="rl", runlength_dir=tmp)
+    t0 = time.time()
+    plain10 = io.StringIO()
+    runner_mod.GsnapRunner(db, params10, lmax=100, novelsplicing=True,
+                           device=dev).run_pe(*reads10, plain10,
+                                              batch_size=args.batch)
+    without = _multimapped_pairs(plain10.getvalue())
+    t_without = time.time() - t0
+    t0 = time.time()
+    r10 = runner_mod.GsnapRunner(db, params10, lmax=100, novelsplicing=True,
+                                 device=dev, **map_kw)
+    header10 = sam_mod.header(db.chr_names,
+                              (db.chr_ends - db.chr_starts).tolist())
+    header10 += outbuffer.read_group_header(*PATH10_RG[1::2])
+    ref_root = os.path.join(tmp, "p10_ref", "out")
+    cli_root = os.path.join(tmp, "p10_cli", "out")
+    for root in (ref_root, cli_root):
+        os.makedirs(os.path.dirname(root))
+    ref10 = io.StringIO()
+    router = outbuffer.OutputRouter(
+        out=ref10, split_root=ref_root, fmt="sam", header=header10,
+        transform=outbuffer.SamTransform(PATH10_RG[1], PATH10_SHIFT))
+    r10.run_pe(*reads10, ref10, batch_size=args.batch, router=router)
+    router.close()
+    t_with = time.time() - t0
+    lfile = os.path.join(tmp, "launches10.json")
+    flags10 = ["-N", 1, "-M", PATH10_M, "-g", "genes", "--use-tally", "tally",
+               "--tallydir", tmp, "--use-runlength", "rl", "--runlengthdir",
+               tmp, "--split-output", cli_root, *PATH10_RG, "-j",
+               PATH10_SHIFT]
+    t0 = time.time()
+    out10, err10 = _cli_counting(lfile, "gsnap", "-D", tmp, "-d", "syn",
+                                 "--batch-size", args.batch, *flags10,
+                                 *files10)
+    wall10 = time.time() - t0
+    with open(lfile) as f:
+        got10 = json.load(f)
+    ref_files, cli_files = _split_outputs(ref_root), _split_outputs(cli_root)
+    if out10 != ref10.getvalue() or cli_files != ref_files:
+        diff = sorted(k for k in set(ref_files) | set(cli_files)
+                      if ref_files.get(k) != cli_files.get(k))
+        raise SystemExit(f"path 10: the CLI's outputs differ from the "
+                         f"runner's through its OutputRouter (stdout "
+                         f"{len(out10)} / {len(ref10.getvalue())} B; split "
+                         f"files {diff})")
+    launches10 = got10["launches"]
+    missing = [k for k in ALL_KERNELS if launches10.get(k, 0) == 0]
+    if missing:
+        raise SystemExit(f"path 10: kernels not launched {missing}")
+    paths["gsnap CLI maps"] = launches10
+    with_maps = _multimapped_pairs("".join(ref_files.values()))
+    rg_ok = all(t.startswith(header10)
+                and "\tRG:Z:RG10" in t[len(header10):]
+                for t in ref_files.values())
+    print(f"path 10 (gsnap {' '.join(map(str, flags10))}): "
+          f"{PATH10_PAIRS} pairs ({ncopy} inside repeat copies); "
+          f"{len(cli_files)} split files ({', '.join(cli_files)}), "
+          f"{sum(map(len, cli_files.values()))} B, and standard output "
+          f"({len(out10)} B) byte-equal to the runner's through an "
+          f"OutputRouter; read group and header on every file: {rg_ok}; "
+          f"maps built in {t_maps:.2f} s (gtf_genes, three iit_store); "
+          f"runner without the maps {t_without:.2f} s, with them and the "
+          f"router {t_with:.2f} s; CLI wall {wall10:.2f} s (process start, "
+          f"database open and upload included); its rate line: "
+          f"{_rate_line(err10)}; CLI peak device memory {got10['peak']} B "
+          f"({got10['peak'] / 2**30:.2f} GiB); launches {launches10}",
+          flush=True)
+    print(f"path 10: multimapped pairs (NH > 1) under -M {PATH10_M}: "
+          f"{without[0]} without the maps, {with_maps[0]} with them; their "
+          f"NH summed {without[1]} and {with_maps[1]}", flush=True)
+    if not rg_ok or without[0] == 0 or with_maps[0] >= without[0]:
+        raise SystemExit(f"path 10: read group missing ({rg_ok}) or the "
+                         f"maps resolved no multimapping pair ({without} "
+                         f"without, {with_maps} with)")
+    del r10, plain10, ref10
+
+    # 10b. uniqscan on the card: one process on UNIQSCAN_NT nt that start
+    # 250 nt into a repeat copy (its short prefixes align to many copies),
+    # byte-equal to uniqscan --device cpu started at path 10's start; the
+    # kernels those of SE -N 0's cascade (the GMAP lanes' where they run)
+    t0 = time.time()
+    uq_out, uq_err = _cli_counting(lfile, "uniqscan", *uq_cmd)
+    uq_wall = time.time() - t0
+    with open(lfile) as f:
+        uq_launches = json.load(f)["launches"]
+    os.remove(lfile)
+    uq_ref, _ = _finish_tool(uq_cpu, "uniqscan --device cpu")
+    counts = [int(l.split(": ")[1]) for l in uq_out.splitlines()]
+    missing = [k for k in N0_KERNELS + STAGE_KERNELS
+               if uq_launches.get(k, 0) == 0]
+    extra_k = [k for k in uq_launches if k not in N0_KERNELS + STAGE_KERNELS
+               + GMAP_KERNELS + DYNPROG_KERNELS]
+    if (uq_out != uq_ref or not counts or counts[0] < 2 or missing
+            or extra_k):
+        raise SystemExit(f"uniqscan: the card's output ({len(uq_out)} B) "
+                         f"differs from --device cpu's ({len(uq_ref)} B), "
+                         f"found no multimapping prefix ({counts[:3]}), or "
+                         f"kernels not launched {missing} / off the path "
+                         f"{extra_k}")
+    print(f"uniqscan ({UNIQSCAN_NT} nt from {uq_at}, 150 of them in a repeat "
+          f"copy): {len(counts)} lines byte-equal to --device cpu (first "
+          f"{uq_out.splitlines()[0]!r}, last {uq_out.splitlines()[-1]!r}); "
+          f"card wall {uq_wall:.2f} s (process start and database open "
+          f"included); cpu run finished {time.time() - t_uq_cpu:.2f} s "
+          f"after its start; launches {uq_launches}", flush=True)
+    paths["uniqscan"] = uq_launches
+    print(f"path 10 done at {time.time() - t_start:.1f} s {_clock(t10)}",
           flush=True)
     if "jax" in sys.modules or "gmap_gsnap_tpu" in sys.modules:
         raise SystemExit("jax or the JAX package was imported")

@@ -19,12 +19,12 @@ module imports JAX.  SNP-tolerant runs (``-v``) seed on the SNP index
 and accept the alt genome's alleles as matches; cmet/atoi runs seed each
 strand on its converted index (db/transforms.write_converted_indexes)
 and tolerate the conversion in selection, and only its own direction in
-MD/NM.  What this module leaves out of it: native output,
-gene/tally/runlength multimapping resolution (the identity without
-those databases), output routing
-(--split-output), ``warmup`` (XLA compiles) and the TPU transfer
-slimming (compact views, row-subset fetches, pad buckets); see
-ROADMAP.md.
+MD/NM.  Multimapping reads are resolved by known genes, tallies and
+runlength maps (``genesdb``, ``tallydb``, ``runlengthdb``; align/genes.py)
+and, with a ``router`` (io/outbuffer.py), each read's text goes to its
+result type's output.  What this module leaves out of the JAX runner:
+``warmup`` (XLA compiles) and the TPU transfer slimming (compact views,
+row-subset fetches, pad buckets); see ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -443,13 +443,22 @@ class GsnapRunner:
     atoi-stranded loads the converted index pair (metct/metga or
     a2iag/a2itc, written by cli/cmetindex or cli/atoiindex) from
     ``cmet_dir`` / ``atoi_dir`` or the database directory; with ``snpsdb``
-    the SNP index serves both strands instead, as in the JAX runner."""
+    the SNP index serves both strands instead, as in the JAX runner.
+    ``genesdb`` (gsnap -g, with ``favor_multiexon``), ``tallydb``
+    (--use-tally, looked up in ``tally_dir``) and ``runlengthdb``
+    (--use-runlength, in ``runlength_dir``) are maps that resolve
+    multimapping reads (align/genes.py)."""
 
     def __init__(self, db: GenomeDB, params: gsnap_se.GsnapParams | None = None,
                  lmax: int = 100, snpsdb: str | None = None,
                  novelsplicing: bool = False, splicesdb: str | None = None,
                  snps_dir: str | None = None,
                  splicing_dir: str | None = None,
+                 genesdb: str | None = None,
+                 favor_multiexon: bool = False,
+                 tallydb: str | None = None, tally_dir: str | None = None,
+                 runlengthdb: str | None = None,
+                 runlength_dir: str | None = None,
                  cmet_dir: str | None = None, atoi_dir: str | None = None,
                  device: str | torch.device = "cuda"):
         self.cmet_dir = cmet_dir
@@ -476,6 +485,23 @@ class GsnapRunner:
                            self.params.gmap_mode.split(",") if m.strip()}
         self.splicing_on = novelsplicing
         self.merge_samechr = False  # gsnap --merge-distant-samechr
+        # gsnap -g/--genes known-genes multimapping resolution
+        # (gsnap.c:2099-2121 + stage3hr.c:4955-4994)
+        self.genes = self.tally = self.runlength = None
+        if genesdb or tallydb or runlengthdb:
+            from . import genes as genes_mod
+
+            if genesdb is not None:
+                self.genes = genes_mod.GenesMap.open(
+                    genesdb, db, favor_multiexon=favor_multiexon)
+            if tallydb is not None:
+                # --use-tally/--tallydir (gsnap.c:2186-2213)
+                self.tally = genes_mod.TallyMap.open(
+                    tallydb, db, mapdir=tally_dir)
+            if runlengthdb is not None:
+                # --use-runlength/--runlengthdir (gsnap.c:2215-2242)
+                self.runlength = genes_mod.RunlengthMap.open(
+                    runlengthdb, db, mapdir=runlength_dir)
         self.device = resolve_device(device)
         if (self.device.type == "cuda"
                 and lmax > mismatch_mod.CUDA_MAX_READ_LENGTH):
@@ -2003,9 +2029,43 @@ class GsnapRunner:
                             if "improvement" in self.gmap_modes else None),
             subopt=self.params.subopt_levels,
         )
-        # Stage3end_resolve_multimapping is the identity without genes /
-        # tally / runlength maps (not ported)
+        final = self._resolve_multimapping(final, lambda h: [(h.d, L)])
         return final[:maxpaths]
+
+    def _resolve_multimapping(self, items: list, ends_of) -> list:
+        """Stage3end/Stage3pair_resolve_multimapping (stage1hr.c:12505,
+        15459 + stage3hr.c:4955-5060).  ends_of(item) yields the item's
+        (PostHit, querylength) ends (one for SE, two for PE); per-end
+        combination follows Stage3pair_gene_overlap (stage3hr.c:1245),
+        summed tallies (stage3hr.c:9059), either-end runlength
+        (stage3hr.c:9095)."""
+        if len(items) <= 1 or not (self.genes or self.tally
+                                   or self.runlength):
+            return items
+        from . import genes as genes_mod
+
+        def spans_of(item):
+            return [s for d, L in ends_of(item)
+                    for s in substring_spans(d, L)]
+
+        overlap_of = None
+        if self.genes is not None:
+            def overlap_of(item):
+                best = genes_mod.NO_KNOWN_GENE
+                for d, L in ends_of(item):
+                    ov = self.genes.segments_overlap(substring_spans(d, L))
+                    if ov == genes_mod.KNOWN_GENE_MULTIEXON:
+                        return ov
+                    best = max(best, ov)
+                return best
+        tally_of = ((lambda it: self.tally.segments_tally(spans_of(it)))
+                    if self.tally is not None else None)
+        runlength_of = (
+            (lambda it: self.runlength.segments_runlength_p(spans_of(it)))
+            if self.runlength is not None else None)
+        return genes_mod.resolve_multimapping(
+            items, overlap_of=overlap_of, tally_of=tally_of,
+            runlength_of=runlength_of)
 
     def _native_snp(self):
         """SnpDisplay for native output in SNP-tolerant mode; the
@@ -2711,8 +2771,10 @@ class GsnapRunner:
             best = min(p[3] for p in chosen)
             chosen = [p for p in chosen if p[3] <= best + self.params.subopt_levels]
             chosen.sort(key=lambda p: (p[3], p[0].d.left, p[1].d.left))
-        # Stage3pair_resolve_multimapping (stage1hr.c:15459) is the
-        # identity without genes / tally / runlength maps (not ported)
+        # Stage3pair_resolve_multimapping (stage1hr.c:15459)
+        chosen = self._resolve_multimapping(
+            chosen, lambda p: [(p[0].d, len(rec5.seq)),
+                               (p[1].d, len(rec3_inv.seq))])
         return chosen, bool(conc), f5, f3
 
     @staticmethod
@@ -3181,12 +3243,16 @@ class GsnapRunner:
                 | (self._known_sites is not None))
 
     def run(self, records: list[Record], out, batch_size: int = 256,
-            emit_header: bool = True, fmt: str = "sam") -> int:
+            emit_header: bool = True, fmt: str = "sam", router=None) -> int:
         """Align ``records`` and write SAM (``fmt`` "sam") or GSNAP's
         native format ("gsnap") to ``out``; returns the count.  Chunk
         i+1's device work is queued before chunk i's host emission, so
-        the two overlap."""
-        if emit_header and fmt == "sam":
+        the two overlap.
+
+        router: optional io.outbuffer.OutputRouter for --split-output /
+        --fails-as-input / read-group / quality-shift handling; it takes
+        each read's text instead of ``out`` and writes its own header."""
+        if router is None and emit_header and fmt == "sam":
             out.write(sam.header(
                 self.db.chr_names,
                 (self.db.chr_ends - self.db.chr_starts).tolist()))
@@ -3290,8 +3356,13 @@ class GsnapRunner:
             for j in range(len(chunk)):
                 self.category_counts[
                     self._categories.get(j, "unpaired_uniq")] += 1
-            for t in texts:
-                out.write(t)
+            if router is not None:
+                for j, t in enumerate(texts):
+                    router.write(self._categories.get(j, "unpaired_uniq"),
+                                 t, (chunk[j],))
+            else:
+                for t in texts:
+                    out.write(t)
             total += len(chunk)
             self._gmap_cache.clear()
             self.batch_times.append((_time.time() - t_batch, len(chunk)))
@@ -3341,6 +3412,10 @@ class GsnapRunner:
                     d5 = self._end_hit(rec5, h5p, row, i5)
                     d3 = self._end_hit(rec3_inv, h3p, row, i3)
                     pairs.append((d5, d3))
+                pairs = self._resolve_multimapping(
+                    pairs, lambda t: [(t[0], len(rec5.seq)),
+                                      (t[1], len(rec3_inv.seq))])
+                n = len(pairs)
                 proper = conc_dev or int(res["pairtype"][row, 0]) in (1, 2, 3)
             # rank pairs by summed nmatches desc then loglik desc
             order = sorted(
@@ -3575,8 +3650,10 @@ class GsnapRunner:
                 d5 = self._end_hit(rec5, h5p, row, int(res["i5"][row, k]))
                 d3 = self._end_hit(rec3_inv, h3p, row, int(res["i3"][row, k]))
                 pairs.append((k, d5, d3))
-            # Stage3pair_resolve_multimapping is the identity without
-            # genes / tally / runlength maps (not ported)
+            pairs = self._resolve_multimapping(
+                pairs, lambda t: [(t[1], len(rec5.seq)),
+                                  (t[2], len(rec3_inv.seq))])
+            n = len(pairs)
             pairs.sort(key=lambda t: (-(t[1].nmatches + t[2].nmatches),
                                       -(t[1].loglik + t[2].loglik)))
             mapqs = self._pair_mapqs(
@@ -3700,12 +3777,15 @@ class GsnapRunner:
 
     def run_pe(self, records5: list[Record], records3: list[Record], out,
                batch_size: int = 256, emit_header: bool = True,
-               fmt: str = "sam") -> int:
+               fmt: str = "sam", router=None) -> int:
         """Paired-end alignment: read 2 is reverse-complemented at input
         (invert_second_p) so concordant mates share a strand; SAM or, with
         ``fmt`` "gsnap", GSNAP's native format.  Chunk i+1's device work
-        is queued before chunk i's host emission."""
-        if emit_header and fmt == "sam":
+        is queued before chunk i's host emission.
+
+        router: as for ``run``; it takes each pair's text with the pair's
+        input records."""
+        if router is None and emit_header and fmt == "sam":
             out.write(sam.header(
                 self.db.chr_names,
                 (self.db.chr_ends - self.db.chr_starts).tolist()))
@@ -3733,7 +3813,7 @@ class GsnapRunner:
             disp = self.dispatch_pairs(procs5[0], invs[0])
         fast_ok = (self.params.maxpaths >= 1 and self.pe_fast
                    and not self.clip_overlap and fmt == "sam")
-        for ci, (_, chunk3) in enumerate(pairs_in):
+        for ci, (chunk5_orig, chunk3) in enumerate(pairs_in):
             chunk3_inv = invs[ci]
             chunk5 = procs5[ci]
             if ci + 1 < len(pairs_in):
@@ -3896,8 +3976,13 @@ class GsnapRunner:
             for j in range(len(chunk5)):
                 self.category_counts[
                     self._categories.get(j, "concordant_uniq")] += 1
-            for t in texts:
-                out.write(t)
+            if router is not None:
+                for j, t in enumerate(texts):
+                    router.write(self._categories.get(j, "concordant_uniq"),
+                                 t, (chunk5_orig[j], chunk3[j]))
+            else:
+                for t in texts:
+                    out.write(t)
             total += len(chunk5)
             self._gmap_cache.clear()
             self.batch_times.append((_time.time() - t_batch, len(chunk5)))

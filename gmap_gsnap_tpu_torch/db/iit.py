@@ -1,9 +1,9 @@
-"""Interval Index Tree (IIT) binary format: the reader and the writer.
+"""Interval Index Tree (IIT) binary format: read, write, query, dump.
 
-A copy of gmap_gsnap_tpu/db/iit.py without its dumps: the port opens
-databases and maps, writes splice-site and SNP maps (db/iit_text.py),
-and looks intervals up for the ``gmap`` CLI's -m (``get``,
-``_record_text``).  Binary-compatible with the
+A copy of gmap_gsnap_tpu/db/iit.py: the port opens databases and maps,
+writes them (db/iit_text.py), looks intervals up (the ``gmap`` CLI's -m,
+gsnap's multimapping maps, ``iit_get``) and dumps them (``iit_dump``).
+Binary-compatible with the
 reference format (genome-vendor/gmap-gsnap, src/iit-write.c:373-406
 file-format comment, src/iit-read.c readers):
 
@@ -27,7 +27,7 @@ file-format comment, src/iit-read.c readers):
 
 The interval-tree construction replicates the reference algorithm
 (Node_make, src/iit-write.c:206-265) so written trees are structurally
-identical.
+identical; queries use the same FNode descent as IIT_find.
 
 All integers little-endian; intervals are stored with uint32 low/high.
 """
@@ -523,5 +523,26 @@ class IIT:
             parts.append("\n" + annot)
         return "".join(parts)
 
+    def dump(self, sortp: bool = False) -> str:
+        out = []
+        for d in self.sorted_divs() if sortp else self.divs_in_file_order():
+            n = len(self.intervals.get(d, []))
+            order = self.get(d, 0, 0xFFFFFFFF, sortp=True) if sortp else range(n)
+            for i in order:
+                out.append(self._record_text(d, i))
+        return "".join(out)
+
     def divs_in_file_order(self) -> list[str]:
         return list(self.divs)
+
+    # -------------------------------------------------------- convenience API
+    def total_nintervals(self) -> int:
+        return sum(len(v) for v in self.intervals.values())
+
+    def total_length(self) -> int:
+        """IIT_totallength: max interval high + 1 across all divs."""
+        m = 0
+        for ivs in self.intervals.values():
+            for iv in ivs:
+                m = max(m, iv.high + 1)
+        return m

@@ -1,8 +1,8 @@
-"""Text -> IIT conversion: the iit_store input format.
+"""Text <-> IIT conversion: the iit_store input format and iit_get output.
 
-A copy of gmap_gsnap_tpu/db/iit_text.py without ``iit_get_text`` (the
-port queries no IIT).  Replicates the reference iit_store FASTA-like
-parser (src/iit_store.c: scan_header_div, parse_fasta).
+A copy of gmap_gsnap_tpu/db/iit_text.py.  Replicates the reference
+iit_store FASTA-like parser (src/iit_store.c: scan_header_div,
+parse_fasta) and the iit_get/iit_dump printers (src/iit-read.c:IIT_dump).
 
 Input format (one record):
 
@@ -78,3 +78,11 @@ def iit_from_text(text: str, divsort: int = CHROM_SORT, version: int = 5) -> IIT
             lines.append(raw)
     flush()
     return iit
+
+
+def iit_get_text(iit: IIT, div: str, x: int, y: int) -> str:
+    """Replicates `iit_get <file> <coord> [coord2]` output."""
+    out = []
+    for i in iit.get(div, x, y, sortp=True):
+        out.append(iit._record_text(div, i))
+    return "".join(out)

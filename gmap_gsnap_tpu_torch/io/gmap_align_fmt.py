@@ -303,8 +303,11 @@ def _read_order_cols(path: Path, cols):
             gp = [c["gpos"] for c in cols[i:j] if c["gpos"] is not None]
             gap = max(gp) - min(gp) + 1 if gp else 0
             s = str(gap)
-            left = (9 - len(s)) // 2
-            text = " " * left + s + " " * (9 - left - len(s))
+            # centred in 9 columns, or in the run's own 2 ngap + 3 when
+            # -i makes it wider, as _columns centres it for a plus path
+            w = max(9, j - i)
+            left = (w - len(s)) // 2
+            text = " " * left + s + " " * (w - left - len(s))
             for k in range(i, j):
                 cols[k]["q"] = text[k - i]
             i = j

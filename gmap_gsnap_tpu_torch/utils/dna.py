@@ -1,6 +1,7 @@
 """DNA nucleotide coding helpers (host-side, NumPy).
 
-A copy of gmap_gsnap_tpu/utils/dna.py.
+A copy of gmap_gsnap_tpu/utils/dna.py (without COMPLEMENT_CODE and
+revcomp_codes, which the port does not use).
 
 Coding convention (identical to the reference genome-vendor/gmap-gsnap,
 src/compress.c:138-144):
@@ -34,6 +35,8 @@ for _ch in b"Xx":
     FLAG_TABLE[_ch] = True
 # N keeps code 0 + flag (defaults)
 
+_DECODE = np.frombuffer(b"ACGT", dtype=np.uint8)
+
 
 def encode(seq: bytes | str) -> tuple[np.ndarray, np.ndarray]:
     """Encode an ASCII nucleotide string into (codes uint8, flags bool)."""
@@ -41,6 +44,18 @@ def encode(seq: bytes | str) -> tuple[np.ndarray, np.ndarray]:
         seq = seq.encode("ascii")
     raw = np.frombuffer(seq, dtype=np.uint8)
     return CODE_TABLE[raw], FLAG_TABLE[raw]
+
+
+def decode(codes: np.ndarray, flags: np.ndarray | None = None) -> str:
+    """Decode 2-bit codes (+ optional N/X flags) back into an ASCII string."""
+    out = _DECODE[codes.astype(np.intp)].copy()
+    if flags is not None:
+        # flag + A -> N;  flag + T -> X  (reference fill_buffer, compress.c:48-90)
+        is_n = flags & (codes == A)
+        is_x = flags & (codes == T)
+        out[is_n] = ord("N")
+        out[is_x] = ord("X")
+    return out.tobytes().decode("ascii")
 
 
 def revcomp_str(seq: str) -> str:

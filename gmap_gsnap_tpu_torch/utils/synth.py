@@ -2485,3 +2485,185 @@ def write_fasta_records(path: str, records) -> None:
     with open(path, "w") as f:
         for r in records:
             f.write(f">{r.header}\n{r.seq}\n")
+
+
+# ---------------------------------------------------------------------------
+# multimapping: exact copies of blocks, reads and pairs from copies, and the
+# maps that resolve them (gsnap -g / --favor-multiexon, --use-tally,
+# --use-runlength), taken from the planted copies
+
+
+def duplicate_blocks(rng: np.random.Generator, genome: Genome, n: int,
+                     L: int = 400, copies: int = 3) -> np.ndarray:
+    """Copy ``n`` random L-nt blocks of ``genome`` exactly over ``copies``
+    - 1 other places each (the genome is changed in place, so call this
+    before it is written or indexed).  Every copy lies inside one
+    chromosome, free of N, away from the repeat family and more than 2 L
+    from any other copy.  Returns int64 [n, copies]: each block's copy
+    starts, its own place first."""
+    g = genome.ascii
+    ncum = _ncum(genome)   # copies of N-free spans keep the N counts
+    rep = genome.repeats
+    taken: list = []
+    out = np.zeros((n, copies), np.int64)
+    for i in range(n):
+        starts: list = []
+        while len(starts) < copies:
+            p = int(rng.integers(0, len(g) - L))
+            if (_clean_span(genome, ncum, p, L)
+                    and all(abs(p - q) > 2 * L for q in taken + starts)
+                    and not np.any(np.abs(rep - p) < L + genome.repeat_unit)):
+                starts.append(p)
+        taken += starts
+        for q in starts[1:]:
+            g[q : q + L] = g[starts[0] : starts[0] + L]
+        out[i] = starts
+    return out
+
+
+def _mutate(rng: np.random.Generator, seq: np.ndarray, nsub: int) -> None:
+    for q in rng.choice(len(seq), nsub, replace=False):
+        seq[q] = _ACGT[(np.flatnonzero(_ACGT == seq[q])[0]
+                        + rng.integers(1, 4)) % 4]
+
+
+def plant_copy_reads(rng: np.random.Generator, genome: Genome, groups,
+                     unit: int, n: int, L: int = 100, prefix: str = "u"):
+    """``n`` reads of length L inside a random copy of a random group of
+    ``groups`` (int [ngroups, ncopies] copy starts, each copy ``unit``
+    nt; duplicate_blocks' output, or ``genome.repeats[None]`` for the
+    repeat family), 0-1 substitutions, either strand.  Returns (records,
+    [(group, copy)])."""
+    groups = np.asarray(groups)
+    records, where = [], []
+    for i in range(n):
+        gi = int(rng.integers(0, groups.shape[0]))
+        ci = int(rng.integers(0, groups.shape[1]))
+        p = int(groups[gi, ci]) + int(rng.integers(0, unit - L + 1))
+        seq = genome.ascii[p : p + L].copy()
+        _mutate(rng, seq, int(rng.integers(0, 2)))
+        if rng.random() < 0.5:
+            seq = _COMP[seq[::-1]]
+        qual = (rng.integers(20, 41, L) + 33).astype(np.uint8)
+        name = f"{prefix}{i}"
+        records.append(Record(name, name, seq.tobytes().decode(),
+                              qual.tobytes().decode()))
+        where.append((gi, ci))
+    return records, where
+
+
+def plant_copy_pairs(rng: np.random.Generator, genome: Genome, groups,
+                     unit: int, n: int, L: int = 100, far: float = 0.0,
+                     prefix: str = "v"):
+    """``n`` read pairs (read 1 records, read 2 records, [(group, copy)])
+    whose fragment of 150..``unit`` nt lies inside a random copy, so that
+    the pair is concordant at every copy of its group; read 2 is the
+    reverse complement of the fragment's end (FR), and half the pairs
+    are written mate first.  A share ``far`` of them takes read 2 from
+    3-8 kbp past the copy instead (a pair too long for -N 0's pairmax,
+    unique at that end).  0-1 substitutions per read."""
+    groups = np.asarray(groups)
+    ncum = _ncum(genome)
+    r1, r2, where = [], [], []
+    i = 0
+    while len(r1) < n:
+        gi = int(rng.integers(0, groups.shape[0]))
+        ci = int(rng.integers(0, groups.shape[1]))
+        s = int(groups[gi, ci])
+        if rng.random() < far:
+            a = s + int(rng.integers(0, unit - L + 1))
+            b = s + unit + int(rng.integers(3000, 8001))
+            if (b > len(genome.ascii)
+                    or not _clean_span(genome, ncum, b - L, L)
+                    or _chrom_of(genome, b - L) != _chrom_of(genome, a)):
+                continue
+        else:
+            ins = int(rng.integers(150, unit + 1))
+            a = s + int(rng.integers(0, unit - ins + 1))
+            b = a + ins
+        m1 = genome.ascii[a : a + L].copy()
+        m2 = _COMP[genome.ascii[b - L : b][::-1]]
+        _mutate(rng, m1, int(rng.integers(0, 2)))
+        _mutate(rng, m2, int(rng.integers(0, 2)))
+        if rng.random() < 0.5:
+            m1, m2 = m2, m1
+        name = f"{prefix}{i}"
+        for out, m in ((r1, m1), (r2, m2)):
+            qual = (rng.integers(20, 41, L) + 33).astype(np.uint8)
+            out.append(Record(name, name, m.tobytes().decode(),
+                              qual.tobytes().decode()))
+        where.append((gi, ci))
+        i += 1
+    return r1, r2, where
+
+
+def _chr_place(genome: Genome, p: int) -> tuple[str, int]:
+    """(chromosome name, 1-based chromosome position) of universal p."""
+    c = _chrom_of(genome, p)
+    start = int(genome.chr_ends[c - 1]) if c else 0
+    return genome.names[c], p - start + 1
+
+
+def copy_genes_gtf(genome: Genome, groups, unit: int) -> str:
+    """GTF exon lines (cli/gtf_genes' input) of genes over chosen copies:
+    copy j of group gi carries a one-exon gene over the copy when j % 4
+    == 0, a two-exon gene (the copy, then 200 nt from 300 nt past it)
+    when j % 4 == 1 and gi is even, and none otherwise; the genes of
+    every other group (and every other four copies) lie on the minus
+    strand.  With three copies, -g keeps copies 0 and 1 of an even
+    group's three and --favor-multiexon copy 1 alone; of an odd group's,
+    both keep copy 0."""
+    lines = []
+    for gi, row in enumerate(np.asarray(groups)):
+        for j, s in enumerate(int(x) for x in row):
+            if j % 4 > 1 or (j % 4 == 1 and gi % 2):
+                continue
+            exons = [(s, s + unit)]
+            if j % 4 == 1:
+                exons.append((s + unit + 300, s + unit + 500))
+                if _chrom_of(genome, exons[1][1] - 1) != _chrom_of(genome, s):
+                    exons.pop()
+            strand = "-" if (gi + j // 4) % 2 else "+"
+            tid = f"T{gi}.{j}"
+            attrs = (f'gene_id "G{gi}.{j}"; transcript_id "{tid}"; '
+                     f'gene_name "gene{gi}.{j}";')
+            for a, b in exons:
+                name, x = _chr_place(genome, a)
+                lines.append(f"{name}\tsynth\texon\t{x}\t{x + b - a - 1}\t.\t"
+                             f"{strand}\t.\t{attrs}\n")
+    return "".join(lines)
+
+
+def copy_tally_text(rng: np.random.Generator, genome: Genome, groups,
+                    unit: int) -> str:
+    """A tally map in iit_store input form: one interval a copy over
+    copies j % 3 == 2 (a line a position, "A<n> C<m>" with n + m in
+    1..40) and copies j % 3 == 0 (zero counts, which resolve nothing)."""
+    out = []
+    for gi, row in enumerate(np.asarray(groups)):
+        for j, s in enumerate(int(x) for x in row):
+            if j % 3 == 1:
+                continue
+            name, x = _chr_place(genome, s)
+            out.append(f">t{gi}.{j} {name}:{x}..{x + unit - 1}\n")
+            if j % 3 == 2:
+                n = rng.integers(1, 21, unit)
+                m = rng.integers(0, 21, unit)
+            else:
+                n = m = np.zeros(unit, np.int64)
+            out.extend(f"A{a} C{b}\n" for a, b in zip(n, m))
+    return "".join(out)
+
+
+def copy_runlength_text(genome: Genome, groups, unit: int) -> str:
+    """A runlength map in iit_store input form: one interval a copy (the
+    copy's middle half) over copies j % 3 == 0 of each group, and j % 3
+    == 2 of its even groups."""
+    out = []
+    for gi, row in enumerate(np.asarray(groups)):
+        for j, s in enumerate(int(x) for x in row):
+            if j % 3 == 1 or (j % 3 == 2 and gi % 2):
+                continue
+            name, x = _chr_place(genome, s + unit // 4)
+            out.append(f">rl{gi}.{j} {name}:{x}..{x + unit // 2 - 1}\n")
+    return "".join(out)

@@ -277,8 +277,9 @@ WRITERS = [
     ("exon_table", 0), ("exon_table", 1), ("exon_table", 2),
     ("alignment_body", {}), ("alignment_body", dict(invertmode=1)),
     ("alignment_body", dict(invertmode=2, wraplength=60)),
-    # -i past 3 raises IndexError on minus-strand paths in both packages
-    # (_read_order_cols re-labels 9 intron columns)
+    # -i past 3 raises IndexError on minus-strand paths in the JAX
+    # package (its _read_order_cols re-labels 9 intron columns; the
+    # port's prints, test_alignment_body_minus_wide_ngap)
     ("alignment_body", dict(ngap=2, nolengths=True)),
     ("alignment_body", dict(nolengths=True)),
     ("continuous_body", 0), ("continuous_body", 2),
@@ -300,6 +301,65 @@ def test_writer_byte_equal(world, aligned, kind, opt):
         assert t == j, (kind, opt, r.label)
         texts.append(t)
     assert any(texts)
+
+
+def _minus_spliced(aligned):
+    """(record, port Path, JAX Path) of the minus-strand paths with an
+    intron among the writers' queries."""
+    out = [(r, port_path(p), p) for r, paths, _ in aligned for p in paths
+           if not p.watsonp and len(p.exons) > 1]
+    assert out
+    return out
+
+
+def _intron_numbers(cols) -> list:
+    """The intron length each run of intron columns prints in its query
+    row, in column order."""
+    nums, run = [], []
+    for c in cols + [{}]:
+        if c.get("intron"):
+            run.append(c["q"])
+        elif run:
+            nums.append("".join(run).strip())
+            run = []
+    return nums
+
+
+@pytest.mark.parametrize("ngap", [2, 3])
+def test_alignment_body_minus_ngap_byte_equal(world, aligned, ngap):
+    """gmap -A -i 2 and 3 on minus-strand paths, with intron lengths:
+    byte-equal to the JAX package (the repair of -i past 3 leaves them
+    as they were)."""
+    for r, tp, jp in _minus_spliced(aligned):
+        j = jfmt.alignment_body(jp, _qstr(r, jp), world["jdb"].genome_str,
+                                *_chr(world["jdb"], jp)[1::-1], ngap=ngap)
+        t = tfmt.alignment_body(tp, _qstr(r, tp), world["tdb"].genome_str,
+                                *_chr(world["tdb"], tp)[1::-1], ngap=ngap)
+        assert t == j
+
+
+@pytest.mark.parametrize("ngap", [4, 8])
+def test_alignment_body_minus_wide_ngap(world, aligned, ngap):
+    """gmap -A -i past 3 on a minus-strand path prints (the JAX package
+    raises IndexError there, so it has no output to match): each intron
+    shows the length that the aligned-order columns, the plus-path
+    rendering, centre for it, in the run's 2 ngap + 3 columns."""
+    gstr = world["tdb"].genome_str
+    for r, tp, jp in _minus_spliced(aligned):
+        q = _qstr(r, tp)
+        with pytest.raises(IndexError):
+            jfmt.alignment_body(jp, _qstr(r, jp), world["jdb"].genome_str,
+                                *_chr(world["jdb"], jp)[1::-1], ngap=ngap)
+        text = tfmt.alignment_body(tp, q, gstr,
+                                   *_chr(world["tdb"], tp)[1::-1], ngap=ngap)
+        acols = tfmt._columns(tp, q, gstr, ngap=ngap)
+        plus = _intron_numbers(acols)
+        shown = _intron_numbers(tfmt._display_cols(tp, acols, 0))
+        assert shown == plus[::-1] and all(n.isdigit() for n in shown)
+        gaps = [b.gstart - a.gend for a, b in zip(tp.exons, tp.exons[1:])
+                if b.gstart - a.gend >= 9]
+        assert sorted(map(int, shown)) == sorted(gaps)
+        assert all(n in text for n in shown)
 
 
 def test_inquery_matches_jax(world):

@@ -8,6 +8,7 @@ needs):  python -m pytest tests/test_torch_kernels.py --noconftest -q
 
 import dataclasses
 import io
+import os
 
 import numpy as np
 import pytest
@@ -1481,3 +1482,112 @@ def test_gmap_query_past_the_engine_refused_on_the_card(gmap_disk):
     before = kbuild.LAUNCHES["gmap_seed_segments"]
     assert isinstance(tgmap.align_cdna_paths(db, q[:n]), list)
     assert kbuild.LAUNCHES["gmap_seed_segments"] > before
+
+
+@pytest.fixture(scope="module")
+def multimap_disk(cuda, tmp_path_factory):
+    """A 1 Mbp genome with 12 blocks of 400 nt copied to three places
+    each, built by the port's gmap_build (k = 12); its genes map
+    (synth.copy_genes_gtf through gtf_genes and iit_store) in the maps
+    folder, a tally and a runlength map beside it; reads and pairs from the
+    copies with planted ordinary ones, as FASTQ."""
+    import contextlib
+
+    from gmap_gsnap_tpu_torch.cli import gmap_build, gtf_genes, iit_store
+
+    d = tmp_path_factory.mktemp("mapscard")
+    rng = np.random.default_rng(31)
+    g = synth.make_genome(rng, [400_000, 300_000, 300_000])
+    blocks = synth.duplicate_blocks(rng, g, 12)
+    g.write_fasta(str(d / "g.fa"))
+    assert gmap_build.main(["-d", "syn", "-D", str(d), "-k", "12",
+                            str(d / "g.fa")]) == 0
+    reads = synth.plant_copy_reads(rng, g, blocks, 400, 192)[0]
+    reads += synth.plant_reads(rng, g, 64, weights=dict(
+        sub=3, end_indel=1, terminal=1, repeat=1, junk=1))[0]
+    synth.write_fastq(str(d / "se.fq"), reads)
+    p1, p2, _ = synth.plant_copy_pairs(rng, g, blocks, 400, 128, far=0.2)
+    q1, q2, _ = synth.plant_pairs(rng, g, 64, rna=True)
+    synth.write_fastq(str(d / "p_1.fq"), p1 + q1)
+    synth.write_fastq(str(d / "p_2.fq"), p2 + q2)
+    (d / "genes.gtf").write_text(synth.copy_genes_gtf(g, blocks, 400))
+    genes = io.StringIO()
+    with contextlib.redirect_stdout(genes):
+        assert gtf_genes.main([str(d / "genes.gtf")]) == 0
+    (d / "genes.txt").write_text(genes.getvalue())
+    (d / "tally.txt").write_text(synth.copy_tally_text(rng, g, blocks, 400))
+    (d / "rl.txt").write_text(synth.copy_runlength_text(g, blocks, 400))
+    for out, name in ((d / "syn" / "syn.maps" / "genes", "genes"),
+                      (d / "tally", "tally"), (d / "rl", "rl")):
+        assert iit_store.main(["-o", str(out), str(d / f"{name}.txt")]) == 0
+    return d, g
+
+
+MAPS_ROUTER_CASES = [
+    ("se", ["-g", "genes", "-M", "1"]),
+    ("pe", ["-N", "1", "-g", "genes", "--favor-multiexon", "--use-tally",
+            "tally", "--tallydir", "DIR", "--use-runlength", "rl",
+            "--runlengthdir", "DIR"]),
+    ("pe", ["-g", "genes", "--split-output", "ROOT", "--fails-as-input",
+            "--read-group-id", "RG1", "--read-group-name", "s", "-j", "3"]),
+    ("se", ["--use-runlength", "rl", "--runlengthdir", "DIR",
+            "--split-output", "ROOT", "--barcode-length", "4", "--nofails"]),
+    ("pe", ["-A", "gsnap", "-g", "genes", "--split-output", "ROOT",
+            "-q", "1/2"]),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ends,extra", MAPS_ROUTER_CASES)
+def test_gsnap_cli_maps_and_router_match_cpu(multimap_disk, capsys,
+                                             tmp_path, ends, extra):
+    """The gsnap CLI with the multimapping maps and the output router's
+    flags on the card (its default device): standard output and every
+    --split-output file byte-equal to --device cpu's, with the cascade's
+    kernels launched."""
+    from gmap_gsnap_tpu_torch.cli import gsnap as tcli
+
+    d, _ = multimap_disk
+    inputs = ([str(d / "se.fq")] if ends == "se"
+              else [str(d / "p_1.fq"), str(d / "p_2.fq")])
+    outs = []
+    for dev in ("cuda", "cpu"):
+        root = tmp_path / dev
+        root.mkdir()
+        args = ["-D", str(d), "-d", "syn", *[
+            str(d) if a == "DIR" else str(root / "out") if a == "ROOT"
+            else a for a in extra], *inputs, "--device", dev]
+        before = dict(kbuild.LAUNCHES)
+        assert tcli.main(args) == 0
+        launched = {k: n - before.get(k, 0)
+                    for k, n in kbuild.LAUNCHES.items()}
+        files = {f: (root / f).read_text() for f in sorted(os.listdir(root))}
+        outs.append((capsys.readouterr().out, files, launched))
+    (card, card_files, launched), (cpu, cpu_files, _) = outs
+    assert card == cpu and card_files == cpu_files
+    assert card or card_files
+    assert all(launched.get(k, 0) for k in (
+        "gsnap_seed_diagonals", "gsnap_top_diagonals",
+        "gsnap_prefix_mismatches", "gsnap_pack_queries")), launched
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("suffix", [False, True])
+def test_uniqscan_matches_cpu(multimap_disk, capsys, suffix):
+    """uniqscan on the card on 200 nt from a repeat copy (prefixes, or
+    with -3 suffixes): its lines byte-equal to --device cpu's, the first
+    a multimapping one, with the cascade's kernels launched."""
+    from gmap_gsnap_tpu_torch.cli import uniqscan
+
+    d, g = multimap_disk
+    p = int(g.repeats[2])
+    seq = (g.ascii[p - 50 : p + 150] if suffix
+           else g.ascii[p + 250 : p + 450]).tobytes().decode()
+    args = ["-D", str(d), "-d", "syn", *(["-3"] if suffix else []), seq]
+    before = kbuild.LAUNCHES["gsnap_seed_diagonals"]
+    assert uniqscan.main(args) == 0
+    card = capsys.readouterr().out
+    assert kbuild.LAUNCHES["gsnap_seed_diagonals"] > before
+    assert uniqscan.main(args + ["--device", "cpu"]) == 0
+    assert card == capsys.readouterr().out
+    assert int(card.splitlines()[0].split(": ")[1]) > 1

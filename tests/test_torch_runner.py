@@ -1,8 +1,8 @@
 """Port parity for the slice as a whole: GsnapRunner.run and the gsnap
-CLI (single-end, -N 0, --gmap-mode none) against the JAX package on
-synthetic reads — SAM byte-equal — plus the port's refusals of paths it
-does not have (the cmet/atoi modes, native output), its own database
-loader against the JAX package's, and a run in a process where neither
+CLI (single-end, -N 0, --gmap-mode none; three input files read as one
+stream) against the JAX package on synthetic reads — SAM and native
+output byte-equal — plus the port's refusal of a missing card, its own
+database loader against the JAX package's, and a run in a process where neither
 JAX nor the JAX package can be imported (SE -N 0, SE -N 1 and PE -N 1,
 with the default GMAP lanes)."""
 
@@ -29,7 +29,7 @@ from gmap_gsnap_tpu_torch.cli import gsnap as tcli
 from gmap_gsnap_tpu_torch.db import datadir as tdatadir
 from gmap_gsnap_tpu_torch.utils import device as tdevice
 from gmap_gsnap_tpu_torch.utils import synth
-from torch_parity import jax_db
+from torch_parity import jax_db, jax_runner_one_device
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KINDS = dict(sub=4, n=1, mid_indel=1.5, end_indel=1.5, terminal=1.5,
@@ -146,13 +146,25 @@ def test_cli_gmap_tuning_flags_byte_equal(disk_db, capsys, monkeypatch, flag,
     ["-A", "gsnap", "SECOND_FILE", "SECOND_FILE"],
     ["SECOND_FILE", "SECOND_FILE"]])
 def test_cli_rejects_unported(disk_db, capsys, extra):
+    """Three input files, which the port once refused, are read as one
+    single-end stream, as the JAX CLI reads them: its output, SAM or
+    native, byte-equal to the JAX CLI's."""
     fq = str(disk_db / "reads.fq")
-    args = ["-D", str(disk_db), "-d", "syn", "--device", "cpu"]
+    args = ["-D", str(disk_db), "-d", "syn", "--gmap-mode", "none",
+            "--batch-size", "64"]
     files = [fq] + [fq for e in extra if e == "SECOND_FILE"]
-    with pytest.raises(SystemExit) as e:
-        tcli.main(args + [e for e in extra if e != "SECOND_FILE"] + files)
-    assert e.value.code == 2
-    assert "ROADMAP" in capsys.readouterr().err
+    args += [e for e in extra if e != "SECOND_FILE"] + files
+    # the JAX runner on one device: on the conftest's 8-device mesh, its
+    # SAM path aborted in compact_se on these 360 reads
+    with jax_runner_one_device():
+        assert jcli.main(args) == 0
+    jax_out = capsys.readouterr().out
+    assert tcli.main(args + ["--device", "cpu"]) == 0
+    assert capsys.readouterr().out == jax_out
+    blocks = (jax_out.count("\n>") + jax_out.startswith(">") if "-A" in extra
+              else sum(not l.startswith("@") and int(l.split("\t")[1]) & 0x900
+                       == 0 for l in jax_out.splitlines()))
+    assert blocks == 3 * 120
 
 
 def test_runner_rejects_unported(monkeypatch):
