@@ -16,7 +16,7 @@ and ends the run with a nonzero exit):
 
   1. the card: torch.cuda.get_device_name and nvidia-smi's name and
      power limit;
-  2. build the seventeen CUDA kernels from csrc/ (nvcc, sm_90a);
+  2. build the eighteen CUDA kernels from csrc/ (nvcc, sm_90a);
   3. a synthetic genome of 4 chromosomes (--mbp, default 100, about the
      C. elegans genome) with N runs and a repeat family, written as FASTA
      and built into a database directory by the port's gmap_build
@@ -231,6 +231,20 @@ and ends the run with a nonzero exit):
      and peak device memory); then uniqscan on the card on 200 nt that
      start 250 nt into a repeat copy, byte-equal to uniqscan --device cpu
      (started at path 10's start), launching SE -N 0's kernels;
+  6f. path 11, scale-out (parallel/shard.py): the positions index in 2
+     and 4 shards on cuda:0, K1 with each shard's bounds and the MIN over
+     the shards at the main shape equal to K1 on the whole index, and
+     align_batch_gapped -N 1 on each sharded index equal to the
+     replicated one; K18 (shard_index_lookup) on 2048 reads' first k-mers
+     at caps 32 and 128 over four shards and over one; two ranks started
+     as torchrun starts them (RANK, WORLD_SIZE, ...; parallel/shard
+     init_from_env: two cards with nccl where the host has them, else
+     both on cuda:0 with gloo) run PE -N 1 on path 4's pairs against the
+     gmap_build directory, SAM byte-equal to path 4's, each rank
+     launching K1-K17, seeding on its own shard with the all-reduce MIN
+     equal to the whole index, and timing the all-reduce MIN; a one-rank
+     nccl group's all-reduce MIN on an int64 diag; the two ranks' pairs/s
+     beside one process's on the same pairs;
   7. each kernel's device time (torch.profiler) and per-call time beside
      its plain version's (and its library call's) on the same clock: K1-K4,
      K6 and K8 at every shape and variant, K2, K6 and K14 at every shape
@@ -249,9 +263,10 @@ and ends the run with a nonzero exit):
      the profiler cannot perturb step 5's timing.
 
 Prints one JSON line with every kernel's launches (on the PE -N 1 path,
-which runs all seventeen; per path under launches_by_path, the gmap CLI's
-default-format run as "gmap CLI", path 10's process as "gsnap CLI maps"
-and uniqscan's as "uniqscan"; the checks of
+which runs all of them but K18, whose launches are path 11's; per path
+under launches_by_path, the gmap CLI's default-format run as "gmap CLI",
+path 10's process as "gsnap CLI maps", uniqscan's as "uniqscan" and path
+11's as "scale-out"; the checks of
 other inputs, such as K5 with known masks, under variants), error, device
 time (ms, plain_ms at the first shape checked; clock says whether both
 are torch.profiler device times or, where a profile recorded none, CUDA
@@ -270,11 +285,13 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
 import io
 import json
 import math
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -838,6 +855,91 @@ def _gmap_cli_runs(spec_file: str) -> None:
     with open(spec["result"], "w") as f:
         json.dump(dict(runs=results, peak=torch.cuda.max_memory_allocated()),
                   f)
+
+
+def _scaleout_rank(spec_file: str) -> None:
+    """Path 11's rank, one process of a world of two (``python -c "import
+    chip_smoke; chip_smoke._scaleout_rank(spec)"`` from the checkout's
+    root, with RANK, WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE and
+    MASTER_ADDR / MASTER_PORT set as torchrun sets them).  It joins the
+    group (parallel/shard.init_from_env: a card a rank and nccl where the
+    host has two, else both ranks on cuda:0 and gloo), opens the JSON
+    spec's database directory, runs the PE -N 1 runner over both ranks on
+    the spec's pairs (a warm-up chunk, then the timed run with the launch
+    counts set to 0 just before it; rank 0 writes the SAM), seeds the
+    spec's reads against its own shard of the positions with the
+    all-reduce MIN, against the whole index too, and times the all-reduce
+    MIN alone on that [B, W] int64 diag.  Writes its figures to the spec's
+    "result" file with the rank's number appended."""
+    import torch
+    import torch.distributed as dist
+
+    from gmap_gsnap_tpu_torch.align import gsnap_se as se
+    from gmap_gsnap_tpu_torch.align import runner as runner_mod
+    from gmap_gsnap_tpu_torch.db import datadir
+    from gmap_gsnap_tpu_torch.io import fasta
+    from gmap_gsnap_tpu_torch.kernels import build as kbuild
+    from gmap_gsnap_tpu_torch.parallel import shard
+
+    with open(spec_file) as f:
+        spec = json.load(f)
+    t0 = time.time()
+    dev = shard.init_from_env("cuda", share_card=True)
+    rank, size = dist.get_rank(), dist.get_world_size()
+    kbuild.library()
+    db = datadir.GenomeDB.open(spec["dbdir"], spec["db"])
+    runner = runner_mod.GsnapRunner(db, lmax=100, novelsplicing=True,
+                                    device=dev)
+    r1 = list(fasta.read_seqfile(spec["pairs"][0]))
+    r2 = list(fasta.read_seqfile(spec["pairs"][1]))
+    batch = spec["batch"]
+    runner.run_pe(r1[:batch], r2[:batch], io.StringIO(), batch_size=batch)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    dist.barrier()
+    kbuild.LAUNCHES.clear()
+    out = io.StringIO()
+    t1 = time.time()
+    n = runner.run_pe(r1, r2, out, batch_size=batch)
+    torch.cuda.synchronize()
+    dist.barrier()
+    wall_s = time.time() - t1
+    launches = dict(kbuild.LAUNCHES)
+    if rank == 0:
+        with open(spec["sam"], "w") as f:
+            f.write(out.getvalue())
+    # the sharded index across the ranks: a shard a rank, K1 with its
+    # bounds, the all-reduce MIN; against the whole index on this rank
+    c, fl, ln = (torch.from_numpy(x).to(dev) for x in runner_mod.encode_batch(
+        r1[:batch], 100))
+    params = runner.params
+    sh = shard.ShardedIndexArrays.from_index(runner.index, size,
+                                             group=dist.group.WORLD)
+    want = se.seed_diagonals(runner.index, c, fl, ln, params, True)
+    kbuild.LAUNCHES.clear()
+    got = se.seed_diagonals(sh, c, fl, ln, params, True)
+    torch.cuda.synchronize()
+    seed_launches = dict(kbuild.LAUNCHES)
+    seed_equal = all(torch.equal(a, b) for a, b in zip(want, got))
+    diag = want[0].clone()
+    shard.all_reduce_min(diag)
+    torch.cuda.synchronize()
+    reps = 10
+    t2 = time.time()
+    for _ in range(reps):
+        shard.all_reduce_min(diag)
+    torch.cuda.synchronize()
+    allreduce_ms = (time.time() - t2) / reps * 1e3
+    with open(f"{spec['result']}{rank}", "w") as f:
+        json.dump(dict(rank=rank, size=size, device=str(dev),
+                       backend=dist.get_backend(), n=n, setup_s=setup_s,
+                       wall_s=wall_s, launches=launches,
+                       seed_launches=seed_launches, seed_equal=seed_equal,
+                       diag_shape=list(diag.shape),
+                       allreduce_equal=bool(torch.equal(diag, want[0])),
+                       allreduce_ms=allreduce_ms,
+                       peak=torch.cuda.max_memory_allocated(dev)), f)
+    dist.destroy_process_group()
 
 
 def _sam_records(sam_text: str) -> dict:
@@ -2067,7 +2169,7 @@ def _drive(torch, kbuild, runner, records, batch: int, label: str,
           f"prefetch_gmap converted); prefetch_gmap "
           f"{runner.gmap_seconds:.3f} s of host wall", flush=True)
     return dict(sam=out.getvalue(), launches=launches,
-                ambi_resolved=runner.ambi_resolved)
+                ambi_resolved=runner.ambi_resolved, e2e_s=e2e_s)
 
 
 def _profile_run(torch, run, label: str) -> None:
@@ -2169,8 +2271,8 @@ def main(argv=None) -> int:
     # 2. build the kernels
     kbuild.library()
     print(f"build: {kbuild.build_seconds:.1f} s (nvcc {kbuild.NVCC_FLAGS[1]}, "
-          f"{len(kbuild._SIGNATURES)} entry points: seventeen kernels, K2 "
-          f"with a second for wide rows)",
+          f"{len(kbuild._SIGNATURES)} entry points: eighteen kernels, K2 "
+          f"with a second for wide rows, K17 with its empty floor)",
           flush=True)
     for line in kbuild.build_log.splitlines():
         if "Used" in line:
@@ -2816,7 +2918,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
 
     # 5. the four main paths
-    paths = {}
+    paths, e2e = {}, {}
 
     def path(label, want, recs, run_with, mates=None, optional=()):
         """Drive one main path and check which kernels it launched."""
@@ -2828,6 +2930,7 @@ def main(argv=None) -> int:
             raise SystemExit(f"{label} path: kernels not launched {missing}, "
                              f"launched but not on the path {extra}")
         paths[label] = out["launches"]
+        e2e[label] = out["e2e_s"]
         return out["sam"]
 
     def bar(label, what, good, tot, share):
@@ -2850,7 +2953,7 @@ def main(argv=None) -> int:
                + STAGE_KERNELS, p1, runner, p2, optional=DYNPROG_KERNELS)
     bar("PE -N 0", "planted <=2-sub concordant pairs proper at both "
         "positions and |TLEN|", *_pairs_ok(sam, p_truth, genome), 0.99)
-    sam = path("PE -N 1", ALL_KERNELS, rp1, runner_n1, rp2)
+    sam = sam_pe_n1 = path("PE -N 1", ALL_KERNELS, rp1, runner_n1, rp2)
     bar("PE -N 1", "planted <=2-sub concordant pairs proper at both "
         "positions and |TLEN|", *_pairs_ok(sam, rp_truth, genome), 0.99)
     bar("PE -N 1", "easy junction pairs with their planted intron",
@@ -3505,6 +3608,249 @@ def main(argv=None) -> int:
     paths["uniqscan"] = uq_launches
     print(f"path 10 done at {time.time() - t_start:.1f} s {_clock(t10)}",
           flush=True)
+
+    # 11. scale-out (parallel/shard.py).  (a) the sharded positions index
+    # in this process, its shards on cuda:0: K1 with each shard's bounds
+    # and the MIN over the shards at the main shape, n = 2 and 4, equal to
+    # K1 on the whole index; align_batch_gapped (the -N 1 runner's
+    # parameters) on each sharded index equal to the replicated one; K18's
+    # candidate lists of the reads' first k-mers, over the four shards and
+    # over one shard alone (a rank's form).  (b) two ranks through
+    # parallel/shard.init_from_env: PE -N 1 on path 4's pairs against the
+    # gmap_build directory, SAM byte-equal to path 4's, with their
+    # all-reduce MIN timed; (c) a one-rank nccl group's all-reduce MIN
+    t11 = time.time()
+    import torch.distributed as dist
+
+    from gmap_gsnap_tpu_torch.parallel import shard
+
+    p384 = se.GsnapParams(seed_total=384, ncand=32,
+                          size_threshold=params.size_threshold)
+    sharded = {n: shard.ShardedIndexArrays.from_index(index, n)
+               for n in (2, 4)}
+    sc, sf, sl = strands(records)     # K1's main shape, as in step 4
+    rc1, rf1, rl1 = (torch.from_numpy(x).to(dev) for x in
+                  runner_mod.encode_batch(records[: args.batch], 100))
+    # K18's lists: each read's first k-mer that the index holds
+    oligos, ok1 = se._extract_oligos(rc1, rf1, rl1, db.k)
+    st18 = index.offsets[oligos].long() & 0xFFFFFFFF
+    cn18 = (index.offsets[oligos + 1].long() & 0xFFFFFFFF) - st18
+    first = ((cn18 > 0) & ok1).int().argmax(1, keepdim=True)
+    st18 = st18.gather(1, first)[:, 0].int()
+    cn18 = cn18.gather(1, first)[:, 0].int()
+    whole = se._seed_diagonals_cuda(index, sc, sf, sl, p384, True)
+    rep_gapped = gg.align_batch_gapped(genome_dev, index, rc1, rf1, rl1,
+                                       runner_n1.gapped_params)
+    torch.cuda.synchronize()
+    kbuild.LAUNCHES.clear()
+    variant_launches, t_a = {}, time.time()
+    for n, sh in sharded.items():
+        before = kbuild.LAUNCHES["gsnap_seed_diagonals"]
+        got = gg.align_batch_gapped(genome_dev, sh, rc1, rf1, rl1,
+                                    runner_n1.gapped_params)
+        variant_launches[f"seed_diagonals/shards {n}"] = (
+            kbuild.LAUNCHES["gsnap_seed_diagonals"] - before)
+        diff = [k for k in rep_gapped if not torch.equal(rep_gapped[k],
+                                                         got[k])]
+        if diff:
+            raise SystemExit(f"scale-out: align_batch_gapped on {n} shards "
+                             f"differs from the replicated index on {diff}")
+    looks = {}
+    for cap in (32, 128):
+        before = kbuild.LAUNCHES["gsnap_shard_index_lookup"]
+        looks[cap] = sharded[4].lookup(st18, cn18, cap)
+        variant_launches[f"shard_index_lookup/cap {cap}"] = (
+            kbuild.LAUNCHES["gsnap_shard_index_lookup"] - before)
+    torch.cuda.synchronize()
+    launches11 = dict(kbuild.LAUNCHES)
+    for k in ("gsnap_seed_diagonals", "gsnap_shard_index_lookup"):
+        if launches11.get(k, 0) == 0:
+            raise SystemExit(f"scale-out: {k} not launched on the sharded "
+                             f"index ({launches11})")
+    print(f"scale-out (a): align_batch_gapped -N 1 on {args.batch} reads "
+          f"with the positions in 2 and 4 shards on cuda:0 (shard lengths "
+          f"{sharded[2].shard_len}, {sharded[4].shard_len}) equal to the "
+          f"replicated index on every key; K18 over 4 shards, caps 32 and "
+          f"128 ({int((looks[32] != se.INVALID_DIAG).sum())} and "
+          f"{int((looks[128] != se.INVALID_DIAG).sum())} entries filled); launches "
+          f"{launches11} in {time.time() - t_a:.2f} s", flush=True)
+
+    def sharded_plain(sh):
+        out = None
+        for r in range(sh.rows.shape[0]):
+            res = se._seed_diagonals_plain(
+                se.IndexArrays(sh.offsets, sh.rows[r], sh.k, sh.interval),
+                sc, sf, sl, p384, True, r * sh.shard_len, sh.shard_len)
+            out = list(res) if out is None else [torch.minimum(out[0],
+                                                               res[0]),
+                                                 *out[1:]]
+        return tuple(out)
+
+    new_checks = []
+    for n, sh in sharded.items():
+        new_checks.append((f"seed_diagonals/shards {n}", "W=384 NC=32",
+                           partial(se.seed_diagonals, sh, sc, sf, sl, p384,
+                                   True),
+                           partial(sharded_plain, sh)))
+    held = shard.ShardedIndexArrays.from_index(index, 4, rank=1)
+    for name, sh, cap in (("shard_index_lookup", sharded[4], 32),
+                          ("shard_index_lookup/cap 128", sharded[4], 128),
+                          ("shard_index_lookup/held shard 1", held, 32)):
+        new_checks.append((name, f"R={args.batch} cap={cap} n=4", partial(
+            shard._shard_index_lookup_cuda, sh.rows, st18, cn18, cap, 4,
+            sh.row0), partial(shard._shard_index_lookup_plain, sh.rows,
+                              st18, cn18, cap, 4, sh.row0)))
+    for name, shape, fk, fp in new_checks:
+        want = fp()
+        err = _max_abs_err(fk(), want)
+        print(f"kernel {name:20s} {shape:22s}: max_abs_err={err}", flush=True)
+        if err != 0:
+            raise SystemExit(f"kernel {name} disagrees with its plain "
+                             f"version (max_abs_err={err})")
+        if name.startswith("seed_diagonals/"):
+            err_w = _max_abs_err(want, whole)
+            if err_w != 0:
+                raise SystemExit(f"{name}: the MIN over the shards differs "
+                                 f"from K1 on the whole index ({err_w})")
+            cost = costs["seed_diagonals"]
+        else:
+            # starts and counts read, each filled entry's position read
+            # once, the int64 lists written
+            cost = lambda out, n=st18.numel(): (
+                8 * n + 4 * int((out != se.INVALID_DIAG).sum()) + 8 * out.numel(),
+                0)
+            if name == "shard_index_lookup":
+                sh4 = sharded[4]
+                own = (st18.long() // sh4.shard_len).clamp(0, 3)
+                j = torch.arange(32, device=dev)[None, :]
+                gidx = (own[:, None] * sh4.shard_len + (
+                    st18.long() - own * sh4.shard_len)[:, None] + j).clamp(
+                    max=sh4.rows.numel() - 1)
+                ok = j < cn18.long()[:, None]
+                flat = sh4.rows.view(-1)
+                # int32 lists holding uint32 bits: -1 is 0xFFFFFFFF
+                library[name] = lambda: torch.where(ok, flat[gidx], -1)
+        errs[name] = err
+        bounds[name] = _bound(*cost(want))
+        bound_shape[name] = shape
+    checks.extend(new_checks)
+    del whole, looks, rep_gapped
+
+    # (b) two ranks: a card each with nccl where there are two, else
+    # both on cuda:0 with gloo
+    torch.cuda.empty_cache()
+    ncards = torch.cuda.device_count()
+    topology = ("two ranks, a card each, nccl" if ncards > 1 else
+                "two ranks sharing cuda:0, gloo (NCCL refuses two ranks on "
+                "one device)")
+    pfiles = [os.path.join(tmp, f"scale_{i}.fq") for i in (1, 2)]
+    synth.write_fastq(pfiles[0], rp1)
+    synth.write_fastq(pfiles[1], rp2)
+    spec11 = os.path.join(tmp, "scale.json")
+    with open(spec11, "w") as f:
+        json.dump(dict(dbdir=dbdir, db="syn", pairs=pfiles, batch=args.batch,
+                       sam=os.path.join(tmp, "scale.sam"),
+                       result=os.path.join(tmp, "scale_result")), f)
+    with socket.socket() as so:
+        so.bind(("127.0.0.1", 0))
+        port = so.getsockname()[1]
+    ranks = []
+    t_b = time.time()
+    for rank in range(2):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2",
+                   LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE="2",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        proc = subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; "
+             f"chip_smoke._scaleout_rank({spec11!r})"], cwd=REPO, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        _STARTED.append(proc)
+        ranks.append(proc)
+    deadline = time.time() + 300
+    while any(p.poll() is None for p in ranks):
+        failed = [p for p in ranks if p.poll() not in (None, 0)]
+        if failed or time.time() > deadline:
+            _stop_tools()
+            errs11 = [p.communicate()[1][-3000:] for p in ranks]
+            raise SystemExit(f"scale-out: a rank failed or hung "
+                             f"(exit codes {[p.returncode for p in ranks]}):"
+                             f"\n" + "\n".join(errs11))
+        time.sleep(0.5)
+    for p in ranks:
+        _finish_tool(p, "scale-out rank")
+    res11 = []
+    for rank in range(2):
+        with open(os.path.join(tmp, f"scale_result{rank}")) as f:
+            res11.append(json.load(f))
+    with open(os.path.join(tmp, "scale.sam")) as f:
+        sam11 = f.read()
+    missing = [k for k in ALL_KERNELS
+               if any(r["launches"].get(k, 0) == 0 for r in res11)]
+    bad = [r["rank"] for r in res11
+           if not (r["seed_equal"] and r["allreduce_equal"]
+                   and r["n"] == len(rp1))]
+    if sam11 != sam_pe_n1 or missing or bad:
+        raise SystemExit(f"scale-out: the two ranks' SAM "
+                         f"({len(sam11)} B) differs from path 4's "
+                         f"({len(sam_pe_n1)} B): {sam11 != sam_pe_n1}; "
+                         f"kernels a rank did not launch {missing}; ranks "
+                         f"whose count, sharded seeding or all-reduce was "
+                         f"wrong {bad}")
+    rate2 = len(rp1) / max(r["wall_s"] for r in res11)
+    rate1 = len(rp1) / e2e["PE -N 1"]
+    print(f"scale-out (b), {topology} ({ncards} card(s) visible): PE -N 1 on "
+          f"{len(rp1)} pairs, SAM byte-equal to path 4's one-process SAM; "
+          f"{rate2:.1f} pairs/s on two ranks beside {rate1:.1f} pairs/s "
+          f"for one process on the same pairs (path 4's end to end; two "
+          f"ranks on one card are a record, not a scaling figure); "
+          + "; ".join(
+              f"rank {r['rank']} on {r['device']} ({r['backend']}): set-up "
+              f"{r['setup_s']:.2f} s, run {r['wall_s']:.3f} s, peak "
+              f"{r['peak']} B, sharded seeding (a shard a rank + "
+              f"all-reduce MIN) equal to the whole index with launches "
+              f"{r['seed_launches']}, all-reduce MIN of a {r['diag_shape']} "
+              f"int64 diag {r['allreduce_ms']:.3f} ms" for r in res11)
+          + f"; smi {smi_line}; {time.time() - t_b:.1f} s", flush=True)
+
+    # (c) a one-rank nccl group's all-reduce MIN on the same diag's shape
+    with socket.socket() as so:
+        so.bind(("127.0.0.1", 0))
+        port = so.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        diag1 = se._seed_diagonals_cuda(index, rc1, rf1, rl1,
+                                        runner_n1.params, True)[0]
+        red = diag1.clone()
+        dist.all_reduce(red, op=dist.ReduceOp.MIN)
+        torch.cuda.synchronize()
+        if not torch.equal(red, diag1):
+            raise SystemExit("scale-out: a one-rank nccl all-reduce MIN "
+                             "changed the diag")
+        nccl_ms = _call_ms(lambda: dist.all_reduce(red, op=dist.ReduceOp.MIN),
+                           reps=20)
+    finally:
+        dist.destroy_process_group()
+    print(f"scale-out (c): one-rank nccl all-reduce MIN of a "
+          f"{list(red.shape)} int64 diag {nccl_ms:.4f} ms (CUDA events, 20 "
+          f"calls); smi {smi_line}", flush=True)
+    scaleout = dict(
+        topology=topology, pairs=len(rp1), pairs_per_s_two_ranks=rate2,
+        pairs_per_s_one_process=rate1,
+        allreduce_ms={f"gloo (host copy), rank {r['rank']}"
+                      if r["backend"] == "gloo" else
+                      f"nccl, rank {r['rank']}": r["allreduce_ms"]
+                      for r in res11},
+        allreduce_ms_nccl_one_rank=nccl_ms, diag_shape=res11[0]["diag_shape"])
+    scaleout["allreduce_ms"]["nccl one rank"] = nccl_ms
+    launches11 = dict(launches11)
+    for r in res11:
+        for k, v in r["launches"].items():
+            launches11[k] = launches11.get(k, 0) + v
+    paths["scale-out"] = launches11
+    print(f"path 11 done at {time.time() - t_start:.1f} s {_clock(t11)}",
+          flush=True)
     if "jax" in sys.modules or "gmap_gsnap_tpu" in sys.modules:
         raise SystemExit("jax or the JAX package was imported")
 
@@ -3649,6 +3995,9 @@ def main(argv=None) -> int:
                          f"{src}:334"),
         "pack_queries": ("gsnap_pack_queries", "pack_queries.cu",
                          "gmap_gsnap_tpu/align/gsnap_se.py:547"),
+        "shard_index_lookup": ("gsnap_shard_index_lookup",
+                               "shard_index_lookup.cu",
+                               "gmap_gsnap_tpu/parallel/shard.py:83"),
     }
     kernels = []
     for name, (entry, cu, replaces) in sources.items():
@@ -3658,12 +4007,16 @@ def main(argv=None) -> int:
             "plain_ms": times.get(v, (None, None, None))[1],
             "clock": times.get(v, (None, None, None))[2],
             "max_abs_err": errs[v], "bound_ms": bounds[v][0],
-            "bound_by": bounds[v][1]}
+            "bound_by": bounds[v][1],
+            **({"launches": variant_launches[v]}
+               if v in variant_launches else {})}
             for v in errs if v.startswith(name + "/")}
         kernels.append({"name": name, "route": "cuda",
                         "source": f"gmap_gsnap_tpu_torch/csrc/{cu}",
                         "replaces": replaces,
-                        "launches": paths["PE -N 1"][entry],
+                        # K18 runs on path 11 alone, the others on PE -N 1
+                        "launches": paths["PE -N 1"].get(
+                            entry, paths["scale-out"].get(entry, 0)),
                         "launches_by_path": {
                             label: launches.get(entry, 0)
                             for label, launches in paths.items()},
@@ -3676,7 +4029,7 @@ def main(argv=None) -> int:
                         **({"shapes": per_shape[name]}
                            if name in per_shape else {})})
     print(f"total {time.time() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "scale_out": scaleout}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -181,7 +181,16 @@ def seed_segments(offsets, positions, oligos, valid, k: int, H: int, S: int,
     Returns per-row segment arrays [B, min(S, H)] (qstart, qend int32,
     diag int64 holding the uint32 diagonal biased by +Q, valid bool)
     ordered by (qstart, diag), plus nhits and nsegs int32[B] (> H or > S
-    means the slots overflowed and the caller re-runs larger)."""
+    means the slots overflowed and the caller re-runs larger).
+
+    The GMAP lanes read positions whole, as JAX's do: a sharded positions
+    array (parallel.shard.ShardedIndexArrays, or its 2-D rows) raises
+    TypeError."""
+    if not torch.is_tensor(positions) or positions.dim() != 1:
+        raise TypeError("seed_segments reads the positions array whole; "
+                        "a sharded index cannot serve the GMAP lanes (got "
+                        f"{type(positions).__name__} of "
+                        f"{getattr(positions, 'shape', '?')})")
     if oligos.device.type == "cpu":
         return _seed_segments_plain(offsets, positions, oligos, valid, k, H,
                                     S, threshold)

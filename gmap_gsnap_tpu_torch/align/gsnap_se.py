@@ -145,7 +145,8 @@ def _phase_min(ok: torch.Tensor, q: int) -> torch.Tensor:
 
 
 def _seed_diagonals_plain(index: IndexArrays, codes, nflags, lengths,
-                          params: GsnapParams, half: bool):
+                          params: GsnapParams, half: bool, pos_lo: int = 0,
+                          pos_len: int | None = None):
     oligos, valid = _extract_oligos(codes, nflags, lengths, index.k)
     b, s = oligos.shape
     dev = codes.device
@@ -173,8 +174,13 @@ def _seed_diagonals_plain(index: IndexArrays, codes, nflags, lengths,
     valid_slot = t < total.clamp(max=w)[:, None]
     delta = start - cum_ex
     gpos = torch.where(valid_slot, t + torch.gather(delta, 1, o_idx), 0)
-    pos = u32(index.positions[gpos.clamp(0, index.positions.shape[0] - 1)])
-    ok = valid_slot & (pos >= o_idx)
+    npos = index.positions.shape[0]
+    if pos_len is None:
+        pos_len = npos
+    # a shard resolves the slots whose global element it holds
+    own = valid_slot & (gpos >= pos_lo) & (gpos < pos_lo + pos_len)
+    pos = u32(index.positions[(gpos - pos_lo).clamp(0, npos - 1)])
+    ok = own & (pos >= o_idx)
     diag = torch.where(ok, pos - o_idx, INVALID_DIAG)
 
     q = index.interval
@@ -192,7 +198,8 @@ def _seed_diagonals_plain(index: IndexArrays, codes, nflags, lengths,
 
 
 def _seed_diagonals_cuda(index: IndexArrays, codes, nflags, lengths,
-                         params: GsnapParams, half: bool):
+                         params: GsnapParams, half: bool, pos_lo: int = 0,
+                         pos_len: int | None = None):
     b, lmax = codes.shape
     s = lmax - index.k + 1
     if (s < 1 or s > klimits.SEED_MAX_S or index.interval > 32
@@ -213,12 +220,14 @@ def _seed_diagonals_cuda(index: IndexArrays, codes, nflags, lengths,
         lengths.int().contiguous(), index.offsets, index.positions,
         diag, qpos, trunc, nphase_min, nph_half,
         b, lmax, index.k, index.interval, params.size_threshold, w,
-        int(half), index.offsets.shape[0], index.positions.shape[0])
+        int(half), index.offsets.shape[0], index.positions.shape[0],
+        pos_lo, index.positions.shape[0] if pos_len is None else pos_len)
     return diag, qpos, trunc, nphase_min, nph_half
 
 
 def seed_diagonals(index: IndexArrays, codes, nflags, lengths,
-                   params: GsnapParams, half: bool = True):
+                   params: GsnapParams, half: bool = True, pos_lo: int = 0,
+                   pos_len: int | None = None):
     """Candidate diagonals on the compact seed grid (kernel K1).
 
     codes uint8[B, L] (2-bit codes 0..3), nflags bool[B, L], lengths
@@ -235,13 +244,25 @@ def seed_diagonals(index: IndexArrays, codes, nflags, lengths,
       below genome start); qpos = the owning oligo;
     * nphase_min / nph_half: the pigeonhole inputs (min per-phase count
       of in-threshold k-mers, over the read / over its weaker half;
-      nph_half is 0 when ``half`` is False)."""
+      nph_half is 0 when ``half`` is False).
+
+    ``index.positions`` may be one shard of the positions array, holding
+    global elements [pos_lo, pos_lo + pos_len) (default: the whole array):
+    a slot whose global element lies outside them is INVALID_DIAG, so the
+    MIN over the shards is the whole array's diag.  A
+    parallel.shard.ShardedIndexArrays index takes that route
+    (parallel.shard.sharded_seed_diagonals, as JAX's _seed_diagonals
+    :333)."""
+    from ..parallel import shard
+
+    if isinstance(index, shard.ShardedIndexArrays):
+        return shard.sharded_seed_diagonals(index, codes, nflags, lengths,
+                                            params, half)
+    args = (index, codes, nflags, lengths, params, half, pos_lo, pos_len)
     if codes.device.type == "cpu":
-        return _seed_diagonals_plain(index, codes, nflags, lengths, params,
-                                     half)
+        return _seed_diagonals_plain(*args)
     if codes.device.type == "cuda":
-        return _seed_diagonals_cuda(index, codes, nflags, lengths, params,
-                                    half)
+        return _seed_diagonals_cuda(*args)
     raise ValueError(f"unsupported device {codes.device}")
 
 

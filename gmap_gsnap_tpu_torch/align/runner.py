@@ -49,6 +49,7 @@ from ..db.iit import IIT
 from ..io import gsnap_native, sam
 from ..io.fasta import Record
 from ..ops import mismatch as mismatch_mod
+from ..parallel import shard
 from ..utils import dna
 from ..utils.device import resolve_device
 from . import distant as distant_mod
@@ -447,7 +448,11 @@ class GsnapRunner:
     ``genesdb`` (gsnap -g, with ``favor_multiexon``), ``tallydb``
     (--use-tally, looked up in ``tally_dir``) and ``runlengthdb``
     (--use-runlength, in ``runlength_dir``) are maps that resolve
-    multimapping reads (align/genes.py)."""
+    multimapping reads (align/genes.py).  ``group`` (a
+    torch.distributed group; the default group when None and one is
+    initialised) splits every chunk of ``run`` / ``run_pe`` over its
+    ranks, each holding the whole database on its own device; rank 0
+    writes the output (parallel/shard.py)."""
 
     def __init__(self, db: GenomeDB, params: gsnap_se.GsnapParams | None = None,
                  lmax: int = 100, snpsdb: str | None = None,
@@ -460,7 +465,8 @@ class GsnapRunner:
                  runlengthdb: str | None = None,
                  runlength_dir: str | None = None,
                  cmet_dir: str | None = None, atoi_dir: str | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", group=None):
+        self.group = group
         self.cmet_dir = cmet_dir
         self.atoi_dir = atoi_dir
         if params is None:
@@ -3242,6 +3248,45 @@ class GsnapRunner:
                 | ((done >= self.params.indel_penalty_end) & ~noop)
                 | (self._known_sites is not None))
 
+    def _header(self, out, router, emit_header: bool, fmt: str) -> None:
+        """The SAM header, on rank 0 alone, unless a router writes its own."""
+        if (router is None and emit_header and fmt == "sam"
+                and shard.world(self.group)[0] == 0):
+            out.write(sam.header(
+                self.db.chr_names,
+                (self.db.chr_ends - self.db.chr_starts).tolist()))
+
+    def _write_block(self, items, inputs, out, router) -> None:
+        """Gather each rank's block of (result type, text) items to rank
+        0 in rank order, which is input order, and write them there (to
+        ``router`` with the chunk's ``inputs`` records, else to ``out``);
+        the other ranks write nothing.  Rank 0 counts every item's result
+        type, another rank its own block's."""
+        for cat, _ in items:
+            self.category_counts[cat] += 1
+        gathered = shard.gather_to_first(items, self.group)
+        if gathered is None:
+            return
+        for part in gathered[1:]:
+            for cat, _ in part:
+                self.category_counts[cat] += 1
+        for j, (cat, t) in enumerate(x for part in gathered for x in part):
+            if router is not None:
+                router.write(cat, t, inputs(j))
+            else:
+                out.write(t)
+
+    def _blocks(self, items: list, batch_size: int) -> list:
+        """This rank's block of each chunk of ``batch_size`` items (the
+        whole chunk in a world of one rank)."""
+        rank, size, _ = shard.world(self.group)
+        out = []
+        for i in range(0, len(items), batch_size):
+            lo, hi = shard.block_bounds(rank, size,
+                                        min(batch_size, len(items) - i))
+            out.append((i, items[i + lo : i + hi]))
+        return out
+
     def run(self, records: list[Record], out, batch_size: int = 256,
             emit_header: bool = True, fmt: str = "sam", router=None) -> int:
         """Align ``records`` and write SAM (``fmt`` "sam") or GSNAP's
@@ -3251,122 +3296,126 @@ class GsnapRunner:
 
         router: optional io.outbuffer.OutputRouter for --split-output /
         --fails-as-input / read-group / quality-shift handling; it takes
-        each read's text instead of ``out`` and writes its own header."""
-        if router is None and emit_header and fmt == "sam":
-            out.write(sam.header(
-                self.db.chr_names,
-                (self.db.chr_ends - self.db.chr_starts).tolist()))
+        each read's text instead of ``out`` and writes its own header.
+
+        In a group of n ranks (``group``, parallel/shard.py) each rank
+        aligns its block of every chunk and rank 0 writes every block's
+        output; every rank returns the whole count."""
+        self._header(out, router, emit_header, fmt)
         total = 0
-        chunks = [records[i : i + batch_size]
-                  for i in range(0, len(records), batch_size)]
-        disp = self.dispatch_records(chunks[0]) if chunks else None
-        for ci, chunk in enumerate(chunks):
-            nxt = (self.dispatch_records(chunks[ci + 1])
-                   if ci + 1 < len(chunks) else None)
-            res = self.fetch_records(disp)
-            disp = nxt
+        blocks = self._blocks(records, batch_size)
+        # an empty block (more ranks than reads) dispatches nothing
+        dispatch = lambda ci: (self.dispatch_records(blocks[ci][1])
+                               if ci < len(blocks) and blocks[ci][1]
+                               else None)
+        disp = dispatch(0)
+        for ci, (i0, block) in enumerate(blocks):
+            nxt = dispatch(ci + 1)
             t_batch = _time.time()
-            # overflow rescue lane: reads whose oligo position lists
-            # truncated or whose distinct diagonals exceeded ncand re-run
-            # at wider caps (widecand when only the candidate budget
-            # overflowed, fullwide when the seed grid truncated)
-            ovf = np.flatnonzero(res["overflow"])
-            trunc_a = np.asarray(res["overflow_trunc"], bool)
-            wide_lanes, wide_row = [], set()
-            for widen in (False, True):
-                rows_sel = [int(j) for j in ovf if trunc_a[j] == widen]
-                if rows_sel:
-                    wide_lanes.append(
-                        (self._dispatch_wide([chunk[j] for j in rows_sel],
-                                             widen_seeds=widen),
-                         {j: wi for wi, j in enumerate(rows_sel)},
-                         not widen))
-                    wide_row.update(rows_sel)
-            # pass 1: GMAP-rescue requests are collected, not solved
-            self._gmap_collect = []
-            self._gmap_rows = set()
-            self._categories = {}
-            texts = [None] * len(chunk)
-            need_full = self._need_full(chunk, res, fmt)
-            self._lane_masks.clear()
-            self._lane_trims.clear()
-            self._prime_rows((chunk[j], res, j) for j in np.flatnonzero(need_full)
-                             if j not in wide_row)
-            np_a = np.asarray(res["npaths"])
-            if self.params.maxpaths >= 1:
-                fast = [j for j in range(len(chunk))
-                        if np_a[j] == 1 and not need_full[j]
-                        and j not in wide_row]
-                for j, t in self._se_sam_fast(
-                        [chunk[j] for j in fast], res, fast).items():
-                    texts[j] = t
-                    self._categories[j] = "unpaired_uniq"
-            for j, rec in enumerate(chunk):
-                if j not in wide_row and texts[j] is None:
-                    texts[j] = self._emit(rec, res, j, j, fmt)
-            wide_ctx = {}   # chunk row -> (tree, row) for re-emission
-            for wdisp, lane_rows, is_final in wide_lanes:
-                wide_res = self.fetch_records(wdisp)
-                if not is_final:
-                    # fullwide grid still truncated -> exact-grid retry
-                    wov = np.asarray(wide_res["overflow"], bool)
-                    wtr = np.asarray(wide_res["overflow_trunc"], bool)
-                    still = [j for j, wi in lane_rows.items()
-                             if wov[wi] and wtr[wi]]
-                    if still:
-                        wide_lanes.append(
-                            (self._dispatch_wide([chunk[j] for j in still],
-                                                 widen_seeds=True, exact=True),
-                             {j: wi for wi, j in enumerate(still)}, True))
-                        for j in still:
-                            del lane_rows[j]
-                wjs = list(lane_rows)
-                wrows = [lane_rows[j] for j in wjs]
-                wn = np.asarray(wide_res["npaths"])
-                wneed = self._need_full([chunk[j] for j in wjs], wide_res,
-                                        fmt, wrows)
-                self._prime_rows((chunk[j], wide_res, lane_rows[j])
-                                 for t, j in enumerate(wjs) if wneed[t])
-                if self.params.maxpaths >= 1:
-                    w_fast = [(j, lane_rows[j]) for t, j in enumerate(wjs)
-                              if wn[lane_rows[j]] == 1 and not wneed[t]]
-                    if w_fast:
-                        ft = self._se_sam_fast(
-                            [chunk[j] for j, _ in w_fast],
-                            wide_res, [wi for _, wi in w_fast])
-                        for j, wi in w_fast:
-                            if wi in ft:
-                                texts[j] = ft[wi]
-                                self._categories[j] = "unpaired_uniq"
-                for j, wi in lane_rows.items():
-                    wide_ctx[j] = (wide_res, wi)
-                    if texts[j] is None:
-                        texts[j] = self._emit(chunk[j], wide_res, wi, j,
-                                              fmt)
-            pending = self._gmap_collect
-            rows = self._gmap_rows
-            self._gmap_collect = None
-            if pending:
-                # one batched device pass resolves every rescue, then
-                # only the affected reads re-emit (pass 2)
-                self.prefetch_gmap(pending)
-                for j in sorted(rows):
-                    rres, rrow = wide_ctx.get(j, (res, j))
-                    texts[j] = self._emit(chunk[j], rres, rrow, j, fmt)
-            for j in range(len(chunk)):
-                self.category_counts[
-                    self._categories.get(j, "unpaired_uniq")] += 1
-            if router is not None:
-                for j, t in enumerate(texts):
-                    router.write(self._categories.get(j, "unpaired_uniq"),
-                                 t, (chunk[j],))
-            else:
-                for t in texts:
-                    out.write(t)
-            total += len(chunk)
+            items = self._se_block(block, disp, fmt)
+            disp = nxt
+            self._write_block(items, lambda j: (records[i0 + j],), out,
+                              router)
+            total += min(batch_size, len(records) - i0)
             self._gmap_cache.clear()
-            self.batch_times.append((_time.time() - t_batch, len(chunk)))
+            self.batch_times.append((_time.time() - t_batch, len(block)))
         return total
+
+    def _se_block(self, chunk: list[Record], disp, fmt: str) -> list:
+        """Host emission of one dispatched block: (result type, text) a
+        read, in order."""
+        if not chunk:
+            return []
+        res = self.fetch_records(disp)
+        # overflow rescue lane: reads whose oligo position lists
+        # truncated or whose distinct diagonals exceeded ncand re-run
+        # at wider caps (widecand when only the candidate budget
+        # overflowed, fullwide when the seed grid truncated)
+        ovf = np.flatnonzero(res["overflow"])
+        trunc_a = np.asarray(res["overflow_trunc"], bool)
+        wide_lanes, wide_row = [], set()
+        for widen in (False, True):
+            rows_sel = [int(j) for j in ovf if trunc_a[j] == widen]
+            if rows_sel:
+                wide_lanes.append(
+                    (self._dispatch_wide([chunk[j] for j in rows_sel],
+                                         widen_seeds=widen),
+                     {j: wi for wi, j in enumerate(rows_sel)},
+                     not widen))
+                wide_row.update(rows_sel)
+        # pass 1: GMAP-rescue requests are collected, not solved
+        self._gmap_collect = []
+        self._gmap_rows = set()
+        self._categories = {}
+        texts = [None] * len(chunk)
+        need_full = self._need_full(chunk, res, fmt)
+        self._lane_masks.clear()
+        self._lane_trims.clear()
+        self._prime_rows((chunk[j], res, j) for j in np.flatnonzero(need_full)
+                         if j not in wide_row)
+        np_a = np.asarray(res["npaths"])
+        if self.params.maxpaths >= 1:
+            fast = [j for j in range(len(chunk))
+                    if np_a[j] == 1 and not need_full[j]
+                    and j not in wide_row]
+            for j, t in self._se_sam_fast(
+                    [chunk[j] for j in fast], res, fast).items():
+                texts[j] = t
+                self._categories[j] = "unpaired_uniq"
+        for j, rec in enumerate(chunk):
+            if j not in wide_row and texts[j] is None:
+                texts[j] = self._emit(rec, res, j, j, fmt)
+        wide_ctx = {}   # chunk row -> (tree, row) for re-emission
+        for wdisp, lane_rows, is_final in wide_lanes:
+            wide_res = self.fetch_records(wdisp)
+            if not is_final:
+                # fullwide grid still truncated -> exact-grid retry
+                wov = np.asarray(wide_res["overflow"], bool)
+                wtr = np.asarray(wide_res["overflow_trunc"], bool)
+                still = [j for j, wi in lane_rows.items()
+                         if wov[wi] and wtr[wi]]
+                if still:
+                    wide_lanes.append(
+                        (self._dispatch_wide([chunk[j] for j in still],
+                                             widen_seeds=True, exact=True),
+                         {j: wi for wi, j in enumerate(still)}, True))
+                    for j in still:
+                        del lane_rows[j]
+            wjs = list(lane_rows)
+            wrows = [lane_rows[j] for j in wjs]
+            wn = np.asarray(wide_res["npaths"])
+            wneed = self._need_full([chunk[j] for j in wjs], wide_res,
+                                    fmt, wrows)
+            self._prime_rows((chunk[j], wide_res, lane_rows[j])
+                             for t, j in enumerate(wjs) if wneed[t])
+            if self.params.maxpaths >= 1:
+                w_fast = [(j, lane_rows[j]) for t, j in enumerate(wjs)
+                          if wn[lane_rows[j]] == 1 and not wneed[t]]
+                if w_fast:
+                    ft = self._se_sam_fast(
+                        [chunk[j] for j, _ in w_fast],
+                        wide_res, [wi for _, wi in w_fast])
+                    for j, wi in w_fast:
+                        if wi in ft:
+                            texts[j] = ft[wi]
+                            self._categories[j] = "unpaired_uniq"
+            for j, wi in lane_rows.items():
+                wide_ctx[j] = (wide_res, wi)
+                if texts[j] is None:
+                    texts[j] = self._emit(chunk[j], wide_res, wi, j,
+                                          fmt)
+        pending = self._gmap_collect
+        rows = self._gmap_rows
+        self._gmap_collect = None
+        if pending:
+            # one batched device pass resolves every rescue, then
+            # only the affected reads re-emit (pass 2)
+            self.prefetch_gmap(pending)
+            for j in sorted(rows):
+                rres, rrow = wide_ctx.get(j, (res, j))
+                texts[j] = self._emit(chunk[j], rres, rrow, j, fmt)
+        return [(self._categories.get(j, "unpaired_uniq"), t)
+                for j, t in enumerate(texts)]
 
     def sam_pe_records(self, rec5: Record, rec3_inv: Record, rec3_orig: Record,
                        res, row: int) -> str:
@@ -3784,206 +3833,194 @@ class GsnapRunner:
         is queued before chunk i's host emission.
 
         router: as for ``run``; it takes each pair's text with the pair's
-        input records."""
-        if router is None and emit_header and fmt == "sam":
-            out.write(sam.header(
-                self.db.chr_names,
-                (self.db.chr_ends - self.db.chr_starts).tolist()))
+        input records.  In a group of ranks, as for ``run``."""
+        self._header(out, router, emit_header, fmt)
         total = 0
 
-        def mk_inv(chunk3):
-            return (invert_records(chunk3) if self.invert_second
-                    else list(chunk3))
+        def prepared(block):
+            # (input read 2s, read 1s and read 2s as aligned): read 2
+            # inverted at input (-o FR), or read 1 (-o RF,
+            # gsnap.c:1472-1477)
+            b5, b3 = [p[0] for p in block], [p[1] for p in block]
+            return (b3,
+                    invert_records(b5) if self.invert_first else b5,
+                    invert_records(b3) if self.invert_second else list(b3))
 
-        def mk_first(chunk5):
-            # -o RF inverts read 1 at input instead (gsnap.c:1472-1477)
-            return (invert_records(chunk5) if self.invert_first
-                    else list(chunk5))
+        blocks = [(i0, prepared(block)) for i0, block in
+                  self._blocks(list(zip(records5, records3)), batch_size)]
+        dispatch = lambda ci: (self.dispatch_pairs(*blocks[ci][1][1:])
+                               if ci < len(blocks) and blocks[ci][1][0]
+                               else None)
+        disp = dispatch(0)
+        for ci, (i0, block) in enumerate(blocks):
+            nxt = dispatch(ci + 1)
+            t_batch = _time.time()
+            items = self._pe_block(*block, disp, fmt)
+            disp = nxt
+            self._write_block(items, lambda j: (records5[i0 + j],
+                                                records3[i0 + j]), out,
+                              router)
+            total += min(batch_size, len(records5) - i0)
+            self._gmap_cache.clear()
+            self.batch_times.append((_time.time() - t_batch, len(block[0])))
+        return total
 
-        pairs_in = [
-            (records5[i : i + batch_size], records3[i : i + batch_size])
-            for i in range(0, len(records5), batch_size)
-        ]
-        invs = [None] * len(pairs_in)
-        procs5 = [None] * len(pairs_in)
-        disp = None
-        if pairs_in:
-            invs[0] = mk_inv(pairs_in[0][1])
-            procs5[0] = mk_first(pairs_in[0][0])
-            disp = self.dispatch_pairs(procs5[0], invs[0])
+    def _pe_block(self, chunk3, chunk5, chunk3_inv, disp, fmt: str) -> list:
+        """Host emission of one dispatched block of pairs (the input read
+        2s, and both ends as the device aligned them): (result type,
+        text) a pair, in order."""
+        if not chunk5:
+            return []
+        res = self.fetch_pairs(disp)
         fast_ok = (self.params.maxpaths >= 1 and self.pe_fast
                    and not self.clip_overlap and fmt == "sam")
-        for ci, (chunk5_orig, chunk3) in enumerate(pairs_in):
-            chunk3_inv = invs[ci]
-            chunk5 = procs5[ci]
-            if ci + 1 < len(pairs_in):
-                invs[ci + 1] = mk_inv(pairs_in[ci + 1][1])
-                procs5[ci + 1] = mk_first(pairs_in[ci + 1][0])
-                nxt = self.dispatch_pairs(procs5[ci + 1], invs[ci + 1])
-            else:
-                nxt = None
-            res = self.fetch_pairs(disp)
-            disp = nxt
-            recs_of = lambda j: (chunk5[j], chunk3_inv[j], chunk3[j])
-            # PE overflow rescue lane: pairs where EITHER end truncated
-            # its seed lists / candidate set re-run at wide caps; the
-            # wide batch is dispatched first and fetched only after the
-            # other rows emit, so its device work overlaps host emission
-            o5 = np.asarray(res["end5"]["overflow"], bool)
-            o3 = np.asarray(res["end3"]["overflow"], bool)
-            ovf = np.flatnonzero(o5 | o3)
-            trunc_any = (np.asarray(res["end5"]["overflow_trunc"], bool)
-                         | np.asarray(res["end3"]["overflow_trunc"], bool))
-            wide_lanes, wide_row = [], set()
-            # candidate-budget rows ride the widecand config, truncated
-            # rows the widened seed grid
-            tr_rows = [int(j) for j in ovf if trunc_any[j]]
-            wc_rows = [int(j) for j in ovf if not trunc_any[j]]
-            for rows_sel, widen in ((wc_rows, False), (tr_rows, True)):
-                if rows_sel:
+        recs_of = lambda j: (chunk5[j], chunk3_inv[j], chunk3[j])
+        # PE overflow rescue lane: pairs where EITHER end truncated
+        # its seed lists / candidate set re-run at wide caps; the
+        # wide batch is dispatched first and fetched only after the
+        # other rows emit, so its device work overlaps host emission
+        o5 = np.asarray(res["end5"]["overflow"], bool)
+        o3 = np.asarray(res["end3"]["overflow"], bool)
+        ovf = np.flatnonzero(o5 | o3)
+        trunc_any = (np.asarray(res["end5"]["overflow_trunc"], bool)
+                     | np.asarray(res["end3"]["overflow_trunc"], bool))
+        wide_lanes, wide_row = [], set()
+        # candidate-budget rows ride the widecand config, truncated
+        # rows the widened seed grid
+        tr_rows = [int(j) for j in ovf if trunc_any[j]]
+        wc_rows = [int(j) for j in ovf if not trunc_any[j]]
+        for rows_sel, widen in ((wc_rows, False), (tr_rows, True)):
+            if rows_sel:
+                wide_lanes.append(
+                    (self._dispatch_wide_pe(
+                        [chunk5[j] for j in rows_sel],
+                        [chunk3_inv[j] for j in rows_sel],
+                        widen_seeds=widen),
+                     {j: wi for wi, j in enumerate(rows_sel)},
+                     not widen))
+                wide_row.update(rows_sel)
+        # pass 1 collects GMAP-rescue requests; one batched device
+        # pass resolves them; affected pairs re-emit (pass 2)
+        self._gmap_collect = []
+        self._gmap_rows = set()
+        self._categories = {}
+        self._catkey = None
+        texts = [None] * len(chunk5)
+        # rows whose emission may need the rescue lanes: prime their
+        # candidate masks in one batch
+        npair_a = np.asarray(res["npairs"])
+        conc_a = np.asarray(res["pair_concordant"], bool)
+        need_full = ((npair_a == 0) | ~conc_a | (npair_a > PAIR_KTOP)
+                     | (fmt != "sam"))
+        self._lane_masks.clear()
+        self._lane_trims.clear()
+        self._prime_rows(
+            (r, res[end], j) for j in np.flatnonzero(need_full)
+            if int(j) not in wide_row
+            for r, end in ((chunk5[j], "end5"), (chunk3_inv[j], "end3")))
+
+        # vectorized emission for the dominant success shape
+        if fast_ok:
+            fast_cand = [j for j in range(len(chunk5))
+                         if npair_a[j] == 1 and conc_a[j]
+                         and not need_full[j] and j not in wide_row]
+            for j, t in self._pe_sam_fast(
+                    [chunk5[j] for j in fast_cand],
+                    [chunk3_inv[j] for j in fast_cand],
+                    res, fast_cand).items():
+                texts[j] = t
+                self._categories[j] = "concordant_uniq"
+
+        for j in range(len(chunk5)):
+            if j not in wide_row and texts[j] is None:
+                texts[j] = self._emit_pe(recs_of(j), res, j, j, fmt)
+        wide_ctx = {}   # chunk row -> (tree, row) for re-emission
+        for wdisp, lane_rows, is_final in wide_lanes:
+            wide_res = self.fetch_pairs(wdisp)
+            if not is_final and lane_rows:
+                # rows whose widened seed grid still truncated re-run
+                # once more at the exact grid
+                still = [j for j, wi in lane_rows.items()
+                         if any(wide_res[e]["overflow"][wi]
+                                and wide_res[e]["overflow_trunc"][wi]
+                                for e in ("end5", "end3"))]
+                if still:
                     wide_lanes.append(
                         (self._dispatch_wide_pe(
-                            [chunk5[j] for j in rows_sel],
-                            [chunk3_inv[j] for j in rows_sel],
-                            widen_seeds=widen),
-                         {j: wi for wi, j in enumerate(rows_sel)},
-                         not widen))
-                    wide_row.update(rows_sel)
-            t_batch = _time.time()
-            # pass 1 collects GMAP-rescue requests; one batched device
-            # pass resolves them; affected pairs re-emit (pass 2)
-            self._gmap_collect = []
-            self._gmap_rows = set()
-            self._categories = {}
-            self._catkey = None
-            texts = [None] * len(chunk5)
-            # rows whose emission may need the rescue lanes: prime their
-            # candidate masks in one batch
-            npair_a = np.asarray(res["npairs"])
-            conc_a = np.asarray(res["pair_concordant"], bool)
-            need_full = ((npair_a == 0) | ~conc_a | (npair_a > PAIR_KTOP)
-                         | (fmt != "sam"))
-            self._lane_masks.clear()
-            self._lane_trims.clear()
+                            [chunk5[j] for j in still],
+                            [chunk3_inv[j] for j in still],
+                            widen_seeds=True, exact=True),
+                         {j: wi for wi, j in enumerate(still)}, True))
+                    for j in still:
+                        del lane_rows[j]
+            wn = np.asarray(wide_res["npairs"])
+            wc = np.asarray(wide_res["pair_concordant"], bool)
+            wneed = (wn == 0) | ~wc | (wn > PAIR_KTOP) | (fmt != "sam")
             self._prime_rows(
-                (r, res[end], j) for j in np.flatnonzero(need_full)
-                if int(j) not in wide_row
-                for r, end in ((chunk5[j], "end5"), (chunk3_inv[j], "end3")))
-
-            # vectorized emission for the dominant success shape
+                (r, wide_res[end], wi)
+                for j, wi in lane_rows.items() if wneed[wi]
+                for r, end in ((chunk5[j], "end5"),
+                               (chunk3_inv[j], "end3")))
             if fast_ok:
-                fast_cand = [j for j in range(len(chunk5))
-                             if npair_a[j] == 1 and conc_a[j]
-                             and not need_full[j] and j not in wide_row]
-                for j, t in self._pe_sam_fast(
-                        [chunk5[j] for j in fast_cand],
-                        [chunk3_inv[j] for j in fast_cand],
-                        res, fast_cand).items():
-                    texts[j] = t
-                    self._categories[j] = "concordant_uniq"
-
+                w_fast = [(j, wi) for j, wi in lane_rows.items()
+                          if wn[wi] == 1 and wc[wi] and not wneed[wi]]
+                if w_fast:
+                    ft = self._pe_sam_fast(
+                        [chunk5[j] for j, _ in w_fast],
+                        [chunk3_inv[j] for j, _ in w_fast],
+                        wide_res, [wi for _, wi in w_fast])
+                    for j, wi in w_fast:
+                        if wi in ft:
+                            texts[j] = ft[wi]
+                            self._categories[j] = "concordant_uniq"
+            for j, wi in lane_rows.items():
+                wide_ctx[j] = (wide_res, wi)
+                if texts[j] is None:
+                    texts[j] = self._emit_pe(recs_of(j), wide_res, wi, j,
+                                             fmt)
+        pending = self._gmap_collect
+        rows = self._gmap_rows
+        self._gmap_collect = None
+        if pending:
+            self.prefetch_gmap(pending)
+            for j in sorted(rows):
+                rres, rrow = wide_ctx.get(j, (res, j))
+                texts[j] = self._emit_pe(recs_of(j), rres, rrow, j, fmt)
+        # -a/--adapter-strip: pairs with no concordant/paired
+        # result retry with detected primer readthrough chopped
+        # (gsnap.c:621-665 + Shortread_chop_primers); both the
+        # retried alignment AND the printed SEQ use the chopped
+        # reads, whether or not the retry pairs
+        if self.chop_primers:
+            failset = ("unpaired_uniq", "unpaired_mult", "nomapping",
+                       "halfmapping_uniq", "halfmapping_mult",
+                       "unpaired_transloc", "halfmapping_transloc")
+            retries = []
             for j in range(len(chunk5)):
-                if j not in wide_row and texts[j] is None:
-                    texts[j] = self._emit_pe(recs_of(j), res, j, j, fmt)
-            wide_ctx = {}   # chunk row -> (tree, row) for re-emission
-            for wdisp, lane_rows, is_final in wide_lanes:
-                wide_res = self.fetch_pairs(wdisp)
-                if not is_final and lane_rows:
-                    # rows whose widened seed grid still truncated re-run
-                    # once more at the exact grid
-                    still = [j for j, wi in lane_rows.items()
-                             if any(wide_res[e]["overflow"][wi]
-                                    and wide_res[e]["overflow_trunc"][wi]
-                                    for e in ("end5", "end3"))]
-                    if still:
-                        wide_lanes.append(
-                            (self._dispatch_wide_pe(
-                                [chunk5[j] for j in still],
-                                [chunk3_inv[j] for j in still],
-                                widen_seeds=True, exact=True),
-                             {j: wi for wi, j in enumerate(still)}, True))
-                        for j in still:
-                            del lane_rows[j]
-                wn = np.asarray(wide_res["npairs"])
-                wc = np.asarray(wide_res["pair_concordant"], bool)
-                wneed = (wn == 0) | ~wc | (wn > PAIR_KTOP) | (fmt != "sam")
-                self._prime_rows(
-                    (r, wide_res[end], wi)
-                    for j, wi in lane_rows.items() if wneed[wi]
-                    for r, end in ((chunk5[j], "end5"),
-                                   (chunk3_inv[j], "end3")))
-                if fast_ok:
-                    w_fast = [(j, wi) for j, wi in lane_rows.items()
-                              if wn[wi] == 1 and wc[wi] and not wneed[wi]]
-                    if w_fast:
-                        ft = self._pe_sam_fast(
-                            [chunk5[j] for j, _ in w_fast],
-                            [chunk3_inv[j] for j, _ in w_fast],
-                            wide_res, [wi for _, wi in w_fast])
-                        for j, wi in w_fast:
-                            if wi in ft:
-                                texts[j] = ft[wi]
-                                self._categories[j] = "concordant_uniq"
-                for j, wi in lane_rows.items():
-                    wide_ctx[j] = (wide_res, wi)
-                    if texts[j] is None:
-                        texts[j] = self._emit_pe(recs_of(j), wide_res, wi, j,
-                                                 fmt)
-            pending = self._gmap_collect
-            rows = self._gmap_rows
-            self._gmap_collect = None
-            if pending:
-                self.prefetch_gmap(pending)
-                for j in sorted(rows):
-                    rres, rrow = wide_ctx.get(j, (res, j))
-                    texts[j] = self._emit_pe(recs_of(j), rres, rrow, j, fmt)
-            # -a/--adapter-strip: pairs with no concordant/paired
-            # result retry with detected primer readthrough chopped
-            # (gsnap.c:621-665 + Shortread_chop_primers); both the
-            # retried alignment AND the printed SEQ use the chopped
-            # reads, whether or not the retry pairs
-            if self.chop_primers:
-                failset = ("unpaired_uniq", "unpaired_mult", "nomapping",
-                           "halfmapping_uniq", "halfmapping_mult",
-                           "unpaired_transloc", "halfmapping_transloc")
-                retries = []
-                for j in range(len(chunk5)):
-                    if self._categories.get(j) not in failset:
-                        continue
-                    ch = chop_primers(chunk5[j].seq, chunk3_inv[j].seq)
-                    if ch > 0:
-                        retries.append((j, ch))
-                if retries:
-                    c5c, c3ic, c3c = [], [], []
-                    for j, ch in retries:
-                        r5, r3i, r3 = chunk5[j], chunk3_inv[j], chunk3[j]
-                        c5c.append(Record(
-                            r5.label, r5.header, r5.seq[: len(r5.seq) - ch],
-                            r5.quality[: len(r5.seq) - ch]
-                            if r5.quality else r5.quality))
-                        c3ic.append(Record(
-                            r3i.label, r3i.header, r3i.seq[ch:],
-                            r3i.quality[ch:] if r3i.quality
-                            else r3i.quality))
-                        c3c.append(Record(
-                            r3.label, r3.header, r3.seq[: len(r3.seq) - ch],
-                            r3.quality[: len(r3.seq) - ch]
-                            if r3.quality else r3.quality))
-                    rres = self.align_pairs(c5c, c3ic)
-                    for t, (j, ch) in enumerate(retries):
-                        texts[j] = self._emit_pe((c5c[t], c3ic[t], c3c[t]),
-                                                 rres, t, j, fmt)
-            for j in range(len(chunk5)):
-                self.category_counts[
-                    self._categories.get(j, "concordant_uniq")] += 1
-            if router is not None:
-                for j, t in enumerate(texts):
-                    router.write(self._categories.get(j, "concordant_uniq"),
-                                 t, (chunk5_orig[j], chunk3[j]))
-            else:
-                for t in texts:
-                    out.write(t)
-            total += len(chunk5)
-            self._gmap_cache.clear()
-            self.batch_times.append((_time.time() - t_batch, len(chunk5)))
-        return total
+                if self._categories.get(j) not in failset:
+                    continue
+                ch = chop_primers(chunk5[j].seq, chunk3_inv[j].seq)
+                if ch > 0:
+                    retries.append((j, ch))
+            if retries:
+                c5c, c3ic, c3c = [], [], []
+                for j, ch in retries:
+                    r5, r3i, r3 = chunk5[j], chunk3_inv[j], chunk3[j]
+                    c5c.append(Record(
+                        r5.label, r5.header, r5.seq[: len(r5.seq) - ch],
+                        r5.quality[: len(r5.seq) - ch]
+                        if r5.quality else r5.quality))
+                    c3ic.append(Record(
+                        r3i.label, r3i.header, r3i.seq[ch:],
+                        r3i.quality[ch:] if r3i.quality
+                        else r3i.quality))
+                    c3c.append(Record(
+                        r3.label, r3.header, r3.seq[: len(r3.seq) - ch],
+                        r3.quality[: len(r3.seq) - ch]
+                        if r3.quality else r3.quality))
+                rres = self.align_pairs(c5c, c3ic)
+                for t, (j, ch) in enumerate(retries):
+                    texts[j] = self._emit_pe((c5c[t], c3ic[t], c3c[t]),
+                                             rres, t, j, fmt)
+        return [(self._categories.get(j, "concordant_uniq"), t)
+                for j, t in enumerate(texts)]

@@ -27,11 +27,20 @@ missing card raises; there is no fallback to the CPU.  The GMAP tuning flags
 --trigger-score-for-gmap, --max-gmap-improvement, --gmap-min-coverage,
 --microexon-spliceprob and --antistranded-penalty reach GsnapParams, as
 in the JAX CLI, where no lane reads them.
+
+Several ranks: started by torchrun (WORLD_SIZE > 1), each rank joins
+the process group (parallel/shard.init_from_env: rank i on cuda:i with
+nccl, or gloo under --device cpu), aligns its block of every batch, and
+rank 0 alone writes standard output, the split outputs and the messages
+on standard error:
+
+    torchrun --nproc-per-node 2 -m gmap_gsnap_tpu_torch.cli.gsnap ...
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -358,6 +367,20 @@ def _select_records(args, paired, records, records3):
 
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return _main(args, 0)
+    import torch.distributed as dist
+
+    from ..parallel import shard
+
+    args.device = str(shard.init_from_env(args.device))
+    try:
+        return _main(args, dist.get_rank())
+    finally:
+        dist.destroy_process_group()
+
+
+def _main(args, rank: int) -> int:
 
     from ..align import gsnap_se, runner as runner_mod
     from ..db.datadir import GenomeDB
@@ -490,8 +513,9 @@ def main(argv=None) -> int:
     transform = outbuffer.SamTransform(args.read_group_id, qshift,
                                        barcodes=bcmap or None)
     router = None
-    if (args.split_output or args.fails_as_input or args.failsonly
-            or args.nofails or not transform.identity):
+    if rank == 0 and (args.split_output or args.fails_as_input
+                      or args.failsonly or args.nofails
+                      or not transform.identity):
         # the router writes the header itself, --no-sam-headers or not,
         # as in the JAX CLI
         header = sam_mod.header(
@@ -522,6 +546,8 @@ def main(argv=None) -> int:
     dt = time.time() - t0
     if router is not None:
         router.close()
+    if rank != 0:
+        return 0
     if args.timing:
         for cat in sorted(r.category_counts):
             print(f"{cat}: {r.category_counts[cat]}", file=sys.stderr)

@@ -27,6 +27,16 @@
 // Slots past the read's total stay INVALID and carry the last usable
 // oligo as qpos, exactly as the JAX scatter + running max leaves them.
 //
+// Shard bounds (parallel/shard.py, JAX's sharded_seed_diagonals
+// :147): `positions` may be one shard of the array, holding global
+// elements [pos_lo, pos_lo + pos_len).  A filled slot whose global
+// element g (before any clamp) lies outside them is INVALID; else its
+// position is positions[g - pos_lo].  The offsets are replicated, so
+// qpos, trunc and the phase floors are the same from every shard, and
+// the MIN over the shards is the whole array's diag (a valid diag is
+// below INVALID: pos - qpos < pos <= 0xFFFFFFFF).  The defaults, 0 and
+// N, leave every slot's element inside: a compare and a base offset.
+//
 // Bound: the outputs (12 bytes a slot: 18.9 MB at 4,096 reads of W=384)
 // dominate the bytes; then two entries a k-mer in the offsets table
 // (random: 4.3 GB at k=15, a sector and a likely TLB miss each) and a
@@ -88,7 +98,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) seed_diagonals_kernel(
     int32_t* __restrict__ qpos, uint8_t* __restrict__ trunc,
     int32_t* __restrict__ nphase_min, int32_t* __restrict__ nph_half, int B,
     int L, int k, int q, int size_threshold, int W, int half,
-    int64_t noffsets, int64_t npositions) {
+    int64_t noffsets, int64_t npositions, int64_t pos_lo, int64_t pos_len) {
   extern __shared__ __align__(16) uint32_t s_dyn[];
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
@@ -231,6 +241,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) seed_diagonals_kernel(
     __syncwarp();
     int own[4], prev = -1;
     int64_t gi[4];
+    bool held[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const uint32_t m = mk[u] & below;
@@ -241,6 +252,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32) seed_diagonals_kernel(
       const uint32_t st = at >= 0 ? s_wstart[at] : start_c;
       const int first = at >= 0 ? t0 + at : first_c;
       int64_t g = (int64_t)st + (t - first);
+      held[u] = g >= pos_lo && g < pos_lo + pos_len;
+      g -= pos_lo;
       g = g < 0 ? 0 : (g > npositions - 1 ? npositions - 1 : g);
       own[u] = o;
       gi[u] = g;
@@ -255,17 +268,17 @@ __global__ void __launch_bounds__(kMaxWarps * 32) seed_diagonals_kernel(
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int t = t0 + 32 * u + lane;
-      p[u] = t < nfilled ? __ldg(positions + gi[u]) : 0;
+      p[u] = t < nfilled && held[u] ? __ldg(positions + gi[u]) : 0;
     }
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int t = t0 + 32 * u + lane;
       if (t < W) {
-        const bool f = t < nfilled;
+        const bool f = t < nfilled && held[u];
         drow[t] = f && p[u] >= (uint32_t)own[u]
                       ? (int64_t)(p[u] - (uint32_t)own[u])
                       : GSNAP_INVALID_DIAG;
-        qrow[t] = f ? own[u] : olast_read;
+        qrow[t] = t < nfilled ? own[u] : olast_read;
       }
     }
   }
@@ -285,9 +298,10 @@ extern "C" int gsnap_seed_diagonals(
     const void* offsets, const void* positions, void* diag, void* qpos,
     void* trunc, void* nphase_min, void* nph_half, int B, int L, int k, int q,
     int size_threshold, int W, int half, int64_t noffsets, int64_t npositions,
-    void* stream) {
+    int64_t pos_lo, int64_t pos_len, void* stream) {
   const int S = L - k + 1;
-  if (S < 1 || k < 1 || k > kMaxK || q < 1 || q > kMaxQ || W < 0)
+  if (S < 1 || k < 1 || k > kMaxK || q < 1 || q > kMaxQ || W < 0 ||
+      pos_lo < 0 || pos_len < 0)
     return (int)cudaErrorInvalidValue;
   const size_t per_warp = (size_t)4 * warp_words(S);
   if (per_warp > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
@@ -307,7 +321,7 @@ extern "C" int gsnap_seed_diagonals(
       (const uint32_t*)offsets, (const uint32_t*)positions, (int64_t*)diag,
       (int32_t*)qpos, (uint8_t*)trunc, (int32_t*)nphase_min,
       (int32_t*)nph_half, B, L, k, q, size_threshold, W, half, noffsets,
-      npositions);
+      npositions, pos_lo, pos_len);
   return (int)cudaGetLastError();
 }
 

@@ -42,7 +42,7 @@ LAUNCHES: Counter = Counter()
 # before it launches), i = int32, l = int64.  The stream is appended to
 # every call.
 _SIGNATURES = {
-    "gsnap_seed_diagonals": "p" * 10 + "i" * 7 + "ll",
+    "gsnap_seed_diagonals": "p" * 10 + "i" * 7 + "llll",
     "gsnap_top_diagonals": "p" * 4 + "i" * 3,
     "gsnap_top_diagonals_wide": "p" * 5 + "i" * 3,
     "gsnap_prefix_mismatches": "p" * 10 + "ll" + "i" * 7,
@@ -61,6 +61,7 @@ _SIGNATURES = {
     "gsnap_select_pairs": "p" * 5 + "i" * 4 + "li",
     "gsnap_pack_queries": "p" * 9 + "i" * 4,
     "gsnap_pack_queries_floor": "i" * 2,
+    "gsnap_shard_index_lookup": "p" * 4 + "i" * 2 + "l" + "i" * 3,
 }
 
 _lib = None

@@ -25,6 +25,7 @@ from gmap_gsnap_tpu_torch.kernels import limits as klimits
 from gmap_gsnap_tpu_torch.ops import dynprog as dp
 from gmap_gsnap_tpu_torch.ops import mismatch as mmo
 from gmap_gsnap_tpu_torch.ops.genome import GenomeArrays
+from gmap_gsnap_tpu_torch.parallel import shard
 from gmap_gsnap_tpu_torch.utils import device as tdevice
 from gmap_gsnap_tpu_torch.utils import dna
 from gmap_gsnap_tpu_torch.utils import synth
@@ -516,6 +517,48 @@ def test_wrappers_reject_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         pe.pair_grid(hits, hits, meta[:, 0].int(), meta[:, 0].int(),
                      meta[0].long(), 1000, 0, 100)
+
+
+def test_shard_lookup_rejects_other_devices():
+    meta = torch.empty((2, 64), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        shard.shard_index_lookup(meta, meta[0], meta[0], 8, 2)
+    with pytest.raises(ValueError, match="rows"):
+        shard.shard_index_lookup(meta, meta[0], meta[0], 8, 2, row0=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 3])
+def test_sharded_seed_and_lookup_match_plain(batch, n):
+    """K1 with each shard's bounds against the plain version shard by
+    shard, their MIN (seed_diagonals on a ShardedIndexArrays) against K1
+    on the whole index, and K18 over every shard and over one, against
+    its plain version (starts at shard ends and past the array, counts 0
+    to past the cap)."""
+    tg, ti, c, f, l, _ = batch
+    p = se.GsnapParams()
+    sh = shard.ShardedIndexArrays.from_index(ti, n)
+    for r in range(n):
+        view = se.IndexArrays(sh.offsets, sh.rows[r], 12, 3)
+        args = (view, c, f, l, p, True, r * sh.shard_len, sh.shard_len)
+        _equal(se._seed_diagonals_cuda(*args), se._seed_diagonals_plain(*args))
+    whole = se._seed_diagonals_cuda(ti, c, f, l, p, True)
+    before = kbuild.LAUNCHES["gsnap_seed_diagonals"]
+    _equal(se.seed_diagonals(sh, c, f, l, p), whole)
+    assert kbuild.LAUNCHES["gsnap_seed_diagonals"] == before + n
+    rng = np.random.default_rng(n)
+    npos = ti.positions.shape[0]
+    starts = rng.integers(0, npos, 300)
+    starts[:n] = [(r + 1) * sh.shard_len - 3 for r in range(n)]
+    starts[n] = npos + 5
+    st = torch.from_numpy(starts.astype(np.int32)).to(c.device)
+    cn = torch.from_numpy(rng.integers(0, 40, 300).astype(np.int32)).to(
+        c.device)
+    for rows, row0 in ((sh.rows, 0), (sh.rows[1:2].contiguous(), 1)):
+        for cap in (32, 128):
+            want = shard._shard_index_lookup_plain(rows, st, cn, cap, n, row0)
+            got = shard.shard_index_lookup(rows, st, cn, cap, n, row0)
+            assert torch.equal(got, want)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -195,7 +195,7 @@ def test_kernel_limits_match_entry_points(emulated):
                         "l": ctypes.c_int64}[c] for c in sig] + [p]
         np_ = sig.count("p")
         if name == "gsnap_seed_diagonals":   # B L k q thr W half noff npos
-            ints = [0, L, 1, 3, 100, 384, 1, 2, 1]
+            ints = [0, L, 1, 3, 100, 384, 1, 2, 1, 0, 1]   # + pos_lo pos_len
         elif name == "gsnap_prefix_mismatches":  # nwords glen B NC L NW ...
             ints = [1, 1, 0, 32, L, -(-L // 16), 0, 0, 1]
         elif name == "gsnap_solve_indels":   # B P NC L max_ins max_del ...
